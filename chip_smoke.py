@@ -11,9 +11,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    (D=200, H=100; T=10/12/24/30/8; rows of length 0 and T), with and without
    per-step outputs;
 3. K2 (csrc/fvta_fwd.cu) vs its plain version on the card at N=8, S=24, T=24,
-   J=30, D=200, plus a long T=512, a dead sequence and an all-masked question;
-   and on unbounded inputs, K2 and the float32 plain version both against the
-   float64 plain version (a rounding witness);
+   J=30, D=200 (serving) and N=64 (the train step, under grad), plus a long
+   T=512, a dead sequence and an all-masked question; and on unbounded inputs,
+   K2 and the float32 plain version both against the float64 plain version (a
+   rounding witness);
 4. the slice: synthetic MemexQA corpus at F=2537 (64 albums x 12 photos) packed
    at the default DataConfig, a full-width model from a seeded torch.Generator
    saved to a run directory, build_engine (batched pack ingestion) + one raw
@@ -25,6 +26,33 @@ Phases, each fatal on failure (exit code 1, no result line):
    inputs) and, for K1, cuDNN's torch.nn.LSTM on the same function (a yardstick
    only: the port never calls it); and the per-request latency of ask.
 
+The training slice (kernel K1b, csrc/lstm_bwd.cu, and autograd through K1/K2):
+
+6. the cotangents that reach K1b: one plain and one dedup train step on the
+   slice's pack, reading max and mean |g_out|, |g_fin| at every K1b call;
+   then K1b vs its plain version (torch.autograd.grad through bilstm_ref) on
+   the card at the train step's nine bi-LSTM shapes and the dedup photo-title
+   shape (batch 64, A = 4; rows of length 0 and T; with and without per-step
+   cotangents): K1's out and fin under grad at 1e-5 / 1e-6, and dx, dwx, dwh,
+   db of both directions at rtol 1e-4 / atol 1e-5 with N(0, 1) / 64
+   cotangents (fatal if the train step gave any shape a larger |cotangent|);
+   a float64 witness at unit-scale N(0, 1) cotangents at all ten shapes (the
+   binding check of the long dW sums); and K1's cell output against the plain
+   scan's carried c;
+7. the train slice: `cli train` for 24 steps on the slice's pack (val every 12
+   steps) and `cli predict` on the trained run directory; the three launch
+   counters are zeroed just before and read just after, losses must be finite
+   and the last epoch's mean below the first's; the same with
+   --dedup-albums true;
+8. the card vs the CPU from the same weights and batch at keep_prob 1: the
+   step-1 gradients of every parameter tensor, the losses of 3 steps, and on
+   the card the dedup step against the plain step;
+9. exact resume on the card: 6 steps straight vs 3 steps, stop, resume to 6 —
+   every parameter and optimizer tensor torch.equal;
+10. times: K1b (the nine calls of one step) beside its bound, the plain
+   backward and cuDNN's nn.LSTM backward; and a `training` line (step time,
+   qa_pairs/s, dedup vs plain, torch.profiler breakdown of one step).
+
 Prints a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -32,13 +60,19 @@ Prints a {"kernels": [...]} line, then the card line, then as the last line
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+
+# deterministic cuBLAS for the training phases' bitwise resume (read when
+# cuBLAS first starts, so set before torch is imported)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 FP32_FLOPS = 67e12          # H100 SXM FP32 outside the tensor cores
@@ -53,6 +87,31 @@ K2_VS_F64_FACTOR = 2.0
 # The engine on the card vs the engine on the CPU: every matmul of the model
 # runs in another library (cuBLAS vs the CPU BLAS) besides the two kernels.
 ENGINE_TOL = 1e-4
+# K1b vs plain autograd on the card: the JAX suite's gradient tolerance
+# (tests/test_lstm_fused.py), with N(0, 1) cotangents times COTANGENT_SCALE.
+# The cotangents that really reach K1b in a train step are read in this run
+# (cotangent_probe), which fails if any exceeds COTANGENT_SCALE: the check then
+# runs at a scale at least the main path's (a larger cotangent only makes a
+# fixed atol stricter).
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+COTANGENT_SCALE = 1.0 / 64
+# At unit-scale N(0, 1) cotangents the dW sums run over N*T = 30720 rows, and
+# both K1b and the float32 plain version are ~3e-5 from float64 there: K1b may
+# be at most 2x as far from the float64 plain version as the float32 one, plus
+# 4 float32 ulps of the largest gradient entry. This witness is the binding
+# check: at the train step's cotangent scale the errors sit far below atol.
+K1B_VS_F64_FACTOR = 2.0
+K1B_VS_F64_ULPS = 4.0
+F32_EPS = 2.0 ** -23
+# The train step on the card vs the CPU (same weights, same batch): per
+# parameter tensor max|dg| <= 1e-4 * max|g_cpu|; losses to 1e-4 relative.
+STEP_TOL = 1e-4
+# The scorer's bias adds the same number to all four logits, which the softmax
+# ignores: its exact gradient is 0, so both devices return rounding noise
+# there, and it is held to |g| <= ZERO_GRAD_ATOL on each instead.
+EXACT_ZERO_GRADS = ("scorer.bias",)
+ZERO_GRAD_ATOL = 1e-6
+TRAIN_STEPS = 24
 
 
 def fail(msg: str) -> None:
@@ -234,7 +293,8 @@ def k1_times(device, launches: int, worst: float) -> tuple[dict, list]:
 def fvta_case(name, seed, device):
     import torch
 
-    n, s, t, j, d = (2, 6, 512, 30, 200) if name == "long_t" else (8, 24, 24, 30, 200)
+    n, s, t, j, d = {"long_t": (2, 6, 512, 30, 200),
+                     "train": (64, 24, 24, 30, 200)}.get(name, (8, 24, 24, 30, 200))
     g = torch.Generator().manual_seed(seed)
     h = torch.randn(n, s, t, d, generator=g)
     q = torch.randn(n, j, d, generator=g)
@@ -260,14 +320,18 @@ def k2_check(device) -> float:
     from fvta_memexqa_torch.ops import fvta_fused, fvta_ref
 
     worst, bad = 0.0, []
-    for i, name in enumerate(("serving", "long_t", "masked")):
+    for i, name in enumerate(("serving", "long_t", "masked", "train")):
         for kind in ("trilinear", "dot"):
             h, cm, q, qm, p = fvta_case(name, 300 + i, device)
             p = p if kind == "trilinear" else {}
             with torch.no_grad():
-                out = fvta_fused.fvta_attention_fused(h, cm, q, qm, kind, p)
                 c = fvta_ref.similarity_tensor(h, q, kind, p)
                 ref = fvta_ref.fvta_attention(h, cm, q, qm, c)
+            # the train step calls K2 under grad (the autograd Function's forward)
+            with torch.set_grad_enabled(name == "train"):
+                hh = h.clone().requires_grad_(name == "train")
+                out = [a.detach() for a in
+                       fvta_fused.fvta_attention_fused(hh, cm, q, qm, kind, p)]
             torch.cuda.synchronize()
             errs = [max_err(a, b) for a, b in zip(out, ref)]
             ok = all(close(a, b, **FVTA_TOL) for a, b in zip(out, ref))
@@ -523,6 +587,573 @@ def run_slice(workdir: str) -> dict:
             "max_abs_d_probs_vs_cpu": d_probs, "max_abs_d_seq_attention_vs_cpu": d_seq}
 
 
+# ---- K1b --------------------------------------------------------------------------
+
+# (name, rows, T, D, fin_only): the nine bi-LSTM calls of one batch-64 train
+# step (A = 4): photo titles (256·12 rows, 2688 under dedup), the six time
+# encoders over 256 album slots, the question, the choices
+K1B_SHAPES = [
+    ("photo_title_words", 256 * 12, 10, 200, True),
+    ("enc_photo", 256, 12, 200, False),
+    ("enc_photo_title", 256, 12, 200, False),
+    ("enc_album_title", 256, 24, 200, False),
+    ("enc_album_desc", 256, 24, 200, False),
+    ("enc_when", 256, 24, 200, False),
+    ("enc_where", 256, 24, 200, False),
+    ("question", 64, 30, 200, False),
+    ("choices", 64 * 4, 8, 200, True),
+]
+K1B_EXTRA = [("photo_title_words_dedup", 2688, 10, 200, True)]
+GRAD_NAMES = ("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw")
+
+
+def cotangent_probe(packdir: str) -> dict:
+    """The cotangents that really reach K1b: one plain and one dedup train step
+    (the default config, dropout on) on the slice's pack, with every K1b call
+    recording max and mean |g_out| over valid positions and |g_fin| over rows of
+    length > 0. Keyed by "rows x T" (calls of one shape pooled). These launches
+    come before the main path's run and are not counted."""
+    import torch
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.config import Config
+    from fvta_memexqa_torch.data.device_prepro import SharedTables
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.pipeline import Dataset
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    packed = load_pack(packdir)
+    cfg = Config(data=packed.cfg)
+    shared = SharedTables.from_packed(packed.shared, "cuda")
+    state = tr.init_state(cfg, "cuda")
+    batch = next(Dataset(packed, "train").get_batches(64, shuffle=True, seed=0, epoch=0))
+    dd = tr.dedup_album_batch(batch.album_idx.numpy(), tr.dedup_u_cap(cfg))
+    if dd is None:
+        fail("the probe batch has more distinct albums than the dedup buffer")
+    uniq, inv = (torch.from_numpy(a).cuda() for a in dd)
+    b = batch.to("cuda")
+    seen: dict[str, dict] = {}
+    launch = lstm_fused.lstm_bwd
+
+    def recording(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
+        n, t = x.shape[:2]
+        live = torch.arange(t, device=x.device)[None, :] < lengths[:, None]
+        rec = seen.setdefault(f"{n}x{t}", {"calls": 0, "g_out_max": 0.0, "g_out_sum": 0.0,
+                                           "g_out_n": 0, "g_fin_max": 0.0,
+                                           "g_fin_sum": 0.0, "g_fin_n": 0})
+        rec["calls"] += 1
+        for key, g, valid in (("g_out", g_out, live), ("g_fin", g_fin, live.any(1))):
+            if g is not None and valid.any():
+                a = g[valid].abs()
+                rec[f"{key}_max"] = max(rec[f"{key}_max"], float(a.max()))
+                rec[f"{key}_sum"] += float(a.sum())
+                rec[f"{key}_n"] += a.numel()
+        return launch(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias)
+
+    # the launch counts the module's `lstm_bwd`, which is this wrapper meanwhile
+    recording.launches = 0
+    params = list(state.params.values())
+    lstm_fused.lstm_bwd = recording
+    try:
+        loss, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator)
+        torch.autograd.grad(loss, params)
+        loss, _ = tr.dedup_loss_and_metrics(state.model, shared, b, uniq, inv, True,
+                                            state.generator)
+        torch.autograd.grad(loss, params)
+    finally:
+        lstm_fused.lstm_bwd = launch
+    out = {}
+    for key, r in seen.items():
+        out[key] = {"calls": r["calls"], "g_out_max": r["g_out_max"],
+                    "g_out_mean": r["g_out_sum"] / max(r["g_out_n"], 1),
+                    "g_fin_max": r["g_fin_max"],
+                    "g_fin_mean": r["g_fin_sum"] / max(r["g_fin_n"], 1)}
+        log(f"cotangents at K1b {key:8s} ({r['calls']} calls): |g_out| max "
+            f"{out[key]['g_out_max']:.3e} mean {out[key]['g_out_mean']:.3e}; |g_fin| max "
+            f"{out[key]['g_fin_max']:.3e} mean {out[key]['g_fin_mean']:.3e}")
+    missing = [f"{n}x{t}" for _, n, t, _, _ in K1B_SHAPES + K1B_EXTRA if f"{n}x{t}" not in out]
+    if missing:
+        fail(f"no K1b call of the train step at the checked shapes {missing}")
+    largest = max(max(r["g_out_max"], r["g_fin_max"]) for r in out.values())
+    if not 0 < largest <= COTANGENT_SCALE:
+        fail(f"the train step's largest cotangent at K1b, {largest}, is not within "
+             f"(0, {COTANGENT_SCALE}], the scale of the K1b check")
+    return out
+
+
+def k1b_case(n, t, d, seed, fin_only, device, scale):
+    import torch
+
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, H, seed, device)
+    g = torch.Generator().manual_seed(seed + 1)
+    g_fin = (torch.randn(n, 2 * H, generator=g) * scale).to(device)
+    g_out = None if fin_only else (torch.randn(n, t, 2 * H, generator=g) * scale).to(device)
+    return x, mask, p_fw, p_bw, g_out, g_fin
+
+
+def lstm_grads(fn, x, p_fw, p_bw, g_out, g_fin):
+    """fn(p_fw, p_bw, x) → (out or None, fin) under grad; returns (out or None,
+    fin) and the gradients of <out, g_out> + <fin, g_fin> w.r.t. x and both
+    directions' weights."""
+    import torch
+
+    from fvta_memexqa_torch.ops.lstm_ref import LSTMParams
+
+    leaves = [a.detach().clone().requires_grad_() for a in (x, *p_fw, *p_bw)]
+    out, fin = fn(LSTMParams(*leaves[1:4]), LSTMParams(*leaves[4:]), leaves[0])
+    loss = (fin * g_fin).sum() + (0 if g_out is None else (out * g_out).sum())
+    grads = torch.autograd.grad(loss, leaves)
+    return (None if out is None else out.detach()), fin.detach(), grads
+
+
+def fused_fn(mask, fin_only):
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    if fin_only:
+        return lambda pf, pb, x: (None, lstm_fused.bilstm_fused_final(pf, pb, x, mask))
+    return lambda pf, pb, x: lstm_fused.bilstm_fused(pf, pb, x, mask)
+
+
+def k1b_check(device) -> float:
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_ref
+
+    worst, bad = 0.0, []
+    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES + K1B_EXTRA):
+        for label, fo in (("fin", True), ("out+fin", False)) if not fin_only else (("fin", True),):
+            x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 500 + i, fo, device,
+                                                         COTANGENT_SCALE)
+            plain = lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask)
+            out_r, fin_r, ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)
+            out_k, fin_k, got = lstm_grads(fused_fn(mask, fin_only), x, p_fw, p_bw, g_out, g_fin)
+            torch.cuda.synchronize()
+            # K1 under grad (with cells) at this shape: its out and fin
+            fwd_ok = close(fin_k, fin_r, **LSTM_TOL) and (
+                out_k is None or close(out_k, out_r, **LSTM_TOL))
+            fwd_err = max(max_err(fin_k, fin_r), 0.0 if out_k is None else max_err(out_k, out_r))
+            errs = [max_err(a, b) for a, b in zip(got, ref)]
+            ok = fwd_ok and all(close(a, b, **GRAD_TOL) for a, b in zip(got, ref))
+            ok = ok and all(bool(torch.isfinite(a).all()) for a in got)
+            ok = ok and not got[0][~mask].any()
+            log(f"K1b vs plain {name:23s} {label:7s} N={n:4d} T={t:2d}: "
+                f"K1 out/fin {fwd_err:.2e}; max|err| "
+                + " ".join(f"{nm} {e:.2e}" for nm, e in zip(GRAD_NAMES, errs))
+                + f"  {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(f"{name}/{label}")
+            worst = max(worst, *errs)
+    if bad:
+        fail(f"K1b (or K1's out/fin under grad) disagrees with plain autograd at {bad} "
+             f"beyond {GRAD_TOL} (grads) / {LSTM_TOL} (out, fin)")
+    k1b_rounding_witness(device)
+    k1_cell_check(device)
+    return worst
+
+
+def k1b_rounding_witness(device) -> None:
+    """Unit-scale N(0, 1) cotangents at all ten shapes: K1b and the float32
+    plain version both against the float64 plain version."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_ref
+
+    bad = []
+    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES + K1B_EXTRA):
+        x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 600 + i, fin_only, device, 1.0)
+        plain = lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask)
+        ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)[2]
+        d64 = lambda p: lstm_ref.LSTMParams(*(a.double() for a in p))
+        ref64 = lstm_grads(plain, x.double(), d64(p_fw), d64(p_bw),
+                           None if g_out is None else g_out.double(), g_fin.double())[2]
+        got = lstm_grads(fused_fn(mask, fin_only), x, p_fw, p_bw, g_out, g_fin)[2]
+        torch.cuda.synchronize()
+        worst_ratio, line = 0.0, []
+        for nm, a, b, c in zip(GRAD_NAMES, got, ref, ref64):
+            e_k, e_p = max_err(a, c), max_err(b, c)
+            limit = K1B_VS_F64_FACTOR * e_p + K1B_VS_F64_ULPS * F32_EPS * float(c.abs().max())
+            worst_ratio = max(worst_ratio, e_k / limit if limit > 0 else 0.0)
+            line.append(f"{nm} {e_k:.2e}/{e_p:.2e}")
+        ok = worst_ratio <= 1.0
+        log(f"K1b rounding {name:23s} unit-scale N={n:4d} T={t:2d}: max|err| vs float64, "
+            f"K1b/float32 plain: {' '.join(line)}; worst share of limit {worst_ratio:.2f}  "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append(name)
+    if bad:
+        fail(f"K1b is farther from the float64 plain version than "
+             f"{K1B_VS_F64_FACTOR}x the float32 plain version (+{K1B_VS_F64_ULPS} ulps) at {bad}")
+
+
+def k1_cell_check(device) -> None:
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
+
+    bad = []
+    for i, (name, n, t, d, _) in enumerate(K1B_SHAPES):
+        x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 700 + i, device)
+        with torch.no_grad():
+            _, _, cell = lstm_fused.lstm_fwd(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw,
+                                             1.0, False, emit_cell=True)
+            ref = lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask)
+        torch.cuda.synchronize()
+        if not close(cell, ref, **LSTM_TOL):
+            bad.append(f"{name} ({max_err(cell, ref):.2e})")
+    log(f"K1 cell output vs the plain scan's carried c at {len(K1B_SHAPES)} shapes: "
+        f"{'ok' if not bad else 'MISMATCH ' + str(bad)}")
+    if bad:
+        fail(f"K1's cell output disagrees with the plain carried c at {bad}")
+
+
+def k1b_times(device, launches: int, worst: float) -> tuple[dict, list]:
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
+
+    rows, tot = [], dict(ms=0.0, fn_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                         bytes_ms=0.0, ops_ms=0.0)
+    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES):
+        x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 800 + i, fin_only, device,
+                                                     COTANGENT_SCALE)
+        lens = mask.sum(1, dtype=torch.int32)
+        with torch.no_grad():
+            out, _, cell = lstm_fused.lstm_fwd(x, lens, p_fw, p_bw, 1.0, True, emit_cell=True)
+        k_ms = cuda_ms(lambda: lstm_fused.lstm_bwd(x, lens, p_fw, p_bw, out, cell, g_out,
+                                                   g_fin, 1.0))
+        # K1b and the four products: the whole backward of the autograd Function
+        leaves = [a.detach().clone().requires_grad_() for a in (x, *p_fw, *p_bw)]
+        o_k, f_k = lstm_fused._BiLSTMFn.apply(leaves[0], lens, 1.0, *leaves[1:])
+        loss_k = (f_k * g_fin).sum() + (0 if g_out is None else (o_k * g_out).sum())
+        fn_ms = cuda_ms(lambda: torch.autograd.grad(loss_k, leaves, retain_graph=True))
+        o_r, f_r = lstm_ref.bilstm_ref(lstm_ref.LSTMParams(*leaves[1:4]),
+                                       lstm_ref.LSTMParams(*leaves[4:]), leaves[0], mask)
+        loss_r = (f_r * g_fin).sum() + (0 if g_out is None else (o_r * g_out).sum())
+        p_ms = cuda_ms(lambda: torch.autograd.grad(loss_r, leaves, retain_graph=True),
+                       iters=10)
+        # cuDNN: forward + backward minus forward, on packed sequences (no
+        # length-0 rows), the same function (cudnn_lstm), a yardstick only
+        lstm = cudnn_lstm(p_fw, p_bw, 1.0, d, H, device)
+        live = lens > 0
+        xl = x[live].detach().clone().requires_grad_()
+        gf = g_fin[live].reshape(-1, 2, H).transpose(0, 1)
+        go = None if g_out is None else g_out[live]
+
+        def cudnn_fwd():
+            packed = pack_padded_sequence(xl, lens[live].cpu(), batch_first=True,
+                                          enforce_sorted=False)
+            o, (h_n, _) = lstm(packed)
+            loss = (h_n * gf).sum()
+            if go is not None:
+                loss = loss + (pad_packed_sequence(o, batch_first=True,
+                                                   total_length=t)[0] * go).sum()
+            return loss
+
+        def cudnn_fwd_bwd():
+            torch.autograd.grad(cudnn_fwd(), [xl, *lstm.parameters()])
+
+        l_ms = max(cuda_ms(cudnn_fwd_bwd) - cuda_ms(cudnn_fwd), 0.0)
+        steps = int(lens.sum())
+        nbytes = 4 * (steps * d + n + 2 * (d * 4 * H + 2 * H * 4 * H + 4 * H)
+                      + 2 * 2 * steps * H + (2 * steps * H if g_out is not None else 0)
+                      + n * 2 * H + n * t * 8 * H)
+        flops = 2 * steps * (2 * (d + H) * 4 * H + 2 * 4 * H * H + 30 * H)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        row = dict(name=name, rows=n, T=t, D=d, fin_only=fin_only, valid_steps=steps,
+                   ms=k_ms, fn_ms=fn_ms, plain_ms=p_ms, library_ms=l_ms,
+                   bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+        rows.append(row)
+        for k in ("ms", "fn_ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[k] += row[k]
+        tot["bytes_ms"] += b_ms
+        tot["ops_ms"] += o_ms
+    entry = {
+        "name": "lstm_bwd", "route": "cuda",
+        "source": "fvta_memexqa_torch/csrc/lstm_bwd.cu",
+        "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:121",
+        "launches": launches, "max_abs_err": worst,
+        "ms": tot["ms"], "kernel_ms": tot["ms"], "backward_fn_ms": tot["fn_ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        "library_ms": tot["library_ms"],
+        "timed_work": "the 9 K1b calls of one batch-64 train step (sum); plain_ms and "
+                      "library_ms are whole backwards (dW products included), as is "
+                      "backward_fn_ms (K1b + the four products)",
+    }
+    return entry, rows
+
+
+# ---- the train slice --------------------------------------------------------------
+
+def read_metrics(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
+    """`cli train` on the card for TRAIN_STEPS steps (log every step, val every
+    12), the launch counters zeroed just before and read just after."""
+    from fvta_memexqa_torch import cli
+    from fvta_memexqa_torch.ops import fvta_fused, lstm_fused
+
+    lstm_fused.lstm_fwd.launches = 0
+    lstm_fused.lstm_bwd.launches = 0
+    fvta_fused.fvta_fwd.launches = 0
+    t0 = time.perf_counter()
+    cli.main(["train", packdir, rundir, "--num-steps", str(TRAIN_STEPS), "--val-period", "12",
+              "--log-period", "1", "--save-period", "1000", "--device", "cuda",
+              "--dedup-albums", "true" if dedup else "false"])
+    wall = time.perf_counter() - t0
+    launches = {"lstm_fwd": lstm_fused.lstm_fwd.launches,
+                "lstm_bwd": lstm_fused.lstm_bwd.launches,
+                "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    recs = read_metrics(os.path.join(rundir, "metrics.jsonl"))
+    train_recs = [r for r in recs if r["event"] == "train"]
+    losses = [r["loss"] for r in train_recs]
+    by_epoch: dict[int, list[float]] = {}
+    for r in train_recs:
+        by_epoch.setdefault(r["epoch"], []).append(r["loss"])
+    epochs = sorted(by_epoch)
+    first, last = (sum(by_epoch[e]) / len(by_epoch[e]) for e in (epochs[0], epochs[-1]))
+    vals = [r for r in recs if r["event"] == "val"]
+    tag = "dedup" if dedup else "plain"
+    log(f"train ({tag}): {len(losses)} steps in {wall:.1f} s over epochs {epochs}; "
+        f"launches {json.dumps(launches)}; mean loss first epoch {first:.4f}, last "
+        f"{last:.4f}; val {[(v['step'], round(v['acc'], 4)) for v in vals]}")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train ({tag}): losses not finite or steps missing: {losses}")
+    if min(launches.values()) == 0:
+        fail(f"train ({tag}): a kernel of the path never launched: {launches}")
+    if len(epochs) < 2 or not last < first:
+        fail(f"train ({tag}): the last epoch's mean loss {last} is not below the "
+             f"first's {first}")
+    if not vals:
+        fail(f"train ({tag}): no validation ran")
+    return {"steps": len(losses), "wall_s": wall, "launches": launches,
+            "loss_first_epoch": first, "loss_last_epoch": last, "epochs": len(epochs),
+            "val": [(v["step"], v["acc"]) for v in vals]}
+
+
+def predict_check(packdir: str, rundir: str) -> dict:
+    import contextlib
+    import io
+
+    from fvta_memexqa_torch import cli
+    from fvta_memexqa_torch.data.pack import load_pack
+
+    meta = load_pack(packdir, load_splits=False).meta
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["predict", packdir, rundir, "--question", "what year was the trip ?",
+                  "--choices", "2007|2009|2011|2013", "--album-ids", meta["album_ids"][0],
+                  "--device", "cuda"])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"predict on the trained run directory: {json.dumps(res)[:160]}")
+    if not (math.isfinite(sum(res["probs"])) and abs(sum(res["probs"]) - 1.0) < 1e-5
+            and res["albums_found"] == 1):
+        fail(f"cli predict on the trained run directory: {res}")
+    return res
+
+
+def step_parity(packdir: str) -> dict:
+    """The card vs the CPU from the same weights and batch at keep_prob 1:
+    step-1 gradients per parameter tensor, the losses of 3 steps; and on the
+    card the dedup step vs the plain step."""
+    import numpy as np
+    import torch
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.config import Config, ModelConfig
+    from fvta_memexqa_torch.data.device_prepro import SharedTables
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.pipeline import Dataset
+    from fvta_memexqa_torch.optim import Optimizer
+
+    packed = load_pack(packdir)
+    cfg = Config(data=packed.cfg, model=ModelConfig(keep_prob=1.0))
+    ds = Dataset(packed, "train")
+    batches = list(itertools.islice(ds.get_batches(64, shuffle=True, seed=0, epoch=0), 3))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        state = tr.init_state(cfg, dev)
+        shared = SharedTables.from_packed(packed.shared, dev)
+        loss, _ = tr.loss_and_metrics(state.model, shared, batches[0].to(dev), True,
+                                      state.generator)
+        names = list(state.params)
+        grads = dict(zip(names, (g.cpu() for g in torch.autograd.grad(
+            loss, list(state.params.values())))))
+        opt = Optimizer(cfg.train)
+        losses = [float(tr.train_step(state, opt, shared, b.to(dev))["loss"])
+                  for b in batches]
+        runs[dev] = (grads, losses, state, shared)
+    g_cpu, l_cpu = runs["cpu"][:2]
+    g_gpu, l_gpu = runs["cuda"][:2]
+    rel = {k: float((g_gpu[k] - g_cpu[k]).abs().max()) / max(float(g_cpu[k].abs().max()),
+                                                              1e-30)
+           for k in g_cpu if k not in EXACT_ZERO_GRADS}
+    worst_name = max(rel, key=rel.get)
+    worst = rel[worst_name]
+    zero = {k: max(float(g_cpu[k].abs().max()), float(g_gpu[k].abs().max()))
+            for k in EXACT_ZERO_GRADS}
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    log(f"card vs CPU, step 1 of {len(rel)} parameter tensors: worst "
+        f"max|dg|/max|g_cpu| {worst:.2e} ({worst_name}); exact-zero gradients "
+        f"{ {k: f'{v:.1e}' for k, v in zero.items()} }; losses of 3 steps card "
+        f"{l_gpu} CPU {l_cpu}, worst relative difference {d_loss:.2e}")
+    if worst > STEP_TOL or d_loss > STEP_TOL or max(zero.values()) > ZERO_GRAD_ATOL:
+        fail(f"the card's train step disagrees with the CPU's beyond {STEP_TOL}")
+
+    # dedup vs plain on the card, same weights, same batch
+    state = tr.init_state(cfg, "cuda")
+    shared = runs["cuda"][3]
+    b = batches[0].to("cuda")
+    dd = tr.dedup_album_batch(batches[0].album_idx.numpy(), tr.dedup_u_cap(cfg))
+    if dd is None:
+        fail("the parity batch has more distinct albums than the dedup buffer")
+    uniq, inv = (torch.from_numpy(a).cuda() for a in dd)
+    params = list(state.params.values())
+    lp, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator)
+    gp = torch.autograd.grad(lp, params)
+    ld, _ = tr.dedup_loss_and_metrics(state.model, shared, b, uniq, inv, True,
+                                      state.generator)
+    gd = torch.autograd.grad(ld, params)
+    names = list(state.params)
+    worst_dd = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                   for n, a, c in zip(names, gd, gp) if n not in EXACT_ZERO_GRADS)
+    worst_dd_zero = max(float(a.abs().max()) for n, a in zip(names, gd)
+                        if n in EXACT_ZERO_GRADS)
+    ld, lp = float(ld.detach()), float(lp.detach())
+    d_loss_dd = abs(ld - lp) / abs(lp)
+    log(f"dedup vs plain step on the card ({int(np.count_nonzero(dd[0]))} distinct "
+        f"albums of {dd[1].size} slots): loss {ld:.6f} vs {lp:.6f}, "
+        f"worst max|dg|/max|g| {worst_dd:.2e}")
+    if worst_dd > STEP_TOL or d_loss_dd > STEP_TOL or worst_dd_zero > ZERO_GRAD_ATOL:
+        fail(f"the dedup step disagrees with the plain step beyond {STEP_TOL}")
+    return {"grad_rel_err_vs_cpu": worst, "loss_rel_err_vs_cpu": d_loss,
+            "dedup_vs_plain_grad_rel_err": worst_dd}
+
+
+def resume_check(packdir: str, workdir: str) -> dict:
+    """6 steps straight vs 3 steps + resume to 6 (dropout on): every parameter
+    and optimizer tensor of step 6 torch.equal."""
+    import torch
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+    from fvta_memexqa_torch.data.pack import load_pack
+
+    from fvta_memexqa_torch.config import Config
+
+    packed = load_pack(packdir)
+    cfg = Config(data=packed.cfg)
+    straight, resumed = os.path.join(workdir, "straight"), os.path.join(workdir, "resumed")
+    tr.train(cfg, packed, straight, num_steps=6, echo=False, device="cuda")
+    tr.train(cfg, packed, resumed, num_steps=3, echo=False, device="cuda")
+    tr.train(cfg, packed, resumed, num_steps=6, echo=False, device="cuda")
+    a = CheckpointManager(straight).load(step=6)
+    b = CheckpointManager(resumed).load(step=6)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}.")
+        elif isinstance(tree, torch.Tensor):
+            yield prefix[:-1], tree
+
+    la = dict(leaves({"params": a["params"], "opt": a["opt_state"]}))
+    lb = dict(leaves({"params": b["params"], "opt": b["opt_state"]}))
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    log(f"resume on the card: 6 steps straight vs 3 + resume to 6: {len(la)} tensors, "
+        f"{len(differ)} differ; rng state equal {torch.equal(a['rng'], b['rng'])}")
+    if differ or set(la) != set(lb) or not torch.equal(a["rng"], b["rng"]):
+        fail(f"resume is not bitwise: {differ[:5]}")
+    return {"tensors": len(la), "bitwise": True}
+
+
+def profile_train(packdir: str) -> dict:
+    """Plain and dedup step times (host clock over synchronized runs of 10
+    steps, after 3 warm-up steps), and torch.profiler over one plain step."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.config import Config
+    from fvta_memexqa_torch.data.device_prepro import SharedTables
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.pipeline import Dataset
+    from fvta_memexqa_torch.optim import Optimizer
+
+    packed = load_pack(packdir)
+    cfg = Config(data=packed.cfg)
+    shared = SharedTables.from_packed(packed.shared, "cuda")
+    state = tr.init_state(cfg, "cuda")
+    opt = Optimizer(cfg.train)
+    ds = Dataset(packed, "train")
+    host = list(itertools.islice(itertools.cycle(ds.get_batches(64, shuffle=True)), 13))
+    u_cap = tr.dedup_u_cap(cfg)
+    plain = lambda b: tr.train_step(state, opt, shared, b.to("cuda"))
+
+    def dedup(b):
+        dd = tr.dedup_album_batch(b.album_idx.numpy(), u_cap)
+        if dd is None:
+            return plain(b)
+        return tr.dedup_train_step(state, opt, shared, b.to("cuda"),
+                                   *(torch.from_numpy(a).cuda() for a in dd))
+
+    times = {}
+    with tr.deterministic_algorithms(torch.device("cuda")):
+        for name, fn in (("plain", plain), ("dedup", dedup), ("plain_again", plain)):
+            for b in host[:3]:
+                fn(b)
+            torch.cuda.synchronize()
+            per = []
+            for b in host[3:]:
+                t0 = time.perf_counter()
+                fn(b)
+                torch.cuda.synchronize()
+                per.append((time.perf_counter() - t0) * 1e3)
+            times[name] = {"p50_step_ms": float(np.median(per)), "mean_step_ms":
+                           float(np.mean(per)), "qa_pairs_per_s": 64e3 / float(np.mean(per))}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(host[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            plain(host[0])
+            torch.cuda.synchronize()
+    kernels: dict[str, float] = {}
+    count = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+            count += e.count
+    busy = sum(kernels.values()) if kernels else None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps_timed": len(host) - 3, "step_times": times,
+            "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
+                              "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
+                              "device_launches": count,
+                              "top_device_ms": {k[:60]: v for k, v in top}}}
+
+
+def run_train_slice(workdir: str) -> dict:
+    packdir = os.path.join(workdir, "pack")
+    plain = train_run(packdir, os.path.join(workdir, "train_plain"), dedup=False)
+    pred = predict_check(packdir, os.path.join(workdir, "train_plain"))
+    dedup = train_run(packdir, os.path.join(workdir, "train_dedup"), dedup=True)
+    parity = step_parity(packdir)
+    resume = resume_check(packdir, workdir)
+    prof = profile_train(packdir)
+    return {"plain_run": plain, "dedup_run": dedup, "predict_answer": pred["answer"],
+            "parity": parity, "resume": resume, **prof}
+
+
 def main() -> None:
     import torch
 
@@ -556,11 +1187,18 @@ def main() -> None:
     k2_err = k2_check(device)
     with tempfile.TemporaryDirectory() as workdir:
         served = run_slice(workdir)
-    log("serving " + json.dumps(served))
+        log("serving " + json.dumps(served))
+        cotangents = cotangent_probe(os.path.join(workdir, "pack"))
+        k1b_err = k1b_check(device)
+        trained = run_train_slice(workdir)
+    trained["k1b_cotangents"] = cotangents
+    log("training " + json.dumps(trained))
     k1, k1_rows = k1_times(device, served["launches"]["lstm_fwd"], k1_err)
     k2 = k2_times(device, served["launches"]["fvta_fwd"], k2_err)
+    k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"]["lstm_bwd"], k1b_err)
     log("k1_shapes " + json.dumps(k1_rows))
-    log(json.dumps({"kernels": [k1, k2]}))
+    log("k1b_shapes " + json.dumps(k1b_rows))
+    log(json.dumps({"kernels": [k1, k2, k1b]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of fvta_memexqa_tpu for NVIDIA Hopper (H100).
 
 The serving path: pack → FVTAModel.encode_context (album cache) →
-FVTAModel.answer, with the bi-LSTM forward (csrc/lstm_fwd.cu) and the fused
-FVTA attention forward (csrc/fvta_fwd.cu) as hand-written CUDA kernels. On a
-CUDA tensor the ops launch the kernels; on a CPU tensor they run the plain
-PyTorch versions. The package imports neither JAX nor fvta_memexqa_tpu.
+FVTAModel.answer; the training path: cli train → train.train (optimizer in
+optim.py, checkpoints in checkpoint.py). Hand-written CUDA kernels: the bi-LSTM
+forward (csrc/lstm_fwd.cu) and backward (csrc/lstm_bwd.cu) and the fused FVTA
+attention forward (csrc/fvta_fwd.cu). On a CUDA tensor the ops launch the
+kernels; on a CPU tensor they run the plain PyTorch versions. The package
+imports neither JAX nor fvta_memexqa_tpu.
 """
 
 from fvta_memexqa_torch.config import Config, DataConfig, ModelConfig

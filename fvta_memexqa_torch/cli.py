@@ -1,21 +1,78 @@
 """Command line of the port.
 
+    python -m fvta_memexqa_torch.cli train <packdir> <rundir> [--num-steps N] \
+        [--batch-size 64 --hidden-dim 100 ... (ModelConfig/TrainConfig/MeshConfig
+        fields as --flags)] [--device cuda|cpu]
     python -m fvta_memexqa_torch.cli predict <packdir> <rundir> \
         --question "what year was the sunrise trip ?" --choices "2007|2009|2011|2013" \
         --album-ids album0 [--device cuda|cpu]
 
-`predict` answers one question through the serving engine (serve.build_engine)
-and prints the result as one JSON line. The run directory is the port's
-(config.json + params.pt, see convert.py).
+`train` runs train.train on the pack (metrics to <rundir>/metrics.jsonl,
+checkpoints under <rundir>, resuming from the latest one there) and prints
+{"best_val_acc", "steps"}; the run directory then serves through `predict`.
+`--use-pallas` is read and selects nothing, and `--dedup-albums` keeps the
+config default (False) unless given. `predict` answers one question through
+the serving engine (serve.build_engine) and prints the result as one JSON
+line. The run directory is the port's (config.json + params.pt, see convert.py).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 
 import numpy as np
+
+from fvta_memexqa_torch.config import Config, MeshConfig, ModelConfig, TrainConfig
+
+
+def _add_dataclass_flags(p: argparse.ArgumentParser, dc_type) -> None:
+    for f in dataclasses.fields(dc_type):
+        name = f"--{f.name.replace('_', '-')}"
+        if f.type in ("int", int):
+            p.add_argument(name, type=int, default=None)
+        elif f.type in ("float", float):
+            p.add_argument(name, type=float, default=None)
+        elif f.type in ("bool", bool):
+            p.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=None)
+        else:
+            p.add_argument(name, type=str, default=None)
+
+
+def _dc_from_args(args, dc_type, base):
+    updates = {f.name: getattr(args, f.name) for f in dataclasses.fields(dc_type)
+               if getattr(args, f.name, None) is not None}
+    return dataclasses.replace(base, **updates)
+
+
+def cmd_train(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch train")
+    p.add_argument("packdir")
+    p.add_argument("rundir")
+    for dc in (ModelConfig, TrainConfig, MeshConfig):
+        _add_dataclass_flags(p, dc)
+    p.add_argument("--num-steps", type=int, default=None,
+                   help="stop after N optimizer steps (overrides epochs)")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.train import train
+
+    packed = load_pack(args.packdir)
+    base = Config()
+    cfg = Config(data=packed.cfg, model=_dc_from_args(args, ModelConfig, base.model),
+                 train=_dc_from_args(args, TrainConfig, base.train),
+                 mesh=_dc_from_args(args, MeshConfig, base.mesh))
+    os.makedirs(args.rundir, exist_ok=True)
+    res = train(cfg, packed, args.rundir, num_steps=args.num_steps,
+                metrics_path=os.path.join(args.rundir, "metrics.jsonl"),
+                device=args.device)
+    print(json.dumps({"best_val_acc": res["best_val_acc"], "steps": res["steps"]}))
 
 
 def cmd_predict(argv):
@@ -55,7 +112,7 @@ def cmd_predict(argv):
         engine.close()
 
 
-COMMANDS = {"predict": cmd_predict}
+COMMANDS = {"train": cmd_train, "predict": cmd_predict}
 
 
 def main(argv=None):

@@ -9,6 +9,10 @@ is optional) and returns the port's `state_dict`. Layout traps:
 - `LSTMParams(wx [D, 4H], wh [H, 4H], b [4H])` keeps the TF1 i, j, f, o gate order;
 - `conv_kernel` is the im2col [width * E, F] matrix, window-major, kept as is.
 
+`opt_state_from_optax` does the same for the optimizer state of the JAX
+package's chain (optax adam or adadelta, with clip, a schedule counter and
+MultiSteps) into optim.py's dict.
+
 A port run directory holds `config.json` (the JAX package's format) and
 `params.pt` (the state_dict, tensors on the CPU). Reading an orbax run
 directory needs JAX and is not done here.
@@ -21,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from fvta_memexqa_torch.checkpoint import atomic_torch_save
 from fvta_memexqa_torch.config import MODALITIES, Config, load_config, save_config
 from fvta_memexqa_torch.models.fvta import FVTAModel
 
@@ -62,6 +67,43 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _count(x) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(x)), dtype=torch.int64)
+
+
+def opt_state_from_optax(opt_state) -> dict:
+    """An optax state of the JAX package's optimizer chain (nested tuples and
+    NamedTuples of numpy arrays, as `jax.tree.map(np.asarray, state)` yields)
+    → optim.Optimizer's state dict. The states are told apart by their fields:
+    ScaleByAdamState (count, mu, nu), ScaleByAdaDeltaState (e_g, e_x),
+    ScaleByScheduleState (count), MultiStepsState (mini_step, gradient_step,
+    inner_opt_state, acc_grads); clip and empty states carry nothing."""
+    out: dict = {}
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is None:
+            if isinstance(node, (tuple, list)):
+                for child in node:
+                    walk(child)
+            return
+        if "mini_step" in fields:
+            out.update(mini_step=_count(node.mini_step),
+                       gradient_step=_count(node.gradient_step),
+                       acc_grads=state_dict_from_flax(node.acc_grads))
+            walk(node.inner_opt_state)
+        elif {"mu", "nu"} <= set(fields):
+            out.update(count=_count(node.count), mu=state_dict_from_flax(node.mu),
+                       nu=state_dict_from_flax(node.nu))
+        elif {"e_g", "e_x"} <= set(fields):
+            out.update(e_g=state_dict_from_flax(node.e_g), e_x=state_dict_from_flax(node.e_x))
+        elif tuple(fields) == ("count",):
+            out["schedule_count"] = _count(node.count)
+
+    walk(opt_state)
+    return out
+
+
 def model_from_flax(cfg: Config, params: dict) -> FVTAModel:
     """A port FVTAModel (on the CPU, eval mode) holding the flax weights."""
     model = FVTAModel(cfg)
@@ -70,10 +112,12 @@ def model_from_flax(cfg: Config, params: dict) -> FVTAModel:
 
 
 def save_rundir(rundir: str, cfg: Config, model: FVTAModel) -> None:
+    """config.json + params.pt; params.pt is written to a temporary file and
+    renamed, so a reader never sees half of it."""
     os.makedirs(rundir, exist_ok=True)
     save_config(cfg, os.path.join(rundir, "config.json"))
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               os.path.join(rundir, "params.pt"))
+    atomic_torch_save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                      os.path.join(rundir, "params.pt"))
 
 
 def load_rundir(rundir: str, device, cfg: Config | None = None) -> tuple[Config, FVTAModel]:

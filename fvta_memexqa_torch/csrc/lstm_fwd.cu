@@ -5,14 +5,17 @@
 // input projection inside the kernel, gate order (i, j, f, o), forget_bias added
 // inside the cell, prefix-length masking (past a row's length h and c stop
 // updating and the output is 0), fin = the last carried h (0 for a length-0 row),
-// and an optional per-step output.
+// an optional per-step output, and an optional per-step cell state (the carried c,
+// as emit_cell in the TPU kernel) that the backward kernel (lstm_bwd.cu) reads.
 //
 // Layout. x [N, T, D], lengths [N] int32, and per direction wx [D, 4H], wh [H, 4H],
 // b [4H], passed as one pointer each for the forward and the backward direction
 // (the model's parameters as they lie, no stacked copy). out [N, T, 2H] (forward in [:H], backward in
-// [H:], both at the ORIGINAL time index) and fin [N, 2H]. The backward direction
-// reads x at L-1-t at its step t and writes its output there, so no flipped copy
-// of x or of the output is made on the host.
+// [H:], both at the ORIGINAL time index), cell [N, T, 2H] in the same layout,
+// and fin [N, 2H]. The backward direction reads x at L-1-t at its step t and
+// writes its output and cell there, so no flipped copy of x, of the output or of
+// the cells is made on the host. Past a row's length (t >= L) out is 0 and cell
+// holds the carried c at position t, in both directions.
 //
 // Design. One block per (tile of ROWS rows, direction); the block loops over t.
 // The tile's [x_t; h] lives in shared memory as z[k][r] (k over D+H, r over the
@@ -48,7 +51,8 @@ struct DirWeights {
 
 __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                                 const DirWeights w, float* __restrict__ out,
-                                float* __restrict__ fin, int n, int T, int D, int H,
+                                float* __restrict__ cell, float* __restrict__ fin, int n,
+                                int T, int D, int H,
                                 float forget_bias) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
@@ -79,12 +83,15 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
 
   for (int t = 0; t < T; ++t) {
     if (t >= max_len) {
-      // no row of the tile is live: only the zero outputs of position t remain
-      if (out != nullptr) {
+      // no row of the tile is live: only the zero outputs (and the carried
+      // cells) of position t remain
+      if (out != nullptr || cell != nullptr) {
         for (int i = tid; i < ROWS * H; i += nt) {
           const int r = i / H, k = i % H;
-          if (row0 + r < n)
-            out[((size_t)(row0 + r) * T + t) * out_stride + dir * H + k] = 0.0f;
+          if (row0 + r >= n) continue;
+          const size_t o = ((size_t)(row0 + r) * T + t) * out_stride + dir * H + k;
+          if (out != nullptr) out[o] = 0.0f;
+          if (cell != nullptr) cell[o] = cst[i];
         }
       }
       continue;
@@ -143,12 +150,14 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
         const float hh = tanhf(c) * sigmoid_(g[3 * H + k]);
         cst[i] = c;
         z[(D + k) * ROWS + r] = hh;
-        if (out != nullptr) {
-          const int pos = dir == 0 ? t : L - 1 - t;
-          out[((size_t)row * T + pos) * out_stride + dir * H + k] = hh;
-        }
-      } else if (out != nullptr) {
-        out[((size_t)row * T + t) * out_stride + dir * H + k] = 0.0f;
+        const int pos = dir == 0 ? t : L - 1 - t;
+        const size_t o = ((size_t)row * T + pos) * out_stride + dir * H + k;
+        if (out != nullptr) out[o] = hh;
+        if (cell != nullptr) cell[o] = c;
+      } else {
+        const size_t o = ((size_t)row * T + t) * out_stride + dir * H + k;
+        if (out != nullptr) out[o] = 0.0f;
+        if (cell != nullptr) cell[o] = cst[i];
       }
     }
   }
@@ -171,11 +180,11 @@ long long lstm_fwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h)
 
 const char* lstm_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Returns the cudaError_t of the launch (0 = success). out may be null (fin only).
+// Returns the cudaError_t of the launch (0 = success). out and cell may be null.
 int lstm_fwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
              const float* wh_fw, const float* wh_bw, const float* b_fw, const float* b_bw,
-             float* out, float* fin, int n, int t, int d, int h, float forget_bias,
-             void* stream) {
+             float* out, float* cell, float* fin, int n, int t, int d, int h,
+             float forget_bias, void* stream) {
   const DirWeights w{{wx_fw, wx_bw}, {wh_fw, wh_bw}, {b_fw, b_bw}};
   const size_t smem = smem_bytes(d, h);
   if (smem > 48 * 1024) {
@@ -189,7 +198,7 @@ int lstm_fwd(const float* x, const int* lengths, const float* wx_fw, const float
   if (threads < 64) threads = 64;
   const dim3 grid((n + ROWS - 1) / ROWS, 2);
   lstm_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, lengths, w, out, fin, n, t, d, h, forget_bias);
+      x, lengths, w, out, cell, fin, n, t, d, h, forget_bias);
   return (int)cudaGetLastError();
 }
 

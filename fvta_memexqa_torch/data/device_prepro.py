@@ -72,6 +72,10 @@ class Batch:
         f = {k: as_tensor(arrays[k][idx], device) for k in _BATCH_KEYS}
         return cls(ex_mask=torch.ones(len(idx), dtype=torch.bool, device=device), **f)
 
+    def to(self, device) -> "Batch":
+        """The same batch with every field on `device`."""
+        return Batch(**{k: v.to(device) for k, v in self.__dict__.items()})
+
 
 @dataclass
 class ModelInputs:

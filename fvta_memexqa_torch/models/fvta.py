@@ -13,9 +13,16 @@ Wiring (the JAX package's models/fvta.py, module for module):
 - scorer: logits_i = Linear([ctx; q~; a_i; ctx*a_i; q~*a_i]) for the 4 candidates.
 
 Every bi-LSTM goes through ops/lstm_fused and the fvta attention through
-ops/fvta_fused: on the card they launch the hand-written kernels, on the CPU
-they run the plain versions. `use_pallas` / `pallas_attention` stay in the
-config for compatibility with saved config.json files and select nothing here.
+ops/fvta_fused: on the card they launch the hand-written kernels (and their
+backward under grad), on the CPU they run the plain versions. `use_pallas` /
+`pallas_attention` stay in the config for compatibility with saved config.json
+files and select nothing here.
+
+Dropout (train=True) follows flax's nn.Dropout: each element is kept with
+probability keep_prob and scaled by 1/keep_prob, drawn from the explicit
+`torch.Generator` the caller passes (on the inputs' device), so a run that
+restores the generator's state resumes bit-identically. With train=False, or
+keep_prob = 1, nothing is drawn.
 """
 
 from __future__ import annotations
@@ -88,7 +95,7 @@ class FVTAModel(nn.Module):
         self.char_cnn = CharCNN(max(d.char_vocab_size, 4), m.char_emb_dim,
                                 m.char_cnn_filters, m.char_cnn_width, g)
         self.highway = Highway(demb, num_layers=2, generator=g)
-        self.dropout = nn.Dropout(p=1.0 - m.keep_prob)
+        self.keep_prob = m.keep_prob
         self.photo_proj = dense(d.image_feat_dim, demb, g)
         self.enc_word = BiLSTM(demb, m.hidden_dim, m.forget_bias, g)
         # photo_title consumes the word-level summary states, hence in_dim = 2H
@@ -118,15 +125,28 @@ class FVTAModel(nn.Module):
         proj = self.photo_proj(shared.photo_feats)
         return proj[shared.album_photo_idx.long()]
 
-    def _embed_text(self, words, chars, frozen_table, vocab_table=None):
-        """word ids [..., L] + char ids [..., L, W] → [..., L, d_in]."""
+    def _dropout(self, x: torch.Tensor, train: bool,
+                 generator: torch.Generator | None) -> torch.Tensor:
+        """flax nn.Dropout(rate=1 - keep_prob): keep each element with
+        probability keep_prob, scale kept ones by 1/keep_prob."""
+        if not train or self.keep_prob >= 1.0:
+            return x
+        if generator is None:
+            raise ValueError("train=True needs a torch.Generator for dropout")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < self.keep_prob
+        return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))
+
+    def _embed_text(self, words, chars, frozen_table, vocab_table=None,
+                    train: bool = False, generator=None):
+        """word ids [..., L] + char ids [..., L, W] → [..., L, d_in]; dropout
+        per token position either way (after the vocab-table gather)."""
         if vocab_table is not None:
             x = vocab_table[words.long()]
         else:
             w = self.word_embed(words, frozen_table)
             c = self.char_cnn(chars)
             x = self.highway(torch.cat([w, c], dim=-1))
-        return self.dropout(x)
+        return self._dropout(x, train, generator)
 
     @staticmethod
     def _encode_words(enc: BiLSTM, x, mask, fin_only: bool = False):
@@ -145,7 +165,8 @@ class FVTAModel(nn.Module):
     # ---- forward -------------------------------------------------------------
 
     def encode_context(self, shared: SharedTables, mi: ModelInputs,
-                       vocab_table: torch.Tensor | None = None
+                       vocab_table: torch.Tensor | None = None, *, train: bool = False,
+                       generator: torch.Generator | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
         """Album-side encode: ModelInputs → (H_ctx [N, S, T, 2H], ctx_mask [N, S, T]).
         The album count A is read from the inputs, so one module encodes both the
@@ -159,13 +180,15 @@ class FVTAModel(nn.Module):
         vt = self._tables(shared, vocab_table)
 
         # photo titles: per-photo summary [N, A, P, 2H] (final states only)
-        pt_emb = self._embed_text(mi.photo_title_words, mi.photo_title_chars, ft, vt)
+        pt_emb = self._embed_text(mi.photo_title_words, mi.photo_title_chars, ft, vt,
+                                  train, generator)
         _, pt_sum = self._encode_words(self.enc_word, pt_emb, mi.photo_title_mask,
                                        fin_only=True)
 
         pf = mi.photo_feats if mi.photo_projected else self.photo_proj(mi.photo_feats)
-        photo_in = self.dropout(pf)
-        at_emb = self._embed_text(mi.album_text_words, mi.album_text_chars, ft, vt)
+        photo_in = self._dropout(pf, train, generator)
+        at_emb = self._embed_text(mi.album_text_words, mi.album_text_chars, ft, vt,
+                                  train, generator)
         enc_in = [
             (photo_in.reshape(n * a, p, -1), mi.photo_mask.reshape(n * a, p)),
             (pt_sum.reshape(n * a, p, h2), mi.photo_title_mask.any(dim=-1).reshape(n * a, p)),
@@ -187,17 +210,20 @@ class FVTAModel(nn.Module):
         return h_ctx, ctx_mask
 
     def answer(self, shared: SharedTables, mi: ModelInputs, h_ctx: torch.Tensor,
-               ctx_mask: torch.Tensor, vocab_table: torch.Tensor | None = None
+               ctx_mask: torch.Tensor, vocab_table: torch.Tensor | None = None, *,
+               train: bool = False, generator: torch.Generator | None = None
                ) -> ModelOutput:
         """Query side: question/choice encode + FVTA attention over (possibly
-        cached) context states + 4-way scorer."""
+        cached) context states + 4-way scorer. Reads only the query fields of
+        `mi` (q_*, choice_*), so a data Batch serves as well as ModelInputs."""
         m = self.cfg.model
         ft = shared.word_emb
         vt = self._tables(shared, vocab_table)
 
-        q_emb = self._embed_text(mi.q_words, mi.q_chars, ft, vt)
+        q_emb = self._embed_text(mi.q_words, mi.q_chars, ft, vt, train, generator)
         h_q, _ = self.enc_word(q_emb, mi.q_mask)                     # [N, J, 2H]
-        a_emb = self._embed_text(mi.choice_words, mi.choice_chars, ft, vt)
+        a_emb = self._embed_text(mi.choice_words, mi.choice_chars, ft, vt, train,
+                                 generator)
         _, a_sum = self._encode_words(self.enc_word, a_emb, mi.choice_mask,
                                       fin_only=True)                  # [N, 4, 2H]
 
@@ -219,10 +245,13 @@ class FVTAModel(nn.Module):
         return ModelOutput(logits=self.scorer(feats)[..., 0], attention=attn)
 
     def forward(self, shared: SharedTables, mi: ModelInputs,
-                vocab_table: torch.Tensor | None = None) -> ModelOutput:
+                vocab_table: torch.Tensor | None = None, *, train: bool = False,
+                generator: torch.Generator | None = None) -> ModelOutput:
         vt = self._tables(shared, vocab_table)  # shared by both halves
-        h_ctx, ctx_mask = self.encode_context(shared, mi, vt)
-        return self.answer(shared, mi, h_ctx, ctx_mask, vt)
+        h_ctx, ctx_mask = self.encode_context(shared, mi, vt, train=train,
+                                              generator=generator)
+        return self.answer(shared, mi, h_ctx, ctx_mask, vt, train=train,
+                           generator=generator)
 
 
 def a1_config(cfg: Config) -> Config:

@@ -8,7 +8,8 @@ from fvta_memexqa_torch.ops.fvta_ref import (
     no_attention,
     similarity_tensor,
 )
-from fvta_memexqa_torch.ops.lstm_fused import bilstm_fused, bilstm_fused_final, lstm_fwd
+from fvta_memexqa_torch.ops.lstm_fused import (bilstm_fused, bilstm_fused_final, lstm_bwd,
+                                               lstm_fwd)
 from fvta_memexqa_torch.ops.fvta_fused import fvta_attention_fused, fvta_fwd
 
 __all__ = [
@@ -27,6 +28,7 @@ __all__ = [
     "bilstm_fused",
     "bilstm_fused_final",
     "lstm_fwd",
+    "lstm_bwd",
     "fvta_attention_fused",
     "fvta_fwd",
 ]

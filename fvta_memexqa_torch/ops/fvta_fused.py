@@ -6,8 +6,10 @@ in one kernel for the trilinear and dot similarities, without materializing the
 runs the plain version. The bilinear similarity has no kernel (nor does the
 JAX package) and always runs the plain version.
 
-K2 replaces the TPU kernel fvta_memexqa_tpu/ops/fvta_pallas.py:_kernel. It is
-forward-only: the CUDA path refuses tensors that need grad.
+K2 replaces the TPU kernel fvta_memexqa_tpu/ops/fvta_pallas.py:_kernel. Under
+grad on the card, `_FVTAFn` runs K2 forward and takes the gradient by
+recomputing the plain version under autograd (the JAX package's `_core_bwd`,
+fvta_pallas.py:581-591: at T = 24 there is no backward kernel there either).
 """
 
 from __future__ import annotations
@@ -91,9 +93,37 @@ def fvta_attention_fused(h: torch.Tensor, ctx_mask: torch.Tensor, q: torch.Tenso
         wx = torch.zeros(d, dtype=h.dtype, device=h.device)
         wy = torch.zeros(d, dtype=h.dtype, device=h.device)
         wxy = torch.ones(d, dtype=h.dtype, device=h.device)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (h, q, wx, wy, wxy)):
-        raise NotImplementedError("the fused FVTA kernel is forward-only; run under "
-                                  "torch.no_grad() or on the CPU")
     f32 = lambda m: m.to(torch.float32).contiguous()
-    return fvta_fwd(h.contiguous(), f32(ctx_mask), q.contiguous(), f32(q_mask),
-                    wx.contiguous(), wy.contiguous(), wxy.contiguous())
+    args = (h.contiguous(), f32(ctx_mask), q.contiguous(), f32(q_mask),
+            wx.contiguous(), wy.contiguous(), wxy.contiguous())
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (h, q, wx, wy, wxy)):
+        return AttentionOutput(*_FVTAFn.apply(*args))
+    return fvta_fwd(*args)
+
+
+class _FVTAFn(torch.autograd.Function):
+    """K2 forward; backward by recomputing similarity_tensor + fvta_attention
+    (trilinear form; dot is w_x = w_y = 0, w_xy = 1) under autograd. The plain
+    version's `amax` splits a tie's gradient evenly, as JAX's reduce_max VJP
+    does — with exp_mask, the rows of an all-masked question are all ties."""
+
+    @staticmethod
+    def forward(ctx, h, cm_f, q, qm_f, wx, wy, wxy):
+        ctx.save_for_backward(h, cm_f, q, qm_f, wx, wy, wxy)
+        ctx.set_materialize_grads(False)
+        return tuple(fvta_fwd(h, cm_f, q, qm_f, wx, wy, wxy))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        h, cm_f, q, qm_f, wx, wy, wxy = ctx.saved_tensors
+        inputs = [a.detach().requires_grad_() for a in (h, q, wx, wy, wxy)]
+        with torch.enable_grad():
+            h_, q_, wx_, wy_, wxy_ = inputs
+            c = similarity_tensor(h_, q_, "trilinear", {"w_x": wx_, "w_y": wy_, "w_xy": wxy_})
+            out = fvta_attention(h_, cm_f > 0.5, q_, qm_f > 0.5, c)
+        used = [(o, g) for o, g in zip(out, grads) if g is not None]
+        if not used:
+            return (None,) * 7
+        dh, dq, dwx, dwy, dwxy = torch.autograd.grad(
+            [o for o, _ in used], inputs, [g for _, g in used], allow_unused=True)
+        return dh, None, dq, None, dwx, dwy, dwxy

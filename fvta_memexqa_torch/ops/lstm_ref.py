@@ -39,9 +39,11 @@ def lstm_cell(x_proj_t, h, c, wh, forget_bias: float):
 
 
 def lstm_scan_ref(params: LSTMParams, x: torch.Tensor, mask: torch.Tensor,
-                  forget_bias: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+                  forget_bias: float = 1.0, cells: list | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unidirectional scan over x [N, T, D], mask bool [N, T].
-    Returns (outputs [N, T, H], final_h [N, H])."""
+    Returns (outputs [N, T, H], final_h [N, H]); appends each step's carried c
+    [N, H] to `cells` when one is given."""
     n, t, _ = x.shape
     hdim = params.wh.shape[0]
     x_proj = x @ params.wx + params.b                      # [N, T, 4H]
@@ -55,6 +57,8 @@ def lstm_scan_ref(params: LSTMParams, x: torch.Tensor, mask: torch.Tensor,
         h = m_t * nh + (1.0 - m_t) * h
         c = m_t * nc + (1.0 - m_t) * c
         outs.append(m_t * nh)                              # zero at padded steps
+        if cells is not None:
+            cells.append(c)
     out = torch.stack(outs, dim=1) if outs else x.new_zeros(n, 0, hdim)
     return out, h
 
@@ -82,3 +86,16 @@ def bilstm_ref(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor,
     out_bw_rev, h_bw = lstm_scan_ref(params_bw, x_rev, mask, forget_bias)
     out_bw = _flip_to_front(out_bw_rev, lengths)
     return torch.cat([out_fw, out_bw], dim=-1), torch.cat([h_fw, h_bw], dim=-1)
+
+
+def bilstm_cells_ref(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor,
+                     mask: torch.Tensor, forget_bias: float = 1.0) -> torch.Tensor:
+    """The carried cell state of every step, [N, T, 2H], in the layout of the
+    fused kernel's training output: the backward direction flipped back to the
+    original positions (past a row's length: the carried c at position t)."""
+    lengths = mask.sum(dim=1)
+    c_fw, c_bw = [], []
+    lstm_scan_ref(params_fw, x, mask, forget_bias, c_fw)
+    lstm_scan_ref(params_bw, _flip_to_front(x, lengths), mask, forget_bias, c_bw)
+    return torch.cat([torch.stack(c_fw, dim=1),
+                      _flip_to_front(torch.stack(c_bw, dim=1), lengths)], dim=-1)

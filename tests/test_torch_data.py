@@ -107,4 +107,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
-    assert int(res.stdout.split()[1]) >= 15   # every module was imported
+    assert int(res.stdout.split()[1]) >= 29   # every module was imported, the train slice's included

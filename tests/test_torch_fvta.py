@@ -1,11 +1,16 @@
 """Port FVTA attention (plain version and the K2 wrapper) vs the JAX package's
 fvta_pallas.fvta_attention_pallas (Pallas, interpret mode on the CPU) and
 fvta_ref, with the tolerances of tests/test_fvta_pallas.py; masking primitives;
-golden fixtures. The kernel itself is held against the plain version on the
-card in tests/test_torch_kernels.py."""
+golden fixtures; and the gradients of fvta_attention_fused (through the plain
+version, and through `_FVTAFn` with K2's forward emulated by the plain one) vs
+jax.grad of fvta_attention_pallas and of the reference, with a dead sequence
+and an all-masked question (ties), at the JAX suite's gradient tolerance
+1e-4 / 1e-5. The kernel itself is held against the plain version on the card
+in tests/test_torch_kernels.py."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,3 +139,70 @@ def test_masking_and_fvta_golden():
     out = fvta_ref.fvta_attention(t("h"), t("cm"), t("q"), t("qm"), c)
     for key, val in zip(FIELDS, out):
         np.testing.assert_allclose(val.numpy(), g[key], rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_ARGS = ("h", "q", "w_x", "w_y", "w_xy")
+
+
+def grad_case(seed, dead=False, masked_question=False):
+    h, cm, q, qm, p = make_case(seed=seed)
+    cm, qm = cm.copy(), qm.copy()
+    if dead:
+        cm[:, 0, :] = False       # a dead sequence in every example
+    if masked_question:
+        qm[0, :] = False          # an all-masked question: its rows are all ties
+    rng = np.random.default_rng(seed + 100)
+    g = [rng.normal(0, 1, s).astype(np.float32)
+         for s in ((2, 6), (2, 6), cm.shape, cm.shape[:2])]
+    return (h, cm, q, qm, p), g
+
+
+def jax_attention_grads(fn, case, g):
+    h, cm, q, qm, p = case
+
+    def loss(hh, qq, wx, wy, wxy):
+        out = fn(hh, jnp.asarray(cm), qq, jnp.asarray(qm), {"w_x": wx, "w_y": wy, "w_xy": wxy})
+        return sum(jnp.sum(o * jnp.asarray(gg)) for o, gg in zip(out, g))
+
+    args = [jnp.asarray(a) for a in (h, q, p["w_x"], p["w_y"], p["w_xy"])]
+    return [np.asarray(a) for a in jax.jit(jax.grad(loss, argnums=tuple(range(5))))(*args)]
+
+
+def port_attention_grads(fn, case, g):
+    h, cm, q, qm, p = case
+    t = torch.from_numpy
+    leaves = [t(a).clone().requires_grad_() for a in (h, q, p["w_x"], p["w_y"], p["w_xy"])]
+    out = fn(leaves[0], t(cm), leaves[1], t(qm), dict(zip(("w_x", "w_y", "w_xy"), leaves[2:])))
+    loss = sum((o * t(gg)).sum() for o, gg in zip(out, g))
+    return [a.numpy() for a in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.mark.parametrize("dead,masked_question", [(False, False), (True, False), (False, True),
+                                                  (True, True)])
+def test_grads_match_jax_pallas_and_ref(monkeypatch, dead, masked_question):
+    case, g = grad_case(seed=21, dead=dead, masked_question=masked_question)
+    refs = {
+        "jax pallas": jax_attention_grads(
+            lambda h, cm, q, qm, p: fvta_attention_pallas(h, cm, q, qm, "trilinear", p), case, g),
+        "jax ref": jax_attention_grads(
+            lambda h, cm, q, qm, p: j_ref.fvta_attention(
+                h, cm, q, qm, j_ref.similarity_tensor(h, q, "trilinear", p)), case, g),
+    }
+    plain = lambda h, cm, q, qm, p: fvta_fused.fvta_attention_fused(h, cm, q, qm,
+                                                                    "trilinear", p)
+
+    def emulated_fwd(h, cm_f, q, qm_f, wx, wy, wxy):
+        with torch.no_grad():
+            c = fvta_ref.similarity_tensor(h, q, "trilinear", {"w_x": wx, "w_y": wy, "w_xy": wxy})
+            return fvta_ref.fvta_attention(h, cm_f > 0.5, q, qm_f > 0.5, c)
+
+    monkeypatch.setattr(fvta_fused, "fvta_fwd", emulated_fwd)
+    fn = lambda h, cm, q, qm, p: fvta_fused._FVTAFn.apply(
+        h, cm.float(), q, qm.float(), p["w_x"], p["w_y"], p["w_xy"])
+    mine = {"plain": port_attention_grads(plain, case, g),
+            "autograd Function": port_attention_grads(fn, case, g)}
+    for mk, got in mine.items():
+        for rk, ref in refs.items():
+            for name, a, b in zip(GRAD_ARGS, got, ref):
+                np.testing.assert_allclose(a, b, **GRAD_TOL, err_msg=f"{mk} vs {rk}: {name}")

@@ -6,7 +6,10 @@ hence --noconftest there):
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest -q
 
 Without a card the `gpu` tests skip inside the test; the CPU tests check that
-no wrapper falls back and that the CPU path needs no build.
+no wrapper falls back, that the CPU path (a backward included) needs no build,
+and that the bi-LSTM autograd Function with K1 and K1b emulated on the CPU
+(`k1_emulated`, `k1b_emulated` below; tests/test_torch_lstm.py also uses them)
+matches autograd through the plain version.
 """
 
 import numpy as np
@@ -69,6 +72,116 @@ def fvta_case(n, s, t, j, d, seed, device="cpu", dead=False, bounded=True):
     return t_(h), t_(cm), t_(q), t_(qm), params
 
 
+# ---- CPU emulations of K1 (with cells) and K1b --------------------------------
+# Step for step as the kernels compute, in torch with the rows vectorized and the
+# kernels' layouts: out/cell at the original positions, the backward direction at
+# L-1-t, dgates [N, T, 8H]. Swapped in for the launches, they let the CPU run
+# `ops.lstm_fused._BiLSTMFn` (the layout, the four products of the backward,
+# None cotangents) against autograd through the plain version and the JAX package.
+
+def k1_emulated(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False):
+    n, t, _ = x.shape
+    h = p_fw.wh.shape[0]
+    rows = torch.arange(n)
+    ln = lengths.long()
+    out = x.new_zeros(n, t, 2 * h)
+    cell = x.new_zeros(n, t, 2 * h)
+    fin = x.new_zeros(n, 2 * h)
+    for k, p in enumerate((p_fw, p_bw)):
+        hh, c = x.new_zeros(n, h), x.new_zeros(n, h)
+        sl = slice(k * h, (k + 1) * h)
+        for step in range(t):
+            live = step < ln
+            pos = torch.where(live, ln - 1 - step if k else torch.full_like(ln, step),
+                              torch.full_like(ln, step))
+            nh, nc = lstm_ref.lstm_cell(x[rows, pos] @ p.wx + p.b, hh, c, p.wh, forget_bias)
+            hh = torch.where(live[:, None], nh, hh)
+            c = torch.where(live[:, None], nc, c)
+            o = out[rows, pos]
+            o[:, sl] = torch.where(live[:, None], nh, 0.0)
+            out[rows, pos] = o
+            cc = cell[rows, pos]
+            cc[:, sl] = c
+            cell[rows, pos] = cc
+        fin[:, sl] = hh
+    return (out if emit_out else None), fin, (cell if emit_cell else None)
+
+
+def k1b_emulated(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
+    n, t, _ = x.shape
+    h = p_fw.wh.shape[0]
+    rows = torch.arange(n)
+    ln = lengths.long()
+    dgates = x.new_zeros(n, t, 8 * h)
+    for k, p in enumerate((p_fw, p_bw)):
+        sl = slice(k * h, (k + 1) * h)
+        dh, dc = x.new_zeros(n, h), x.new_zeros(n, h)
+        for step in range(t - 1, -1, -1):
+            live = (step < ln)[:, None]
+            pos = (ln - 1 - step if k else torch.full_like(ln, step)).clamp(0, t - 1)
+            prev = (pos + 1 if k else pos - 1).clamp(0, t - 1)
+            nz = 1.0 if step > 0 else 0.0
+            h_prev = nz * out[rows, prev][:, sl]
+            c_prev = nz * cell[rows, prev][:, sl]
+            g = x[rows, pos] @ p.wx + h_prev @ p.wh + p.b
+            i_s, j_t = torch.sigmoid(g[:, :h]), torch.tanh(g[:, h:2 * h])
+            f_s = torch.sigmoid(g[:, 2 * h:3 * h] + forget_bias)
+            o_s = torch.sigmoid(g[:, 3 * h:])
+            tanh_c = torch.tanh(cell[rows, pos][:, sl])
+            dh_in = dh.clone()
+            if g_out is not None:
+                dh_in = dh_in + g_out[rows, pos][:, sl]
+            if g_fin is not None:
+                dh_in = dh_in + (step == ln - 1)[:, None] * g_fin[:, sl]
+            dc_tot = dc + dh_in * o_s * (1 - tanh_c * tanh_c)
+            dg = torch.cat([dc_tot * j_t * i_s * (1 - i_s), dc_tot * i_s * (1 - j_t * j_t),
+                            dc_tot * c_prev * f_s * (1 - f_s),
+                            dh_in * tanh_c * o_s * (1 - o_s)], dim=-1)
+            dg = torch.where(live, dg, 0.0)
+            d = dgates[rows, torch.where(live[:, 0], pos, step)]
+            d[:, 4 * h * k:4 * h * (k + 1)] = dg
+            dgates[rows, torch.where(live[:, 0], pos, step)] = d
+            dh = torch.where(live, dg @ p.wh.t(), dh)
+            dc = torch.where(live, dc_tot * f_s, dc)
+    return dgates
+
+
+# ---- CPU: the autograd Function with emulated kernels --------------------------
+@pytest.mark.parametrize("final_only", [False, True])
+@pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (4, 11, 33, 7)])
+def test_bilstm_fn_with_emulated_kernels_matches_plain_autograd(monkeypatch, final_only,
+                                                                n, t, d, h):
+    monkeypatch.setattr(lstm_fused, "lstm_fwd", k1_emulated)
+    monkeypatch.setattr(lstm_fused, "lstm_bwd", k1b_emulated)
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=3)
+    rng = np.random.default_rng(4)
+    g_out = torch.from_numpy(rng.normal(0, 1, (n, t, 2 * h)).astype(np.float32))
+    g_fin = torch.from_numpy(rng.normal(0, 1, (n, 2 * h)).astype(np.float32))
+    leaves = [x, *p_fw, *p_bw]
+
+    def grads(run):
+        ins = [a.clone().requires_grad_() for a in leaves]
+        out, fin = run(ins[0], lstm_ref.LSTMParams(*ins[1:4]), lstm_ref.LSTMParams(*ins[4:]))
+        loss = (fin * g_fin).sum() + (0 if final_only else (out * g_out).sum())
+        return [a.detach() for a in (out, fin)], torch.autograd.grad(loss, ins)
+
+    (out_r, fin_r), ref = grads(lambda xx, pf, pb: lstm_ref.bilstm_ref(pf, pb, xx, mask))
+    (out_k, fin_k), got = grads(lambda xx, pf, pb: lstm_fused._BiLSTMFn.apply(
+        xx, mask.sum(1, dtype=torch.int32), 1.0, *pf, *pb))
+    torch.testing.assert_close(out_k, out_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(fin_k, fin_r, rtol=1e-5, atol=1e-6)
+    for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"), got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+    assert not got[0][~mask].any()              # no gradient into padded steps
+
+
+def test_emulated_cells_match_plain_carried_cells():
+    x, mask, p_fw, p_bw = lstm_case(9, 6, 7, 4, seed=6)
+    _, _, cell = k1_emulated(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw, 1.0, False, True)
+    torch.testing.assert_close(cell, lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask),
+                               rtol=1e-6, atol=1e-7)
+
+
 # ---- CPU: dispatch contract ---------------------------------------------------
 
 def test_cpu_path_runs_plain_versions_without_a_build(monkeypatch):
@@ -78,6 +191,7 @@ def test_cpu_path_runs_plain_versions_without_a_build(monkeypatch):
     monkeypatch.setattr(build, "build_all", no_build)
     x, mask, p_fw, p_bw = lstm_case(6, 5, 8, 4, seed=0)
     before = lstm_fused.lstm_fwd.launches
+    fvta_before = fvta_fused.fvta_fwd.launches
     out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
     ref_out, ref_fin = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
     assert torch.equal(out, ref_out) and torch.equal(fin, ref_fin)
@@ -86,14 +200,27 @@ def test_cpu_path_runs_plain_versions_without_a_build(monkeypatch):
     ref = fvta_ref.fvta_attention(h, cm, q, qm,
                                   fvta_ref.similarity_tensor(h, q, "trilinear", p))
     assert all(torch.equal(a, b) for a, b in zip(att, ref))
+    # a backward on the CPU: autograd through the plain versions, still no build
+    bwd_before = lstm_fused.lstm_bwd.launches
+    xg = x.clone().requires_grad_()
+    hg = h.clone().requires_grad_()
+    _, fin = lstm_fused.bilstm_fused(p_fw, p_bw, xg, mask)
+    att = fvta_fused.fvta_attention_fused(hg, cm, q, qm, "trilinear", p)
+    (fin.sum() + att.context.sum()).backward()
+    assert xg.grad is not None and hg.grad is not None
     assert lstm_fused.lstm_fwd.launches == before
+    assert lstm_fused.lstm_bwd.launches == bwd_before
+    assert fvta_fused.fvta_fwd.launches == fvta_before
 
 
 def test_lstm_kernel_wrapper_refuses_cpu_tensors():
     x, mask, p_fw, p_bw = lstm_case(6, 5, 8, 4, seed=2)
+    lengths = mask.sum(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        lstm_fused.lstm_fwd(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw,
-                            1.0, True)
+        lstm_fused.lstm_fwd(x, lengths, p_fw, p_bw, 1.0, True)
+    out = torch.zeros(6, 5, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_fused.lstm_bwd(x, lengths, p_fw, p_bw, out, out, None, None, 1.0)
 
 
 def test_fvta_kernel_wrapper_refuses_cpu_tensors():
@@ -104,7 +231,7 @@ def test_fvta_kernel_wrapper_refuses_cpu_tensors():
 
 def test_build_targets_track_source_hash():
     src = sorted(build.CSRC_DIR.glob("*.cu"))
-    assert {"fvta_fwd", "lstm_fwd"} <= {s.stem for s in src}
+    assert {"fvta_fwd", "lstm_fwd", "lstm_bwd"} <= {s.stem for s in src}
     targets = [build._target(s) for s in src]
     assert all(t.parent == build.BUILD_DIR and t.name.startswith(s.stem + "-")
                for s, t in zip(src, targets))
@@ -134,6 +261,114 @@ def test_lstm_kernel_matches_plain_on_card(cuda, emit_out, n, t, d, h):
     if emit_out:
         torch.testing.assert_close(out, out_r, **LSTM_TOL)
         assert not out[~mask].any()
+
+
+# The train step's bi-LSTM shapes at batch 64, A = 4 (H = 100): photo titles
+# 256·12 × 10 fin-only (2688 under dedup), time encoders 256 × 12 / 24, the
+# question 64 × 30, the choices 256 × 8 fin-only; plus two small odd shapes.
+K1B_SHAPES = [(12, 7, 10, 5, False), (4, 11, 33, 7, True), (3072, 10, 200, 100, True),
+              (2688, 10, 200, 100, True), (256, 12, 200, 100, False),
+              (256, 24, 200, 100, False), (64, 30, 200, 100, False),
+              (256, 8, 200, 100, True)]
+# K1b + products vs autograd through the plain version on the card: the JAX
+# suite's gradient tolerance (tests/test_lstm_fused.py), with N(0, 1) / 64
+# cotangents, above every |cotangent| a train step gives these shapes
+# (chip_smoke.py reads them and fails if one is larger). The binding check of
+# the long dW sums is the unit-scale float64 witness below.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+COTANGENT_SCALE = 1.0 / 64
+
+
+def k1b_case(n, t, d, h, fin_only, device, scale):
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=12, device=device)
+    rng = np.random.default_rng(13)
+    g_fin = torch.from_numpy((rng.normal(0, 1, (n, 2 * h)) * scale).astype(np.float32))
+    g_out = None if fin_only else torch.from_numpy(
+        (rng.normal(0, 1, (n, t, 2 * h)) * scale).astype(np.float32)).to(device)
+    return x, mask, p_fw, p_bw, g_out, g_fin.to(device)
+
+
+def fused(mask, fin_only):
+    if fin_only:
+        return lambda pf, pb, xx: (None, lstm_fused.bilstm_fused_final(pf, pb, xx, mask))
+    return lambda pf, pb, xx: lstm_fused.bilstm_fused(pf, pb, xx, mask)
+
+
+def lstm_grads(fn, x, p_fw, p_bw, g_out, g_fin):
+    leaves = [a.clone().requires_grad_() for a in (x, *p_fw, *p_bw)]
+    out, fin = fn(lstm_ref.LSTMParams(*leaves[1:4]), lstm_ref.LSTMParams(*leaves[4:]),
+                  leaves[0])
+    loss = (fin * g_fin).sum() + (0 if g_out is None else (out * g_out).sum())
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h,fin_only", K1B_SHAPES)
+def test_lstm_bwd_kernel_matches_plain_autograd_on_card(cuda, n, t, d, h, fin_only):
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, fin_only, cuda, COTANGENT_SCALE)
+    ref = lstm_grads(lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask),
+                     x, p_fw, p_bw, g_out, g_fin)
+    before = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches)
+    got = lstm_grads(fused(mask, fin_only), x, p_fw, p_bw, g_out, g_fin)
+    torch.cuda.synchronize()
+    assert (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"),
+                          got, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+    assert not got[0][~mask].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h,fin_only", K1B_SHAPES)
+def test_lstm_bwd_kernel_rounding_at_unit_cotangents(cuda, n, t, d, h, fin_only):
+    """Unit-scale cotangents: the dW sums over N*T rows put both K1b and the
+    float32 plain version ~3e-5 from float64. K1b is at most 2x as far from the
+    float64 plain version as the float32 one is, plus 4 ulps of the largest
+    entry."""
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, fin_only, cuda, 1.0)
+    plain = lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask)
+    d64 = lambda p: lstm_ref.LSTMParams(*(a.double() for a in p))
+    ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)
+    ref64 = lstm_grads(plain, x.double(), d64(p_fw), d64(p_bw),
+                       None if g_out is None else g_out.double(), g_fin.double())
+    got = lstm_grads(fused(mask, fin_only), x, p_fw, p_bw, g_out, g_fin)
+    err = lambda a, b: float((a.double() - b).abs().max())
+    for a, b, c in zip(got, ref, ref64):
+        assert err(a, c) <= 2.0 * err(b, c) + 4 * 2.0 ** -23 * float(c.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (256, 24, 200, 100)])
+def test_lstm_fwd_cell_output_matches_plain_carried_cells(cuda, n, t, d, h):
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=14, device=cuda)
+    with torch.no_grad():
+        out, fin, cell = lstm_fused.lstm_fwd(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw,
+                                             1.0, True, emit_cell=True)
+        ref = lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask)
+    torch.testing.assert_close(cell, ref, **LSTM_TOL)
+
+
+@pytest.mark.gpu
+def test_fvta_grad_on_card_is_plain_grad(cuda):
+    h, cm, q, qm, p = fvta_case(8, 24, 24, 30, 200, seed=15, device=cuda, dead=True)
+    rng = np.random.default_rng(16)
+    g = [torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(cuda)
+         for s in ((8, 200), (8, 200), (8, 24, 24), (8, 24))]
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (h, q, p["w_x"], p["w_y"], p["w_xy"])]
+        out = fn(leaves[0], leaves[1], dict(zip(("w_x", "w_y", "w_xy"), leaves[2:])))
+        return torch.autograd.grad(sum((o * gg).sum() for o, gg in zip(out, g)), leaves)
+
+    ref = grads(lambda hh, qq, pp: fvta_ref.fvta_attention(
+        hh, cm, qq, qm, fvta_ref.similarity_tensor(hh, qq, "trilinear", pp)))
+    before = fvta_fused.fvta_fwd.launches
+    got = grads(lambda hh, qq, pp: fvta_fused.fvta_attention_fused(hh, cm, qq, qm,
+                                                                   "trilinear", pp))
+    assert fvta_fused.fvta_fwd.launches == before + 1
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.gpu
@@ -183,9 +418,13 @@ def test_wrappers_check_inputs_on_card(cuda):
         with pytest.raises(ValueError, match="contiguous"):
             lstm_fused.lstm_fwd(x.transpose(0, 1), mask.sum(1, dtype=torch.int32),
                                 p_fw, p_bw, 1.0, True)
+    # under grad the wrappers run K1 with cells, then K1b in the backward
     p_grad = lstm_ref.LSTMParams(*(a.clone().requires_grad_() for a in p_fw))
-    with pytest.raises(NotImplementedError):
-        lstm_fused.bilstm_fused(p_grad, p_bw, x, mask)
+    before = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches)
+    lstm_fused.bilstm_fused(p_grad, p_bw, x, mask)[0].sum().backward()
+    assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in p_grad)
+    assert lstm_fused.lstm_fwd.launches == before[0] + 1
+    assert lstm_fused.lstm_bwd.launches == before[1] + 1
     h, cm, q, qm, p = fvta_case(2, 3, 5, 4, 6, seed=9, device=cuda)
     with pytest.raises(ValueError, match="q_mask"):
         fvta_fused.fvta_fwd(h, cm.float(), q, qm.float()[:, :2], p["w_x"], p["w_y"],

@@ -1,11 +1,16 @@
 """Port bi-LSTM (plain version and the K1 wrappers) vs the JAX package's
 lstm_ref.bilstm_ref and lstm_fused.bilstm_fused (Pallas, interpret mode on the
 CPU), at the shapes of tests/test_lstm_fused.py and the JAX suite's forward
-tolerance rtol 1e-5 / atol 1e-6. The kernel itself is held against the plain
-version on the card in tests/test_torch_kernels.py."""
+tolerance rtol 1e-5 / atol 1e-6; and the gradients (dx, dwx, dwh, db of both
+directions, full and final-only) of the port's autograd — through the plain
+version, and through `_BiLSTMFn` with the kernels emulated on the CPU — vs
+jax.grad of bilstm_fused / bilstm_fused_final and of bilstm_ref, at the JAX
+suite's gradient tolerance 1e-4 / 1e-5. The kernels themselves are held
+against the plain version on the card in tests/test_torch_kernels.py."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +19,7 @@ import torch
 from fvta_memexqa_tpu.ops import lstm_fused as j_fused
 from fvta_memexqa_tpu.ops import lstm_ref as j_ref
 
+from test_torch_kernels import k1_emulated, k1b_emulated
 from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -96,3 +102,63 @@ def test_outputs_zero_past_length_and_empty_rows():
     out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
     assert not out[~mask].any()
     assert not fin[1].any()                      # row 1 has length 0
+
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+FIELDS = ("wx", "wh", "b")
+
+
+def jax_grads(fn, case, g_out, g_fin):
+    """jax.grad of <out, g_out> + <fin, g_fin> (fin only if g_out is None)
+    w.r.t. (p_fw, p_bw, x); fn(p_fw, p_bw, x, mask) → (out, fin) or fin."""
+    x, mask, p_fw, p_bw = as_jax(*case)
+
+    def loss(pf, pb, xx):
+        res = fn(pf, pb, xx, mask)
+        if g_out is None:
+            fin = res if not isinstance(res, tuple) else res[1]
+            return jnp.sum(fin * g_fin)
+        return jnp.sum(res[0] * g_out) + jnp.sum(res[1] * g_fin)
+
+    gf, gb, gx = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(p_fw, p_bw, x)
+    return [np.asarray(gx)] + [np.asarray(getattr(g, f)) for g in (gf, gb) for f in FIELDS]
+
+
+def port_grads(run, case, g_out, g_fin):
+    x, mask, p_fw, p_bw = as_torch(*case)
+    leaves = [a.clone().requires_grad_() for a in (x, *p_fw, *p_bw)]
+    out, fin = run(lstm_ref.LSTMParams(*leaves[1:4]), lstm_ref.LSTMParams(*leaves[4:]),
+                   leaves[0], mask)
+    loss = (fin * torch.from_numpy(g_fin)).sum()
+    if g_out is not None:
+        loss = loss + (out * torch.from_numpy(g_out)).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+def emulated_fn(monkeypatch):
+    """`_BiLSTMFn` with K1 and K1b emulated on the CPU (the wrappers' launch path)."""
+    monkeypatch.setattr(lstm_fused, "lstm_fwd", k1_emulated)
+    monkeypatch.setattr(lstm_fused, "lstm_bwd", k1b_emulated)
+    return lambda pf, pb, x, mask: lstm_fused._BiLSTMFn.apply(
+        x, mask.sum(1, dtype=torch.int32), 1.0, *pf, *pb)
+
+
+@pytest.mark.parametrize("final_only", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_grads_match_jax_fused_and_ref(monkeypatch, shape, final_only):
+    case = make_case(*shape, seed=4)
+    n, t, _, h = shape
+    rng = np.random.default_rng(8)
+    g_fin = rng.normal(0, 1, (n, 2 * h)).astype(np.float32)
+    g_out = None if final_only else rng.normal(0, 1, (n, t, 2 * h)).astype(np.float32)
+    j_fused_fn = j_fused.bilstm_fused_final if final_only else j_fused.bilstm_fused
+    refs = {"jax fused": jax_grads(j_fused_fn, case, g_out, g_fin),
+            "jax ref": jax_grads(j_ref.bilstm_ref, case, g_out, g_fin)}
+    plain = lambda pf, pb, x, mask: lstm_fused.bilstm_fused(pf, pb, x, mask)
+    mine = {"plain": port_grads(plain, case, g_out, g_fin),
+            "emulated kernels": port_grads(emulated_fn(monkeypatch), case, g_out, g_fin)}
+    names = ["dx"] + [f"{d}.{f}" for d in ("fw", "bw") for f in FIELDS]
+    for mk, got in mine.items():
+        for rk, ref in refs.items():
+            for name, a, b in zip(names, got, ref):
+                np.testing.assert_allclose(a, b, **GRAD_TOL, err_msg=f"{mk} vs {rk}: {name}")
