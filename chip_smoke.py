@@ -53,6 +53,32 @@ The training slice (kernel K1b, csrc/lstm_bwd.cu, and autograd through K1/K2):
    backward and cuDNN's nn.LSTM backward; and a `training` line (step time,
    qa_pairs/s, dedup vs plain, torch.profiler breakdown of one step).
 
+The video slice (kernels K4, csrc/fvta_stats.cu, and K5/K6, csrc/fvta_bwd.cu; the
+streaming form of the attention from STREAM_MIN_T frames on):
+
+0. at the start, a CPU child process writes a synthetic raw corpus (`cli
+   synth-video`, 48 videos of 512-2047 frames x 2537 features) and packs it
+   at 1024 frames (`cli video-prepro`) while the phases above run;
+11. the arguments the full-width T=4096 train step (bench_lib's realistic
+   config, dilated-conv encoder, batch 8, keep_prob 0.9) gives K4 and K6, read
+   by wrapping them; K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly equal, and
+   >= 1 for every (n, j)), K6 vs stats_bwd_ref on those arguments and on
+   synthetic cases (the main shape, S=T=24, S=8 x T=16384 x J=512; each also
+   with a dead half sequence, an empty example and an all-masked question);
+   K4 at 1e-5 / 1e-5, K6 at 1e-4 / 1e-5, a field beyond it passing only on
+   the float64 witness (at most 2x the float32 plain version's distance from
+   float64, plus 4 ulps); K6's float64 witness at unit-scale cotangents;
+12. the streaming form vs K2 + recompute at T=1024, forward and gradients;
+13. this slice's main path: `cli video --data --out` (24 steps, T=1024,
+   H=100, val every 12) and `cli video-test` on the run directory, with
+   every kernel counter zeroed just before and read just after (K5 and K6
+   must launch once per step, the loss must fall);
+14. the full-width T=4096 step: card vs CPU step-1 gradients at keep_prob 1;
+   p50 over 10 steps, peak memory and a torch.profiler breakdown; one
+   `--encoder bilstm` step at T=1024; bitwise resume of train_video; and the
+   crossover of K2 + recompute vs K4 + K5 + K6 at T = 256, 1024, 4096 (time,
+   device time and peak memory of one forward + backward).
+
 Prints a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -95,13 +121,15 @@ ENGINE_TOL = 1e-4
 # fixed atol stricter).
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 COTANGENT_SCALE = 1.0 / 64
-# At unit-scale N(0, 1) cotangents the dW sums run over N*T = 30720 rows, and
-# both K1b and the float32 plain version are ~3e-5 from float64 there: K1b may
-# be at most 2x as far from the float64 plain version as the float32 one, plus
-# 4 float32 ulps of the largest gradient entry. This witness is the binding
-# check: at the train step's cotangent scale the errors sit far below atol.
-K1B_VS_F64_FACTOR = 2.0
-K1B_VS_F64_ULPS = 4.0
+# The float64 witness: at unit-scale N(0, 1) cotangents the dW sums of K1b run
+# over N*T = 30720 rows (K6's over 32768 frames), and both the kernel and the
+# float32 plain version are ~3e-5 from float64 there: the kernel may be at most
+# F64_FACTOR x as far from the float64 plain version as the float32 one, plus
+# F64_ULPS float32 ulps of the largest entry. This witness is the binding check
+# of the long sums: at the train step's cotangent scale the errors sit far
+# below atol.
+F64_FACTOR = 2.0
+F64_ULPS = 4.0
 F32_EPS = 2.0 ** -23
 # The train step on the card vs the CPU (same weights, same batch): per
 # parameter tensor max|dg| <= 1e-4 * max|g_cpu|; losses to 1e-4 relative.
@@ -147,6 +175,70 @@ def close(a, b, rtol: float, atol: float) -> bool:
     import torch
 
     return bool(torch.allclose(a, b, rtol=rtol, atol=atol))
+
+
+def f64_witness(got, plain, exact) -> tuple[float, str]:
+    """(share of its limit that `got` uses, note): the kernel's distance from
+    the float64 plain version over F64_FACTOR x the float32 plain version's,
+    plus F64_ULPS ulps of the largest entry; a share <= 1 passes."""
+    e_k, e_p = max_err(got, exact), max_err(plain, exact)
+    limit = F64_FACTOR * e_p + F64_ULPS * F32_EPS * float(exact.abs().max())
+    return (e_k / limit if limit > 0 else 0.0), f"{e_k:.2e}/{e_p:.2e}"
+
+
+def device_breakdown(fn, reps: int = 1) -> dict:
+    """Wall and device-busy ms per call of fn under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels: dict[str, float] = {}
+    count = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / reps
+            count += e.count
+    busy = sum(kernels.values()) if kernels else None
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
+            "device_launches": count / reps, "top_device_ms": {k[:60]: v for k, v in top}}
+
+
+class Recorder:
+    """Replaces module.name by a wrapper that keeps each call's arguments and
+    calls the real function; the wrapper carries the launch counter the real
+    function increments (it counts the module's current name)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+        self.real = getattr(module, name)
+
+    def __enter__(self):
+        def wrapper(*args):
+            self.calls.append(args)
+            return self.real(*args)
+
+        wrapper.launches = 0
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
 
 
 # ---- K1 -------------------------------------------------------------------------
@@ -422,10 +514,6 @@ def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
     sum of kernel time) per call of the answer step (QAEngine.answer_batch) for
     one request and for a full micro-batch of 8, and of ingest_pack of the
     64-album pack into a fresh store."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fvta_memexqa_torch.serve import AlbumStore
 
     def fresh_store():
@@ -439,34 +527,7 @@ def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
         "answer_8_requests": lambda: engine.answer_batch(asks[:8]),
         "ingest_64_albums": lambda: next(stores).ingest_pack(batch_size=64),
     }
-    out = {}
-    for name, fn in work.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels: dict[str, float] = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total", None)
-                us = e.self_cuda_time_total if us is None else us
-                kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / reps
-        busy = sum(kernels.values()) if kernels else None   # None: no device trace
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
-                     "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
-                     "kernel_launches_per_call": sum(
-                         e.count for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA) / reps,
-                     "top_kernels_ms": {k[:60]: v for k, v in top}}
-    return out
+    return {name: device_breakdown(fn, reps) for name, fn in work.items()}
 
 
 def run_slice(workdir: str) -> dict:
@@ -632,36 +693,27 @@ def cotangent_probe(packdir: str) -> dict:
         fail("the probe batch has more distinct albums than the dedup buffer")
     uniq, inv = (torch.from_numpy(a).cuda() for a in dd)
     b = batch.to("cuda")
-    seen: dict[str, dict] = {}
-    launch = lstm_fused.lstm_bwd
-
-    def recording(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
-        n, t = x.shape[:2]
-        live = torch.arange(t, device=x.device)[None, :] < lengths[:, None]
-        rec = seen.setdefault(f"{n}x{t}", {"calls": 0, "g_out_max": 0.0, "g_out_sum": 0.0,
-                                           "g_out_n": 0, "g_fin_max": 0.0,
-                                           "g_fin_sum": 0.0, "g_fin_n": 0})
-        rec["calls"] += 1
-        for key, g, valid in (("g_out", g_out, live), ("g_fin", g_fin, live.any(1))):
-            if g is not None and valid.any():
-                a = g[valid].abs()
-                rec[f"{key}_max"] = max(rec[f"{key}_max"], float(a.max()))
-                rec[f"{key}_sum"] += float(a.sum())
-                rec[f"{key}_n"] += a.numel()
-        return launch(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias)
-
-    # the launch counts the module's `lstm_bwd`, which is this wrapper meanwhile
-    recording.launches = 0
     params = list(state.params.values())
-    lstm_fused.lstm_bwd = recording
-    try:
+    with Recorder(lstm_fused, "lstm_bwd") as rec:
         loss, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator)
         torch.autograd.grad(loss, params)
         loss, _ = tr.dedup_loss_and_metrics(state.model, shared, b, uniq, inv, True,
                                             state.generator)
         torch.autograd.grad(loss, params)
-    finally:
-        lstm_fused.lstm_bwd = launch
+    seen: dict[str, dict] = {}
+    for x, lengths, _, _, _, _, g_out, g_fin, _ in rec.calls:
+        n, t = x.shape[:2]
+        live = torch.arange(t, device=x.device)[None, :] < lengths[:, None]
+        r = seen.setdefault(f"{n}x{t}", {"calls": 0, "g_out_max": 0.0, "g_out_sum": 0.0,
+                                         "g_out_n": 0, "g_fin_max": 0.0, "g_fin_sum": 0.0,
+                                         "g_fin_n": 0})
+        r["calls"] += 1
+        for key, g, valid in (("g_out", g_out, live), ("g_fin", g_fin, live.any(1))):
+            if g is not None and valid.any():
+                a = g[valid].abs()
+                r[f"{key}_max"] = max(r[f"{key}_max"], float(a.max()))
+                r[f"{key}_sum"] += float(a.sum())
+                r[f"{key}_n"] += a.numel()
     out = {}
     for key, r in seen.items():
         out[key] = {"calls": r["calls"], "g_out_max": r["g_out_max"],
@@ -770,10 +822,9 @@ def k1b_rounding_witness(device) -> None:
         torch.cuda.synchronize()
         worst_ratio, line = 0.0, []
         for nm, a, b, c in zip(GRAD_NAMES, got, ref, ref64):
-            e_k, e_p = max_err(a, c), max_err(b, c)
-            limit = K1B_VS_F64_FACTOR * e_p + K1B_VS_F64_ULPS * F32_EPS * float(c.abs().max())
-            worst_ratio = max(worst_ratio, e_k / limit if limit > 0 else 0.0)
-            line.append(f"{nm} {e_k:.2e}/{e_p:.2e}")
+            share, note = f64_witness(a, b, c)
+            worst_ratio = max(worst_ratio, share)
+            line.append(f"{nm} {note}")
         ok = worst_ratio <= 1.0
         log(f"K1b rounding {name:23s} unit-scale N={n:4d} T={t:2d}: max|err| vs float64, "
             f"K1b/float32 plain: {' '.join(line)}; worst share of limit {worst_ratio:.2f}  "
@@ -782,7 +833,7 @@ def k1b_rounding_witness(device) -> None:
             bad.append(name)
     if bad:
         fail(f"K1b is farther from the float64 plain version than "
-             f"{K1B_VS_F64_FACTOR}x the float32 plain version (+{K1B_VS_F64_ULPS} ulps) at {bad}")
+             f"{F64_FACTOR}x the float32 plain version (+{F64_ULPS} ulps) at {bad}")
 
 
 def k1_cell_check(device) -> None:
@@ -1076,8 +1127,6 @@ def profile_train(packdir: str) -> dict:
     steps, after 3 warm-up steps), and torch.profiler over one plain step."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from fvta_memexqa_torch import train as tr
     from fvta_memexqa_torch.config import Config
@@ -1117,29 +1166,8 @@ def profile_train(packdir: str) -> dict:
                 per.append((time.perf_counter() - t0) * 1e3)
             times[name] = {"p50_step_ms": float(np.median(per)), "mean_step_ms":
                            float(np.mean(per)), "qa_pairs_per_s": 64e3 / float(np.mean(per))}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain(host[0])
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            plain(host[0])
-            torch.cuda.synchronize()
-    kernels: dict[str, float] = {}
-    count = 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
-            count += e.count
-    busy = sum(kernels.values()) if kernels else None
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    return {"steps_timed": len(host) - 3, "step_times": times,
-            "profiled_step": {"wall_ms": wall, "device_busy_ms": busy,
-                              "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
-                              "device_launches": count,
-                              "top_device_ms": {k[:60]: v for k, v in top}}}
+        prof = device_breakdown(lambda: plain(host[0]))
+    return {"steps_timed": len(host) - 3, "step_times": times, "profiled_step": prof}
 
 
 def run_train_slice(workdir: str) -> dict:
@@ -1152,6 +1180,594 @@ def run_train_slice(workdir: str) -> dict:
     prof = profile_train(packdir)
     return {"plain_run": plain, "dedup_run": dedup, "predict_answer": pred["answer"],
             "parity": parity, "resume": resume, **prof}
+
+
+# ---- the video slice: K4 (csrc/fvta_stats.cu), K5 and K6 (csrc/fvta_bwd.cu) -------
+
+VIDEO_T, VIDEO_N = 4096, 8          # bench.py's long video length, batch 8
+CLI_FRAMES, CLI_VIDEOS, CLI_STEPS = 1024, 48, 24
+# K4 and the streaming attention vs their plain versions: the JAX suite's
+# stats/attention tolerance; K6 vs the plain backward: its gradient tolerance.
+STATS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def video_realistic_config(keep_prob: float = 0.9):
+    """bench_lib.realistic_config(): H=100, char-CNN 100 filters of width 5,
+    char emb 20, word emb 100, J=30, Ja=8, W=16, F=2537, vocab 12000 with
+    10000 GloVe rows, trilinear similarity."""
+    from fvta_memexqa_torch.config import Config, DataConfig, ModelConfig
+
+    return Config(data=DataConfig(max_albums=4, max_photos=12, max_question_len=30,
+                                  max_answer_len=8, max_sent_len=10, max_album_text_len=24,
+                                  max_word_len=16, image_feat_dim=2537, word_emb_dim=100,
+                                  word_vocab_size=12000, char_vocab_size=70,
+                                  num_glove_words=10000),
+                  model=ModelConfig(hidden_dim=100, keep_prob=keep_prob))
+
+
+def video_setup(t_frames: int, encoder: str = "dilated_conv", keep_prob: float = 0.9,
+                batch: int = VIDEO_N, seed: int = 0):
+    """(cfg, run record, shared tables on the CPU, one batch on the CPU) of the
+    full-width video model (VideoFVTAModel(num_choices=5, task="mc")), with a
+    synthetic batch of `batch` videos x t_frames frames and random tables."""
+    import numpy as np
+
+    from fvta_memexqa_torch.data.video_pack import video_shared_tables
+    from fvta_memexqa_torch.models.video import make_synthetic_video
+
+    cfg = video_realistic_config(keep_prob)
+    d = cfg.data
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, d.max_word_len + 1, d.word_vocab_size)
+    chars = rng.integers(2, d.char_vocab_size, (d.word_vocab_size, d.max_word_len))
+    chars = (chars * (np.arange(d.max_word_len)[None, :] < lens[:, None])).astype(np.int32)
+    chars[:2] = 0
+    shared = video_shared_tables(d, {
+        "word_emb_init": rng.normal(0, 0.3, (d.word_vocab_size, d.word_emb_dim)).astype(
+            np.float32), "vocab_chars": chars})
+    vi, _ = make_synthetic_video(cfg, num_videos=batch, num_frames=t_frames, seed=seed)
+    run = {"task": "mc", "encoder": encoder, "num_choices": 5, "num_answers": 0,
+           "max_frames": t_frames}
+    return cfg, run, shared, vi
+
+
+def video_main_path_args():
+    """The arguments the full-width T=4096 train step gives K4 and K6 (one
+    forward + backward with dropout on, batch 8)."""
+    import torch
+
+    from fvta_memexqa_torch import train_video as tv
+    from fvta_memexqa_torch.ops import fvta_stats
+
+    cfg, run, shared, vi = video_setup(VIDEO_T)
+    state = tv.init_video_state(cfg, run, "cuda")
+    with Recorder(fvta_stats, "stats_fwd") as fwd, Recorder(fvta_stats, "stats_bwd") as bwd:
+        loss, _ = tv.video_loss(state.model, video_shared_to(shared), vi.to("cuda"), True,
+                                state.generator)
+        torch.autograd.grad(loss, list(state.model.parameters()), allow_unused=True)
+    if len(fwd.calls) != 1 or len(bwd.calls) != 1:
+        fail(f"the T={VIDEO_T} train step called K4 {len(fwd.calls)} and K6 "
+             f"{len(bwd.calls)} times, not once each")
+    return fwd.calls[0], bwd.calls[0]
+
+
+def video_shared_to(shared, device="cuda"):
+    import dataclasses as dc
+
+    return dc.replace(shared, **{f.name: getattr(shared, f.name).to(device)
+                                 for f in dc.fields(shared)})
+
+
+def stats_case(n, s, t, j, d, seed, device, masked=False):
+    """Synthetic stats inputs: bounded states (the encoders' outputs are
+    masked, tanh-like in scale), similarity weights at the model's N(0, 0.1)
+    initial scale; masked=True adds a sequence with a dead first half, an
+    example with no valid frame and an all-masked question."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    h = torch.tanh(torch.randn(n, s, t, d, generator=g))
+    q = torch.tanh(torch.randn(n, j, d, generator=g))
+    cm = torch.arange(t)[None, None, :] < torch.randint(1, t + 1, (n, s, 1), generator=g)
+    qm = torch.arange(j)[None, :] < torch.randint(1, j + 1, (n, 1), generator=g)
+    if masked:
+        cm[:, 0, : t // 2] = False
+        cm[0] = False
+        qm[min(1, n - 1)] = False
+    w = [0.1 * torch.randn(d, generator=g) for _ in range(3)]
+    h, q = h * cm[..., None], q * qm[..., None]
+    return [a.to(device) for a in (h, cm.float(), q, qm.float(), *w)]
+
+
+# (name, n, s, t, j, d, masked): the main path's shape (synthetic twin), MemexQA's
+# S = T = 24, and the long-question shape of the JAX package's capacity table
+K4_SYNTH = [("video_main_synthetic", 8, 1, 4096, 30, 200, False),
+            ("video_main_masked", 8, 1, 4096, 30, 200, True),
+            ("memexqa_s24_t24", 8, 24, 24, 30, 200, False),
+            ("memexqa_s24_t24_masked", 8, 24, 24, 30, 200, True),
+            ("long_question", 2, 8, 16384, 512, 200, False),
+            ("long_question_masked", 2, 8, 16384, 512, 200, True)]
+STATS_NAMES = ("m", "den", "v", "eq", "e")
+BWD_NAMES = ("dh", "dq", "dwx", "dwy", "dwxy")
+
+
+def k456_check(fwd_args, bwd_args) -> dict:
+    """K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly, and >= 1 for every (n, j):
+    each max is reached somewhere), K6 vs stats_bwd_ref, on the main path's own
+    arguments and on the synthetic cases; K6's float64 witness at unit-scale
+    cotangents. Returns the worst errors.
+
+    Each field is held to its tolerance against the float32 plain version. A
+    field beyond it passes only on the float64 witness: at most 2x as far from
+    the float64 plain version as the float32 plain version is, plus 4 ulps of
+    the largest entry. (Sums over 16 384 frames, or an all-masked question's
+    uniform weights over every frame, put near-zero entries of v and dwx ~1e-4
+    from float64 in both float32 versions: rounding, which no tolerance against
+    the float32 plain version can tell from a fault.)"""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    def field_ok(a, b, c, tol):
+        """(ok, note): a kernel output, b the float32 plain one, c float64."""
+        if close(a, b, **tol):
+            return True, ""
+        share, note = f64_witness(a, b, c)
+        return share <= 1.0, f"(f64: {note})"
+
+    def check_case(name, args, cot=None):
+        h, cm, q, qm, wx, wy, wxy = args
+        w = (wx, wy, wxy)
+        with torch.no_grad():
+            got = fs.stats_fwd(*args)
+            ref = fs.stats_fwd_ref(*args)
+            cnt = fs.qcnt(h, cm, q, *w, got[3])
+            cnt_r = fs.qcnt_ref(h, cm, q, *w, ref[3])
+            if cot is None:
+                g = torch.Generator().manual_seed(7)
+                n, s, t, d = h.shape
+                cot = [torch.randn(sh, generator=g).to(h.device)
+                       for sh in ((n, s, t), tuple(qm.shape), (n, s, d))]
+            de, geq, gv = cot
+            dk = fs.stats_bwd(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
+            dr = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
+            a64 = [a.double() for a in args]
+            r64 = fs.stats_fwd_ref(*a64)
+            d64 = fs.stats_bwd_ref(*a64, de.double(), geq.double(), r64[3],
+                                   fs.qcnt_ref(*a64[:3], *a64[4:], r64[3]), r64[4], r64[0],
+                                   gv.double())
+        torch.cuda.synchronize()
+        e4 = [max_err(a, b) for a, b in zip(got, ref)]
+        e6 = [max_err(a, b) for a, b in zip(dk, dr)]
+        res4 = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(got, ref, r64)]
+        res6 = [field_ok(a, b, c, GRAD_TOL) for a, b, c in zip(dk, dr, d64)]
+        ok4, ok6 = all(r[0] for r in res4), all(r[0] for r in res6)
+        ok5 = bool(torch.equal(cnt, cnt_r)) and bool((cnt >= 1).all())
+        finite = all(bool(torch.isfinite(a).all()) for a in (*dk, got[1], got[2]))
+        log(f"K4/K5/K6 vs plain {name:24s} N={h.shape[0]} S={h.shape[1]} T={h.shape[2]} "
+            f"J={q.shape[1]}: K4 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
+                                              zip(STATS_NAMES, e4, res4))
+            + f"; K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
+            f"{float(cnt.min()):.0f}; K6 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
+                                                       zip(BWD_NAMES, e6, res6))
+            + f"  {'ok' if ok4 and ok5 and ok6 and finite else 'MISMATCH'}")
+        if not (ok4 and ok5 and ok6 and finite):
+            fail(f"{name}: K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) or K6 "
+                 f"({ok6}, {GRAD_TOL}) disagrees with its plain version (finite {finite})")
+        return max(e4), max(e6)
+
+    h, cm, q, qm, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv = bwd_args
+    scale = {"de": float(de.abs().max()), "geq": float(geq.abs().max()),
+             "gv": float(gv.abs().max())}
+    log(f"cotangents at K6 in the T={VIDEO_T} train step: max |de| {scale['de']:.3e}, "
+        f"|geq| {scale['geq']:.3e}, |gv| {scale['gv']:.3e}")
+    worst4, worst6 = check_case("video_main_path", list(fwd_args), [de, geq, gv])
+    for name, n, s, t, j, d, masked in K4_SYNTH:
+        a4, a6 = check_case(name, stats_case(n, s, t, j, d, 900 + len(name), "cuda", masked))
+        worst4, worst6 = max(worst4, a4), max(worst6, a6)
+    witness = k6_rounding_witness()
+    return {"k4_max_abs_err": worst4, "k6_max_abs_err": worst6, "k6_cotangent_max": scale,
+            "k6_witness_worst_share": witness}
+
+
+def k6_rounding_witness() -> float:
+    """Unit-scale N(0, 1) cotangents at the main path's shape (N=8, S=1,
+    T=4096): K6 and the float32 plain backward both against the float64 plain
+    backward; K6 may be at most 2x as far as the float32 plain version, plus 4
+    ulps of the largest entry. Returns the worst share of that limit."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    h, cm, q, qm, wx, wy, wxy = stats_case(8, 1, VIDEO_T, 30, 200, 950, "cuda")
+    w = (wx, wy, wxy)
+    g = torch.Generator().manual_seed(951)
+    de, geq, gv = (torch.randn(sh, generator=g).cuda()
+                   for sh in ((8, 1, VIDEO_T), (8, 30), (8, 1, 200)))
+    dbl = lambda xs: [x.double() for x in xs]
+    with torch.no_grad():
+        got4 = fs.stats_fwd(h, cm, q, qm, *w)
+        got = fs.stats_bwd(h, cm, q, qm, *w, de, geq, got4[3],
+                           fs.qcnt(h, cm, q, *w, got4[3]), got4[4], got4[0], gv)
+        ref4 = fs.stats_fwd_ref(h, cm, q, qm, *w)
+        ref = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref4[3],
+                               fs.qcnt_ref(h, cm, q, *w, ref4[3]), ref4[4], ref4[0], gv)
+        a64 = dbl((h, cm, q, qm, *w))
+        r64 = fs.stats_fwd_ref(*a64)
+        ref64 = fs.stats_bwd_ref(*a64, *dbl((de, geq)), r64[3],
+                                 fs.qcnt_ref(*a64[:3], *a64[4:], r64[3]), r64[4], r64[0],
+                                 gv.double())
+    worst, line = 0.0, []
+    for nm, a, b, c in zip(BWD_NAMES, got, ref, ref64):
+        share, note = f64_witness(a, b, c)
+        worst = max(worst, share)
+        line.append(f"{nm} {note}")
+    log(f"K6 rounding at unit-scale cotangents N=8 T={VIDEO_T}: max|err| vs float64, "
+        f"K6/float32 plain: {' '.join(line)}; worst share of limit {worst:.2f}  "
+        f"{'ok' if worst <= 1.0 else 'MISMATCH'}")
+    if worst > 1.0:
+        fail(f"K6 is farther from the float64 plain backward than {F64_FACTOR}x the "
+             f"float32 plain version (+{F64_ULPS} ulps)")
+    return worst
+
+
+def attention_loss_grads(fn, h, cm, q, qm, w, cot):
+    import torch
+
+    leaves = [a.detach().clone().requires_grad_() for a in (h, q, *w)]
+    out = fn(leaves[0], cm, leaves[1], qm, dict(zip(("w_x", "w_y", "w_xy"), leaves[2:])))
+    loss = sum((o * g).sum() for o, g in zip(out, cot))
+    return [o.detach() for o in out], torch.autograd.grad(loss, leaves)
+
+
+def streaming_vs_k2(t: int = 1024) -> dict:
+    """The streaming form (K4, then K5 + K6 under grad) against K2 with its
+    recompute backward, at N=8, S=1, T=1024, J=30, D=200 (ragged frame counts,
+    one all-masked question): outputs at 1e-5 / 1e-5, gradients at 1e-4 /
+    1e-5. An example with no valid frame is left out: there the two forms
+    differ in the JAX package too (fvta_attention sends a uniform gradient
+    into the masked states, focal_finalize none); packs hold no such video."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused as ff
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    h, cm, q, qm, wx, wy, wxy = stats_case(8, 1, t, 30, 200, 960, "cuda")
+    qm[1] = 0.0
+    q[1] = 0.0
+    cmb, qmb = cm > 0.5, qm > 0.5
+    g = torch.Generator().manual_seed(961)
+    cot = [torch.randn(sh, generator=g).cuda() for sh in ((8, 200), (8, 200), (8, 1, t), (8, 1))]
+    k2 = lambda hh, c, qq, m, p: ff._FVTAFn.apply(hh, cm, qq, qm, p["w_x"], p["w_y"], p["w_xy"])
+    before = (ff.fvta_fwd.launches, fs.stats_fwd.launches, fs.stats_bwd.launches)
+    out_s, g_s = attention_loss_grads(
+        lambda hh, c, qq, m, p: ff.fvta_attention_fused(hh, c, qq, m, "trilinear", p),
+        h, cmb, q, qmb, (wx, wy, wxy), cot)
+    out_k, g_k = attention_loss_grads(k2, h, cmb, q, qmb, (wx, wy, wxy), cot)
+    torch.cuda.synchronize()
+    after = (ff.fvta_fwd.launches, fs.stats_fwd.launches, fs.stats_bwd.launches)
+    e_out = [max_err(a, b) for a, b in zip(out_s, out_k)]
+    e_g = [max_err(a, b) for a, b in zip(g_s, g_k)]
+    ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(out_s, out_k))
+          and all(close(a, b, **GRAD_TOL) for a, b in zip(g_s, g_k))
+          and tuple(b - a for a, b in zip(before, after)) == (1, 1, 1))
+    log(f"streaming (K4+K5+K6) vs K2 + recompute at N=8 S=1 T={t}: outputs max|err| "
+        + " ".join(f"{e:.2e}" for e in e_out) + "; grads h q wx wy wxy "
+        + " ".join(f"{e:.2e}" for e in e_g) + f"  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the streaming attention disagrees with K2 + recompute")
+    return {"outputs_max_abs_err": max(e_out), "grads_max_abs_err": max(e_g)}
+
+
+def prepare_video_pack(workdir: str) -> subprocess.Popen:
+    """`cli synth-video` (48 videos, 1024 frames on average x 2537 features)
+    then `cli video-prepro` at max_frames 1024, in a CPU-only child process
+    started early, so the card's phases overlap it."""
+    raw, pack = os.path.join(workdir, "video_raw"), os.path.join(workdir, "video_pack")
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from fvta_memexqa_torch import cli; "
+            f"cli.main(['synth-video', {raw!r}, '--num-videos', '{CLI_VIDEOS}', "
+            f"'--num-frames', '{CLI_FRAMES}', '--feat-dim', '2537']); "
+            f"cli.main(['video-prepro', {os.path.join(raw, 'qas.jsonl')!r}, "
+            f"{os.path.join(raw, 'frame_feats.npz')!r}, {pack!r}, '--test-ids', "
+            f"{os.path.join(raw, 'test_qa.ids')!r}, '--max-frames', '{CLI_FRAMES}'])")
+    log_f = open(os.path.join(workdir, "video_prep.log"), "w")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen([sys.executable, "-c", code, os.path.dirname(os.path.abspath(
+        __file__))], stdout=log_f, stderr=subprocess.STDOUT, env=env)
+
+
+def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
+    """This slice's main path: `cli video --data --out` (24 steps, val every 12)
+    then `cli video-test` on the run directory, with every kernel counter
+    zeroed just before and read just after."""
+    import contextlib
+    import io
+
+    from fvta_memexqa_torch import cli
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_fused
+
+    t0 = time.perf_counter()
+    if prep.wait(timeout=600) != 0:
+        fail("synth-video / video-prepro failed: "
+             + open(os.path.join(workdir, "video_prep.log")).read()[-2000:])
+    prep_lines = open(os.path.join(workdir, "video_prep.log")).read().strip().splitlines()
+    log(f"video pack ready (waited {time.perf_counter() - t0:.1f} s more): {prep_lines[-1]}")
+    pack, run = os.path.join(workdir, "video_pack"), os.path.join(workdir, "video_run")
+    counters = {"lstm_fwd": lstm_fused.lstm_fwd, "lstm_bwd": lstm_fused.lstm_bwd,
+                "fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
+                "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["video", "--data", pack, "--out", run, "--hidden-dim", "100", "--steps",
+                  str(CLI_STEPS), "--val-period", "12", "--log-period", "1", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    launches = {k: fn.launches for k, fn in counters.items()}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["video-test", run, "--split", "test", "--device", "cuda",
+                  "--dump-attention", os.path.join(workdir, "video_attn.npz")])
+    test = json.loads(buf.getvalue().strip().splitlines()[-1])
+    recs = read_metrics(os.path.join(run, "metrics.jsonl"))
+    losses = [r["loss"] for r in recs if r["event"] == "train"]
+    first, last = sum(losses[:6]) / 6, sum(losses[-6:]) / 6
+    log(f"video (cli video --data --out, T={CLI_FRAMES}, H=100): {len(losses)} steps in "
+        f"{wall:.1f} s; launches {json.dumps(launches)}; mean loss of the first 6 steps "
+        f"{first:.4f}, last 6 {last:.4f}; {json.dumps(res)}; video-test {json.dumps(test)}")
+    on_path = ("lstm_fwd", "lstm_bwd", "stats_fwd", "qcnt", "stats_bwd")
+    if min(launches[k] for k in on_path) == 0:
+        fail(f"video: a kernel of the path never launched: {launches}")
+    if launches["qcnt"] != CLI_STEPS or launches["stats_bwd"] != CLI_STEPS:
+        fail(f"video: K5 and K6 must launch once per train step ({CLI_STEPS}): {launches}")
+    if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) or not last < first:
+        fail(f"video: losses not finite, steps missing or not falling: {losses}")
+    if test["count"] != res["test_count"] or not 0.0 <= test["acc"] <= 1.0:
+        fail(f"video-test on the card-trained run directory: {test}")
+    return {"steps": len(losses), "wall_s": wall, "launches": launches,
+            "loss_first_6": first, "loss_last_6": last, "result": res, "video_test": test,
+            "pack": pack}
+
+
+def video_step_parity() -> dict:
+    """The full-width T=4096 train step's gradients on the card vs the CPU, from
+    the same weights and batch at keep_prob 1 (per parameter tensor)."""
+    import torch
+
+    from fvta_memexqa_torch import train_video as tv
+
+    cfg, run, shared, vi = video_setup(VIDEO_T, keep_prob=1.0)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        state = tv.init_video_state(cfg, run, dev)
+        loss, _ = tv.video_loss(state.model, video_shared_to(shared, dev), vi.to(dev), True,
+                                state.generator)
+        names = [n for n, _ in state.model.named_parameters()]
+        gs = torch.autograd.grad(loss, list(state.model.parameters()), allow_unused=True)
+        grads[dev] = (float(loss.detach()), {n: (torch.zeros_like(p) if g is None else g).cpu()
+                                    for (n, p), g in zip(state.model.named_parameters(), gs)})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = grads["cpu"], grads["cuda"]
+    rel = {k: float((g_gpu[k] - g_cpu[k]).abs().max()) / max(float(g_cpu[k].abs().max()), 1e-30)
+           for k in g_cpu if k not in EXACT_ZERO_GRADS}
+    zero = {k: max(float(g_cpu[k].abs().max()), float(g_gpu[k].abs().max()))
+            for k in EXACT_ZERO_GRADS}
+    worst_name = max(rel, key=rel.get)
+    d_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    log(f"video step, card vs CPU at T={VIDEO_T} full width: {len(rel)} parameter tensors, "
+        f"worst max|dg|/max|g_cpu| {rel[worst_name]:.2e} ({worst_name}); loss {l_gpu:.6f} vs "
+        f"{l_cpu:.6f}; exact-zero gradients {zero}")
+    if rel[worst_name] > STEP_TOL or d_loss > STEP_TOL or max(zero.values()) > ZERO_GRAD_ATOL:
+        fail(f"the card's video train step disagrees with the CPU's beyond {STEP_TOL}")
+    return {"grad_rel_err_vs_cpu": rel[worst_name], "worst_tensor": worst_name,
+            "loss_rel_err_vs_cpu": d_loss}
+
+
+def video_step_times(encoder: str = "dilated_conv", t_frames: int = VIDEO_T,
+                     steps: int = 10) -> dict:
+    """Train steps of the full-width video model on the card (dropout on):
+    p50 over `steps` synchronized steps after 3 warm-up steps, peak device
+    memory, and a torch.profiler breakdown of one step."""
+    import numpy as np
+    import torch
+
+    from fvta_memexqa_torch import train_video as tv
+    from fvta_memexqa_torch.optim import Optimizer
+    from fvta_memexqa_torch.train import deterministic_algorithms
+
+    cfg, run, shared, vi = video_setup(t_frames, encoder=encoder)
+    shared = video_shared_to(shared)
+    state = tv.init_video_state(cfg, run, "cuda")
+    opt = Optimizer(cfg.train)
+    vi = vi.to("cuda")
+    step = lambda: tv.video_train_step(state, opt, shared, vi)
+    with deterministic_algorithms(torch.device("cuda")):
+        for _ in range(3):
+            m = step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            m = step()
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = device_breakdown(step)
+    loss = float(m["loss"])
+    if not math.isfinite(loss):
+        fail(f"video train step ({encoder}, T={t_frames}): loss {loss}")
+    return {"encoder": encoder, "T": t_frames, "batch": VIDEO_N, "steps_timed": steps,
+            "p50_step_ms": float(np.median(per)), "mean_step_ms": float(np.mean(per)),
+            "frames_per_s": VIDEO_N * t_frames * 1e3 / float(np.median(per)),
+            "peak_device_gib": peak, "loss": loss, "profiled_step": prof}
+
+
+def video_bilstm_step() -> dict:
+    """One train step with --encoder bilstm at T=1024 (K1/K1b over the frames)."""
+    from fvta_memexqa_torch.ops import fvta_stats, lstm_fused
+
+    before = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches,
+              fvta_stats.stats_bwd.launches)
+    res = video_step_times("bilstm", CLI_FRAMES, steps=2)
+    after = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches,
+             fvta_stats.stats_bwd.launches)
+    res["launches"] = dict(zip(("lstm_fwd", "lstm_bwd", "stats_bwd"),
+                               (b - a for a, b in zip(before, after))))
+    log(f"video bilstm step at T={CLI_FRAMES}: p50 {res['p50_step_ms']:.2f} ms, loss "
+        f"{res['loss']:.4f}, launches {res['launches']}")
+    if min(res["launches"].values()) == 0:
+        fail(f"the bilstm video step did not launch K1, K1b and K6: {res['launches']}")
+    return res
+
+
+def video_resume_check(pack: str, workdir: str) -> dict:
+    """train_video on the card (dropout on): 6 steps straight vs 3 + resume to 6,
+    every parameter and optimizer tensor and the generator state equal."""
+    import torch
+
+    from fvta_memexqa_torch import train_video as tv
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+    from fvta_memexqa_torch.config import Config, ModelConfig, TrainConfig
+
+    cfg = Config(model=ModelConfig(hidden_dim=100, char_emb_dim=8, char_cnn_filters=16,
+                                   keep_prob=0.9),
+                 train=TrainConfig(batch_size=16, eval_batch_size=16, learning_rate=2e-3,
+                                   save_period=1, val_period=1000, log_period=100))
+    a_dir, b_dir = os.path.join(workdir, "vstraight"), os.path.join(workdir, "vresumed")
+    tv.train_video(cfg, pack, a_dir, 6, echo=False, device="cuda")
+    tv.train_video(cfg, pack, b_dir, 3, echo=False, device="cuda")
+    tv.train_video(cfg, pack, b_dir, 6, echo=False, device="cuda")
+    a, b = CheckpointManager(a_dir).load(step=6), CheckpointManager(b_dir).load(step=6)
+    flat = lambda ck: {**{f"p.{k}": v for k, v in ck["params"].items()},
+                       **{f"o.{f}.{k}": t for f, v in ck["opt_state"].items()
+                          for k, t in (v.items() if isinstance(v, dict) else [("", v)])}}
+    la, lb = flat(a), flat(b)
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    log(f"video resume on the card: 6 steps straight vs 3 + resume to 6: {len(la)} tensors, "
+        f"{len(differ)} differ; rng equal {torch.equal(a['rng'], b['rng'])}")
+    if differ or set(la) != set(lb) or not torch.equal(a["rng"], b["rng"]):
+        fail(f"video resume is not bitwise: {differ[:5]}")
+    return {"tensors": len(la), "bitwise": True}
+
+
+def crossover(ts=(256, 1024, 4096)) -> list:
+    """K2 + recompute vs K4 + K5 + K6: time (CUDA events) and peak device memory
+    of one forward + backward of the attention at N=8, S=1, J=30, D=200."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused as ff
+    from fvta_memexqa_torch.ops import fvta_ref, fvta_stats as fs
+
+    rows = []
+    for t in ts:
+        h, cm, q, qm, wx, wy, wxy = stats_case(8, 1, t, 30, 200, 970, "cuda")
+        leaves = [a.clone().requires_grad_() for a in (h, q, wx, wy, wxy)]
+        g = [torch.ones(8, 200, device="cuda"), torch.ones(8, 200, device="cuda")]
+
+        def k2():
+            out = ff._FVTAFn.apply(leaves[0], cm, leaves[1], qm, *leaves[2:])
+            torch.autograd.grad((out[0] * g[0]).sum() + (out[1] * g[1]).sum(), leaves)
+
+        def streaming():
+            st = fs._StatsFn.apply(leaves[0], cm, leaves[1], qm, *leaves[2:])
+            out = fvta_ref.focal_finalize(*st, leaves[1], qm > 0.5, (cm > 0.5).any(-1))
+            torch.autograd.grad((out[0] * g[0]).sum() + (out[1] * g[1]).sum(), leaves)
+
+        row = {"T": t}
+        for name, fn in (("k2_recompute", k2), ("streaming", streaming),
+                         ("streaming_again", streaming), ("k2_recompute_again", k2)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            row[f"{name}_peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            row[f"{name}_ms"] = cuda_ms(fn, iters=10, warmup=2)
+        for name, fn in (("k2_recompute", k2), ("streaming", streaming)):
+            prof = device_breakdown(fn, reps=3)
+            row[f"{name}_device_busy_ms"] = prof["device_busy_ms"]
+            row[f"{name}_device_launches"] = prof["device_launches"]
+            row[f"{name}_top_device_ms"] = dict(list(prof["top_device_ms"].items())[:4])
+        rows.append(row)
+        log(f"crossover T={t}: K2 + recompute {row['k2_recompute_ms']:.3f} / "
+            f"{row['k2_recompute_again_ms']:.3f} ms, {row['k2_recompute_peak_mib']:.1f} MiB; "
+            f"K4 + K5 + K6 {row['streaming_ms']:.3f} / {row['streaming_again_ms']:.3f} ms, "
+            f"{row['streaming_peak_mib']:.1f} MiB; device busy {row['k2_recompute_device_busy_ms']}"
+            f" vs {row['streaming_device_busy_ms']} ms")
+    return rows
+
+
+def stats_kernel_times(fwd_args, bwd_args, launches: dict, errs: dict) -> list:
+    """The kernels-line entries of K4, K5 and K6 at the main path's own
+    arguments (the T=4096 train step): times from CUDA events, plain versions'
+    times, and bounds from these inputs (valid positions only)."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    h, cm, q, qm, wx, wy, wxy = fwd_args
+    _, _, _, _, _, _, _, de, geq, eq, cnt, e, m, gv = bwd_args
+    w = (wx, wy, wxy)
+    n, s, t, d = h.shape
+    j = q.shape[1]
+    n_ct = float(cm.sum())                  # valid (n, s, t) positions
+    with torch.no_grad():
+        timings = {
+            "stats_fwd": (cuda_ms(lambda: fs.stats_fwd(*fwd_args)),
+                          cuda_ms(lambda: fs.stats_fwd_ref(*fwd_args), iters=10)),
+            "qcnt": (cuda_ms(lambda: fs.qcnt(h, cm, q, *w, eq)),
+                     cuda_ms(lambda: fs.qcnt_ref(h, cm, q, *w, eq), iters=10)),
+            "stats_bwd": (cuda_ms(lambda: fs.stats_bwd(*bwd_args)),
+                          cuda_ms(lambda: fs.stats_bwd_ref(*bwd_args), iters=10)),
+        }
+    el = 4  # bytes per float32
+    nbytes = {
+        "stats_fwd": el * (h.numel() + cm.numel() + q.numel() + qm.numel() + 3 * d
+                           + 2 * n * s + n * s * d + n * j + n * s * t),
+        "qcnt": el * (h.numel() + cm.numel() + q.numel() + 3 * d + 2 * n * j),
+        "stats_bwd": el * (2 * h.numel() + 3 * cm.numel() + 2 * q.numel() + qm.numel()
+                           + 3 * d + 3 * n * j + n * s + n * s * d + 3 * n * d),
+    }
+    flops = {"stats_fwd": n_ct * j * 2 * d + n_ct * 4 * d + n * j * 2 * d,
+             "qcnt": n_ct * j * 2 * d + n * j * 2 * d,
+             "stats_bwd": n_ct * j * 6 * d + n_ct * 6 * d}
+    meta = {"stats_fwd": ("fvta_stats.cu", 141, "k4_max_abs_err"),
+            "qcnt": ("fvta_bwd.cu", 197, None), "stats_bwd": ("fvta_bwd.cu", 231,
+                                                             "k6_max_abs_err")}
+    out = []
+    for name, (k_ms, p_ms) in timings.items():
+        b_ms, o_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3, flops[name] / FP32_FLOPS * 1e3
+        src, line, err_key = meta[name]
+        out.append({
+            "name": name, "route": "cuda", "source": f"fvta_memexqa_torch/csrc/{src}",
+            "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": errs[err_key] if err_key else 0.0,
+            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
+            "timed_work": f"the T={VIDEO_T} train step's call: N={n} S={s} T={t} J={j} D={d}"})
+    return out
+
+
+def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list]:
+    fwd_args, bwd_args = video_main_path_args()
+    checks = k456_check(fwd_args, bwd_args)
+    checks["streaming_vs_k2"] = streaming_vs_k2()
+    cli_run = video_cli_run(workdir, prep)
+    parity = video_step_parity()
+    step = video_step_times()
+    log(f"video train step, full width T={VIDEO_T} batch {VIDEO_N}: p50 "
+        f"{step['p50_step_ms']:.2f} ms ({step['frames_per_s']:.0f} frames/s), peak "
+        f"{step['peak_device_gib']:.2f} GiB; profiled step {json.dumps(step['profiled_step'])}")
+    bilstm = video_bilstm_step()
+    resume = video_resume_check(cli_run.pop("pack"), workdir)
+    cross = crossover()
+    entries = stats_kernel_times(fwd_args, bwd_args, cli_run["launches"], checks)
+    return ({"checks": checks, "cli_run": cli_run, "parity": parity, "train_step": step,
+             "bilstm_step": bilstm, "resume": resume, "crossover": cross}, entries)
 
 
 def main() -> None:
@@ -1183,22 +1799,30 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {stem}: {line.strip()}")
 
-    k1_err = k1_check(device)
-    k2_err = k2_check(device)
     with tempfile.TemporaryDirectory() as workdir:
-        served = run_slice(workdir)
-        log("serving " + json.dumps(served))
-        cotangents = cotangent_probe(os.path.join(workdir, "pack"))
-        k1b_err = k1b_check(device)
-        trained = run_train_slice(workdir)
-    trained["k1b_cotangents"] = cotangents
-    log("training " + json.dumps(trained))
+        prep = prepare_video_pack(workdir)   # CPU work, overlapped with the card's phases
+        try:
+            k1_err = k1_check(device)
+            k2_err = k2_check(device)
+            served = run_slice(workdir)
+            log("serving " + json.dumps(served))
+            cotangents = cotangent_probe(os.path.join(workdir, "pack"))
+            k1b_err = k1b_check(device)
+            trained = run_train_slice(workdir)
+            trained["k1b_cotangents"] = cotangents
+            log("training " + json.dumps(trained))
+            video, stats_entries = run_video_slice(workdir, prep)
+            log("video " + json.dumps(video))
+        finally:
+            if prep.poll() is None:
+                prep.kill()
+                prep.wait()
     k1, k1_rows = k1_times(device, served["launches"]["lstm_fwd"], k1_err)
     k2 = k2_times(device, served["launches"]["fvta_fwd"], k2_err)
     k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"]["lstm_bwd"], k1b_err)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
-    log(json.dumps({"kernels": [k1, k2, k1b]}))
+    log(json.dumps({"kernels": [k1, k2, k1b, *stats_entries]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

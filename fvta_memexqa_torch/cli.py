@@ -7,6 +7,15 @@
         --question "what year was the sunrise trip ?" --choices "2007|2009|2011|2013" \
         --album-ids album0 [--device cuda|cpu]
 
+    python -m fvta_memexqa_torch.cli synth-video <rawdir> [--num-videos 48 --num-frames 32 \
+        --feat-dim 64 --task mc|count|frameqa]
+    python -m fvta_memexqa_torch.cli video-prepro <qas.jsonl> <frame_feats.npz> <packdir> \
+        [--test-ids F --max-frames 64 --task mc ...]
+    python -m fvta_memexqa_torch.cli video [--data <packdir> [--out <rundir>]] \
+        [--encoder dilated_conv|bilstm --steps N --hidden-dim 64 ...] [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli video-test <rundir> [--split test --latest \
+        --dump-attention PATH] [--device cuda|cpu]
+
 `train` runs train.train on the pack (metrics to <rundir>/metrics.jsonl,
 checkpoints under <rundir>, resuming from the latest one there) and prints
 {"best_val_acc", "steps"}; the run directory then serves through `predict`.
@@ -14,6 +23,14 @@ checkpoints under <rundir>, resuming from the latest one there) and prints
 config default (False) unless given. `predict` answers one question through
 the serving engine (serve.build_engine) and prints the result as one JSON
 line. The run directory is the port's (config.json + params.pt, see convert.py).
+
+The video commands are the JAX package's: `synth-video` writes a synthetic raw
+corpus, `video-prepro` packs one into streaming shards, `video` trains — the
+synthetic demo without --data, a plain loop over a pack with --data, and the
+full driver (train_video.train_video: keep-best checkpoints, metrics, exact
+resume) with --data --out, then evaluates the best state on the test split —
+and `video-test` evaluates a video run directory. `--cp N > 1` raises
+NotImplementedError: context parallelism is a later slice.
 """
 
 from __future__ import annotations
@@ -26,7 +43,8 @@ import sys
 
 import numpy as np
 
-from fvta_memexqa_torch.config import Config, MeshConfig, ModelConfig, TrainConfig
+from fvta_memexqa_torch.config import (Config, DataConfig, MeshConfig, ModelConfig,
+                                       TrainConfig)
 
 
 def _add_dataclass_flags(p: argparse.ArgumentParser, dc_type) -> None:
@@ -112,7 +130,253 @@ def cmd_predict(argv):
         engine.close()
 
 
-COMMANDS = {"train": cmd_train, "predict": cmd_predict}
+def cmd_synth_video(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch synth-video")
+    p.add_argument("outdir")
+    p.add_argument("--num-videos", type=int, default=48)
+    p.add_argument("--num-frames", type=int, default=32)
+    p.add_argument("--feat-dim", type=int, default=64)
+    p.add_argument("--num-choices", type=int, default=5)
+    p.add_argument("--task", default="mc", choices=["mc", "count", "frameqa"])
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.data.video_pack import (make_synthetic_video_raw,
+                                                    write_raw_video_files)
+
+    qas, feats, test_ids = make_synthetic_video_raw(
+        num_videos=args.num_videos, num_frames=args.num_frames, feat_dim=args.feat_dim,
+        num_choices=args.num_choices, seed=args.seed, task=args.task)
+    write_raw_video_files(args.outdir, qas, feats, test_ids)
+    print(json.dumps({"outdir": args.outdir, "videos": args.num_videos,
+                      "task": args.task, "test": len(test_ids)}))
+
+
+def cmd_video_prepro(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch video-prepro")
+    p.add_argument("qas", help="qas.jsonl (schema: data/video_pack.py)")
+    p.add_argument("frame_npz", help="frame_feats.npz: video_id -> [T, F]")
+    p.add_argument("outdir")
+    p.add_argument("--test-ids", default=None)
+    p.add_argument("--glove", default=None)
+    p.add_argument("--num-choices", type=int, default=5)
+    p.add_argument("--task", default="mc", choices=["mc", "count", "frameqa"])
+    p.add_argument("--max-frames", type=int, default=64)
+    p.add_argument("--shard-size", type=int, default=256)
+    p.add_argument("--val-fraction", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0)
+    _add_dataclass_flags(p, DataConfig)
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.data.video_pack import pack_video, parse_video_qas
+    from fvta_memexqa_torch.data.vocab import load_glove
+
+    cfg = _dc_from_args(args, DataConfig, DataConfig())
+    qas, errs = parse_video_qas(args.qas, task=args.task)
+    for e in errs[:20]:
+        print(f"video-prepro warning: {e}", file=sys.stderr)
+    test_ids = set()
+    if args.test_ids:
+        with open(args.test_ids) as f:
+            test_ids = {line.strip() for line in f if line.strip()}
+    glove = load_glove(args.glove, cfg.word_emb_dim) if args.glove else None
+    meta = pack_video(qas, dict(np.load(args.frame_npz)), test_ids, glove, args.outdir, cfg,
+                      num_choices=args.num_choices, max_frames=args.max_frames,
+                      shard_size=args.shard_size, val_fraction=args.val_fraction,
+                      seed=args.seed, task=args.task)
+    print(json.dumps({"splits": meta["split_sizes"], "dropped": meta["dropped"],
+                      "task": meta["task"], "answer_vocab_size": len(meta["answer_vocab"]),
+                      "vocab": meta["data_config"]["word_vocab_size"],
+                      "max_frames": meta["max_frames"]}))
+
+
+def cmd_video(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch video")
+    p.add_argument("--data", default=None,
+                   help="packed video dir (video-prepro output); omit for the synthetic demo")
+    p.add_argument("--out", default=None,
+                   help="run dir (needs --data): the full driver, then the test split")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--num-videos", type=int, default=96)
+    p.add_argument("--num-frames", type=int, default=64)
+    p.add_argument("--num-choices", type=int, default=5)
+    p.add_argument("--steps", type=int, default=300)
+    p.add_argument("--encoder", default="dilated_conv", choices=["dilated_conv", "bilstm"])
+    p.add_argument("--task", default="mc", choices=["mc", "count", "frameqa"],
+                   help="task head of the synthetic demo (packs carry their own)")
+    p.add_argument("--attention", default="fvta", choices=["fvta", "flat", "none"])
+    p.add_argument("--hidden-dim", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cp", type=int, default=1,
+                   help="context-parallel degree (only 1: CP is not ported yet)")
+    p.add_argument("--lr", type=float, default=2e-3)
+    p.add_argument("--lr-schedule", default="constant", choices=["constant", "cosine", "linear"])
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--decay-steps", type=int, default=0)
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--val-period", type=int, default=50)
+    p.add_argument("--log-period", type=int, default=50)
+    p.add_argument("--save-period", type=int, default=200)
+    p.add_argument("--prefetch", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    if args.cp > 1:
+        from fvta_memexqa_torch.train_video import CP_NOT_PORTED
+
+        raise NotImplementedError(CP_NOT_PORTED)
+    if args.out and not args.data:
+        raise SystemExit("--out needs --data (the synthetic demo world is in-memory; "
+                         "nothing to resume)")
+    if args.out:
+        return _video_driver(args)
+    return _video_plain(args)
+
+
+def _video_driver(args):
+    """--data --out: train_video.train_video, then the best state on the test split."""
+    from fvta_memexqa_torch.train_video import test_video, train_video
+
+    cfg = Config(
+        model=ModelConfig(hidden_dim=args.hidden_dim, char_emb_dim=8, char_cnn_filters=16,
+                          keep_prob=1.0, vocab_embed=True, attention=args.attention),
+        train=TrainConfig(batch_size=args.batch_size, eval_batch_size=args.batch_size,
+                          learning_rate=args.lr, seed=args.seed,
+                          lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+                          decay_steps=args.decay_steps, grad_accum=args.grad_accum,
+                          val_period=args.val_period, log_period=args.log_period,
+                          save_period=args.save_period))
+    os.makedirs(args.out, exist_ok=True)
+    r = train_video(cfg, args.data, args.out, num_steps=args.steps, encoder=args.encoder,
+                    prefetch=args.prefetch, device=args.device,
+                    metrics_path=os.path.join(args.out, "metrics.jsonl"))
+    m = test_video(args.out, split="test", load_best=True, batch_size=args.batch_size,
+                   echo=False, device=args.device)
+    out = {"encoder": args.encoder, "task": r["task"], "data": args.data, "out": args.out,
+           "steps": r["steps"], "best_val_score": r["best_val_score"],
+           "heldout_acc": m["acc"], "test_count": m["count"]}
+    if r["task"] == "count":
+        out["heldout_mse"] = m["mse"]
+    print(json.dumps(out))
+
+
+def _video_plain(args):
+    """The synthetic demo (no --data) or a plain loop over a pack (--data): Adam
+    at --lr without dropout or clipping, then the held-out split."""
+    import torch
+
+    from fvta_memexqa_torch.data.video_pack import (VideoDataset, load_video_meta,
+                                                    video_shared_tables)
+    from fvta_memexqa_torch.models.video import (VideoFVTAModel, make_synthetic_video,
+                                                 video_loss, video_metrics)
+    from fvta_memexqa_torch.optim import Optimizer
+    from fvta_memexqa_torch.serve import resolve_device
+    from fvta_memexqa_torch.train_video import exact_float32
+
+    dev = resolve_device(args.device)
+    model_cfg = dict(hidden_dim=args.hidden_dim, char_emb_dim=8, char_cnn_filters=16,
+                     keep_prob=1.0, vocab_embed=True, attention=args.attention)
+    if args.data:
+        dcfg, meta, shared_np = load_video_meta(args.data)
+        task, num_choices = meta.get("task", "mc"), meta["num_choices"]
+        num_answers = len(meta.get("answer_vocab", []))
+        shared = video_shared_tables(dcfg, shared_np, dev)
+        train_ds, test_ds = VideoDataset(args.data, "train"), VideoDataset(args.data, "test")
+        if train_ds.n == 0:
+            print("error: the pack's train split is empty (check --test-ids / "
+                  "--val-fraction)", file=sys.stderr)
+            return 2
+
+        def train_batches(epoch):
+            return train_ds.get_batches(args.batch_size, shuffle=True, seed=args.seed,
+                                        epoch=epoch)
+        test_batches = lambda: test_ds.get_batches(args.batch_size)
+    else:
+        dcfg = DataConfig(max_question_len=8, max_answer_len=3, max_word_len=6,
+                          image_feat_dim=2537, word_emb_dim=50, word_vocab_size=64,
+                          char_vocab_size=16, num_glove_words=0)
+        model_cfg.update(char_emb_dim=4, char_cnn_filters=8, vocab_embed=False)
+        task, num_choices = args.task, args.num_choices
+        num_answers = 8 if task == "frameqa" else 0
+        synth = lambda n, seed: make_synthetic_video(Config(data=dcfg), num_videos=n,
+                                                     num_frames=args.num_frames,
+                                                     num_choices=num_choices, seed=seed,
+                                                     task=task)[0]
+        vi_train, vi_test = synth(args.num_videos, args.seed), synth(
+            max(args.num_videos // 4, 8), args.seed + 1)
+        rng = np.random.default_rng(args.seed)
+        emb = rng.normal(0, 0.3, (dcfg.word_vocab_size, dcfg.word_emb_dim)).astype(np.float32)
+        shared = video_shared_tables(
+            dcfg, {"word_emb_init": emb,
+                   "vocab_chars": np.zeros((dcfg.word_vocab_size, dcfg.max_word_len),
+                                           np.int32)}, dev)
+        train_batches = lambda epoch: [vi_train]
+        test_batches = lambda: [vi_test]
+    cfg = Config(data=dcfg, model=ModelConfig(**model_cfg))
+    model = VideoFVTAModel(cfg, num_choices=num_choices, temporal_encoder=args.encoder,
+                           task=task, num_answers=num_answers,
+                           generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    opt = Optimizer(TrainConfig(learning_rate=args.lr, grad_clip_norm=0.0))
+    params = dict(model.named_parameters())
+    opt_state = opt.init(params)
+    done, epoch, loss, acc = 0, 0, 0.0, 0.0
+    with exact_float32():
+        while done < args.steps:
+            for vi in train_batches(epoch):
+                loss_t, m = video_loss(model, shared, vi.to(dev), False)
+                grads = torch.autograd.grad(loss_t, list(params.values()), allow_unused=True)
+                opt.update(params, {n: torch.zeros_like(p) if g is None else g
+                                    for (n, p), g in zip(params.items(), grads)}, opt_state)
+                done += 1
+                if done % 50 == 0:
+                    loss, acc = float(loss_t.detach()), float(m["acc"].detach())
+                    print(f"[video] step={done} loss={loss:.4f} train_acc={acc:.4f}",
+                          file=sys.stderr)
+                if done >= args.steps:
+                    break
+            epoch += 1
+        loss, acc = float(loss_t.detach()), float(m["acc"].detach())
+        totals = {"correct": 0.0, "sq_err": 0.0, "count": 0.0}
+        with torch.no_grad():
+            for vi in test_batches():
+                vi = vi.to(dev)
+                s = video_metrics(task, model(shared, vi).logits, vi)
+                totals = {k: totals[k] + float(s[k]) for k in totals}
+    n = max(totals["count"], 1.0)
+    out = {"encoder": args.encoder, "task": task, "steps": done, "train_acc": acc,
+           "heldout_acc": totals["correct"] / n, "test_count": int(totals["count"])}
+    if args.data:
+        out["data"] = args.data
+    else:
+        out["num_frames"] = args.num_frames
+    if task == "count":
+        out["heldout_mse"] = totals["sq_err"] / n
+    elif task == "frameqa":
+        out["chance"] = 1.0 / max(num_answers, 1)
+    else:
+        out["chance"] = 1.0 / num_choices
+    print(json.dumps(out))
+
+
+def cmd_video_test(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch video-test")
+    p.add_argument("out", help="run dir written by `video --data ... --out`")
+    p.add_argument("--data", default=None, help="pack dir (default: the run's)")
+    p.add_argument("--split", default="test", choices=["train", "val", "test"])
+    p.add_argument("--latest", action="store_true",
+                   help="restore the latest checkpoint instead of best-on-val")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--dump-attention", default=None, metavar="PATH",
+                   help="also write per-question frame-attention maps to PATH (.npz)")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.train_video import test_video
+
+    m = test_video(args.out, pack_dir=args.data, split=args.split, load_best=not args.latest,
+                   batch_size=args.batch_size, echo=False, attention_path=args.dump_attention,
+                   device=args.device)
+    print(json.dumps({"split": args.split, **{k: v for k, v in m.items() if k != "score"}}))
+
+
+COMMANDS = {"train": cmd_train, "predict": cmd_predict, "synth-video": cmd_synth_video,
+            "video-prepro": cmd_video_prepro, "video": cmd_video, "video-test": cmd_video_test}
 
 
 def main(argv=None):

@@ -16,10 +16,17 @@ MultiSteps) into optim.py's dict.
 A port run directory holds `config.json` (the JAX package's format) and
 `params.pt` (the state_dict, tensors on the CPU). Reading an orbax run
 directory needs JAX and is not done here.
+
+`video_state_dict_from_flax` does the same for the video model
+(models/video.VideoFVTAModel); a flax `Conv` kernel [k, in, out] becomes
+`Conv1d.weight` [out, in, k]. A video run directory holds `config.json`,
+`video_run.json` (task, encoder, num_choices, num_answers, max_frames) and
+`params.pt`.
 """
 
 from __future__ import annotations
 
+import json
 import os
 
 import numpy as np
@@ -28,6 +35,7 @@ import torch
 from fvta_memexqa_torch.checkpoint import atomic_torch_save
 from fvta_memexqa_torch.config import MODALITIES, Config, load_config, save_config
 from fvta_memexqa_torch.models.fvta import FVTAModel
+from fvta_memexqa_torch.models.video import VideoFVTAModel
 
 _DENSE = ("photo_proj", "scorer")
 
@@ -40,9 +48,20 @@ def _lstm_field(p, name: str):
     return getattr(p, name) if hasattr(p, name) else p[name]
 
 
-def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """flax FVTAModel params → FVTAModel.state_dict() of the port."""
-    p = params.get("params", params)
+def _dense(sd: dict, dst: str, layer) -> None:
+    sd[f"{dst}.weight"] = _leaf(layer["kernel"]).T.contiguous()
+    sd[f"{dst}.bias"] = _leaf(layer["bias"])
+
+
+def _bilstm(sd: dict, dst: str, layer) -> None:
+    for d in ("fw", "bw"):
+        for field in ("wx", "wh", "b"):
+            sd[f"{dst}.{d}_{field}"] = _leaf(_lstm_field(layer[d], field))
+
+
+def _embed_and_sim(p) -> dict[str, torch.Tensor]:
+    """The embedding (word, char-CNN, highway) and similarity parameters both
+    models share."""
     sd: dict[str, torch.Tensor] = {
         "word_embed.oov_emb": _leaf(p["word_embed"]["oov_emb"]),
         "char_cnn.char_emb": _leaf(p["char_cnn"]["char_emb"]),
@@ -50,20 +69,46 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
         "char_cnn.conv_bias": _leaf(p["char_cnn"]["conv_bias"]),
     }
     for name, layer in p["highway"].items():
-        sd[f"highway.{name}.weight"] = _leaf(layer["kernel"]).T.contiguous()
-        sd[f"highway.{name}.bias"] = _leaf(layer["bias"])
-    for name in _DENSE:
-        sd[f"{name}.weight"] = _leaf(p[name]["kernel"]).T.contiguous()
-        sd[f"{name}.bias"] = _leaf(p[name]["bias"])
-    encoders = {"enc_word": "enc_word"}
-    encoders.update({f"enc_{mod}": f"enc_time.{mod}" for mod in MODALITIES})
-    for src, dst in encoders.items():
-        for d in ("fw", "bw"):
-            for field in ("wx", "wh", "b"):
-                sd[f"{dst}.{d}_{field}"] = _leaf(_lstm_field(p[src][d], field))
+        _dense(sd, f"highway.{name}", layer)
     for name in ("sim_w_x", "sim_w_y", "sim_w_xy", "sim_w_bilinear"):
         if name in p:
             sd[name] = _leaf(p[name])
+    _bilstm(sd, "enc_word", p["enc_word"])
+    return sd
+
+
+def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax FVTAModel params → FVTAModel.state_dict() of the port."""
+    p = params.get("params", params)
+    sd = _embed_and_sim(p)
+    for name in _DENSE:
+        _dense(sd, name, p[name])
+    for mod in MODALITIES:
+        _bilstm(sd, f"enc_time.{mod}", p[f"enc_{mod}"])
+    return sd
+
+
+_VIDEO_DENSE = ("scorer", "count_head", "count_frame", "count_qproj", "frameqa_head",
+                "frame_proj")
+
+
+def video_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """flax VideoFVTAModel params → VideoFVTAModel.state_dict() of the port."""
+    p = params.get("params", params)
+    sd = _embed_and_sim(p)
+    for name in _VIDEO_DENSE:
+        if name in p:
+            _dense(sd, name, p[name])
+    enc = p["enc_frames"]
+    if "fw" in enc:
+        _bilstm(sd, "enc_frames", enc)
+    else:
+        _dense(sd, "enc_frames.in_proj", enc["in_proj"])
+        for name, layer in enc.items():
+            if name.startswith("conv"):
+                # flax Conv kernel [k, in, out] → Conv1d weight [out, in, k]
+                sd[f"enc_frames.{name}.weight"] = _leaf(layer["kernel"]).permute(2, 1, 0).contiguous()
+                sd[f"enc_frames.{name}.bias"] = _leaf(layer["bias"])
     return sd
 
 
@@ -111,13 +156,43 @@ def model_from_flax(cfg: Config, params: dict) -> FVTAModel:
     return model.eval()
 
 
-def save_rundir(rundir: str, cfg: Config, model: FVTAModel) -> None:
+def save_rundir(rundir: str, cfg: Config, model: torch.nn.Module) -> None:
     """config.json + params.pt; params.pt is written to a temporary file and
     renamed, so a reader never sees half of it."""
     os.makedirs(rundir, exist_ok=True)
     save_config(cfg, os.path.join(rundir, "config.json"))
     atomic_torch_save({k: v.detach().cpu() for k, v in model.state_dict().items()},
                       os.path.join(rundir, "params.pt"))
+
+
+VIDEO_RUN = "video_run.json"
+
+
+def save_video_rundir(rundir: str, cfg: Config, model, run: dict) -> None:
+    """A video run directory: config.json, video_run.json (`run`, which names
+    the task, encoder, num_choices, num_answers and max_frames) and params.pt."""
+    save_rundir(rundir, cfg, model)
+    with open(os.path.join(rundir, VIDEO_RUN), "w") as f:
+        json.dump(run, f)
+
+
+def video_model_from_run(cfg: Config, run: dict, generator=None) -> VideoFVTAModel:
+    """A freshly initialized VideoFVTAModel shaped by a video_run.json record."""
+    return VideoFVTAModel(cfg, num_choices=run["num_choices"],
+                          temporal_encoder=run["encoder"], task=run["task"],
+                          num_answers=run["num_answers"], generator=generator)
+
+
+def load_video_rundir(rundir: str, device, cfg: Config | None = None):
+    """(cfg, run record, VideoFVTAModel in eval mode on `device`) from a video
+    run directory; cfg overrides the saved config."""
+    cfg = cfg or load_config(os.path.join(rundir, "config.json"))
+    with open(os.path.join(rundir, VIDEO_RUN)) as f:
+        run = json.load(f)
+    model = video_model_from_run(cfg, run)
+    model.load_state_dict(torch.load(os.path.join(rundir, "params.pt"), map_location="cpu",
+                                     weights_only=True))
+    return cfg, run, model.to(device).eval()
 
 
 def load_rundir(rundir: str, device, cfg: Config | None = None) -> tuple[Config, FVTAModel]:

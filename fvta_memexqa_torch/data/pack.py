@@ -93,6 +93,19 @@ def _encode_many(texts: list[str], vocab: Vocab, max_len: int, max_word_len: int
     return words, chars, mask
 
 
+class BatchEncoder:
+    """Encode many raw texts → fixed-shape id tensors (the JAX package's
+    BatchEncoder through its Python path; its native scanner is documented
+    bit-identical to it, so the outputs are the same)."""
+
+    def __init__(self, vocab: Vocab):
+        self.vocab = vocab
+
+    def encode(self, texts: list[str], max_len: int, max_word_len: int):
+        """→ (words i32 [N, L], chars i32 [N, L, W], mask bool [N, L])."""
+        return _encode_many(texts, self.vocab, max_len, max_word_len)
+
+
 def _assert_prefix_masks(sh: PackedShared) -> None:
     """Every LSTM time mask must be a contiguous prefix: the fused bi-LSTM
     kernel derives its masking from lengths=sum(mask) and runs the backward

@@ -45,6 +45,18 @@ from fvta_memexqa_torch.ops.lstm_fused import bilstm_fused, bilstm_fused_final
 from fvta_memexqa_torch.ops.lstm_ref import LSTMParams
 
 
+def flax_dropout(x: torch.Tensor, keep_prob: float, train: bool,
+                 generator: torch.Generator | None) -> torch.Tensor:
+    """flax nn.Dropout(rate=1 - keep_prob): keep each element with probability
+    keep_prob, scale kept ones by 1/keep_prob; the noise comes from `generator`."""
+    if not train or keep_prob >= 1.0:
+        return x
+    if generator is None:
+        raise ValueError("train=True needs a torch.Generator for dropout")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class ModelOutput(NamedTuple):
     logits: torch.Tensor        # [N, 4]
     attention: AttentionOutput
@@ -127,14 +139,7 @@ class FVTAModel(nn.Module):
 
     def _dropout(self, x: torch.Tensor, train: bool,
                  generator: torch.Generator | None) -> torch.Tensor:
-        """flax nn.Dropout(rate=1 - keep_prob): keep each element with
-        probability keep_prob, scale kept ones by 1/keep_prob."""
-        if not train or self.keep_prob >= 1.0:
-            return x
-        if generator is None:
-            raise ValueError("train=True needs a torch.Generator for dropout")
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < self.keep_prob
-        return torch.where(keep, x / self.keep_prob, torch.zeros_like(x))
+        return flax_dropout(x, self.keep_prob, train, generator)
 
     def _embed_text(self, words, chars, frozen_table, vocab_table=None,
                     train: bool = False, generator=None):

@@ -4,6 +4,8 @@ from fvta_memexqa_torch.ops.fvta_ref import (
     ATTENTION_VARIANTS,
     AttentionOutput,
     flat_attention,
+    focal_finalize,
+    focal_local_stats,
     fvta_attention,
     no_attention,
     similarity_tensor,
@@ -11,6 +13,7 @@ from fvta_memexqa_torch.ops.fvta_ref import (
 from fvta_memexqa_torch.ops.lstm_fused import (bilstm_fused, bilstm_fused_final, lstm_bwd,
                                                lstm_fwd)
 from fvta_memexqa_torch.ops.fvta_fused import fvta_attention_fused, fvta_fwd
+from fvta_memexqa_torch.ops.fvta_stats import fvta_stats_fused, qcnt, stats_bwd, stats_fwd
 
 __all__ = [
     "VERY_NEGATIVE",
@@ -22,6 +25,8 @@ __all__ = [
     "ATTENTION_VARIANTS",
     "AttentionOutput",
     "flat_attention",
+    "focal_finalize",
+    "focal_local_stats",
     "fvta_attention",
     "no_attention",
     "similarity_tensor",
@@ -31,4 +36,8 @@ __all__ = [
     "lstm_bwd",
     "fvta_attention_fused",
     "fvta_fwd",
+    "fvta_stats_fused",
+    "stats_fwd",
+    "qcnt",
+    "stats_bwd",
 ]

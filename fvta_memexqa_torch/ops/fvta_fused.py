@@ -10,6 +10,13 @@ K2 replaces the TPU kernel fvta_memexqa_tpu/ops/fvta_pallas.py:_kernel. Under
 grad on the card, `_FVTAFn` runs K2 forward and takes the gradient by
 recomputing the plain version under autograd (the JAX package's `_core_bwd`,
 fvta_pallas.py:581-591: at T = 24 there is no backward kernel there either).
+
+From STREAM_MIN_T time steps on (the repo's video lengths, T = 1024 and 4096),
+the trilinear and dot similarities take the streaming form instead, on both
+devices: ops/fvta_stats.fvta_stats_fused (kernel K4, and K5 + K6 under grad)
+and then the plain focal_finalize — the long-T branch of the JAX package's
+fvta_attention_pallas (fvta_pallas.py:531-545). The constant is a shape rule,
+not a tuned crossover.
 """
 
 from __future__ import annotations
@@ -20,8 +27,11 @@ import functools
 import torch
 
 from fvta_memexqa_torch.ops import build
-from fvta_memexqa_torch.ops.fvta_ref import (AttentionOutput, fvta_attention,
-                                             similarity_tensor)
+from fvta_memexqa_torch.ops.fvta_ref import (AttentionOutput, focal_finalize,
+                                             fvta_attention, similarity_tensor)
+from fvta_memexqa_torch.ops.fvta_stats import fvta_stats_fused
+
+STREAM_MIN_T = 1024   # time steps from which the attention takes the streaming form
 
 
 @functools.cache
@@ -83,6 +93,9 @@ def fvta_attention_fused(h: torch.Tensor, ctx_mask: torch.Tensor, q: torch.Tenso
                          q_mask: torch.Tensor, similarity: str,
                          sim_params: dict[str, torch.Tensor]) -> AttentionOutput:
     """Drop-in for similarity_tensor + fvta_attention (AttentionOutput layout)."""
+    if similarity in ("trilinear", "dot") and h.shape[2] >= STREAM_MIN_T:
+        m, den, v, eq, e = fvta_stats_fused(h, ctx_mask, q, q_mask, similarity, sim_params)
+        return focal_finalize(m, den, v, eq, e, q, q_mask, ctx_mask.any(-1))
     if h.device.type == "cpu" or similarity not in ("trilinear", "dot"):
         c = similarity_tensor(h, q, similarity, sim_params)
         return fvta_attention(h, ctx_mask, q, q_mask, c)

@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from fvta_memexqa_torch.ops.masking import exp_mask, masked_softmax
+from fvta_memexqa_torch.ops.masking import VERY_NEGATIVE, exp_mask, masked_softmax
 
 
 class AttentionOutput(NamedTuple):
@@ -98,6 +98,41 @@ def no_attention(h, ctx_mask, q, q_mask, c) -> AttentionOutput:
     q_att = torch.einsum("nj,njd->nd", qm, q) / torch.clamp(qm.sum(dim=1), min=1.0)[:, None]
     z_t = torch.zeros(ctx_mask.shape, dtype=h.dtype, device=h.device)
     return AttentionOutput(ctx, q_att, z_t, z_t[..., 0])
+
+
+def focal_local_stats(h, ctx_mask, q, q_mask, kind: str, params: dict[str, torch.Tensor]):
+    """The online-softmax statistics of the focal attention over a time range
+    h [N, S, T, D]: m [N, S] max of the time scores E, den [N, S] =
+    sum_t exp(E - m), v [N, S, D] = sum_t exp(E - m) h[:, :, t], eq [N, J] max
+    over (s, t) of the ctx-masked correlation, and e [N, S, T] the masked time
+    scores. focal_finalize turns them into fvta_attention's output."""
+    c = similarity_tensor(h, q, kind, params)                        # [N, S, T, J]
+    e = torch.amax(exp_mask(c, q_mask[:, None, None, :]), dim=-1)    # [N, S, T]
+    e = exp_mask(e, ctx_mask)
+    m = torch.amax(e, dim=-1)                                        # [N, S]
+    p = torch.exp(e - m[..., None])
+    den = torch.sum(p, dim=-1)                                       # [N, S]
+    v = torch.einsum("nst,nstd->nsd", p, h)                          # [N, S, D]
+    eq = torch.amax(exp_mask(c, ctx_mask[..., None]), dim=(1, 2))   # [N, J]
+    return m, den, v, eq, e
+
+
+def focal_finalize(m, den, v, eq, e, q, q_mask, seq_valid) -> AttentionOutput:
+    """focal_local_stats' tuple (seq_valid [N, S] = any valid t) → the
+    attention output, equal to fvta_attention's."""
+    g = torch.where(seq_valid, m, torch.full_like(m, VERY_NEGATIVE))
+    b = torch.softmax(g, dim=-1) * seq_valid
+    b = b / torch.clamp(b.sum(-1, keepdim=True), min=1e-30)          # [N, S]
+    vbar = v / torch.clamp(den[..., None], min=1e-30)               # [N, S, D]
+    ctx = torch.einsum("ns,nsd->nd", b, vbar)
+
+    eqm = eq + (1.0 - q_mask.to(eq.dtype)) * VERY_NEGATIVE
+    wq = torch.softmax(eqm, dim=-1)
+    q_att = torch.einsum("nj,njd->nd", wq, q)
+
+    time_attn = (torch.exp(e - m[..., None]) / torch.clamp(den[..., None], min=1e-30)
+                 * seq_valid[..., None])
+    return AttentionOutput(context=ctx, question=q_att, time_attn=time_attn, seq_attn=b)
 
 
 ATTENTION_VARIANTS: dict[str, Callable[..., AttentionOutput]] = {

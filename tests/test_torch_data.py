@@ -107,4 +107,4 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
-    assert int(res.stdout.split()[1]) >= 29   # every module was imported, the train slice's included
+    assert int(res.stdout.split()[1]) >= 34   # every module was imported, the video slice's included

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from fvta_memexqa_torch.ops import build, fvta_fused, fvta_ref, lstm_fused, lstm_ref
+from fvta_memexqa_torch.ops import build, fvta_fused, fvta_ref, fvta_stats, lstm_fused, lstm_ref
 
 # Kernel vs plain on the card, both float32; the plain version sums in another
 # order (cuBLAS tiles vs per-column FMA chains / warp shuffles), the recurrence
@@ -180,6 +180,157 @@ def test_emulated_cells_match_plain_carried_cells():
     _, _, cell = k1_emulated(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw, 1.0, False, True)
     torch.testing.assert_close(cell, lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask),
                                rtol=1e-6, atol=1e-7)
+
+
+# ---- CPU emulations of K4, K5 and K6 -------------------------------------------
+# As the kernels decompose the work: time chunks of fvta_stats.TCH steps, each
+# chunk's local stats combined in chunk order (K4); per-chunk tie counts summed
+# (K5); per-chunk dC, dh rows and partial sums, then dq = dC^T h and the dw sums
+# in chunk order (K6). One correlation routine serves all three, so the tie
+# tests compare like with like, as the kernels' shared fvta_corr.cuh does.
+# Swapped in for the launches, they let the CPU run `fvta_stats._StatsFn`.
+
+NEG = -1e30
+
+
+def _corr_emulated(h, q, wx, wy, wxy):
+    sx = (h * wx).sum(-1)[..., None]                                  # [N,S,T,1]
+    sy = (q * wy).sum(-1)[:, None, None, :]                           # [N,1,1,J]
+    return torch.einsum("nstd,njd->nstj", h * wxy, q) + sx + sy
+
+
+def _chunks(t):
+    return [(t0, min(t0 + fvta_stats.TCH, t)) for t0 in range(0, t, fvta_stats.TCH)]
+
+
+def k4_emulated(h, cm_f, q, qm_f, wx, wy, wxy):
+    c = _corr_emulated(h, q, wx, wy, wxy)
+    e = torch.amax(c + (1.0 - qm_f)[:, None, None, :] * NEG, dim=-1) + (1.0 - cm_f) * NEG
+    cs = c + (1.0 - cm_f)[..., None] * NEG
+    parts = []
+    for t0, t1 in _chunks(h.shape[2]):
+        ec = e[:, :, t0:t1]
+        mc = ec.amax(-1)
+        p = torch.exp(ec - mc[..., None])
+        parts.append((mc, p.sum(-1), torch.einsum("nst,nstd->nsd", p, h[:, :, t0:t1]),
+                      cs[:, :, t0:t1].amax(dim=(1, 2))))
+    m = torch.stack([pt[0] for pt in parts]).amax(0)
+    den = sum(pt[1] * torch.exp(pt[0] - m) for pt in parts)
+    v = sum(pt[2] * torch.exp(pt[0] - m)[..., None] for pt in parts)
+    eq = torch.stack([pt[3] for pt in parts]).amax(0)
+    return m, den, v, eq, e
+
+
+def k5_emulated(h, cm_f, q, wx, wy, wxy, eq):
+    cs = _corr_emulated(h, q, wx, wy, wxy) + (1.0 - cm_f)[..., None] * NEG
+    hits = (cs == eq[:, None, None, :]).to(torch.int32)
+    return sum(hits[:, :, t0:t1].sum(dim=(1, 2)) for t0, t1 in _chunks(h.shape[2])).float()
+
+
+def k6_emulated(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv):
+    c = _corr_emulated(h, q, wx, wy, wxy)
+    cq = c + (1.0 - qm_f)[:, None, None, :] * NEG
+    tie_j = cq == cq.amax(-1, keepdim=True)
+    dc = torch.where(tie_j, (de / tie_j.sum(-1))[..., None], 0.0)
+    tie_q = c + (1.0 - cm_f)[..., None] * NEG == eq[:, None, None, :]
+    dc = dc + torch.where(tie_q, (geq / torch.clamp(qcnt, min=1.0))[:, None, None, :], 0.0)
+    rowsum = dc.sum(-1)
+    p = torch.exp(e - m[..., None])
+    dh = (torch.einsum("nstj,njd->nstd", dc, q * wxy) + rowsum[..., None] * wx
+          + p[..., None] * gv[:, :, None, :])
+    dwx = sum(torch.einsum("nst,nstd->nd", rowsum[:, :, t0:t1], h[:, :, t0:t1])
+              for t0, t1 in _chunks(h.shape[2]))
+    colsum = sum(dc[:, :, t0:t1].sum(dim=(1, 2)) for t0, t1 in _chunks(h.shape[2]))
+    tmp = torch.einsum("nstj,nstd->njd", dc, h)
+    return (dh, tmp * wxy + colsum[..., None] * wy, dwx,
+            torch.einsum("nj,njd->nd", colsum, q), (tmp * q).sum(1))
+
+
+def emulated_kernels(device):
+    return k4_emulated, k5_emulated, k6_emulated
+
+
+STATS_CASES = {  # name: (n, s, t, j, d, what is masked)
+    "plain": (2, 3, 70, 5, 6, None),
+    "s1_long": (3, 1, 130, 4, 8, None),
+    "dead_sequence": (2, 3, 40, 5, 6, "dead"),
+    "all_masked_example": (2, 2, 64, 5, 6, "example"),
+    "all_masked_question": (2, 2, 64, 5, 6, "question"),
+}
+
+
+def stats_case(name, seed=0, device="cpu"):
+    n, s, t, j, d, what = STATS_CASES[name]
+    h, cm, q, qm, p = fvta_case(n, s, t, j, d, seed, device=device)
+    if what == "dead":
+        cm[:, 0] = False
+    elif what == "example":
+        cm[0] = False
+    elif what == "question":
+        qm[0] = False
+    return h * cm[..., None], cm, q, qm, p
+
+
+def stats_grads(fn, h, cm, q, qm, p):
+    """Gradients of the JAX suite's stats loss (test_fvta_pallas.py
+    TestFVTAStreamingBackward) w.r.t. h, q, w_x, w_y, w_xy."""
+    leaves = [a.clone().requires_grad_() for a in (h, q, p["w_x"], p["w_y"], p["w_xy"])]
+    m, den, v, eq, e = fn(leaves[0], cm, leaves[1], qm, "trilinear",
+                          dict(zip(("w_x", "w_y", "w_xy"), leaves[2:])))
+    loss = ((v ** 2).sum() + torch.log(den).sum() + (eq * 0.1).sum() + (m * 0.03).sum()
+            + torch.where(cm, e, 0.0).sum() * 1e-3)
+    return (m, den, v, eq, e), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("name", list(STATS_CASES))
+def test_stats_fn_with_emulated_kernels_matches_plain_autograd(monkeypatch, name):
+    h, cm, q, qm, p = stats_case(name, seed=31)
+    out_r, ref = stats_grads(fvta_ref.focal_local_stats, h, cm, q, qm, p)
+    monkeypatch.setattr(fvta_stats, "_kernels", emulated_kernels)
+    out_k, got = stats_grads(fvta_stats.fvta_stats_fused, h, cm, q, qm, p)
+    for field, a, b in zip(("m", "den", "v", "eq", "e"), out_k, out_r):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5, msg=field)
+    for field, a, b in zip(("h", "q", "w_x", "w_y", "w_xy"), got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=field)
+
+
+@pytest.mark.parametrize("name", ["all_masked_example", "s1_long"])
+def test_emulated_tie_counts_equal_plain(name):
+    h, cm, q, qm, p = stats_case(name, seed=32)
+    args = (h, cm.float(), q, p["w_x"], p["w_y"], p["w_xy"])
+    eq = k4_emulated(h, cm.float(), q, qm.float(), p["w_x"], p["w_y"], p["w_xy"])[3]
+    eq_r = fvta_stats.stats_fwd_ref(h, cm.float(), q, qm.float(), p["w_x"], p["w_y"],
+                                    p["w_xy"])[3]
+    got, ref = k5_emulated(*args, eq), fvta_stats.qcnt_ref(*args, eq_r)
+    assert torch.equal(got, ref)
+    assert (got >= 1).all()          # every max is reached somewhere, masked or not
+
+
+def test_streaming_branch_is_chosen_by_shape(monkeypatch):
+    calls = []
+    real = fvta_fused.fvta_stats_fused
+    monkeypatch.setattr(fvta_fused, "fvta_stats_fused",
+                        lambda *a: calls.append(a[0].shape[2]) or real(*a))
+    for t in (24, fvta_fused.STREAM_MIN_T - 1, fvta_fused.STREAM_MIN_T):
+        h, cm, q, qm, p = fvta_case(1, 1, t, 3, 4, seed=33)
+        out = fvta_fused.fvta_attention_fused(h, cm, q, qm, "trilinear", p)
+        ref = fvta_ref.fvta_attention(h, cm, q, qm,
+                                      fvta_ref.similarity_tensor(h, q, "trilinear", p))
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert calls == [fvta_fused.STREAM_MIN_T]
+
+
+def test_stats_wrappers_refuse_cpu_tensors():
+    h, cm, q, qm, p = fvta_case(2, 1, 40, 3, 4, seed=34)
+    w = (p["w_x"], p["w_y"], p["w_xy"])
+    m, den, v, eq, e = fvta_stats.stats_fwd_ref(h, cm.float(), q, qm.float(), *w)
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_stats.stats_fwd(h, cm.float(), q, qm.float(), *w)
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_stats.qcnt(h, cm.float(), q, *w, eq)
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_stats.stats_bwd(h, cm.float(), q, qm.float(), *w, e, eq, eq, eq, e, m, v)
 
 
 # ---- CPU: dispatch contract ---------------------------------------------------
@@ -429,3 +580,69 @@ def test_wrappers_check_inputs_on_card(cuda):
     with pytest.raises(ValueError, match="q_mask"):
         fvta_fused.fvta_fwd(h, cm.float(), q, qm.float()[:, :2], p["w_x"], p["w_y"],
                             p["w_xy"])
+
+
+# ---- card: K4, K5, K6 vs their plain versions ----------------------------------
+# (n, s, t, j, d): the video train step (S = 1, T = 4096 at D = 200, cut to N = 2
+# here), MemexQA-like S = 24 at T = 24, and small odd shapes past a chunk edge.
+STATS_SHAPES = [(2, 1, 4096, 30, 200), (4, 24, 24, 30, 200), (3, 2, 70, 5, 6),
+                (2, 3, 33, 40, 16)]
+STATS_TOL = dict(rtol=1e-5, atol=1e-5)   # the JAX suite's stats tolerance
+
+
+def _card_stats_case(shape, seed, device, masked):
+    """Bounded states (as the encoders give) and similarity weights at the
+    models' initial scale, N(0, 0.1): at N(0, 1) the scores reach |C| ~ 30,
+    where float32 rounding alone moves them by ~1e-5."""
+    n, s, t, j, d = shape
+    h, cm, q, qm, p = fvta_case(n, s, t, j, d, seed, device=device)
+    if masked:
+        cm[:, 0, : t // 2] = False      # a sequence with a dead first half
+        cm[0] = False                   # an example with no valid frame
+        qm[min(1, n - 1)] = False       # an all-masked question
+    return (h * cm[..., None], cm.float(), q, qm.float(),
+            tuple(0.1 * p[k] for k in ("w_x", "w_y", "w_xy")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_stats_kernels_match_plain_on_card(cuda, shape, masked):
+    h, cm, q, qm, w = _card_stats_case(shape, 40, cuda, masked)
+    before = (fvta_stats.stats_fwd.launches, fvta_stats.qcnt.launches,
+              fvta_stats.stats_bwd.launches)
+    with torch.no_grad():
+        got = fvta_stats.stats_fwd(h, cm, q, qm, *w)
+        ref = fvta_stats.stats_fwd_ref(h, cm, q, qm, *w)
+        for field, a, b in zip(("m", "den", "v", "eq", "e"), got, ref):
+            torch.testing.assert_close(a, b, **STATS_TOL, msg=field)
+        # K5 from K4's eq, the plain count from the plain eq: equal, and >= 1
+        cnt = fvta_stats.qcnt(h, cm, q, *w, got[3])
+        cnt_r = fvta_stats.qcnt_ref(h, cm, q, *w, ref[3])
+        assert torch.equal(cnt, cnt_r) and (cnt >= 1).all()
+        rng = np.random.default_rng(41)
+        n, s, t, d = h.shape
+        de, geq, gv = (torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).to(cuda)
+                       for sh in ((n, s, t), tuple(qm.shape), (n, s, d)))
+        dk = fvta_stats.stats_bwd(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
+        dr = fvta_stats.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3], cnt_r, ref[4],
+                                      ref[0], gv)
+        torch.cuda.synchronize()
+    for field, a, b in zip(("dh", "dq", "dwx", "dwy", "dwxy"), dk, dr):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=field)
+    assert (fvta_stats.stats_fwd.launches, fvta_stats.qcnt.launches,
+            fvta_stats.stats_bwd.launches) == tuple(x + 1 for x in before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(STATS_CASES))
+def test_stats_grad_on_card_matches_plain_autograd(cuda, name):
+    h, cm, q, qm, p = stats_case(name, seed=42, device=cuda)
+    out_r, ref = stats_grads(fvta_ref.focal_local_stats, h, cm, q, qm, p)
+    before = fvta_stats.stats_bwd.launches
+    out_k, got = stats_grads(fvta_stats.fvta_stats_fused, h, cm, q, qm, p)
+    assert fvta_stats.stats_bwd.launches == before + 1
+    for field, a, b in zip(("m", "den", "v", "eq", "e"), out_k, out_r):
+        torch.testing.assert_close(a, b, **STATS_TOL, msg=field)
+    for field, a, b in zip(("h", "q", "w_x", "w_y", "w_xy"), got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=field)
