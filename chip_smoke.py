@@ -79,6 +79,38 @@ streaming form of the attention from STREAM_MIN_T frames on):
    crossover of K2 + recompute vs K4 + K5 + K6 at T = 256, 1024, 4096 (time,
    device time and peak memory of one forward + backward).
 
+The grouped scans (kernels K7, csrc/lstm_grouped.cu, and K8, csrc/lstm_stream.cu:
+the counterpart of the JAX package's round-1 lstm_pallas API, which no command
+reaches) and the evaluation path (`cli prepro | test | ablate`, on K1 and K2):
+
+15. the grouped-scan API at D=200, H=100 on the batch-64 train step's bi-LSTM
+   shapes (photo titles 3072 x 10, which routes to K8; the six encoders at 256
+   rows; the question 64 x 30; the choices 256 x 8) and the routing edge
+   (n=1024, t=2 → K8; n=1023 → K7), rows of length 0 and T: with the counters
+   zeroed before and read after, bilstm_grouped (G=2) and lstm_scan_grouped
+   (G=1) launch the kernel the routing names once per call; outputs vs the
+   plain references and vs K1 (bilstm_fused) at 1e-5 / 1e-6; gradients under
+   autograd (backward by recompute through the plain reference) vs plain
+   autograd at 1e-4 / 1e-5; then K7 and K8 directly at every shape, G=2 and
+   G=1, vs the plain grouped scan and vs each other. K7's and K8's counters
+   are also zeroed before phase 3 and read before phase 15, and zeroed and read
+   around phase 16: no command may launch them;
+16. the evaluation path on phase 7's run directories and phase 4's pack, the
+   K1 and K2 counters zeroed before and read after (both must launch): `cli
+   test` cached and --no-album-cache (accuracy equal, loss to 1e-5), then
+   --by-category (counts sum to the split), --dump-attention and --ensemble
+   over the plain and dedup runs; `cli prepro` on the raw files
+   write_raw_files writes for phase 4's corpus (the pack equals phase 4's
+   array for array, word_emb_init to glove.txt's 5 decimals); `cli ablate
+   --num-steps 6` over fvta,flat,none; predict_cached's probabilities on the
+   card vs the CPU's from the same weights at 1e-4; evaluate_cached's cache_s;
+17. times from CUDA events after warm-up, as projection + scan (the bi-LSTM
+   encode from x): K7 and K8 at each phase-15 shape, the plain version, the
+   bound, K1 on the same function and cuDNN's nn.LSTM; each kernel alone on
+   the precomputed x_proj, and K7's scan with Wh read from global memory at
+   every step (bit-equal to K7; what residency alone is worth); and `cli
+   test`'s wall times (phase 16).
+
 Prints a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -257,6 +289,10 @@ K1_SHAPES = [
     ("choices", 8 * 4, 8, 200, False),
 ]
 H = 100
+# the serving slice's synthetic corpus (phase 4), written to raw files again
+# for `cli prepro` in phase 16
+SLICE_CORPUS = dict(num_albums=64, photos_per_album=12, num_questions=320, feat_dim=2537,
+                    seed=0)
 
 
 def lstm_case(n, t, d, h, seed, device):
@@ -543,8 +579,7 @@ def run_slice(workdir: str) -> dict:
 
     packdir, rundir = os.path.join(workdir, "pack"), os.path.join(workdir, "run")
     t0 = time.perf_counter()
-    qas, albums, feats, test_ids, glove = make_synthetic(
-        num_albums=64, photos_per_album=12, num_questions=320, feat_dim=2537, seed=0)
+    qas, albums, feats, test_ids, glove = make_synthetic(**SLICE_CORPUS)
     meta = pack(qas, albums, feats, test_ids, glove, packdir, DataConfig(), seed=0)
     cfg = Config(data=DataConfig(**meta["data_config"]))
     model = FVTAModel(cfg, generator=torch.Generator().manual_seed(0))
@@ -1770,6 +1805,421 @@ def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list]:
              "bilstm_step": bilstm, "resume": resume, "crossover": cross}, entries)
 
 
+# ---- the grouped scans: K7 (csrc/lstm_grouped.cu), K8 (csrc/lstm_stream.cu) --------
+
+# (name, rows, T): the bi-LSTM calls of one batch-64 train step (A = 4, D = 200,
+# H = 100) as G = 2 groups, then the routing edge: n = 1024, t = 2 goes to K8
+# and n = 1023 to K7 (lstm_grouped.uses_stream, the JAX package's rule).
+GROUPED_SHAPES = [
+    ("photo_title_words", 256 * 12, 10),
+    ("enc_photo", 256, 12),
+    ("enc_photo_title", 256, 12),
+    ("enc_album_title", 256, 24),
+    ("enc_album_desc", 256, 24),
+    ("enc_when", 256, 24),
+    ("enc_where", 256, 24),
+    ("question", 64, 30),
+    ("choices", 64 * 4, 8),
+    ("edge_k8", 1024, 2),
+    ("edge_k7", 1023, 2),
+]
+GROUPED_D = 200
+
+
+class forced_scan:
+    """Route every grouped scan to `kernel` (both kernels or the plain version)
+    while the context is open: lstm_grouped._kernels is swapped for the time."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+
+    def __enter__(self):
+        from fvta_memexqa_torch.ops import lstm_grouped
+
+        self.real = lstm_grouped._kernels
+        lstm_grouped._kernels = lambda device: (self.kernel, self.kernel)
+        return self
+
+    def __exit__(self, *exc):
+        from fvta_memexqa_torch.ops import lstm_grouped
+
+        lstm_grouped._kernels = self.real
+        return False
+
+
+def grouped_counters() -> dict:
+    """K7's and K8's launch counts."""
+    from fvta_memexqa_torch.ops import lstm_grouped
+
+    return {"lstm_grouped": lstm_grouped.scan_grouped.launches,
+            "lstm_stream": lstm_grouped.scan_stream.launches}
+
+
+def zero_grouped_counters() -> None:
+    from fvta_memexqa_torch.ops import lstm_grouped
+
+    lstm_grouped.scan_grouped.launches = lstm_grouped.scan_stream.launches = 0
+
+
+def grouped_x_proj(x, mask, p_fw, p_bw):
+    """The G = 2 scan inputs bilstm_grouped builds: (x_proj [2, N, T, 4H], int32
+    lengths [2, N], wh [2, H, 4H])."""
+    import torch
+
+    from fvta_memexqa_torch.ops.lstm_ref import _flip_to_front
+
+    lengths = mask.sum(1, dtype=torch.int32)
+    xp = torch.stack([x @ p_fw.wx + p_fw.b, _flip_to_front(x, lengths) @ p_bw.wx + p_bw.b])
+    return (xp.contiguous(), lengths[None].expand(2, -1).contiguous(),
+            torch.stack([p_fw.wh, p_bw.wh]).contiguous())
+
+
+def grouped_check(device) -> dict:
+    """Phase 15. The grouped-scan API (this slice's path: no command reaches
+    K7 or K8) with the counters zeroed before and read after: at every shape
+    bilstm_grouped (G = 2) and lstm_scan_grouped (G = 1) launch the kernel the
+    routing names once per call; outputs vs the plain references and vs K1 at
+    LSTM_TOL; gradients under autograd vs plain autograd at GRAD_TOL. Then both
+    kernels directly at every shape, against the plain grouped scan and against
+    each other."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused, lstm_grouped, lstm_ref
+
+    k7, k8 = lstm_grouped.scan_grouped, lstm_grouped.scan_stream
+    k7.launches = k8.launches = 0
+    expected = {"lstm_grouped": 0, "lstm_stream": 0}
+    api = {"lstm_grouped": 0.0, "lstm_stream": 0.0}     # through the API vs the references
+    vs_k1 = {"lstm_grouped": 0.0, "lstm_stream": 0.0}   # through the API vs K1
+    bad = []
+    for i, (name, n, t) in enumerate(GROUPED_SHAPES):
+        x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, GROUPED_D, 900 + i, False, device,
+                                                     COTANGENT_SCALE)
+        route = "lstm_stream" if lstm_grouped.uses_stream(n, t) else "lstm_grouped"
+        before = (k7.launches, k8.launches)
+        with torch.no_grad():
+            out, fin = lstm_grouped.bilstm_grouped(p_fw, p_bw, x, mask)
+            out_r, fin_r = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
+            out_k1, fin_k1 = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
+            out1, fin1 = lstm_grouped.lstm_scan_grouped(p_fw, x, mask.float())
+            out1_r, fin1_r = lstm_ref.lstm_scan_ref(p_fw, x, mask)
+        out_g, fin_g, got = lstm_grads(
+            lambda pf, pb, xx: lstm_grouped.bilstm_grouped(pf, pb, xx, mask), x, p_fw, p_bw,
+            g_out, g_fin)
+        ref = lstm_grads(lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask), x, p_fw,
+                         p_bw, g_out, g_fin)[2]
+        torch.cuda.synchronize()
+        expected[route] += 3
+        launched = (k7.launches - before[0], k8.launches - before[1])
+        pairs = [(out, out_r), (fin, fin_r), (out, out_k1), (fin, fin_k1), (out1, out1_r),
+                 (fin1, fin1_r), (out_g, out_r), (fin_g, fin_r)]
+        errs = [max_err(a, b) for a, b in pairs]
+        gerrs = [max_err(a, b) for a, b in zip(got, ref)]
+        ok = (all(close(a, b, **LSTM_TOL) for a, b in pairs)
+              and all(close(a, b, **GRAD_TOL) for a, b in zip(got, ref))
+              and launched == ((0, 3) if route == "lstm_stream" else (3, 0))
+              and not out[~mask].any() and not fin[mask.sum(1) == 0].any())
+        log(f"K7/K8 API    {name:18s} N={n:4d} T={t:2d} -> {route}: launches K7/K8 "
+            f"{launched}; max|err| vs plain out {errs[0]:.2e} fin {errs[1]:.2e}, vs K1 "
+            f"{max(errs[2:4]):.2e}, G=1 {max(errs[4:6]):.2e}; grads "
+            + " ".join(f"{nm} {e:.1e}" for nm, e in zip(GRAD_NAMES, gerrs))
+            + f"  {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad.append(name)
+        api[route] = max(api[route], *errs[:2], *errs[4:])
+        vs_k1[route] = max(vs_k1[route], *errs[2:4])
+    launches = {"lstm_grouped": k7.launches, "lstm_stream": k8.launches}
+    log(f"K7/K8 API run: launches {json.dumps(launches)} (expected {json.dumps(expected)})")
+    if bad or launches != expected or min(launches.values()) == 0:
+        fail(f"the grouped-scan API disagrees with the plain versions or K1 beyond "
+             f"{LSTM_TOL} / {GRAD_TOL}, or launched other kernels than the routing names, "
+             f"at {bad}: launches {launches}, expected {expected}")
+    # both kernels directly at every shape, G = 2 and G = 1 (comparison launches)
+    direct = {"lstm_grouped": 0.0, "lstm_stream": 0.0}
+    for i, (name, n, t) in enumerate(GROUPED_SHAPES):
+        x, mask, p_fw, p_bw = lstm_case(n, t, GROUPED_D, H, 950 + i, device)
+        xp, lens, wh = grouped_x_proj(x, mask, p_fw, p_bw)
+        with torch.no_grad():
+            res = {}
+            for g in (2, 1):
+                ref = lstm_grouped.grouped_scan_ref(xp[:g], lens[:g], wh[:g], 1.0)
+                for stem, k in (("lstm_grouped", k7), ("lstm_stream", k8)):
+                    res[(stem, g)] = k(xp[:g].contiguous(), lens[:g].contiguous(),
+                                       wh[:g].contiguous(), 1.0)
+                    e = max(max_err(a, b) for a, b in zip(res[(stem, g)], ref))
+                    direct[stem] = max(direct[stem], e)
+                    if not all(close(a, b, **LSTM_TOL) for a, b in zip(res[(stem, g)], ref)):
+                        bad.append(f"{stem}/{name}/G={g} ({e:.2e})")
+            torch.cuda.synchronize()
+            k7_k8 = max(max_err(a, b) for a, b in zip(res[("lstm_grouped", 2)],
+                                                      res[("lstm_stream", 2)]))
+            if not all(close(a, b, **LSTM_TOL) for a, b in zip(res[("lstm_grouped", 2)],
+                                                                res[("lstm_stream", 2)])):
+                bad.append(f"K7 vs K8 at {name} ({k7_k8:.2e})")
+    log(f"K7, K8 directly vs the plain grouped scan at {len(GROUPED_SHAPES)} shapes, G=2 and "
+        f"G=1: max|err| K7 {direct['lstm_grouped']:.2e}, K8 {direct['lstm_stream']:.2e}  "
+        f"{'ok' if not bad else 'MISMATCH ' + str(bad)}")
+    if bad:
+        fail(f"K7 or K8 disagrees with the plain grouped scan (or each other) at {bad}")
+    return {"launches": launches, "max_abs_err": direct, "api_max_abs_err": api,
+            "max_abs_err_vs_k1": vs_k1}
+
+
+def k7_wh_global(xp, lens, wh):
+    """K7 with Wh read from global memory at every step, as K1 reads its weights
+    (csrc/lstm_grouped.cu's lstm_grouped_wh_global: no wrapper in the package,
+    no launch count): the measurement of what residency alone is worth."""
+    import ctypes
+
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_grouped
+
+    fn = lstm_grouped._lib("lstm_grouped").lstm_grouped_wh_global
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g, n, t, _ = xp.shape
+    h = wh.shape[1]
+    out = torch.empty((g, n, t, h), device=xp.device)
+    fin = torch.empty((g, n, h), device=xp.device)
+    err = fn(xp.data_ptr(), lens.data_ptr(), wh.data_ptr(), out.data_ptr(), fin.data_ptr(),
+             g, n, t, h, 1.0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"lstm_grouped_wh_global launch failed: cudaError {err}")
+    return out, fin
+
+
+def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list]:
+    """Phase 17, the kernels: per shape, as projection + scan (the bi-LSTM encode
+    from x, G = 2): the API forced through K7 and through K8, the plain grouped
+    scan, K1 (bilstm_fused: the same function) and cuDNN's nn.LSTM; and each
+    kernel alone on the precomputed x_proj, and K7 with Wh read from global
+    memory (k7_wh_global; it must give K7's bits). Bounds from these inputs over
+    the valid positions (the formula of k1_times: the same function). `grouped` is
+    grouped_check's result; `from_cli` the K7/K8 launches counted over every
+    command this script ran (each 0: no command reaches them)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    from fvta_memexqa_torch.ops import lstm_fused, lstm_grouped
+
+    rows, tot = [], {k: 0.0 for k in ("k7_ms", "k8_ms", "k7_kernel_ms", "k8_kernel_ms",
+                                       "k7_wh_global_kernel_ms", "plain_ms", "k1_ms",
+                                       "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    k7, k8 = lstm_grouped.scan_grouped, lstm_grouped.scan_stream
+    for i, (name, n, t) in enumerate(GROUPED_SHAPES):
+        d = GROUPED_D
+        x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 1000 + i, device)
+        lens = mask.sum(1)
+        xp, l2, wh = grouped_x_proj(x, mask, p_fw, p_bw)
+        api = lambda: lstm_grouped.bilstm_grouped(p_fw, p_bw, x, mask)
+        with torch.no_grad():
+            row = {"name": name, "rows": n, "T": t, "D": d,
+                   "route": "lstm_stream" if lstm_grouped.uses_stream(n, t) else "lstm_grouped"}
+            with forced_scan(k7):
+                row["k7_ms"] = cuda_ms(api)
+            with forced_scan(k8):
+                row["k8_ms"] = cuda_ms(api)
+            row["k7_kernel_ms"] = cuda_ms(lambda: k7(xp, l2, wh, 1.0))
+            row["k8_kernel_ms"] = cuda_ms(lambda: k8(xp, l2, wh, 1.0))
+            if not all(torch.equal(a, b) for a, b in zip(k7_wh_global(xp, l2, wh),
+                                                         k7(xp, l2, wh, 1.0))):
+                fail(f"K7 with Wh from global memory differs from K7 at {name}")
+            row["k7_wh_global_kernel_ms"] = cuda_ms(lambda: k7_wh_global(xp, l2, wh))
+            with forced_scan(lstm_grouped.grouped_scan_ref):
+                row["plain_ms"] = cuda_ms(api, iters=10)
+            row["k1_ms"] = cuda_ms(lambda: lstm_fused.bilstm_fused(p_fw, p_bw, x, mask))
+            lstm = cudnn_lstm(p_fw, p_bw, 1.0, d, H, device)
+            live = lens > 0
+            packed = pack_padded_sequence(x[live], lens[live].cpu(), batch_first=True,
+                                          enforce_sorted=False)
+            row["library_ms"] = cuda_ms(lambda: lstm(packed))
+        steps = int(lens.sum())
+        nbytes = 4 * (steps * d + n + 2 * (d * 4 * H + H * 4 * H + 4 * H)
+                      + n * t * 2 * H + n * 2 * H)
+        flops = 2 * steps * (2 * (d + H) * 4 * H + 12 * H)
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        row.update(valid_steps=steps, bound_ms=max(b_ms, o_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations")
+        rows.append(row)
+        for k in tot:
+            tot[k] += row.get(k, 0.0)
+        tot["bytes_ms"] += b_ms
+        tot["ops_ms"] += o_ms
+        log(f"K7/K8 times  {name:18s} N={n:4d} T={t:2d}: projection + K7 {row['k7_ms']:.3f} "
+            f"(scan {row['k7_kernel_ms']:.3f}; Wh from global "
+            f"{row['k7_wh_global_kernel_ms']:.3f}), + K8 {row['k8_ms']:.3f} (scan "
+            f"{row['k8_kernel_ms']:.3f}), plain {row['plain_ms']:.3f}, K1 {row['k1_ms']:.3f}, "
+            f"cuDNN {row['library_ms']:.3f}, bound {row['bound_ms']:.4f} ms")
+    by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    work = (f"projection + scan: the bi-LSTM encode from x (G = 2) at the {len(rows)} "
+            "shapes of phase 15 (the 9 calls of a batch-64 train step and the two routing "
+            "edges), sum; kernel_ms is the scan alone on the precomputed x_proj; k1_ms is "
+            "K1 on the same function; kernel_ms_wh_global is K7's scan with Wh read from "
+            "global memory at every step")
+    entries = []
+    for stem, key, line, tpu in (("lstm_grouped", "k7", 35, "_grouped_kernel"),
+                                 ("lstm_stream", "k8", 123, "_stream_kernel")):
+        entries.append({
+            "name": stem, "route": "cuda", "source": f"fvta_memexqa_torch/csrc/{stem}.cu",
+            "replaces": f"fvta_memexqa_tpu/ops/lstm_pallas.py:{line}",
+            "launches": grouped["launches"][stem], "launches_from_cli": from_cli[stem],
+            "max_abs_err": grouped["max_abs_err"][stem],
+            "api_max_abs_err": grouped["api_max_abs_err"][stem],
+            "max_abs_err_vs_k1": grouped["max_abs_err_vs_k1"][stem],
+            "ms": tot[f"{key}_ms"], "kernel_ms": tot[f"{key}_kernel_ms"],
+            **({"kernel_ms_wh_global": tot["k7_wh_global_kernel_ms"]} if key == "k7" else {}),
+            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": by,
+            "library_ms": tot["library_ms"], "k1_ms": tot["k1_ms"],
+            "timed_work": work})
+    return entries, rows
+
+
+# ---- the evaluation path: cli prepro | test | ablate -------------------------------
+
+EVAL_TOL = 1e-5          # cached vs uncached `cli test` loss (relative)
+GLOVE_TEXT_ATOL = 5.5e-6  # glove.txt keeps 5 decimals of each GloVe value
+
+
+def cli_json(argv) -> tuple[dict, float]:
+    """(the last stdout line of `cli.main(argv)` as JSON, host seconds)."""
+    import contextlib
+    import io
+
+    from fvta_memexqa_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    wall = time.perf_counter() - t0
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
+
+
+def prepro_check(workdir: str) -> dict:
+    """`cli prepro` on the raw files write_raw_files writes for phase 4's corpus
+    objects: the pack must equal phase 4's, array for array (word_emb_init to
+    the 5 decimals glove.txt keeps, every other array and the metadata exactly)."""
+    import numpy as np
+
+    from fvta_memexqa_torch.data import load_pack, make_synthetic, write_raw_files
+
+    raw, pack = os.path.join(workdir, "raw"), os.path.join(workdir, "pack_prepro")
+    write_raw_files(raw, *make_synthetic(**SLICE_CORPUS))
+    files = [os.path.join(raw, f) for f in ("qas.json", "album_info.json",
+                                            "test_question.ids", "glove.txt",
+                                            "photo_feats.npz")]
+    res, wall = cli_json(["prepro", *files, pack, "--seed", "0", "--image-feat-dim",
+                          str(SLICE_CORPUS["feat_dim"])])
+    mine, ref = load_pack(pack), load_pack(os.path.join(workdir, "pack"))
+    bad = [] if mine.meta == ref.meta else ["meta.json"]
+    glove_err = 0.0
+    for k, v in ref.shared.__dict__.items():
+        a = getattr(mine.shared, k)
+        if k == "word_emb_init":
+            glove_err = float(np.abs(a - v).max()) if v.size else 0.0
+            if a.shape != v.shape or glove_err > GLOVE_TEXT_ATOL:
+                bad.append(k)
+        elif not np.array_equal(a, v):
+            bad.append(k)
+    for split, arrays in ref.splits.items():
+        for k, v in arrays.items():
+            if not np.array_equal(mine.splits.get(split, {}).get(k), v):
+                bad.append(f"{split}.{k}")
+    log(f"cli prepro on write_raw_files' files ({wall:.1f} s): {json.dumps(res)}; vs phase "
+        f"4's pack: word_emb_init max|d| {glove_err:.2e} (glove.txt rounding), "
+        f"{'every other array equal' if not bad else 'DIFFERS ' + str(bad)}")
+    if bad:
+        fail(f"cli prepro's pack differs from phase 4's at {bad}")
+    return {"wall_s": wall, "result": res, "word_emb_init_max_abs_d": glove_err}
+
+
+def eval_check(workdir: str, device: str = "cuda") -> dict:
+    """Phase 16. The evaluation path on the card over phase 7's run directories
+    and phase 4's pack, with the K1 and K2 counters zeroed before and read
+    after: `cli test` cached, --no-album-cache, --by-category, --dump-attention
+    and --ensemble over both runs; `cli prepro` (prepro_check); `cli ablate
+    --num-steps 6` over fvta,flat,none. Cached and uncached agree (accuracy
+    exactly, loss to EVAL_TOL), the by-category counts sum to the split, and
+    predict_cached's probabilities on the card match the CPU's at ENGINE_TOL."""
+    import numpy as np
+
+    from fvta_memexqa_torch import eval_cache
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.config import load_config
+    from fvta_memexqa_torch.data.device_prepro import SharedTables
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.pipeline import Dataset
+    from fvta_memexqa_torch.ops import fvta_fused, lstm_fused
+
+    zero_grouped_counters()
+    pack = os.path.join(workdir, "pack")
+    plain, dedup = (os.path.join(workdir, d) for d in ("train_plain", "train_dedup"))
+    attn = os.path.join(workdir, "eval_attention.npz")
+    lstm_fused.lstm_fwd.launches = 0
+    fvta_fused.fvta_fwd.launches = 0
+    out, walls = {}, {}
+    for key, extra in (("cached", []), ("uncached", ["--no-album-cache"]),
+                       ("cached_again", []), ("uncached_again", ["--no-album-cache"]),
+                       ("by_category", ["--by-category", "--no-album-cache"]),
+                       ("dump_attention", ["--dump-attention", attn]),
+                       ("ensemble", ["--ensemble", dedup, "--by-category"])):
+        out[key], walls[key] = cli_json(["test", pack, plain, "--device", device, *extra])
+        log(f"cli test {key:15s} {walls[key]:6.2f} s: {json.dumps(out[key])[:200]}")
+    prepro = prepro_check(workdir)
+    ablate, walls["ablate"] = cli_json(["ablate", pack, os.path.join(workdir, "ablate"),
+                                        "--num-steps", "6", "--device", device])
+    launches = {"lstm_fwd": lstm_fused.lstm_fwd.launches,
+                "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    grouped = grouped_counters()
+    log(f"cli ablate --num-steps 6 ({walls['ablate']:.1f} s): {json.dumps(ablate)}; "
+        f"evaluation phase launches {json.dumps(launches)}, K7/K8 {json.dumps(grouped)}")
+    c, u = out["cached"], out["uncached"]
+    n_test = len(load_pack(pack).splits["test"]["label"])
+    bc = out["by_category"]["by_category"]
+    z = np.load(attn)
+    problems = []
+    if min(launches.values()) == 0:
+        problems.append(f"a kernel never launched: {launches}")
+    if c["accuracy"] != u["accuracy"] or abs(c["loss"] - u["loss"]) > EVAL_TOL * abs(u["loss"]):
+        problems.append(f"cached {c} vs uncached {u}")
+    if c["count"] != n_test or sum(v["count"] for v in bc.values()) != n_test:
+        problems.append(f"counts: test {c['count']}, by category {bc}, split {n_test}")
+    if z["probs"].shape != (n_test, 4) or not np.isfinite(z["time_attn"]).all():
+        problems.append(f"attention dump {[(k, z[k].shape) for k in z.files]}")
+    if len(out["ensemble"]["members"]) != 2 or set(ablate) != {"fvta", "flat", "none"}:
+        problems.append("ensemble members or ablate variants missing")
+    if not all(math.isfinite(v["test_acc"]) and v["steps"] == 6 for v in ablate.values()):
+        problems.append(f"ablate {ablate}")
+
+    # predict_cached on the card vs the CPU from the same weights; cache_s
+    packed = load_pack(pack)
+    cfg = load_config(os.path.join(plain, "config.json")).replace(data=packed.cfg)
+    probs, cache_s = {}, {}
+    for dev in ("cpu", device):
+        model = tr.restore_model(cfg, plain, True, dev)
+        shared = SharedTables.from_packed(packed.shared, dev)
+        ds = Dataset(packed, "test")
+        probs[dev] = eval_cache.predict_cached(cfg, model, shared, ds, 128)["probs"]
+        if dev == device:
+            for _ in range(2):   # the second is warm
+                m = eval_cache.evaluate_cached(cfg, model, shared, ds, 128)
+                cache_s.setdefault("cold", m["cache_s"])
+            cache_s["warm"] = m["cache_s"]
+    d_probs = float(np.abs(probs[device] - probs["cpu"]).max())
+    log(f"predict_cached card vs CPU over {n_test} questions: max|d probs| {d_probs:.3e}; "
+        f"evaluate_cached cache_s {cache_s['cold']:.4f} s (first), {cache_s['warm']:.4f} s "
+        f"(warm) on the card")
+    if d_probs > ENGINE_TOL:
+        problems.append(f"predict_cached on the card vs the CPU: {d_probs}")
+    if problems:
+        fail("evaluation path: " + "; ".join(problems))
+    return {"launches": launches, "grouped_launches": grouped, "test": out, "wall_s": walls,
+            "prepro": prepro,
+            "ablate": ablate, "predict_cached_max_abs_d_probs_vs_cpu": d_probs,
+            "cache_s": cache_s}
+
+
 def main() -> None:
     import torch
 
@@ -1804,6 +2254,7 @@ def main() -> None:
         try:
             k1_err = k1_check(device)
             k2_err = k2_check(device)
+            zero_grouped_counters()   # K7/K8 over the commands of phases 3-14 ...
             served = run_slice(workdir)
             log("serving " + json.dumps(served))
             cotangents = cotangent_probe(os.path.join(workdir, "pack"))
@@ -1813,6 +2264,15 @@ def main() -> None:
             log("training " + json.dumps(trained))
             video, stats_entries = run_video_slice(workdir, prep)
             log("video " + json.dumps(video))
+            from_cli = grouped_counters()
+            grouped = grouped_check(device)
+            evaluation = eval_check(workdir)   # ... and of phase 16
+            log("evaluation " + json.dumps(evaluation))
+            from_cli = {k: v + evaluation["grouped_launches"][k] for k, v in from_cli.items()}
+            log(f"K7/K8 launches over every command run (serving, training, video, "
+                f"evaluation): {json.dumps(from_cli)}")
+            if any(from_cli.values()):
+                fail(f"a command launched K7 or K8 ({from_cli}): no command should reach them")
         finally:
             if prep.poll() is None:
                 prep.kill()
@@ -1820,9 +2280,11 @@ def main() -> None:
     k1, k1_rows = k1_times(device, served["launches"]["lstm_fwd"], k1_err)
     k2 = k2_times(device, served["launches"]["fvta_fwd"], k2_err)
     k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"]["lstm_bwd"], k1b_err)
+    grouped_entries, grouped_rows = grouped_times(device, grouped, from_cli)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
-    log(json.dumps({"kernels": [k1, k2, k1b, *stats_entries]}))
+    log("grouped_shapes " + json.dumps(grouped_rows))
+    log(json.dumps({"kernels": [k1, k2, k1b, *stats_entries, *grouped_entries]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

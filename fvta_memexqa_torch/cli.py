@@ -1,8 +1,19 @@
-"""Command line of the port.
+"""Command line of the port: the paper's three stages `prepro → train → test`,
+plus ablate, predict, synth and the video commands.
 
+    python -m fvta_memexqa_torch.cli synth <rawdir> [--num-albums 6 --photos-per-album 4 \
+        --num-questions 24 --feat-dim 64 --seed 0]
+    python -m fvta_memexqa_torch.cli prepro <qas.json> <album_info.json> <test_question.ids> \
+        <glove.txt|none> <photo_feats.npz> <packdir> [--val-fraction 0.1 --val-ids F \
+        --seed 0 (DataConfig fields as --flags, e.g. --image-feat-dim 64)]
     python -m fvta_memexqa_torch.cli train <packdir> <rundir> [--num-steps N] \
         [--batch-size 64 --hidden-dim 100 ... (ModelConfig/TrainConfig/MeshConfig
         fields as --flags)] [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli test <packdir> <rundir> [--load-latest --split test \
+        --no-album-cache --dump-attention PATH --by-category --ensemble RUNDIR[,RUNDIR...]] \
+        [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli ablate <packdir> <rundir> [--num-steps N \
+        --variants fvta,flat,none --seeds S0[,S1...]] [--device cuda|cpu]
     python -m fvta_memexqa_torch.cli predict <packdir> <rundir> \
         --question "what year was the sunrise trip ?" --choices "2007|2009|2011|2013" \
         --album-ids album0 [--device cuda|cpu]
@@ -15,6 +26,18 @@
         [--encoder dilated_conv|bilstm --steps N --hidden-dim 64 ...] [--device cuda|cpu]
     python -m fvta_memexqa_torch.cli video-test <rundir> [--split test --latest \
         --dump-attention PATH] [--device cuda|cpu]
+
+`synth` writes a synthetic raw corpus (data/synthetic.write_raw_files; `--focal`
+is not ported yet and raises), `prepro` packs raw files (data/pack.pack) and
+prints {"splits", "num_albums", "num_photos", "vocab"}. `test` evaluates a run
+directory (train.test: through the album cache unless --no-album-cache) and
+prints {"split", "accuracy", "loss", "count"[, "by_category"]}; with --ensemble
+(train.test_ensemble) {"split", "accuracy", "count", "members"[, "by_category"]}.
+`ablate` trains and tests each attention variant (per seed with --seeds) under
+<rundir>/<variant> and prints {variant: {"val_acc", "test_acc", "steps"
+[, "per_seed"]}}. These print the JAX CLI's JSON lines with the same keys.
+`--shard-cache` and `--data-parallel` > 1 raise NotImplementedError: they
+belong to the data-parallel slice.
 
 `train` runs train.train on the pack (metrics to <rundir>/metrics.jsonl,
 checkpoints under <rundir>, resuming from the latest one there) and prints
@@ -67,30 +90,184 @@ def _dc_from_args(args, dc_type, base):
     return dataclasses.replace(base, **updates)
 
 
-def cmd_train(argv):
-    p = argparse.ArgumentParser(prog="fvta-torch train")
+def _model_config(args, base: Config, packed) -> Config:
+    return Config(data=packed.cfg, model=_dc_from_args(args, ModelConfig, base.model),
+                  train=_dc_from_args(args, TrainConfig, base.train),
+                  mesh=_dc_from_args(args, MeshConfig, base.mesh))
+
+
+def _run_parser(prog: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog)
     p.add_argument("packdir")
     p.add_argument("rundir")
     for dc in (ModelConfig, TrainConfig, MeshConfig):
         _add_dataclass_flags(p, dc)
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def cmd_train(argv):
+    p = _run_parser("fvta-torch train")
     p.add_argument("--num-steps", type=int, default=None,
                    help="stop after N optimizer steps (overrides epochs)")
-    p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
     from fvta_memexqa_torch.data.pack import load_pack
     from fvta_memexqa_torch.train import train
 
     packed = load_pack(args.packdir)
-    base = Config()
-    cfg = Config(data=packed.cfg, model=_dc_from_args(args, ModelConfig, base.model),
-                 train=_dc_from_args(args, TrainConfig, base.train),
-                 mesh=_dc_from_args(args, MeshConfig, base.mesh))
+    cfg = _model_config(args, Config(), packed)
     os.makedirs(args.rundir, exist_ok=True)
     res = train(cfg, packed, args.rundir, num_steps=args.num_steps,
                 metrics_path=os.path.join(args.rundir, "metrics.jsonl"),
                 device=args.device)
     print(json.dumps({"best_val_acc": res["best_val_acc"], "steps": res["steps"]}))
+
+
+def cmd_synth(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch synth")
+    p.add_argument("outdir")
+    p.add_argument("--num-albums", type=int, default=6)
+    p.add_argument("--photos-per-album", type=int, default=4)
+    p.add_argument("--num-questions", type=int, default=24)
+    p.add_argument("--feat-dim", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--focal", action="store_true",
+                   help="the focality corpus (not ported yet: raises)")
+    args = p.parse_args(argv)
+    if args.focal:
+        raise NotImplementedError("synth --focal (data/synthetic.make_focal_synthetic) is "
+                                  "not ported yet")
+    from fvta_memexqa_torch.data.synthetic import make_synthetic, write_raw_files
+
+    write_raw_files(args.outdir, *make_synthetic(
+        num_albums=args.num_albums, photos_per_album=args.photos_per_album,
+        num_questions=args.num_questions, feat_dim=args.feat_dim, seed=args.seed))
+    print(json.dumps({"outdir": args.outdir, "questions": args.num_questions,
+                      "albums": args.num_albums, "focal": args.focal}))
+
+
+def _read_ids(path: str) -> set[str]:
+    with open(path) as f:
+        return {line.strip() for line in f if line.strip()}
+
+
+def cmd_prepro(argv):
+    p = argparse.ArgumentParser(prog="fvta-torch prepro")
+    p.add_argument("qas")
+    p.add_argument("album_info")
+    p.add_argument("test_ids")
+    p.add_argument("glove", help="GloVe txt path, or 'none' to train all embeddings")
+    p.add_argument("photo_npz")
+    p.add_argument("outdir")
+    p.add_argument("--val-fraction", type=float, default=0.1)
+    p.add_argument("--val-ids", default=None,
+                   help="explicit val question-id file; overrides --val-fraction")
+    p.add_argument("--seed", type=int, default=0)
+    _add_dataclass_flags(p, DataConfig)
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.data import load_glove, pack, parse_album_info, parse_qas
+
+    cfg = _dc_from_args(args, DataConfig, DataConfig())
+    qas, qerr = parse_qas(args.qas)
+    albums, aerr = parse_album_info(args.album_info)
+    for e in (qerr + aerr)[:20]:
+        print(f"prepro warning: {e}", file=sys.stderr)
+    glove = None if args.glove == "none" else load_glove(args.glove, cfg.word_emb_dim)
+    meta = pack(qas, albums, dict(np.load(args.photo_npz)), _read_ids(args.test_ids), glove,
+                args.outdir, cfg, val_fraction=args.val_fraction, seed=args.seed,
+                val_ids=_read_ids(args.val_ids) if args.val_ids else None)
+    print(json.dumps({"splits": meta["split_sizes"], "num_albums": meta["num_albums"],
+                      "num_photos": meta["num_photos"],
+                      "vocab": meta["data_config"]["word_vocab_size"]}))
+
+
+def cmd_test(argv):
+    p = _run_parser("fvta-torch test")
+    p.add_argument("--load-latest", action="store_true",
+                   help="use the latest instead of the best-on-val checkpoint")
+    p.add_argument("--split", default="test")
+    p.add_argument("--no-album-cache", action="store_true",
+                   help="re-encode every question's albums (the reference's evaluation)")
+    p.add_argument("--shard-cache", action="store_true",
+                   help="row-shard the album cache over a mesh (not ported yet: raises)")
+    p.add_argument("--dump-attention", default=None, metavar="PATH",
+                   help="write per-question attention maps and predictions to PATH (.npz)")
+    p.add_argument("--by-category", action="store_true",
+                   help="also report accuracy per question category")
+    p.add_argument("--ensemble", default=None, metavar="RUNDIR[,RUNDIR...]",
+                   help="average choice probabilities with these extra runs")
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.config import load_config
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.train import test, test_ensemble
+
+    packed = load_pack(args.packdir)
+    cfg = _model_config(args, load_config(os.path.join(args.rundir, "config.json")), packed)
+    metrics = os.path.join(args.rundir, "metrics.jsonl")
+    if args.ensemble:
+        if args.no_album_cache or args.dump_attention:
+            print("test --ensemble always evaluates through the album cache and has no "
+                  "attention dump; ignoring --no-album-cache/--dump-attention",
+                  file=sys.stderr)
+        dirs = [args.rundir] + [d for d in args.ensemble.split(",") if d]
+        m = test_ensemble(cfg, packed, dirs, load_best=not args.load_latest, split=args.split,
+                          metrics_path=metrics, by_category=args.by_category,
+                          shard_cache=args.shard_cache, device=args.device)
+        out = {"split": args.split, "accuracy": m["acc"], "count": m["count"],
+               "members": m["members"]}
+    else:
+        m = test(cfg, packed, args.rundir, load_best=not args.load_latest, split=args.split,
+                 metrics_path=metrics, album_cache=not args.no_album_cache,
+                 attention_path=args.dump_attention, by_category=args.by_category,
+                 shard_cache=args.shard_cache, device=args.device)
+        out = {"split": args.split, "accuracy": m["acc"], "loss": m["loss"],
+               "count": m["count"]}
+    if args.by_category:
+        out["by_category"] = m["by_category"]
+    print(json.dumps(out))
+
+
+def cmd_ablate(argv):
+    """FVTA vs flat soft attention vs no attention, each trained and tested."""
+    p = _run_parser("fvta-torch ablate")
+    p.add_argument("--num-steps", type=int, default=None)
+    p.add_argument("--variants", default="fvta,flat,none")
+    p.add_argument("--seeds", default=None, metavar="S0[,S1...]",
+                   help="train each variant at every seed and report per-seed accuracies "
+                        "and the mean; default: the configured seed")
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.train import test as run_test, train as run_train
+
+    packed = load_pack(args.packdir)
+    base = _model_config(args, Config(), packed)
+    seeds = [int(s) for s in args.seeds.split(",")] if args.seeds else [base.train.seed]
+    results = {}
+    for variant in args.variants.split(","):
+        per_seed = {}
+        for seed in seeds:
+            cfg = base.replace(model=dataclasses.replace(base.model, attention=variant),
+                               train=dataclasses.replace(base.train, seed=seed))
+            # one seed keeps the layout <rundir>/<variant>
+            rundir = os.path.join(args.rundir, variant if len(seeds) == 1
+                                  else f"{variant}_s{seed}")
+            os.makedirs(rundir, exist_ok=True)
+            res = run_train(cfg, packed, rundir, num_steps=args.num_steps,
+                            metrics_path=os.path.join(rundir, "metrics.jsonl"), echo=False,
+                            device=args.device)
+            m = run_test(cfg, packed, rundir, load_best=True, echo=False, device=args.device)
+            per_seed[str(seed)] = {"val_acc": res["best_val_acc"], "test_acc": m["acc"],
+                                   "steps": res["steps"]}
+            print(f"[ablate] {variant} seed={seed}: val={res['best_val_acc']:.4f} "
+                  f"test={m['acc']:.4f}", file=sys.stderr)
+        n = len(per_seed)
+        results[variant] = {"val_acc": sum(v["val_acc"] for v in per_seed.values()) / n,
+                            "test_acc": sum(v["test_acc"] for v in per_seed.values()) / n,
+                            "steps": per_seed[str(seeds[0])]["steps"]}
+        if n > 1:
+            results[variant]["per_seed"] = per_seed
+    print(json.dumps(results))
 
 
 def cmd_predict(argv):
@@ -375,7 +552,8 @@ def cmd_video_test(argv):
     print(json.dumps({"split": args.split, **{k: v for k, v in m.items() if k != "score"}}))
 
 
-COMMANDS = {"train": cmd_train, "predict": cmd_predict, "synth-video": cmd_synth_video,
+COMMANDS = {"synth": cmd_synth, "prepro": cmd_prepro, "train": cmd_train, "test": cmd_test,
+            "ablate": cmd_ablate, "predict": cmd_predict, "synth-video": cmd_synth_video,
             "video-prepro": cmd_video_prepro, "video": cmd_video, "video-test": cmd_video_test}
 
 

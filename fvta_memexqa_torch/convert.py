@@ -36,6 +36,7 @@ from fvta_memexqa_torch.checkpoint import atomic_torch_save
 from fvta_memexqa_torch.config import MODALITIES, Config, load_config, save_config
 from fvta_memexqa_torch.models.fvta import FVTAModel
 from fvta_memexqa_torch.models.video import VideoFVTAModel
+from fvta_memexqa_torch.ops.lstm_ref import LSTMParams
 
 _DENSE = ("photo_proj", "scorer")
 
@@ -46,6 +47,12 @@ def _leaf(x) -> torch.Tensor:
 
 def _lstm_field(p, name: str):
     return getattr(p, name) if hasattr(p, name) else p[name]
+
+
+def lstm_params_from_jax(p) -> LSTMParams:
+    """The JAX package's LSTMParams (or a {"wx", "wh", "b"} dict) of numpy or
+    jax arrays → the port's LSTMParams of float32 CPU tensors."""
+    return LSTMParams(*(_leaf(_lstm_field(p, f)) for f in ("wx", "wh", "b")))
 
 
 def _dense(sd: dict, dst: str, layer) -> None:

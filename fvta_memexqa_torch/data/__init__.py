@@ -4,7 +4,7 @@ from fvta_memexqa_torch.data.vocab import Vocab, load_glove
 from fvta_memexqa_torch.data.pack import PackedDataset, PackedShared, load_pack, pack
 from fvta_memexqa_torch.data.device_prepro import (Batch, ModelInputs, SharedTables,
                                                    assemble, assemble_albums)
-from fvta_memexqa_torch.data.synthetic import make_synthetic
+from fvta_memexqa_torch.data.synthetic import make_synthetic, write_raw_files
 
 __all__ = [
     "Album",
@@ -25,4 +25,5 @@ __all__ = [
     "assemble",
     "assemble_albums",
     "make_synthetic",
+    "write_raw_files",
 ]

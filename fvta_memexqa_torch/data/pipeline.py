@@ -28,6 +28,10 @@ class Dataset:
         self.n = int(self.arrays["label"].shape[0])
         self.split = split
 
+    @property
+    def qids(self) -> np.ndarray:
+        return self.arrays["qid"]
+
     def num_batches(self, batch_size: int) -> int:
         return -(-self.n // batch_size)
 

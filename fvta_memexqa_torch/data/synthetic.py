@@ -1,11 +1,16 @@
-"""Deterministic synthetic mini-MemexQA generator (`make_synthetic` only).
+"""Deterministic synthetic mini-MemexQA generator (`make_synthetic`) and its
+writer to the raw on-disk files (`write_raw_files`).
 
 Emits data in exactly the raw schema the packer consumes, with answers that are
 derivable from the album content (location/time/object questions). The same
-seed gives the same corpus as the JAX package's generator.
+seed gives the same corpus as the JAX package's generator. The focality
+corpus (`make_focal_synthetic`) is not ported yet.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -115,3 +120,33 @@ def make_synthetic(
         if i % 10 < 7
     }
     return qas, albums, photo_feats, test_ids, glove
+
+
+def write_raw_files(outdir, qas, albums, photo_feats, test_ids, glove, val_ids=None):
+    """Serialize to the raw on-disk format of the dataset release (qas.json,
+    album_info.json, test_question.ids, val_question.ids when given,
+    photo_feats.npz, glove.txt), so the synthetic data drives the real CLI path
+    (`cli prepro` reads these exact files). The JAX package's writer, byte for
+    byte."""
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "qas.json"), "w") as f:
+        json.dump([{"question_id": q.question_id, "question": q.question,
+                    "answer": q.answer, "multiple_choices_4": list(q.choices),
+                    "album_ids": list(q.album_ids), "flickr_user_id": q.flickr_user_id}
+                   for q in qas], f)
+    with open(os.path.join(outdir, "album_info.json"), "w") as f:
+        json.dump([{"album_id": a.album_id, "album_title": a.title,
+                    "album_description": a.description, "album_where": a.where,
+                    "album_when": a.when, "photo_ids": list(a.photo_ids),
+                    "photo_titles": list(a.photo_titles),
+                    "photo_gps": [list(g) if g else None for g in a.photo_gps]}
+                   for a in albums.values()], f)
+    with open(os.path.join(outdir, "test_question.ids"), "w") as f:
+        f.write("\n".join(sorted(test_ids)))
+    if val_ids:
+        with open(os.path.join(outdir, "val_question.ids"), "w") as f:
+            f.write("\n".join(sorted(val_ids)))
+    np.savez(os.path.join(outdir, "photo_feats.npz"), **photo_feats)
+    with open(os.path.join(outdir, "glove.txt"), "w") as f:
+        for w, v in glove.items():
+            f.write(w + " " + " ".join(f"{x:.5f}" for x in v) + "\n")

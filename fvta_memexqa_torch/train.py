@@ -16,12 +16,19 @@ of a batch once and gathers per-question context rows from the unique encodes
 (eval_cache.gather_cached_context); at keep_prob = 1 it is the same function
 of the parameters as the plain step.
 
+Evaluation of a run directory (`cli test`): `test` restores the best or the
+latest checkpoint and evaluates a split, through the album cache
+(eval_cache.py) or with a full re-encode per question, optionally with the
+per-category table and an attention dump (`dump_attention`); `test_ensemble`
+averages several runs' choice probabilities.
+
 Data parallelism (MeshConfig.num_devices > 1) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import math
 import os
@@ -32,11 +39,14 @@ import torch
 import torch.nn.functional as F
 
 from fvta_memexqa_torch.checkpoint import CheckpointManager
-from fvta_memexqa_torch.config import Config
+from fvta_memexqa_torch.config import Config, load_config
 from fvta_memexqa_torch.convert import save_rundir
 from fvta_memexqa_torch.data.device_prepro import Batch, SharedTables, assemble, assemble_albums
 from fvta_memexqa_torch.data.pipeline import Dataset
-from fvta_memexqa_torch.eval_cache import gather_cached_context
+from fvta_memexqa_torch.data.categories import accuracy_by_category, question_categories
+from fvta_memexqa_torch.eval_cache import (SHARD_CACHE_NOT_PORTED, evaluate_cached,
+                                           gather_cached_context, precompute_album_cache,
+                                           predict_cached)
 from fvta_memexqa_torch.models.fvta import (FVTAModel, a1_config, make_photo_table,
                                             make_vocab_table)
 from fvta_memexqa_torch.optim import Optimizer
@@ -328,3 +338,140 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev) -> dict:
         log.close()
     return {"best_val_acc": best_val, "steps": state.step, "state": state,
             "model": model, "shared": shared}
+
+
+# ---- evaluation of a run directory (`cli test`) -------------------------------------
+
+def restore_model(cfg: Config, out_dir: str, load_best: bool, device) -> FVTAModel:
+    """FVTAModel(cfg) holding the best-on-val (or the latest) checkpoint of
+    out_dir, on `device`, in eval mode."""
+    model = FVTAModel(cfg)
+    model.load_state_dict(CheckpointManager(out_dir).load(best=load_best)["params"])
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def dump_attention(model: FVTAModel, shared: SharedTables, dataset: Dataset,
+                   batch_size: int, path: str) -> int:
+    """Per-question FVTA attention maps and predictions → .npz: qid [N], pred
+    [N], label [N], probs [N, 4], time_attn [N, S, T] (focal weights within
+    each sequence), seq_attn [N, S] (weights across sequences) — the tensors
+    behind the paper's qualitative attention figures. Returns the number of
+    questions written."""
+    vt, pt = make_eval_tables(model, shared)
+    dev = shared.word_emb.device
+    rows = {k: [] for k in ("qid", "pred", "label", "probs", "time_attn", "seq_attn")}
+    qids = dataset.qids
+    seen = 0
+    for batch in dataset.get_batches(batch_size, shuffle=False):
+        out = model(shared, assemble(shared, batch.to(dev), pt), vt)
+        probs = torch.softmax(out.logits, -1).cpu().numpy()
+        keep = batch.ex_mask.numpy()
+        n = int(keep.sum())
+        rows["qid"].append(qids[seen: seen + n])
+        rows["pred"].append(np.argmax(probs, -1)[keep])
+        rows["label"].append(batch.label.numpy()[keep])
+        rows["probs"].append(probs[keep])
+        rows["time_attn"].append(out.attention.time_attn.cpu().numpy()[keep])
+        rows["seq_attn"].append(out.attention.seq_attn.cpu().numpy()[keep])
+        seen += n
+    np.savez_compressed(path, **{k: np.concatenate(v) for k, v in rows.items()})
+    return seen
+
+
+def _by_category(packed, split: str, correct: np.ndarray) -> dict:
+    return accuracy_by_category(question_categories(packed, split), correct)
+
+
+def test(cfg: Config, packed, out_dir: str, load_best: bool = True, split: str = "test",
+         metrics_path: str | None = None, echo: bool = True, album_cache: bool = True,
+         attention_path: str | None = None, by_category: bool = False,
+         shard_cache: bool = False, device="cuda") -> dict:
+    """The reference's `main.py --is_test`: restore the best (or the latest)
+    checkpoint of out_dir and report {"acc", "loss", "count"} on a split.
+
+    album_cache=True (the default) evaluates through eval_cache (each album
+    encoded once; the same logits); album_cache=False re-encodes every
+    question's albums, as the reference does. attention_path: also write the
+    attention maps (dump_attention). by_category: also report the papers'
+    per-category accuracy (what/who/when/where/how-many, data/categories.py)
+    under m["by_category"], from predict_cached over an album cache — built
+    here also when album_cache=False (the JAX package's train.test raises
+    UnboundLocalError on that combination, train.py:699/731).
+    A data-parallel mesh (cfg.mesh.num_devices > 1) and shard_cache raise
+    NotImplementedError: they belong to the data-parallel slice."""
+    if shard_cache or cfg.mesh.num_devices > 1:
+        raise NotImplementedError(SHARD_CACHE_NOT_PORTED)
+    dev = resolve_device(device)
+    model = restore_model(cfg, out_dir, load_best, dev)
+    shared = SharedTables.from_packed(packed.shared, dev)
+    ds = Dataset(packed, split)
+    bs = cfg.train.eval_batch_size
+    timer = Timer()
+    timer.start()
+    tables = make_eval_tables(model, shared)   # built once, for every pass below
+    cache = None                               # likewise (by_category builds it if None)
+    if album_cache:
+        cache = precompute_album_cache(cfg, model, shared, vocab_table=tables[0],
+                                       photo_table=tables[1])
+        m = evaluate_cached(cfg, model, shared, ds, bs, cache=cache, tables=tables)
+    else:
+        m = evaluate(make_eval_step(model), shared, ds, bs, *tables)
+    timer.stop()
+    log = MetricsLogger(metrics_path, echo=echo)
+    try:
+        log.log("test", split=split, acc=m["acc"], loss=m["loss"], count=m["count"],
+                wall_s=timer.samples[0])
+        if by_category:
+            pr = predict_cached(cfg, model, shared, ds, bs, cache=cache, tables=tables)
+            m["by_category"] = _by_category(packed, split, pr["pred"] == pr["label"])
+            log.log("test_by_category", split=split,
+                    **{k: v["acc"] for k, v in m["by_category"].items()})
+        if attention_path:
+            n = dump_attention(model, shared, ds, bs, attention_path)
+            log.log("attention_dump", split=split, path=attention_path, count=n)
+    finally:
+        log.close()
+    return m
+
+
+def test_ensemble(cfg: Config, packed, out_dirs: list[str], load_best: bool = True,
+                  split: str = "test", metrics_path: str | None = None, echo: bool = True,
+                  by_category: bool = False, shard_cache: bool = False,
+                  device="cuda") -> dict:
+    """Checkpoint ensembling: average the per-question choice probabilities of
+    several runs on one pack (each restored under its own saved config.json,
+    with the caller's eval_batch_size) and take the argmax of the mean.
+    Returns {"acc", "count", "members": [{"dir", "acc"}], ["by_category"]}."""
+    if shard_cache or cfg.mesh.num_devices > 1:
+        raise NotImplementedError(SHARD_CACHE_NOT_PORTED)
+    dev = resolve_device(device)
+    shared = SharedTables.from_packed(packed.shared, dev)
+    ds = Dataset(packed, split)
+    probs_sum, labels, members = None, None, []
+    for d in out_dirs:
+        cfg_path = os.path.join(d, "config.json")
+        mcfg = (load_config(cfg_path) if os.path.exists(cfg_path) else cfg).replace(
+            data=packed.cfg)
+        # the member's config owns the architecture; batching follows the caller
+        mcfg = mcfg.replace(train=dataclasses.replace(
+            mcfg.train, eval_batch_size=cfg.train.eval_batch_size))
+        model = restore_model(mcfg, d, load_best, dev)
+        pr = predict_cached(mcfg, model, shared, ds, mcfg.train.eval_batch_size)
+        if labels is None:
+            labels = pr["label"]
+        members.append({"dir": d, "acc": float((pr["pred"] == pr["label"]).mean())})
+        probs_sum = pr["probs"] if probs_sum is None else probs_sum + pr["probs"]
+    correct = np.argmax(probs_sum / len(out_dirs), -1) == labels
+    m = {"acc": float(correct.mean()), "count": int(labels.shape[0]), "members": members}
+    log = MetricsLogger(metrics_path, echo=echo)
+    try:
+        log.log("test_ensemble", split=split, acc=m["acc"], count=m["count"],
+                member_accs=[mm["acc"] for mm in members])
+        if by_category:
+            m["by_category"] = _by_category(packed, split, correct)
+            log.log("test_by_category", split=split,
+                    **{k: v["acc"] for k, v in m["by_category"].items()})
+    finally:
+        log.close()
+    return m

@@ -100,6 +100,9 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'fvta_memexqa_tpu'))\n"
         "assert not bad, bad\n"
+        "need = {'fvta_memexqa_torch.ops.lstm_grouped', 'fvta_memexqa_torch.eval_cache',\n"
+        "        'fvta_memexqa_torch.data.categories'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok', len([n for n in sys.modules if n.startswith('fvta_memexqa_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -107,4 +110,6 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
-    assert int(res.stdout.split()[1]) >= 34   # every module was imported, the video slice's included
+    # every module was imported: the video slice's and the grouped scans' and
+    # categories' included
+    assert int(res.stdout.split()[1]) >= 36

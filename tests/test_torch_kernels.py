@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from fvta_memexqa_torch.ops import build, fvta_fused, fvta_ref, fvta_stats, lstm_fused, lstm_ref
+from fvta_memexqa_torch.ops import (build, fvta_fused, fvta_ref, fvta_stats, lstm_fused,
+                                    lstm_grouped, lstm_ref)
 
 # Kernel vs plain on the card, both float32; the plain version sums in another
 # order (cuBLAS tiles vs per-column FMA chains / warp shuffles), the recurrence
@@ -380,9 +381,29 @@ def test_fvta_kernel_wrapper_refuses_cpu_tensors():
         fvta_fused.fvta_fwd(h, cm.float(), q, qm.float(), p["w_x"], p["w_y"], p["w_xy"])
 
 
+def grouped_case(g, n, t, h, seed, device="cpu"):
+    """x_proj [G, N, T, 4H] at the scale x.Wx + b has on the main path, int32
+    lengths [G, N] with a full and an empty row, wh [G, H, 4H]."""
+    rng = np.random.default_rng(seed)
+    xp = rng.normal(0, 1, (g, n, t, 4 * h)).astype(np.float32)
+    lens = rng.integers(0, t + 1, (g, n)).astype(np.int32)
+    lens[:, 0], lens[:, min(1, n - 1)] = t, 0
+    lim = np.sqrt(6.0 / (5 * h))
+    wh = rng.uniform(-lim, lim, (g, h, 4 * h)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (xp, lens, wh))
+
+
+def test_grouped_wrappers_refuse_cpu_tensors():
+    xp, lens, wh = grouped_case(2, 4, 3, 5, seed=20)
+    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(xp, lens, wh, 1.0)
+
+
 def test_build_targets_track_source_hash():
     src = sorted(build.CSRC_DIR.glob("*.cu"))
-    assert {"fvta_fwd", "lstm_fwd", "lstm_bwd"} <= {s.stem for s in src}
+    assert {"fvta_fwd", "lstm_fwd", "lstm_bwd", "lstm_grouped",
+            "lstm_stream"} <= {s.stem for s in src}
     targets = [build._target(s) for s in src]
     assert all(t.parent == build.BUILD_DIR and t.name.startswith(s.stem + "-")
                for s, t in zip(src, targets))
@@ -646,3 +667,68 @@ def test_stats_grad_on_card_matches_plain_autograd(cuda, name):
         torch.testing.assert_close(a, b, **STATS_TOL, msg=field)
     for field, a, b in zip(("h", "q", "w_x", "w_y", "w_xy"), got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=field)
+
+
+# ---- card: K7, K8 vs their plain version ----------------------------------------
+# (g, n, t, h): small odd shapes, and at H = 100 the batch-64 train step's
+# bi-LSTM shapes as a G = 2 group (photo titles 3072 x 10, the encoders at 256
+# rows, the question 64 x 30, the choices 256 x 8), the routing edge
+# n = 1024, t = 2 and n = 1023, and G = 1.
+GROUPED_SHAPES = [(1, 12, 7, 5), (2, 9, 11, 7), (2, 3072, 10, 100), (2, 256, 24, 100),
+                  (2, 64, 30, 100), (2, 256, 8, 100), (2, 1024, 2, 100), (1, 1023, 12, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", GROUPED_SHAPES)
+@pytest.mark.parametrize("kernel", ["scan_grouped", "scan_stream"])
+def test_grouped_kernels_match_plain_on_card(cuda, kernel, g, n, t, h):
+    xp, lens, wh = grouped_case(g, n, t, h, seed=21, device=cuda)
+    wrapper = getattr(lstm_grouped, kernel)
+    before = wrapper.launches
+    out, fin = wrapper(xp, lens, wh, 1.0)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    out_r, fin_r = lstm_grouped.grouped_scan_ref(xp, lens, wh, 1.0)
+    torch.testing.assert_close(out, out_r, **LSTM_TOL)
+    torch.testing.assert_close(fin, fin_r, **LSTM_TOL)
+    dead = torch.arange(t, device=cuda)[None, None, :] >= lens[..., None]
+    assert not out[dead].any() and not fin[lens == 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", GROUPED_SHAPES[2:5])
+def test_k7_and_k8_agree_on_card(cuda, g, n, t, h):
+    xp, lens, wh = grouped_case(g, n, t, h, seed=22, device=cuda)
+    for a, b in zip(lstm_grouped.scan_grouped(xp, lens, wh, 1.0),
+                    lstm_grouped.scan_stream(xp, lens, wh, 1.0)):
+        torch.testing.assert_close(a, b, **LSTM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t", [(3072, 10), (256, 24), (64, 30), (1024, 2), (1023, 2)])
+def test_bilstm_grouped_routes_and_matches_k1_on_card(cuda, n, t):
+    x, mask, p_fw, p_bw = lstm_case(n, t, 200, 100, seed=23, device=cuda)
+    before = (lstm_grouped.scan_grouped.launches, lstm_grouped.scan_stream.launches)
+    with torch.no_grad():
+        out, fin = lstm_grouped.bilstm_grouped(p_fw, p_bw, x, mask)
+        out_k1, fin_k1 = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
+        out_r, fin_r = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
+    torch.cuda.synchronize()
+    stream = lstm_grouped.uses_stream(n, t)
+    assert (lstm_grouped.scan_grouped.launches - before[0],
+            lstm_grouped.scan_stream.launches - before[1]) == ((0, 1) if stream else (1, 0))
+    for a, b in ((out, out_r), (fin, fin_r), (out, out_k1), (fin, fin_k1)):
+        torch.testing.assert_close(a, b, **LSTM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t", [(256, 12), (1024, 3)])
+def test_grouped_grads_on_card_match_plain_autograd(cuda, n, t):
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, 200, 100, False, cuda, COTANGENT_SCALE)
+    ref = lstm_grads(lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask),
+                     x, p_fw, p_bw, g_out, g_fin)
+    got = lstm_grads(lambda pf, pb, xx: lstm_grouped.bilstm_grouped(pf, pb, xx, mask),
+                     x, p_fw, p_bw, g_out, g_fin)
+    for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"),
+                          got, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
