@@ -7,9 +7,18 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. print the card (nvidia-smi name, power limit) and build every kernel of the
    serving path from csrc/ with nvcc (ptxas register/shared-memory report shown);
-2. K1 (csrc/lstm_fwd.cu) vs its plain version on the card, at the slice's shapes
-   (D=200, H=100; T=10/12/24/30/8; rows of length 0 and T), with and without
-   per-step outputs;
+2. K1 vs its plain version on the card, at the slice's shapes (D=200, H=100;
+   T=10/12/24/30/8; rows of length 0 and T), with and without per-step
+   outputs, and at the video bilstm encoder's frames (8 x 1024 at D=200, 16 x
+   1024 at D=116: clusters of 8 over 1024 steps): at these widths
+   ops/lstm_fused.lstm_route sends K1 to the Hopper kernels,
+   csrc/lstm_proj.cuh (the input projection of both directions) then
+   csrc/lstm_rec.cu (the recurrence, Wh resident, clusters split over hidden
+   units), one launch each per call and none of csrc/lstm_fwd.cu; the
+   projection alone vs the plain product; the route (cluster, tile rows, lane
+   split, threads, shared memory per CTA, the sources' sizes equal to the
+   route's) printed per shape; and at H=300, past the largest cluster, lstm_fwd
+   alone;
 3. K2 (csrc/fvta_fwd.cu) vs its plain version on the card at N=8, S=24, T=24,
    J=30, D=200 (serving) and N=64 (the train step, under grad), plus a long
    T=512, a dead sequence and an all-masked question; and on unbounded inputs,
@@ -24,24 +33,36 @@ Phases, each fatal on failure (exit code 1, no result line):
 5. times from CUDA events after warm-up: each kernel, its plain version, its
    bound (max of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s FP32, from this run's
    inputs) and, for K1, cuDNN's torch.nn.LSTM on the same function (a yardstick
-   only: the port never calls it); and the per-request latency of ask.
+   only: the port never calls it); and the per-request latency of ask. K1 and
+   K1b are timed at the serving and train shapes, the grouped scans' routing
+   edges and the video frames (T=1024): the Hopper kernels and the L2-streaming ones
+   on the same inputs, each also replayed from a CUDA graph (device time
+   without the host's launch work); and lstm_rec / lstm_rec_bwd under every
+   cluster size and tile height at a few shapes (the route sweep), each held
+   against the routed run.
 
-The training slice (kernel K1b, csrc/lstm_bwd.cu, and autograd through K1/K2):
+The training slice (kernel K1b — csrc/lstm_rec_bwd.cu on the Hopper route,
+csrc/lstm_bwd.cu past the largest cluster — and autograd through K1/K2):
 
 6. the cotangents that reach K1b: one plain and one dedup train step on the
    slice's pack, reading max and mean |g_out|, |g_fin| at every K1b call;
    then K1b vs its plain version (torch.autograd.grad through bilstm_ref) on
-   the card at the train step's nine bi-LSTM shapes and the dedup photo-title
+   the card at the train step's nine bi-LSTM shapes, the dedup photo-title
    shape (batch 64, A = 4; rows of length 0 and T; with and without per-step
-   cotangents): K1's out and fin under grad at 1e-5 / 1e-6, and dx, dwx, dwh,
+   cotangents) and the video bilstm's two frame shapes (T=1024): K1's out and fin under grad at 1e-5 / 1e-6, and dx, dwx, dwh,
    db of both directions at rtol 1e-4 / atol 1e-5 with N(0, 1) / 64
-   cotangents (fatal if the train step gave any shape a larger |cotangent|);
-   a float64 witness at unit-scale N(0, 1) cotangents at all ten shapes (the
-   binding check of the long dW sums); and K1's cell output against the plain
-   scan's carried c;
+   cotangents (fatal if the train step gave any shape a larger |cotangent|),
+   one launch of lstm_proj, lstm_rec and lstm_rec_bwd each per forward +
+   backward; the same at H=300 through lstm_fwd and lstm_bwd; a float64
+   witness at unit-scale N(0, 1) cotangents at all twelve shapes (the binding
+   check of the long dW sums); K1's cell output against the plain scan's
+   carried c and lstm_rec's saved pre-activations against the plain gates
+   (train and video shapes);
 7. the train slice: `cli train` for 24 steps on the slice's pack (val every 12
-   steps) and `cli predict` on the trained run directory; the three launch
-   counters are zeroed just before and read just after, losses must be finite
+   steps) and `cli predict` on the trained run directory; the launch counters
+   are zeroed just before and read just after (every command phase must
+   launch lstm_proj, lstm_rec — and lstm_rec_bwd where it trains — and never
+   lstm_fwd or lstm_bwd), losses must be finite
    and the last epoch's mean below the first's; the same with
    --dedup-albums true;
 8. the card vs the CPU from the same weights and batch at keep_prob 1: the
@@ -51,7 +72,8 @@ The training slice (kernel K1b, csrc/lstm_bwd.cu, and autograd through K1/K2):
    every parameter and optimizer tensor torch.equal;
 10. times: K1b (the nine calls of one step) beside its bound, the plain
    backward and cuDNN's nn.LSTM backward; and a `training` line (step time,
-   qa_pairs/s, dedup vs plain, torch.profiler breakdown of one step).
+   qa_pairs/s, peak device memory, dedup vs plain, torch.profiler breakdown
+   of one step).
 
 The video slice (kernels K4, csrc/fvta_stats.cu, and K5/K6, csrc/fvta_bwd.cu; the
 streaming form of the attention from STREAM_MIN_T frames on):
@@ -74,8 +96,9 @@ streaming form of the attention from STREAM_MIN_T frames on):
    every kernel counter zeroed just before and read just after (K5 and K6
    must launch once per step, the loss must fall);
 14. the full-width T=4096 step: card vs CPU step-1 gradients at keep_prob 1;
-   p50 over 10 steps, peak memory and a torch.profiler breakdown; one
-   `--encoder bilstm` step at T=1024; bitwise resume of train_video; and the
+   p50 over 10 steps, peak memory and a torch.profiler breakdown; the
+   `--encoder bilstm` step at T=1024 (p50 over 10 steps, peak memory, profile;
+   the Hopper bi-LSTM kernels only); bitwise resume of train_video; and the
    crossover of K2 + recompute vs K4 + K5 + K6 at T = 256, 1024, 4096 (time,
    device time and peak memory of one forward + backward).
 
@@ -199,6 +222,24 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time per call of fn with the host's launch work out of the way:
+    `calls` calls captured once in a CUDA graph, the graph replayed under CUDA
+    events (cuda_ms of back-to-back calls is bound by the host where a call's
+    kernels take less time than its Python and launch work)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(g.replay, iters=10, warmup=2) / calls
+    del g
+    return ms
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
@@ -314,32 +355,114 @@ def lstm_case(n, t, d, h, seed, device):
     return x.to(device), mask.to(device), params[0], params[1]
 
 
-def k1_check(device) -> float:
+# a hidden width past the shared memory of the largest cluster: lstm_route sends
+# it to the L2-streaming kernels (lstm_fwd, lstm_bwd), which stay for it
+OLD_H = 300
+OLD_SHAPES = [("past_limit_64x24", 64, 24, 200), ("past_limit_8x30", 8, 30, 200)]
+NEW_KERNELS = ("lstm_proj", "lstm_rec", "lstm_rec_bwd")
+OLD_KERNELS = ("lstm_fwd", "lstm_bwd")
+# (name, rows, T, D): the video bilstm encoder's frames at T=1024 (the full-width
+# step's 8 x 1024 at D=200, `cli video`'s 16 x 1024 at D=116), routed to clusters
+# of 8 CTAs: K1 and K1b are held against plain over 1024 serial steps here, where
+# a fault that builds up over a long scan would show
+LONG_SHAPES = [("video_frames_T1024", 8, 1024, 200), ("cli_video_frames_T1024", 16, 1024, 116)]
+
+
+def lstm_counters() -> dict:
+    """The launch counts of the five bi-LSTM kernel wrappers."""
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    return {k: getattr(lstm_fused, k).launches for k in NEW_KERNELS + OLD_KERNELS}
+
+
+def zero_lstm_counters() -> None:
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    for k in NEW_KERNELS + OLD_KERNELS:
+        getattr(lstm_fused, k).launches = 0
+
+
+def lstm_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in lstm_counters().items()}
+
+
+def check_lstm_launches(phase: str, launches: dict, backward: bool) -> None:
+    """At the repo's widths a command reaches the Hopper kernels (lstm_proj and
+    lstm_rec; lstm_rec_bwd too where it trains) and never the L2-streaming kernels."""
+    need = NEW_KERNELS if backward else NEW_KERNELS[:2]
+    if any(launches[k] for k in OLD_KERNELS) or min(launches[k] for k in need) == 0:
+        fail(f"{phase}: the bi-LSTM must launch {need} and never {OLD_KERNELS}: {launches}")
+
+
+def route_info(n, t, d, h=H) -> dict:
+    """lstm_route's choice for a shape, with the CUDA sources' own shared-memory
+    sizes per CTA (which must equal the route's)."""
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    r = lstm_fused.lstm_route(n, t, d, h)
+    if r.kernels != lstm_fused.REC_KERNELS:
+        return {"kernels": "+".join(r.kernels)}
+    threads, fwd, bwd = lstm_fused.rec_geometry(h, r.cluster, r.rows, r.split)
+    smem = {stem: getattr(lstm_fused._rec_lib(stem), f"{stem}_smem_bytes")(
+        h, r.cluster, r.rows, r.split) for stem in ("lstm_rec", "lstm_rec_bwd")}
+    if (smem["lstm_rec"], smem["lstm_rec_bwd"]) != (fwd, bwd):
+        fail(f"lstm_route's shared memory {fwd, bwd} differs from the sources' {smem}")
+    return {"kernels": "+".join(r.kernels), "cluster": r.cluster, "rows": r.rows,
+            "split": r.split, "threads": threads, "smem_fwd": fwd, "smem_bwd": bwd}
+
+
+def k1_check(device) -> dict:
+    """K1 vs its plain version at K1_SHAPES (the Hopper route: lstm_proj +
+    lstm_rec, one launch each per call, none of lstm_fwd) and at OLD_SHAPES
+    (H = OLD_H: lstm_fwd alone). Returns the worst errors per kernel."""
     import torch
 
     from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
 
-    worst, bad = 0.0, []
-    for i, (name, n, t, d, _) in enumerate(K1_SHAPES):
-        x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 100 + i, device)
+    worst = {"lstm_proj": 0.0, "lstm_rec": 0.0, "lstm_fwd": 0.0}
+    bad = []
+    cases = [(name, n, t, d, H) for name, n, t, d, _ in K1_SHAPES]
+    cases += [(name, n, t, d, H) for name, n, t, d in LONG_SHAPES]
+    cases += [(name, n, t, d, OLD_H) for name, n, t, d in OLD_SHAPES]
+    for i, (name, n, t, d, h) in enumerate(cases):
+        x, mask, p_fw, p_bw = lstm_case(n, t, d, h, 100 + i, device)
+        route = route_info(n, t, d, h)
+        old = h == OLD_H
+        before = lstm_counters()
         with torch.no_grad():
             out_r, fin_r = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
             out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
             fin_only = lstm_fused.bilstm_fused_final(p_fw, p_bw, x, mask)
         torch.cuda.synchronize()
+        launched = lstm_delta(before)
+        want = {k: 0 for k in launched}
+        want.update({"lstm_fwd": 2} if old else {"lstm_proj": 2, "lstm_rec": 2})
         errs = [max_err(out, out_r), max_err(fin, fin_r), max_err(fin_only, fin_r)]
         ok = (close(out, out_r, **LSTM_TOL) and close(fin, fin_r, **LSTM_TOL)
               and close(fin_only, fin_r, **LSTM_TOL))
         ok = ok and bool(torch.isfinite(out).all()) and not fin[mask.sum(1) == 0].any()
-        log(f"K1 vs plain  {name:18s} N={n:4d} T={t:2d} D={d}: max|err| out "
-            f"{errs[0]:.3e} fin {errs[1]:.3e} fin-only {errs[2]:.3e}  "
-            f"{'ok' if ok else 'MISMATCH'}")
+        ok = ok and launched == want and (route["kernels"] == "+".join(
+            lstm_fused.OLD_KERNELS if old else lstm_fused.REC_KERNELS))
+        proj_err = 0.0
+        if not old:   # the projection alone vs the plain product, at the valid positions
+            with torch.no_grad():
+                xg = lstm_fused.lstm_proj(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw)
+                proj_r = torch.cat([x @ p.wx + p.b for p in (p_fw, p_bw)], dim=-1)
+            proj_err = max_err(xg[mask], proj_r[mask])
+            ok = ok and close(xg[mask], proj_r[mask], **LSTM_TOL)
+            worst["lstm_proj"] = max(worst["lstm_proj"], proj_err)
+        log(f"K1 vs plain  {name:22s} N={n:4d} T={t:4d} D={d} H={h}: {json.dumps(route)}; "
+            f"launches {json.dumps({k: v for k, v in launched.items() if v})}; max|err| out "
+            f"{errs[0]:.3e} fin {errs[1]:.3e} fin-only {errs[2]:.3e} projection "
+            f"{proj_err:.3e}  {'ok' if ok else 'MISMATCH'}")
         if not ok:
             bad.append(name)
-        worst = max(worst, *errs)
+        key = "lstm_fwd" if old else "lstm_rec"
+        worst[key] = max(worst[key], *errs)
     if bad:
-        fail(f"K1 disagrees with its plain version at {bad} beyond {LSTM_TOL} "
-             "(or a non-finite output / nonzero fin of a length-0 row)")
+        fail(f"K1 disagrees with its plain version at {bad} beyond {LSTM_TOL} (or a "
+             "non-finite output / nonzero fin of a length-0 row / another route or launch "
+             "count than lstm_route names)")
     return worst
 
 
@@ -363,21 +486,90 @@ def cudnn_lstm(p_fw, p_bw, forget_bias, d, h, device):
     return lstm
 
 
-def k1_times(device, launches: int, worst: float) -> tuple[dict, list]:
+# (set, name, rows, T, D, emit_out): the shapes K1 and K1b are timed at — the 9
+# serving calls (K1_SHAPES; the kernels line's K1 totals), the 9 calls of a
+# batch-64 train step (K1B_SHAPES, filled in below), the grouped scans' routing
+# edges, and the video bilstm encoder's frames (the full-width T=1024 step's
+# 8 x 1024 at D=200; `cli video`'s 16 x 1024 at D=116)
+def timed_shapes() -> list:
+    return ([("serving", name, n, t, d, emit) for name, n, t, d, emit in K1_SHAPES]
+            + [("train", name, n, t, d, not fin_only) for name, n, t, d, fin_only in K1B_SHAPES]
+            + [("grouped_edge", name, n, t, GROUPED_D, True) for name, n, t in GROUPED_SHAPES
+               if name.startswith("edge")]
+            + [("video", "frames_T1024", VIDEO_N, CLI_FRAMES, 200, True),
+               ("video", "cli_frames_T1024", 16, CLI_FRAMES, 116, True)])
+
+
+def rec_plain(xg, mask, p_fw, p_bw):
+    """The recurrence alone, in plain PyTorch, from the projection xg [N, T, 8H]:
+    lstm_rec's plain version (the grouped scans' reference over both directions)."""
+    import torch
+
+    from fvta_memexqa_torch.ops.lstm_grouped import grouped_scan_ref
+    from fvta_memexqa_torch.ops.lstm_ref import _flip_to_front
+
+    lengths = mask.sum(1)
+    h = p_fw.wh.shape[0]
+    xp = torch.stack([xg[..., :4 * h], _flip_to_front(xg[..., 4 * h:], lengths)])
+    out, fin = grouped_scan_ref(xp, lengths[None].expand(2, -1), torch.stack([p_fw.wh, p_bw.wh]),
+                                1.0)
+    return torch.cat([out[0], _flip_to_front(out[1], lengths)], dim=-1), torch.cat([*fin], -1)
+
+
+def k1_bounds(n, t, d, h, steps, emit) -> dict:
+    """(bytes ms, operations ms) of the whole K1 function (x, weights → out, fin;
+    the projection's work included), of the projection alone (x, wx, b → xg)
+    and of the recurrence alone (xg, wh → out, fin), over `steps` valid positions."""
+    outs = (n * t * 2 * h if emit else 0) + n * 2 * h
+    work = {"fn": (steps * d + n + 2 * (d * 4 * h + h * 4 * h + 4 * h) + outs,
+                   2 * steps * (2 * (d + h) * 4 * h + 12 * h)),
+            "proj": (steps * d + 2 * (d * 4 * h + 4 * h) + steps * 8 * h, 2 * steps * d * 8 * h),
+            "rec": (steps * 8 * h + n + 2 * h * 4 * h + outs, 2 * steps * (2 * h * 4 * h + 12 * h))}
+    return {k: (4 * b / HBM_BYTES_PER_S * 1e3, f / FP32_FLOPS * 1e3) for k, (b, f) in work.items()}
+
+
+def k1_times(device, launches: dict, worst: dict, old_launches: dict) -> tuple[list, list]:
+    """Per timed shape: the Hopper route's K1 (bilstm_fused: lstm_proj +
+    lstm_rec), each of its kernels alone, the L2-streaming lstm_fwd on the same inputs,
+    the plain version, cuDNN's nn.LSTM and the bounds. The kernels-line entries
+    (lstm_proj, lstm_rec, lstm_fwd) sum the 9 serving calls."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
     from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
 
-    rows, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                         bytes_ms=0.0, ops_ms=0.0)
-    for i, (name, n, t, d, emit) in enumerate(K1_SHAPES):
+    rows = []
+    keys = ("new_ms", "proj_ms", "rec_ms", "old_ms", "new_graph_ms",
+            "old_graph_ms", "plain_ms", "proj_plain_ms", "proj_library_ms", "rec_plain_ms",
+            "library_ms")
+    tot = {k: 0.0 for k in keys}
+    btot = {k: [0.0, 0.0] for k in ("fn", "proj", "rec")}
+    for i, (group, name, n, t, d, emit) in enumerate(timed_shapes()):
         x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 200 + i, device)
         lens = mask.sum(1)
-        fused = lstm_fused.bilstm_fused if emit else lstm_fused.bilstm_fused_final
+        l32 = lens.to(torch.int32)
+        wcat = torch.cat([p_fw.wx, p_bw.wx], dim=1)
+        bcat = torch.cat([p_fw.b, p_bw.b])
         with torch.no_grad():
-            k_ms = cuda_ms(lambda: fused(p_fw, p_bw, x, mask))
-            p_ms = cuda_ms(lambda: lstm_ref.bilstm_ref(p_fw, p_bw, x, mask), iters=10)
+            xg = lstm_fused.lstm_proj(x, l32, p_fw, p_bw)
+            row = {"set": group, "name": name, "rows": n, "T": t, "D": d, "emit_out": emit,
+                   "route": route_info(n, t, d)}
+            k1_new = lambda: lstm_fused.lstm_k1(x, l32, p_fw, p_bw, 1.0, emit)
+            k1_old = lambda: lstm_fused.lstm_fwd(x, l32, p_fw, p_bw, 1.0, emit)
+            row["new_ms"] = cuda_ms(k1_new)
+            row["old_ms"] = cuda_ms(k1_old)
+            row["new_graph_ms"] = graph_ms(k1_new)
+            row["old_graph_ms"] = graph_ms(k1_old)
+            row["proj_ms"] = cuda_ms(lambda: lstm_fused.lstm_proj(x, l32, p_fw, p_bw))
+            row["rec_ms"] = cuda_ms(lambda: lstm_fused.lstm_rec(xg, l32, p_fw, p_bw, 1.0, emit))
+            row["plain_ms"] = cuda_ms(lambda: lstm_ref.bilstm_ref(p_fw, p_bw, x, mask), iters=5,
+                                      warmup=1)
+            row["proj_plain_ms"] = cuda_ms(lambda: torch.cat([x @ p.wx + p.b
+                                                              for p in (p_fw, p_bw)], -1))
+            x2 = x.reshape(n * t, d)
+            row["proj_library_ms"] = cuda_ms(lambda: torch.addmm(bcat, x2, wcat))
+            row["rec_plain_ms"] = cuda_ms(lambda: rec_plain(xg, mask, p_fw, p_bw), iters=5,
+                                          warmup=1)
             lstm = cudnn_lstm(p_fw, p_bw, 1.0, d, H, device)
             live = lens > 0   # packed sequences cannot hold a length-0 row
             packed = pack_padded_sequence(x[live], lens[live].cpu(), batch_first=True,
@@ -387,33 +579,122 @@ def k1_times(device, launches: int, worst: float) -> tuple[dict, list]:
             lib_err = max_err(torch.cat([h_n[0], h_n[1]], dim=-1), fin_r)
             if lib_err > 1e-4:
                 fail(f"cuDNN LSTM yardstick is not the same function at {name}: {lib_err}")
-            l_ms = cuda_ms(lambda: lstm(packed))
+            row["library_ms"] = cuda_ms(lambda: lstm(packed))
         steps = int(lens.sum())
-        nbytes = 4 * (steps * d + n + 2 * (d * 4 * H + H * 4 * H + 4 * H)
-                      + (n * t * 2 * H if emit else 0) + n * 2 * H)
-        flops = 2 * steps * (2 * (d + H) * 4 * H + 12 * H)
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-        row = dict(name=name, rows=n, T=t, D=d, emit_out=emit, valid_steps=steps,
-                   ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=max(b_ms, o_ms),
-                   bound_by="bytes" if b_ms >= o_ms else "operations")
+        bounds = k1_bounds(n, t, d, H, steps, emit)
+        row.update(valid_steps=steps, **{f"{k}_bound_ms": max(v) for k, v in bounds.items()})
+        row["bound_ms"] = row.pop("fn_bound_ms")
         rows.append(row)
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            tot[k] += row[k]
-        tot["bytes_ms"] += b_ms
-        tot["ops_ms"] += o_ms
-    entry = {
-        "name": "lstm_fwd", "route": "cuda",
-        "source": "fvta_memexqa_torch/csrc/lstm_fwd.cu",
-        "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:75",
-        "launches": launches, "max_abs_err": worst,
-        "ms": tot["ms"], "kernel_ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-        "library_ms": tot["library_ms"],
-        "timed_work": "the 9 K1 calls of one 64-album ingest batch + one 8-question "
-                      "answer batch (sum)",
-    }
-    return entry, rows
+        log(f"K1 times     {group:12s} {name:20s} N={n:4d} T={t:4d} D={d}: new {row['new_ms']:.3f} "
+            f"(proj {row['proj_ms']:.3f} + rec {row['rec_ms']:.3f} alone), old "
+            f"{row['old_ms']:.3f}; from a CUDA graph new "
+            f"{row['new_graph_ms']:.3f} old {row['old_graph_ms']:.3f}; "
+            f"cuDNN {row['library_ms']:.3f}, plain {row['plain_ms']:.3f}, bound "
+            f"{row['bound_ms']:.4f} ms; route {json.dumps(row['route'])}")
+        if group == "serving":
+            for k in keys:
+                tot[k] += row[k]
+            for k, v in bounds.items():
+                btot[k][0] += v[0]
+                btot[k][1] += v[1]
+    work = "the 9 K1 calls of one 64-album ingest batch + one 8-question answer batch (sum)"
+    by = lambda k: "bytes" if btot[k][0] >= btot[k][1] else "operations"
+    fn_bound = max(btot["fn"])
+    entries = [
+        {"name": "lstm_proj", "route": "cuda", "source": "fvta_memexqa_torch/csrc/lstm_proj.cuh",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:75", "launches": launches["lstm_proj"],
+         "max_abs_err": worst["lstm_proj"], "ms": tot["proj_ms"], "kernel_ms": tot["proj_ms"],
+         "plain_ms": tot["proj_plain_ms"], "bound_ms": max(btot["proj"]), "bound_by": by("proj"),
+         "library_ms": tot["proj_library_ms"],
+         "timed_work": work + "; the projection alone (library: torch.addmm)"},
+        {"name": "lstm_rec", "route": "cuda", "source": "fvta_memexqa_torch/csrc/lstm_rec.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:75", "launches": launches["lstm_rec"],
+         "max_abs_err": worst["lstm_rec"], "ms": tot["rec_ms"], "kernel_ms": tot["rec_ms"],
+         "plain_ms": tot["rec_plain_ms"], "bound_ms": max(btot["rec"]), "bound_by": by("rec"),
+         "library_ms": None, "k1_ms": tot["new_ms"], "k1_graph_ms": tot["new_graph_ms"],
+         "k1_plain_ms": tot["plain_ms"], "k1_bound_ms": fn_bound,
+         "k1_cudnn_ms": tot["library_ms"], "k1_old_ms": tot["old_ms"],
+         "k1_old_graph_ms": tot["old_graph_ms"],
+         "timed_work": work + "; the recurrence alone on lstm_proj's output; k1_* are the "
+                       "whole K1 (lstm_k1: lstm_proj's and lstm_rec's kernels from one call) "
+                       "and its yardsticks (max_abs_err too); *_graph_ms: per call replayed "
+                       "from a CUDA "
+                       "graph (device time without the host's launch work)"},
+        {"name": "lstm_fwd", "route": "cuda", "source": "fvta_memexqa_torch/csrc/lstm_fwd.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:75", "launches": 0,
+         "launches_past_limit": old_launches["lstm_fwd"], "max_abs_err": worst["lstm_fwd"],
+         "ms": tot["old_ms"], "kernel_ms": tot["old_ms"], "graph_ms": tot["old_graph_ms"],
+         "plain_ms": tot["plain_ms"], "bound_ms": fn_bound, "bound_by": by("fn"),
+         "library_ms": tot["library_ms"],
+         "timed_work": work + "; the L2-streaming kernel, which lstm_route sends only H "
+                       f"past the largest cluster (max_abs_err at H={OLD_H})"},
+    ]
+    return entries, rows
+
+
+# (rows, T): shapes at which route_sweep times every (cluster, rows per tile)
+SWEEP_SHAPES = [(3072, 10), (768, 10), (1024, 2), (256, 24), (64, 30), (8, 1024)]
+
+
+def route_sweep(device) -> list:
+    """lstm_rec and lstm_rec_bwd at SWEEP_SHAPES (D=200, H=100) under every
+    cluster size and tile height the sources take (the lane split as lstm_route
+    would pick it for that pair), launched through the C interface with the
+    route forced: what lstm_route's choice is worth against the others. Each
+    forced run must give the routed run's results within LSTM_TOL / GRAD_TOL."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    f_lib, b_lib = lstm_fused._rec_lib("lstm_rec"), lstm_fused._rec_lib("lstm_rec_bwd")
+    out_rows = []
+    for i, (n, t) in enumerate(SWEEP_SHAPES):
+        x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, 200, 1100 + i, False, device,
+                                                     COTANGENT_SCALE)
+        lens = mask.sum(1, dtype=torch.int32)
+        with torch.no_grad():
+            pre, out_r, fin_r, cell = lstm_fused.lstm_k1(x, lens, p_fw, p_bw, 1.0, True,
+                                                         emit_cell=True, write_preact=True)
+            dg_r = lstm_fused.lstm_rec_bwd(pre, lens, p_fw, p_bw, cell, g_out, g_fin, 1.0)
+            xg = lstm_fused.lstm_proj(x, lens, p_fw, p_bw)
+        routed = lstm_fused.lstm_route(n, t, 200, H)
+        row = {"rows": n, "T": t, "routed": [routed.cluster, routed.rows], "configs": []}
+        for c, rows in ((1, 8), (1, 16), (2, 8), (4, 8), (8, 8)):
+            split = lstm_fused._split(H, c, rows)
+            if split is None:
+                continue
+            out = torch.empty_like(out_r)
+            fin = torch.empty_like(fin_r)
+            dg = torch.empty_like(dg_r)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def fwd():
+                err = f_lib.lstm_rec(xg.data_ptr(), lens.data_ptr(), p_fw.wh.data_ptr(),
+                                     p_bw.wh.data_ptr(), out.data_ptr(), None, fin.data_ptr(),
+                                     n, t, H, c, rows, split, 1.0, 0, stream)
+                if err:
+                    fail(f"forced lstm_rec (C={c}, rows={rows}): error {err}")
+
+            def bwd():
+                err = b_lib.lstm_rec_bwd(pre.data_ptr(), lens.data_ptr(), p_fw.wh.data_ptr(),
+                                         p_bw.wh.data_ptr(), cell.data_ptr(), g_out.data_ptr(),
+                                         g_fin.data_ptr(), dg.data_ptr(), n, t, H, c, rows,
+                                         split, 1.0, stream)
+                if err:
+                    fail(f"forced lstm_rec_bwd (C={c}, rows={rows}): error {err}")
+
+            fwd()
+            bwd()
+            torch.cuda.synchronize()
+            if not (close(out, out_r, **LSTM_TOL) and close(fin, fin_r, **LSTM_TOL)
+                    and close(dg, dg_r, **GRAD_TOL)):
+                fail(f"route sweep: C={c}, rows={rows} disagrees with the routed kernels at "
+                     f"{n} x {t}: out {max_err(out, out_r):.2e} dgates {max_err(dg, dg_r):.2e}")
+            row["configs"].append({"cluster": c, "rows": rows, "split": split,
+                                   "rec_ms": cuda_ms(fwd), "rec_bwd_ms": cuda_ms(bwd)})
+        log("route sweep  " + json.dumps(row))
+        out_rows.append(row)
+    return out_rows
 
 
 # ---- K2 -------------------------------------------------------------------------
@@ -574,7 +855,7 @@ def run_slice(workdir: str) -> dict:
     from fvta_memexqa_torch.convert import save_rundir
     from fvta_memexqa_torch.data import make_synthetic, pack
     from fvta_memexqa_torch.models import FVTAModel
-    from fvta_memexqa_torch.ops import fvta_fused, lstm_fused
+    from fvta_memexqa_torch.ops import fvta_fused
     from fvta_memexqa_torch.serve import QAEngine, build_engine
 
     packdir, rundir = os.path.join(workdir, "pack"), os.path.join(workdir, "run")
@@ -601,7 +882,7 @@ def run_slice(workdir: str) -> dict:
         album_ids = list(qa.album_ids) + (["raw_album"] if i % 4 == 0 else []) + extra
         asks.append((qa.question, list(qa.choices), album_ids[:4]))
 
-    lstm_fused.lstm_fwd.launches = 0
+    zero_lstm_counters()
     fvta_fused.fvta_fwd.launches = 0
     t0 = time.perf_counter()
     engine, store, packed = build_engine(packdir, rundir, device="cuda", batch_size=8)
@@ -627,8 +908,7 @@ def run_slice(workdir: str) -> dict:
         for th in threads:
             th.join()
         concurrent_s = time.perf_counter() - t0
-        launches = {"lstm_fwd": lstm_fused.lstm_fwd.launches,
-                    "fvta_fwd": fvta_fused.fvta_fwd.launches}
+        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
         stats = dict(engine.stats)
         conc_lat = engine.latency_stats()
         seq_engine = QAEngine(store, batch_size=8)
@@ -645,8 +925,9 @@ def run_slice(workdir: str) -> dict:
         fail(f"ask failed on the card: {errors[0]}")
     log(f"slice: launches during the served run {json.dumps(launches)}; "
         f"{stats['questions']} questions in {stats['batches']} micro-batches")
-    if min(launches.values()) == 0:
+    if launches["fvta_fwd"] == 0:
         fail(f"a kernel of the path never launched on the main path: {launches}")
+    check_lstm_launches("serving", launches, backward=False)
     if stats["batches"] >= stats["questions"]:
         fail("no micro-batch formed from the concurrent asks")
     for r in results:
@@ -729,16 +1010,16 @@ def cotangent_probe(packdir: str) -> dict:
     uniq, inv = (torch.from_numpy(a).cuda() for a in dd)
     b = batch.to("cuda")
     params = list(state.params.values())
-    with Recorder(lstm_fused, "lstm_bwd") as rec:
+    with Recorder(lstm_fused, "lstm_rec_bwd") as rec:
         loss, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator)
         torch.autograd.grad(loss, params)
         loss, _ = tr.dedup_loss_and_metrics(state.model, shared, b, uniq, inv, True,
                                             state.generator)
         torch.autograd.grad(loss, params)
     seen: dict[str, dict] = {}
-    for x, lengths, _, _, _, _, g_out, g_fin, _ in rec.calls:
-        n, t = x.shape[:2]
-        live = torch.arange(t, device=x.device)[None, :] < lengths[:, None]
+    for pre, lengths, _, _, _, g_out, g_fin, _ in rec.calls:
+        n, t = pre.shape[:2]
+        live = torch.arange(t, device=pre.device)[None, :] < lengths[:, None]
         r = seen.setdefault(f"{n}x{t}", {"calls": 0, "g_out_max": 0.0, "g_out_sum": 0.0,
                                          "g_out_n": 0, "g_fin_max": 0.0, "g_fin_sum": 0.0,
                                          "g_fin_n": 0})
@@ -768,13 +1049,13 @@ def cotangent_probe(packdir: str) -> dict:
     return out
 
 
-def k1b_case(n, t, d, seed, fin_only, device, scale):
+def k1b_case(n, t, d, seed, fin_only, device, scale, h=H):
     import torch
 
-    x, mask, p_fw, p_bw = lstm_case(n, t, d, H, seed, device)
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed, device)
     g = torch.Generator().manual_seed(seed + 1)
-    g_fin = (torch.randn(n, 2 * H, generator=g) * scale).to(device)
-    g_out = None if fin_only else (torch.randn(n, t, 2 * H, generator=g) * scale).to(device)
+    g_fin = (torch.randn(n, 2 * h, generator=g) * scale).to(device)
+    g_out = None if fin_only else (torch.randn(n, t, 2 * h, generator=g) * scale).to(device)
     return x, mask, p_fw, p_bw, g_out, g_fin
 
 
@@ -801,52 +1082,67 @@ def fused_fn(mask, fin_only):
     return lambda pf, pb, x: lstm_fused.bilstm_fused(pf, pb, x, mask)
 
 
-def k1b_check(device) -> float:
+def k1b_check(device) -> dict:
+    """K1b vs plain autograd at K1B_SHAPES + K1B_EXTRA + LONG_SHAPES (the Hopper
+    route: one launch each of lstm_proj, lstm_rec, lstm_rec_bwd per forward +
+    backward) and at OLD_SHAPES (H = OLD_H: lstm_fwd and lstm_bwd); then the float64 witness
+    and the cell / pre-activation check. Returns the worst gradient errors."""
     import torch
 
     from fvta_memexqa_torch.ops import lstm_ref
 
-    worst, bad = 0.0, []
-    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES + K1B_EXTRA):
+    worst, bad = {"lstm_rec_bwd": 0.0, "lstm_bwd": 0.0}, []
+    cases = [(name, n, t, d, fo, H) for name, n, t, d, fo in K1B_SHAPES + K1B_EXTRA]
+    cases += [(name, n, t, d, False, H) for name, n, t, d in LONG_SHAPES]
+    cases += [(name, n, t, d, False, OLD_H) for name, n, t, d in OLD_SHAPES]
+    for i, (name, n, t, d, fin_only, h) in enumerate(cases):
+        old = h == OLD_H
         for label, fo in (("fin", True), ("out+fin", False)) if not fin_only else (("fin", True),):
             x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 500 + i, fo, device,
-                                                         COTANGENT_SCALE)
+                                                         COTANGENT_SCALE, h)
             plain = lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask)
             out_r, fin_r, ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)
+            before = lstm_counters()
             out_k, fin_k, got = lstm_grads(fused_fn(mask, fin_only), x, p_fw, p_bw, g_out, g_fin)
             torch.cuda.synchronize()
-            # K1 under grad (with cells) at this shape: its out and fin
+            launched = lstm_delta(before)
+            want = {k: int(k in (OLD_KERNELS if old else NEW_KERNELS)) for k in launched}
+            # K1 under grad (with cells; pre-activations on the Hopper route) at this shape
             fwd_ok = close(fin_k, fin_r, **LSTM_TOL) and (
                 out_k is None or close(out_k, out_r, **LSTM_TOL))
             fwd_err = max(max_err(fin_k, fin_r), 0.0 if out_k is None else max_err(out_k, out_r))
             errs = [max_err(a, b) for a, b in zip(got, ref)]
             ok = fwd_ok and all(close(a, b, **GRAD_TOL) for a, b in zip(got, ref))
             ok = ok and all(bool(torch.isfinite(a).all()) for a in got)
-            ok = ok and not got[0][~mask].any()
-            log(f"K1b vs plain {name:23s} {label:7s} N={n:4d} T={t:2d}: "
+            ok = ok and not got[0][~mask].any() and launched == want
+            log(f"K1b vs plain {name:23s} {label:7s} N={n:4d} T={t:4d} H={h}: launches "
+                f"{json.dumps({k: v for k, v in launched.items() if v})}; "
                 f"K1 out/fin {fwd_err:.2e}; max|err| "
                 + " ".join(f"{nm} {e:.2e}" for nm, e in zip(GRAD_NAMES, errs))
                 + f"  {'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(f"{name}/{label}")
-            worst = max(worst, *errs)
+            key = "lstm_bwd" if old else "lstm_rec_bwd"
+            worst[key] = max(worst[key], *errs)
     if bad:
         fail(f"K1b (or K1's out/fin under grad) disagrees with plain autograd at {bad} "
-             f"beyond {GRAD_TOL} (grads) / {LSTM_TOL} (out, fin)")
+             f"beyond {GRAD_TOL} (grads) / {LSTM_TOL} (out, fin), or another route launched")
     k1b_rounding_witness(device)
     k1_cell_check(device)
     return worst
 
 
 def k1b_rounding_witness(device) -> None:
-    """Unit-scale N(0, 1) cotangents at all ten shapes: K1b and the float32
-    plain version both against the float64 plain version."""
+    """Unit-scale N(0, 1) cotangents at the ten train shapes and the two video
+    frame shapes: K1b and the float32 plain version both against the float64
+    plain version."""
     import torch
 
     from fvta_memexqa_torch.ops import lstm_ref
 
     bad = []
-    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES + K1B_EXTRA):
+    cases = K1B_SHAPES + K1B_EXTRA + [(name, n, t, d, False) for name, n, t, d in LONG_SHAPES]
+    for i, (name, n, t, d, fin_only) in enumerate(cases):
         x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 600 + i, fin_only, device, 1.0)
         plain = lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask)
         ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)[2]
@@ -861,7 +1157,7 @@ def k1b_rounding_witness(device) -> None:
             worst_ratio = max(worst_ratio, share)
             line.append(f"{nm} {note}")
         ok = worst_ratio <= 1.0
-        log(f"K1b rounding {name:23s} unit-scale N={n:4d} T={t:2d}: max|err| vs float64, "
+        log(f"K1b rounding {name:23s} unit-scale N={n:4d} T={t:4d}: max|err| vs float64, "
             f"K1b/float32 plain: {' '.join(line)}; worst share of limit {worst_ratio:.2f}  "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
@@ -872,52 +1168,98 @@ def k1b_rounding_witness(device) -> None:
 
 
 def k1_cell_check(device) -> None:
+    """K1's training outputs at K1B_SHAPES and LONG_SHAPES: lstm_rec's cells
+    against the plain scan's carried c and its saved pre-activations against
+    the plain gates (valid positions); and lstm_fwd's cells at OLD_SHAPES."""
     import torch
 
     from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
 
     bad = []
-    for i, (name, n, t, d, _) in enumerate(K1B_SHAPES):
-        x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 700 + i, device)
+    cases = [(name, n, t, d, H) for name, n, t, d, _ in K1B_SHAPES]
+    cases += [(name, n, t, d, H) for name, n, t, d in LONG_SHAPES]
+    cases += [(name, n, t, d, OLD_H) for name, n, t, d in OLD_SHAPES]
+    worst = {"cell": 0.0, "preact": 0.0}
+    for i, (name, n, t, d, h) in enumerate(cases):
+        x, mask, p_fw, p_bw = lstm_case(n, t, d, h, 700 + i, device)
+        lens = mask.sum(1, dtype=torch.int32)
         with torch.no_grad():
-            _, _, cell = lstm_fused.lstm_fwd(x, mask.sum(1, dtype=torch.int32), p_fw, p_bw,
-                                             1.0, False, emit_cell=True)
             ref = lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask)
+            if h == OLD_H:
+                cell = lstm_fused.lstm_fwd(x, lens, p_fw, p_bw, 1.0, False, emit_cell=True)[2]
+            else:
+                pre = lstm_fused.lstm_proj(x, lens, p_fw, p_bw)
+                cell = lstm_fused.lstm_rec(pre, lens, p_fw, p_bw, 1.0, False, emit_cell=True,
+                                           write_preact=True)[2]
+                gates = lstm_ref.bilstm_gates_ref(p_fw, p_bw, x, mask)
+                worst["preact"] = max(worst["preact"], max_err(pre[mask], gates[mask]))
+                if not close(pre[mask], gates[mask], **LSTM_TOL):
+                    bad.append(f"{name} pre-activations ({max_err(pre[mask], gates[mask]):.2e})")
         torch.cuda.synchronize()
+        worst["cell"] = max(worst["cell"], max_err(cell, ref))
         if not close(cell, ref, **LSTM_TOL):
-            bad.append(f"{name} ({max_err(cell, ref):.2e})")
-    log(f"K1 cell output vs the plain scan's carried c at {len(K1B_SHAPES)} shapes: "
+            bad.append(f"{name} cells ({max_err(cell, ref):.2e})")
+    log(f"K1 cell output vs the plain scan's carried c, and lstm_rec's saved pre-activations "
+        f"vs the plain gates, at {len(cases)} shapes: max|err| {json.dumps(worst)}  "
         f"{'ok' if not bad else 'MISMATCH ' + str(bad)}")
     if bad:
-        fail(f"K1's cell output disagrees with the plain carried c at {bad}")
+        fail(f"K1's cells or pre-activations disagree with the plain version at {bad}")
 
 
-def k1b_times(device, launches: int, worst: float) -> tuple[dict, list]:
+def k1b_times(device, launches: dict, worst: dict, old_launches: dict) -> tuple[list, list]:
+    """Per train-step shape (K1B_SHAPES), routing edge and the video frames:
+    the Hopper route's K1b (lstm_rec_bwd on lstm_rec's saved pre-activations),
+    the L2-streaming lstm_bwd (on lstm_fwd's out and cells) on the same inputs, the whole
+    backward through `_BiLSTMFn` (K1b + the four products), the plain backward,
+    cuDNN's backward, the Hopper forward under grad against lstm_fwd's, and the
+    bounds. The kernels-line entries sum the 9 calls of a batch-64 train step."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
     from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
 
-    rows, tot = [], dict(ms=0.0, fn_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                         bytes_ms=0.0, ops_ms=0.0)
-    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES):
+    shapes = [("train", name, n, t, d, fo) for name, n, t, d, fo in K1B_SHAPES]
+    shapes += [(group, name, n, t, d, not emit) for group, name, n, t, d, emit in timed_shapes()
+               if group in ("grouped_edge", "video")]
+    rows, tot = [], {k: 0.0 for k in ("new_ms", "old_ms", "new_graph_ms", "old_graph_ms",
+                                       "fwd_grad_new_ms", "fwd_grad_old_ms",
+                                       "fn_ms", "plain_ms", "library_ms", "bound_ms",
+                                       "old_bound_ms", "bytes_ms", "ops_ms", "old_bytes_ms",
+                                       "old_ops_ms")}
+    for i, (group, name, n, t, d, fin_only) in enumerate(shapes):
         x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 800 + i, fin_only, device,
                                                      COTANGENT_SCALE)
         lens = mask.sum(1, dtype=torch.int32)
         with torch.no_grad():
-            out, _, cell = lstm_fused.lstm_fwd(x, lens, p_fw, p_bw, 1.0, True, emit_cell=True)
-        k_ms = cuda_ms(lambda: lstm_fused.lstm_bwd(x, lens, p_fw, p_bw, out, cell, g_out,
-                                                   g_fin, 1.0))
+            fwd_new = lambda: lstm_fused.lstm_k1(x, lens, p_fw, p_bw, 1.0, True, emit_cell=True,
+                                                 write_preact=True)
+            fwd_old = lambda: lstm_fused.lstm_fwd(x, lens, p_fw, p_bw, 1.0, True, emit_cell=True)
+            pre = lstm_fused.lstm_proj(x, lens, p_fw, p_bw)
+            _, _, cell = lstm_fused.lstm_rec(pre, lens, p_fw, p_bw, 1.0, True, emit_cell=True,
+                                             write_preact=True)
+            out_o, _, cell_o = fwd_old()
+            row = {"set": group, "name": name, "rows": n, "T": t, "D": d, "fin_only": fin_only,
+                   "route": route_info(n, t, d)}
+            k1b_new = lambda: lstm_fused.lstm_rec_bwd(pre, lens, p_fw, p_bw, cell, g_out, g_fin,
+                                                      1.0)
+            k1b_old = lambda: lstm_fused.lstm_bwd(x, lens, p_fw, p_bw, out_o, cell_o, g_out,
+                                                  g_fin, 1.0)
+            row["new_ms"] = cuda_ms(k1b_new)
+            row["old_ms"] = cuda_ms(k1b_old)
+            row["new_graph_ms"] = graph_ms(k1b_new)
+            row["old_graph_ms"] = graph_ms(k1b_old)
+            row["fwd_grad_new_ms"] = cuda_ms(fwd_new)
+            row["fwd_grad_old_ms"] = cuda_ms(fwd_old)
         # K1b and the four products: the whole backward of the autograd Function
         leaves = [a.detach().clone().requires_grad_() for a in (x, *p_fw, *p_bw)]
         o_k, f_k = lstm_fused._BiLSTMFn.apply(leaves[0], lens, 1.0, *leaves[1:])
         loss_k = (f_k * g_fin).sum() + (0 if g_out is None else (o_k * g_out).sum())
-        fn_ms = cuda_ms(lambda: torch.autograd.grad(loss_k, leaves, retain_graph=True))
+        row["fn_ms"] = cuda_ms(lambda: torch.autograd.grad(loss_k, leaves, retain_graph=True))
         o_r, f_r = lstm_ref.bilstm_ref(lstm_ref.LSTMParams(*leaves[1:4]),
                                        lstm_ref.LSTMParams(*leaves[4:]), leaves[0], mask)
         loss_r = (f_r * g_fin).sum() + (0 if g_out is None else (o_r * g_out).sum())
-        p_ms = cuda_ms(lambda: torch.autograd.grad(loss_r, leaves, retain_graph=True),
-                       iters=10)
+        row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(loss_r, leaves, retain_graph=True),
+                                  iters=5, warmup=1)
         # cuDNN: forward + backward minus forward, on packed sequences (no
         # length-0 rows), the same function (cudnn_lstm), a yardstick only
         lstm = cudnn_lstm(p_fw, p_bw, 1.0, d, H, device)
@@ -939,35 +1281,62 @@ def k1b_times(device, launches: int, worst: float) -> tuple[dict, list]:
         def cudnn_fwd_bwd():
             torch.autograd.grad(cudnn_fwd(), [xl, *lstm.parameters()])
 
-        l_ms = max(cuda_ms(cudnn_fwd_bwd) - cuda_ms(cudnn_fwd), 0.0)
+        row["library_ms"] = max(cuda_ms(cudnn_fwd_bwd) - cuda_ms(cudnn_fwd), 0.0)
         steps = int(lens.sum())
-        nbytes = 4 * (steps * d + n + 2 * (d * 4 * H + 2 * H * 4 * H + 4 * H)
-                      + 2 * 2 * steps * H + (2 * steps * H if g_out is not None else 0)
-                      + n * 2 * H + n * t * 8 * H)
-        flops = 2 * steps * (2 * (d + H) * 4 * H + 2 * 4 * H * H + 30 * H)
+        g_bytes = 2 * steps * H if g_out is not None else 0
+        # the Hopper K1b: pre-activations, cells, cotangents and wh in, dgates out
+        nbytes = 4 * (steps * 8 * H + n + 2 * H * 4 * H + 2 * steps * H + g_bytes + n * 2 * H
+                      + n * t * 8 * H)
+        flops = 2 * steps * (2 * 4 * H * H + 30 * H)
+        # lstm_bwd: x, the weights, out and cells in; recomputes the pre-activations
+        old_bytes = 4 * (steps * d + n + 2 * (d * 4 * H + 2 * H * 4 * H + 4 * H)
+                         + 2 * 2 * steps * H + g_bytes + n * 2 * H + n * t * 8 * H)
+        old_flops = 2 * steps * (2 * (d + H) * 4 * H + 2 * 4 * H * H + 30 * H)
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-        row = dict(name=name, rows=n, T=t, D=d, fin_only=fin_only, valid_steps=steps,
-                   ms=k_ms, fn_ms=fn_ms, plain_ms=p_ms, library_ms=l_ms,
-                   bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations")
+        ob_ms, oo_ms = old_bytes / HBM_BYTES_PER_S * 1e3, old_flops / FP32_FLOPS * 1e3
+        row.update(valid_steps=steps, bound_ms=max(b_ms, o_ms), old_bound_ms=max(ob_ms, oo_ms),
+                   bound_by="bytes" if b_ms >= o_ms else "operations")
         rows.append(row)
-        for k in ("ms", "fn_ms", "plain_ms", "library_ms", "bound_ms"):
-            tot[k] += row[k]
-        tot["bytes_ms"] += b_ms
-        tot["ops_ms"] += o_ms
-    entry = {
-        "name": "lstm_bwd", "route": "cuda",
-        "source": "fvta_memexqa_torch/csrc/lstm_bwd.cu",
-        "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:121",
-        "launches": launches, "max_abs_err": worst,
-        "ms": tot["ms"], "kernel_ms": tot["ms"], "backward_fn_ms": tot["fn_ms"],
-        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-        "library_ms": tot["library_ms"],
-        "timed_work": "the 9 K1b calls of one batch-64 train step (sum); plain_ms and "
-                      "library_ms are whole backwards (dW products included), as is "
-                      "backward_fn_ms (K1b + the four products)",
-    }
-    return entry, rows
+        log(f"K1b times    {group:12s} {name:23s} N={n:4d} T={t:4d}: new {row['new_ms']:.3f}, "
+            f"old {row['old_ms']:.3f}; from a CUDA graph new {row['new_graph_ms']:.3f} old "
+            f"{row['old_graph_ms']:.3f}; whole backward {row['fn_ms']:.3f}, cuDNN backward "
+            f"{row['library_ms']:.3f}, plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f} "
+            f"(old {row['old_bound_ms']:.4f}); forward under grad new "
+            f"{row['fwd_grad_new_ms']:.3f} old {row['fwd_grad_old_ms']:.3f} ms")
+        if group == "train":
+            for k in ("new_ms", "old_ms", "new_graph_ms", "old_graph_ms", "fwd_grad_new_ms",
+                      "fwd_grad_old_ms", "fn_ms",
+                      "plain_ms", "library_ms", "bound_ms", "old_bound_ms"):
+                tot[k] += row[k]
+            tot["bytes_ms"] += b_ms
+            tot["ops_ms"] += o_ms
+            tot["old_bytes_ms"] += ob_ms
+            tot["old_ops_ms"] += oo_ms
+    work = ("the 9 K1b calls of one batch-64 train step (sum); plain_ms and library_ms are "
+            "whole backwards (dW products included), as is backward_fn_ms (K1b + the four "
+            "products, Hopper route)")
+    entries = [
+        {"name": "lstm_rec_bwd", "route": "cuda",
+         "source": "fvta_memexqa_torch/csrc/lstm_rec_bwd.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:121",
+         "launches": launches["lstm_rec_bwd"], "max_abs_err": worst["lstm_rec_bwd"],
+         "ms": tot["new_ms"], "kernel_ms": tot["new_ms"], "graph_ms": tot["new_graph_ms"],
+         "backward_fn_ms": tot["fn_ms"],
+         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+         "library_ms": tot["library_ms"], "forward_under_grad_ms": tot["fwd_grad_new_ms"],
+         "timed_work": work},
+        {"name": "lstm_bwd", "route": "cuda", "source": "fvta_memexqa_torch/csrc/lstm_bwd.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:121", "launches": 0,
+         "launches_past_limit": old_launches["lstm_bwd"], "max_abs_err": worst["lstm_bwd"],
+         "ms": tot["old_ms"], "kernel_ms": tot["old_ms"], "graph_ms": tot["old_graph_ms"],
+         "plain_ms": tot["plain_ms"], "bound_ms": tot["old_bound_ms"],
+         "bound_by": "bytes" if tot["old_bytes_ms"] >= tot["old_ops_ms"] else "operations",
+         "library_ms": tot["library_ms"], "forward_under_grad_ms": tot["fwd_grad_old_ms"],
+         "timed_work": work + "; the L2-streaming kernel, which lstm_route sends only H "
+                       f"past the largest cluster (max_abs_err at H={OLD_H})"},
+    ]
+    return entries, rows
 
 
 # ---- the train slice --------------------------------------------------------------
@@ -981,19 +1350,16 @@ def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
     """`cli train` on the card for TRAIN_STEPS steps (log every step, val every
     12), the launch counters zeroed just before and read just after."""
     from fvta_memexqa_torch import cli
-    from fvta_memexqa_torch.ops import fvta_fused, lstm_fused
+    from fvta_memexqa_torch.ops import fvta_fused
 
-    lstm_fused.lstm_fwd.launches = 0
-    lstm_fused.lstm_bwd.launches = 0
+    zero_lstm_counters()
     fvta_fused.fvta_fwd.launches = 0
     t0 = time.perf_counter()
     cli.main(["train", packdir, rundir, "--num-steps", str(TRAIN_STEPS), "--val-period", "12",
               "--log-period", "1", "--save-period", "1000", "--device", "cuda",
               "--dedup-albums", "true" if dedup else "false"])
     wall = time.perf_counter() - t0
-    launches = {"lstm_fwd": lstm_fused.lstm_fwd.launches,
-                "lstm_bwd": lstm_fused.lstm_bwd.launches,
-                "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
     recs = read_metrics(os.path.join(rundir, "metrics.jsonl"))
     train_recs = [r for r in recs if r["event"] == "train"]
     losses = [r["loss"] for r in train_recs]
@@ -1009,8 +1375,9 @@ def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
         f"{last:.4f}; val {[(v['step'], round(v['acc'], 4)) for v in vals]}")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"train ({tag}): losses not finite or steps missing: {losses}")
-    if min(launches.values()) == 0:
+    if launches["fvta_fwd"] == 0:
         fail(f"train ({tag}): a kernel of the path never launched: {launches}")
+    check_lstm_launches(f"train ({tag})", launches, backward=True)
     if len(epochs) < 2 or not last < first:
         fail(f"train ({tag}): the last epoch's mean loss {last} is not below the "
              f"first's {first}")
@@ -1193,6 +1560,7 @@ def profile_train(packdir: str) -> dict:
             for b in host[:3]:
                 fn(b)
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             per = []
             for b in host[3:]:
                 t0 = time.perf_counter()
@@ -1200,7 +1568,10 @@ def profile_train(packdir: str) -> dict:
                 torch.cuda.synchronize()
                 per.append((time.perf_counter() - t0) * 1e3)
             times[name] = {"p50_step_ms": float(np.median(per)), "mean_step_ms":
-                           float(np.mean(per)), "qa_pairs_per_s": 64e3 / float(np.mean(per))}
+                           float(np.mean(per)), "qa_pairs_per_s": 64e3 / float(np.mean(per)),
+                           "peak_device_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            log(f"train step ({name}), batch 64: p50 {times[name]['p50_step_ms']:.2f} ms, peak "
+                f"{times[name]['peak_device_gib']:.3f} GiB")
         prof = device_breakdown(lambda: plain(host[0]))
     return {"steps_timed": len(host) - 3, "step_times": times, "profiled_step": prof}
 
@@ -1528,7 +1899,7 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     prep_lines = open(os.path.join(workdir, "video_prep.log")).read().strip().splitlines()
     log(f"video pack ready (waited {time.perf_counter() - t0:.1f} s more): {prep_lines[-1]}")
     pack, run = os.path.join(workdir, "video_pack"), os.path.join(workdir, "video_run")
-    counters = {"lstm_fwd": lstm_fused.lstm_fwd, "lstm_bwd": lstm_fused.lstm_bwd,
+    counters = {**{k: getattr(lstm_fused, k) for k in NEW_KERNELS + OLD_KERNELS},
                 "fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
                 "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd}
     for fn in counters.values():
@@ -1552,9 +1923,10 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     log(f"video (cli video --data --out, T={CLI_FRAMES}, H=100): {len(losses)} steps in "
         f"{wall:.1f} s; launches {json.dumps(launches)}; mean loss of the first 6 steps "
         f"{first:.4f}, last 6 {last:.4f}; {json.dumps(res)}; video-test {json.dumps(test)}")
-    on_path = ("lstm_fwd", "lstm_bwd", "stats_fwd", "qcnt", "stats_bwd")
+    on_path = ("stats_fwd", "qcnt", "stats_bwd")
     if min(launches[k] for k in on_path) == 0:
         fail(f"video: a kernel of the path never launched: {launches}")
+    check_lstm_launches("video", launches, backward=True)
     if launches["qcnt"] != CLI_STEPS or launches["stats_bwd"] != CLI_STEPS:
         fail(f"video: K5 and K6 must launch once per train step ({CLI_STEPS}): {launches}")
     if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) or not last < first:
@@ -1641,19 +2013,17 @@ def video_step_times(encoder: str = "dilated_conv", t_frames: int = VIDEO_T,
 
 def video_bilstm_step() -> dict:
     """One train step with --encoder bilstm at T=1024 (K1/K1b over the frames)."""
-    from fvta_memexqa_torch.ops import fvta_stats, lstm_fused
+    from fvta_memexqa_torch.ops import fvta_stats
 
-    before = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches,
-              fvta_stats.stats_bwd.launches)
-    res = video_step_times("bilstm", CLI_FRAMES, steps=2)
-    after = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches,
-             fvta_stats.stats_bwd.launches)
-    res["launches"] = dict(zip(("lstm_fwd", "lstm_bwd", "stats_bwd"),
-                               (b - a for a, b in zip(before, after))))
-    log(f"video bilstm step at T={CLI_FRAMES}: p50 {res['p50_step_ms']:.2f} ms, loss "
-        f"{res['loss']:.4f}, launches {res['launches']}")
-    if min(res["launches"].values()) == 0:
-        fail(f"the bilstm video step did not launch K1, K1b and K6: {res['launches']}")
+    before, k6 = lstm_counters(), fvta_stats.stats_bwd.launches
+    res = video_step_times("bilstm", CLI_FRAMES, steps=10)
+    res["launches"] = {**lstm_delta(before), "stats_bwd": fvta_stats.stats_bwd.launches - k6}
+    log(f"video bilstm step at T={CLI_FRAMES}: p50 {res['p50_step_ms']:.2f} ms, peak "
+        f"{res['peak_device_gib']:.3f} GiB, loss {res['loss']:.4f}, launches {res['launches']}; "
+        f"profiled step {json.dumps(res['profiled_step'])}")
+    if res["launches"]["stats_bwd"] == 0:
+        fail(f"the bilstm video step did not launch K6: {res['launches']}")
+    check_lstm_launches("video bilstm step", res["launches"], backward=True)
     return res
 
 
@@ -2150,13 +2520,13 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     from fvta_memexqa_torch.data.device_prepro import SharedTables
     from fvta_memexqa_torch.data.pack import load_pack
     from fvta_memexqa_torch.data.pipeline import Dataset
-    from fvta_memexqa_torch.ops import fvta_fused, lstm_fused
+    from fvta_memexqa_torch.ops import fvta_fused
 
     zero_grouped_counters()
     pack = os.path.join(workdir, "pack")
     plain, dedup = (os.path.join(workdir, d) for d in ("train_plain", "train_dedup"))
     attn = os.path.join(workdir, "eval_attention.npz")
-    lstm_fused.lstm_fwd.launches = 0
+    zero_lstm_counters()
     fvta_fused.fvta_fwd.launches = 0
     out, walls = {}, {}
     for key, extra in (("cached", []), ("uncached", ["--no-album-cache"]),
@@ -2169,8 +2539,7 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     prepro = prepro_check(workdir)
     ablate, walls["ablate"] = cli_json(["ablate", pack, os.path.join(workdir, "ablate"),
                                         "--num-steps", "6", "--device", device])
-    launches = {"lstm_fwd": lstm_fused.lstm_fwd.launches,
-                "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
     grouped = grouped_counters()
     log(f"cli ablate --num-steps 6 ({walls['ablate']:.1f} s): {json.dumps(ablate)}; "
         f"evaluation phase launches {json.dumps(launches)}, K7/K8 {json.dumps(grouped)}")
@@ -2179,8 +2548,9 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     bc = out["by_category"]["by_category"]
     z = np.load(attn)
     problems = []
-    if min(launches.values()) == 0:
+    if launches["fvta_fwd"] == 0:
         problems.append(f"a kernel never launched: {launches}")
+    check_lstm_launches("evaluation", launches, backward=True)
     if c["accuracy"] != u["accuracy"] or abs(c["loss"] - u["loss"]) > EVAL_TOL * abs(u["loss"]):
         problems.append(f"cached {c} vs uncached {u}")
     if c["count"] != n_test or sum(v["count"] for v in bc.values()) != n_test:
@@ -2252,13 +2622,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         prep = prepare_video_pack(workdir)   # CPU work, overlapped with the card's phases
         try:
+            zero_lstm_counters()
             k1_err = k1_check(device)
+            past_limit = lstm_counters()   # the L2-streaming kernels at H = OLD_H ...
             k2_err = k2_check(device)
             zero_grouped_counters()   # K7/K8 over the commands of phases 3-14 ...
             served = run_slice(workdir)
             log("serving " + json.dumps(served))
             cotangents = cotangent_probe(os.path.join(workdir, "pack"))
+            before = lstm_counters()
             k1b_err = k1b_check(device)
+            past_limit = {k: v + past_limit[k] for k, v in lstm_delta(before).items()}   # ... all
+            log(f"launches of the bi-LSTM kernels in the checks: {json.dumps(past_limit)}")
             trained = run_train_slice(workdir)
             trained["k1b_cotangents"] = cotangents
             log("training " + json.dumps(trained))
@@ -2277,14 +2652,16 @@ def main() -> None:
             if prep.poll() is None:
                 prep.kill()
                 prep.wait()
-    k1, k1_rows = k1_times(device, served["launches"]["lstm_fwd"], k1_err)
+    sweep = route_sweep(device)
+    k1, k1_rows = k1_times(device, served["launches"], k1_err, past_limit)
     k2 = k2_times(device, served["launches"]["fvta_fwd"], k2_err)
-    k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"]["lstm_bwd"], k1b_err)
+    k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"], k1b_err, past_limit)
     grouped_entries, grouped_rows = grouped_times(device, grouped, from_cli)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
     log("grouped_shapes " + json.dumps(grouped_rows))
-    log(json.dumps({"kernels": [k1, k2, k1b, *stats_entries, *grouped_entries]}))
+    log("route_sweep " + json.dumps(sweep))
+    log(json.dumps({"kernels": [*k1, k2, *k1b, *stats_entries, *grouped_entries]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -99,3 +99,18 @@ def bilstm_cells_ref(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tens
     lstm_scan_ref(params_bw, _flip_to_front(x, lengths), mask, forget_bias, c_bw)
     return torch.cat([torch.stack(c_fw, dim=1),
                       _flip_to_front(torch.stack(c_bw, dim=1), lengths)], dim=-1)
+
+
+def bilstm_gates_ref(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor,
+                     mask: torch.Tensor, forget_bias: float = 1.0) -> torch.Tensor:
+    """The gate pre-activations x_t . wx + b + h_{t-1} . wh of every valid step,
+    [N, T, 8H] (forward direction's (i, j, f, o) in [:4H], backward's in [4H:],
+    both at the original positions, as the fused recurrence saves them under
+    grad); 0 past each row's length. h_{t-1} is the forward output one position
+    earlier and the backward output one position later (0 at a row's ends)."""
+    out, _ = bilstm_ref(params_fw, params_bw, x, mask, forget_bias)
+    h = params_fw.wh.shape[0]
+    zero = out.new_zeros(out.shape[0], 1, h)
+    h_prev = (torch.cat([zero, out[:, :-1, :h]], dim=1), torch.cat([out[:, 1:, h:], zero], dim=1))
+    gates = [x @ p.wx + p.b + hp @ p.wh for p, hp in zip((params_fw, params_bw), h_prev)]
+    return torch.cat(gates, dim=-1) * mask[..., None].to(x.dtype)

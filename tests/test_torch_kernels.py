@@ -7,10 +7,16 @@ hence --noconftest there):
 
 Without a card the `gpu` tests skip inside the test; the CPU tests check that
 no wrapper falls back, that the CPU path (a backward included) needs no build,
-and that the bi-LSTM autograd Function with K1 and K1b emulated on the CPU
-(`k1_emulated`, `k1b_emulated` below; tests/test_torch_lstm.py also uses them)
-matches autograd through the plain version.
+which kernels, cluster size and tile height `lstm_route` picks per shape, and
+that the bi-LSTM autograd Function with K1 and K1b emulated on the CPU matches
+autograd through the plain version, on both routes (`hopper_emulated`:
+lstm_proj, lstm_rec, lstm_rec_bwd; `old_route`: the L2-streaming kernels;
+tests/test_torch_lstm.py also uses them).
 """
+
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -147,15 +153,184 @@ def k1b_emulated(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
     return dgates
 
 
+# ---- CPU emulations of the Hopper route: lstm_proj, lstm_rec, lstm_rec_bwd -----
+# The same launch structure and layouts: the projection writes xg [N, T, 8H] at
+# the original positions (NaN where a row has ended: the kernel may leave those
+# unwritten, and nothing may read them), the recurrence reads xg[t] (backward
+# direction: xg[L-1-t]) and, under grad, overwrites it with the full
+# pre-activations, which the backward reads instead of recomputing.
+
+def proj_emulated(x, lengths, p_fw, p_bw):
+    xg = torch.cat([x @ p.wx + p.b for p in (p_fw, p_bw)], dim=-1)
+    dead = torch.arange(x.shape[1])[None, :] >= lengths.long()[:, None]
+    return xg.masked_fill(dead[..., None], float("nan"))
+
+
+def rec_emulated(xg, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False,
+                 write_preact=False):
+    n, t, _ = xg.shape
+    h = p_fw.wh.shape[0]
+    rows = torch.arange(n)
+    ln = lengths.long()
+    out = xg.new_zeros(n, t, 2 * h)
+    cell = xg.new_zeros(n, t, 2 * h)
+    fin = xg.new_zeros(n, 2 * h)
+    for k, p in enumerate((p_fw, p_bw)):
+        hh, c = xg.new_zeros(n, h), xg.new_zeros(n, h)
+        sl, gl = slice(k * h, (k + 1) * h), slice(4 * k * h, 4 * (k + 1) * h)
+        for step in range(t):
+            live = step < ln
+            pos = torch.where(live, ln - 1 - step if k else torch.full_like(ln, step),
+                              torch.full_like(ln, step))
+            gates = xg[rows, pos][:, gl] + hh @ p.wh
+            i, j, f, o = torch.chunk(torch.where(live[:, None], gates, 0.0), 4, dim=-1)
+            nc = c * torch.sigmoid(f + forget_bias) + torch.sigmoid(i) * torch.tanh(j)
+            nh = torch.tanh(nc) * torch.sigmoid(o)
+            if write_preact:
+                g = xg[rows[live], pos[live]]
+                g[:, gl] = gates[live]
+                xg[rows[live], pos[live]] = g
+            hh = torch.where(live[:, None], nh, hh)
+            c = torch.where(live[:, None], nc, c)
+            o_ = out[rows, pos]
+            o_[:, sl] = torch.where(live[:, None], nh, 0.0)
+            out[rows, pos] = o_
+            cc = cell[rows, pos]
+            cc[:, sl] = c
+            cell[rows, pos] = cc
+        fin[:, sl] = hh
+    return (out if emit_out else None), fin, (cell if emit_cell else None)
+
+
+def rec_bwd_emulated(pre, lengths, p_fw, p_bw, cell, g_out, g_fin, forget_bias):
+    n, t, _ = pre.shape
+    h = p_fw.wh.shape[0]
+    rows = torch.arange(n)
+    ln = lengths.long()
+    dgates = pre.new_zeros(n, t, 8 * h)
+    for k, p in enumerate((p_fw, p_bw)):
+        sl, gl = slice(k * h, (k + 1) * h), slice(4 * k * h, 4 * (k + 1) * h)
+        dh, dc = pre.new_zeros(n, h), pre.new_zeros(n, h)
+        for step in range(t - 1, -1, -1):
+            live = (step < ln)[:, None]
+            pos = (ln - 1 - step if k else torch.full_like(ln, step)).clamp(0, t - 1)
+            prev = (pos + 1 if k else pos - 1).clamp(0, t - 1)
+            c_prev = (1.0 if step > 0 else 0.0) * cell[rows, prev][:, sl]
+            g = torch.where(live, pre[rows, pos][:, gl], 0.0)   # saved, not recomputed
+            i_s, j_t = torch.sigmoid(g[:, :h]), torch.tanh(g[:, h:2 * h])
+            f_s = torch.sigmoid(g[:, 2 * h:3 * h] + forget_bias)
+            o_s = torch.sigmoid(g[:, 3 * h:])
+            tanh_c = torch.tanh(cell[rows, pos][:, sl])
+            dh_in = dh.clone()
+            if g_out is not None:
+                dh_in = dh_in + g_out[rows, pos][:, sl]
+            if g_fin is not None:
+                dh_in = dh_in + (step == ln - 1)[:, None] * g_fin[:, sl]
+            dc_tot = dc + dh_in * o_s * (1 - tanh_c * tanh_c)
+            dg = torch.cat([dc_tot * j_t * i_s * (1 - i_s), dc_tot * i_s * (1 - j_t * j_t),
+                            dc_tot * c_prev * f_s * (1 - f_s),
+                            dh_in * tanh_c * o_s * (1 - o_s)], dim=-1)
+            dg = torch.where(live, dg, 0.0)
+            at = torch.where(live[:, 0], pos, step)
+            d = dgates[rows, at]
+            d[:, gl] = dg
+            dgates[rows, at] = d
+            dh = torch.where(live, dg @ p.wh.t(), dh)
+            dc = torch.where(live, dc_tot * f_s, dc)
+    return dgates
+
+
+def hopper_emulated(monkeypatch):
+    """Swap the emulations in for the Hopper route's launchers and the old
+    kernels' launchers for traps: the shapes these tests use route to the
+    Hopper kernels."""
+    def trap(*a, **k):
+        raise AssertionError("the old kernels must not launch on the Hopper route")
+
+    def k1(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False, write_preact=False):
+        pre = proj_emulated(x, lengths, p_fw, p_bw)
+        return (pre, *rec_emulated(pre, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell,
+                                   write_preact))
+
+    for name, fn in (("lstm_proj", proj_emulated), ("lstm_rec", rec_emulated), ("lstm_k1", k1),
+                     ("lstm_rec_bwd", rec_bwd_emulated), ("lstm_fwd", trap),
+                     ("lstm_bwd", trap)):
+        monkeypatch.setattr(lstm_fused, name, fn)
+
+
+# ---- CPU: the route ----------------------------------------------------------------
+# (rows, T, D, H) → (kernels, cluster, rows per tile). chip_smoke's K1_SHAPES
+# (serving: photo titles 768 x 10, encoders 64 x 12 / 24, question 8 x 30,
+# choices 32 x 8), K1B_SHAPES (train: 3072 / 2688 x 10, encoders 256 x 12 / 24,
+# question 64 x 30, choices 256 x 8), the grouped shapes' routing edge, the video
+# bilstm (frames 8 x 1024 at D = 200, the CLI's 16 x 1024 at D = 116, its
+# question 16 x 30, choices 80 x 8), the CLI's small widths (H = 16, 8) and the
+# tests' small odd shapes; then the cluster and tile thresholds, and widths past
+# the largest cluster (→ the L2-streaming kernels).
+NEW, OLD = lstm_fused.REC_KERNELS, lstm_fused.OLD_KERNELS
+ROUTES = [
+    ((768, 10, 200, 100), (NEW, 2, 8)), ((64, 12, 200, 100), (NEW, 8, 8)),
+    ((64, 24, 200, 100), (NEW, 8, 8)), ((8, 30, 200, 100), (NEW, 8, 8)),
+    ((32, 8, 200, 100), (NEW, 8, 8)), ((3072, 10, 200, 100), (NEW, 1, 16)),
+    ((2688, 10, 200, 100), (NEW, 1, 16)), ((256, 12, 200, 100), (NEW, 2, 8)),
+    ((256, 24, 200, 100), (NEW, 2, 8)), ((64, 30, 200, 100), (NEW, 8, 8)),
+    ((256, 8, 200, 100), (NEW, 2, 8)), ((1024, 2, 200, 100), (NEW, 2, 8)),
+    ((1023, 2, 200, 100), (NEW, 2, 8)), ((8, 1024, 200, 100), (NEW, 8, 8)),
+    ((16, 1024, 116, 100), (NEW, 8, 8)), ((16, 30, 116, 100), (NEW, 8, 8)),
+    ((80, 8, 116, 100), (NEW, 4, 8)), ((8, 30, 32, 16), (NEW, 2, 8)),
+    ((8, 6, 24, 8), (NEW, 1, 8)), ((12, 7, 10, 5), (NEW, 1, 8)),
+    ((64, 5, 200, 100), (NEW, 8, 8)), ((65, 5, 200, 100), (NEW, 4, 8)),
+    ((264, 5, 200, 100), (NEW, 2, 8)), ((265, 5, 200, 100), (NEW, 2, 8)),
+    ((1056, 3, 200, 100), (NEW, 2, 8)), ((1057, 3, 200, 100), (NEW, 1, 16)),
+    ((16, 5, 24, 256), (NEW, 8, 8)), ((16, 5, 24, 300), (OLD, 1, 8)),
+    ((3072, 10, 200, 320), (OLD, 1, 8)),
+]
+
+
+@pytest.mark.parametrize("shape,expected", ROUTES, ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v[0], int) else None)
+def test_route_maps_shapes_to_kernels_cluster_and_rows(shape, expected):
+    route = lstm_fused.lstm_route(*shape)
+    assert (route.kernels, route.cluster, route.rows) == expected
+    if route.kernels == NEW:
+        threads, fwd, bwd = lstm_fused.rec_geometry(shape[3], route.cluster, route.rows,
+                                                    route.split)
+        assert max(fwd, bwd) <= build.SMEM_LIMIT and 32 <= threads <= 512
+        # beyond clusters of 2, a cluster grows only while it keeps one CTA per SM
+        blocks = 2 * -(-shape[0] // route.rows) * route.cluster
+        assert route.cluster <= 2 or blocks <= lstm_fused.SM_COUNT
+
+
+def test_route_is_old_exactly_past_the_largest_cluster():
+    hs = range(4, 400, 4)
+    new = [h for h in hs if lstm_fused.lstm_route(8, 4, 200, h).kernels == NEW]
+    assert new == [h for h in hs if h <= max(new)]      # one contiguous range from the bottom
+    assert 100 <= max(new) < 300
+
+
 # ---- CPU: the autograd Function with emulated kernels --------------------------
-@pytest.mark.parametrize("final_only", [False, True])
-@pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (4, 11, 33, 7)])
-def test_bilstm_fn_with_emulated_kernels_matches_plain_autograd(monkeypatch, final_only,
-                                                                n, t, d, h):
-    monkeypatch.setattr(lstm_fused, "lstm_fwd", k1_emulated)
-    monkeypatch.setattr(lstm_fused, "lstm_bwd", k1b_emulated)
-    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=3)
-    rng = np.random.default_rng(4)
+
+def old_route(monkeypatch):
+    """Route every shape to the L2-streaming kernels, emulated (K1 with cells,
+    K1b recomputing the pre-activations), as the card does past the largest
+    cluster; the Hopper launchers become traps."""
+    def trap(*a, **k):
+        raise AssertionError("the Hopper kernels must not launch on the old route")
+
+    monkeypatch.setattr(lstm_fused, "lstm_route",
+                        lambda *shape: lstm_fused.LSTMRoute(OLD, 1, 8, 0))
+    for name, fn in (("lstm_fwd", k1_emulated), ("lstm_bwd", k1b_emulated),
+                     ("lstm_proj", trap), ("lstm_rec", trap), ("lstm_k1", trap),
+                     ("lstm_rec_bwd", trap)):
+        monkeypatch.setattr(lstm_fused, name, fn)
+
+
+def bilstm_fn_grads(x, mask, p_fw, p_bw, final_only, seed=4):
+    """(out, fin) and the gradients of <out, g_out> + <fin, g_fin> through
+    autograd of bilstm_ref and through `_BiLSTMFn`, with N(0, 1) cotangents."""
+    n, t, _ = x.shape
+    h = p_fw.wh.shape[0]
+    rng = np.random.default_rng(seed)
     g_out = torch.from_numpy(rng.normal(0, 1, (n, t, 2 * h)).astype(np.float32))
     g_fin = torch.from_numpy(rng.normal(0, 1, (n, 2 * h)).astype(np.float32))
     leaves = [x, *p_fw, *p_bw]
@@ -166,9 +341,53 @@ def test_bilstm_fn_with_emulated_kernels_matches_plain_autograd(monkeypatch, fin
         loss = (fin * g_fin).sum() + (0 if final_only else (out * g_out).sum())
         return [a.detach() for a in (out, fin)], torch.autograd.grad(loss, ins)
 
-    (out_r, fin_r), ref = grads(lambda xx, pf, pb: lstm_ref.bilstm_ref(pf, pb, xx, mask))
-    (out_k, fin_k), got = grads(lambda xx, pf, pb: lstm_fused._BiLSTMFn.apply(
-        xx, mask.sum(1, dtype=torch.int32), 1.0, *pf, *pb))
+    return (grads(lambda xx, pf, pb: lstm_ref.bilstm_ref(pf, pb, xx, mask)),
+            grads(lambda xx, pf, pb: lstm_fused._BiLSTMFn.apply(
+                xx, mask.sum(1, dtype=torch.int32), 1.0, *pf, *pb)))
+
+
+@pytest.mark.parametrize("final_only", [False, True])
+@pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (9, 11, 33, 16)])
+def test_bilstm_fn_with_hopper_emulation_matches_plain_autograd(monkeypatch, final_only,
+                                                                n, t, d, h):
+    hopper_emulated(monkeypatch)
+    assert lstm_fused.lstm_route(n, t, d, h).kernels == NEW
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=3)
+    ((out_r, fin_r), ref), ((out_k, fin_k), got) = bilstm_fn_grads(x, mask, p_fw, p_bw,
+                                                                   final_only)
+    torch.testing.assert_close(out_k, out_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(fin_k, fin_r, rtol=1e-5, atol=1e-6)
+    for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"), got, ref):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+    assert not got[0][~mask].any()
+
+
+@pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (9, 11, 33, 16)])
+def test_emulated_saved_preactivations_equal_plain_gates(n, t, d, h):
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=7)
+    lengths = mask.sum(1, dtype=torch.int32)
+    xg = proj_emulated(x, lengths, p_fw, p_bw)
+    out, fin, cell = rec_emulated(xg, lengths, p_fw, p_bw, 1.0, True, emit_cell=True,
+                                  write_preact=True)
+    gates = lstm_ref.bilstm_gates_ref(p_fw, p_bw, x, mask)
+    torch.testing.assert_close(xg[mask], gates[mask], rtol=1e-5, atol=1e-6)
+    assert torch.isnan(xg[~mask]).all()      # nothing wrote (or needed) the dead positions
+    torch.testing.assert_close(cell, lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask),
+                               rtol=1e-5, atol=1e-6)
+    out_r, fin_r = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
+    torch.testing.assert_close(out, out_r, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(fin, fin_r, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("final_only", [False, True])
+@pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (4, 11, 33, 7)])
+def test_bilstm_fn_with_emulated_kernels_matches_plain_autograd(monkeypatch, final_only,
+                                                                n, t, d, h):
+    old_route(monkeypatch)
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=3)
+    ((out_r, fin_r), ref), ((out_k, fin_k), got) = bilstm_fn_grads(x, mask, p_fw, p_bw,
+                                                                   final_only)
     torch.testing.assert_close(out_k, out_r, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(fin_k, fin_r, rtol=1e-5, atol=1e-6)
     for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"), got, ref):
@@ -375,6 +594,29 @@ def test_lstm_kernel_wrapper_refuses_cpu_tensors():
         lstm_fused.lstm_bwd(x, lengths, p_fw, p_bw, out, out, None, None, 1.0)
 
 
+def test_hopper_lstm_wrappers_refuse_cpu_tensors(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a refused CPU tensor must not build kernels")
+
+    monkeypatch.setattr(build, "build_all", no_build)
+    x, mask, p_fw, p_bw = lstm_case(6, 5, 8, 4, seed=2)
+    lengths = mask.sum(1, dtype=torch.int32)
+    xg = torch.zeros(6, 5, 32)
+    cell = torch.zeros(6, 5, 8)
+    before = (lstm_fused.lstm_proj.launches, lstm_fused.lstm_rec.launches,
+              lstm_fused.lstm_rec_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_fused.lstm_proj(x, lengths, p_fw, p_bw)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_fused.lstm_rec(xg, lengths, p_fw, p_bw, 1.0, True, True, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_fused.lstm_rec_bwd(xg, lengths, p_fw, p_bw, cell, cell, None, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        lstm_fused.lstm_k1(x, lengths, p_fw, p_bw, 1.0, True, True, True)
+    assert (lstm_fused.lstm_proj.launches, lstm_fused.lstm_rec.launches,
+            lstm_fused.lstm_rec_bwd.launches) == before
+
+
 def test_fvta_kernel_wrapper_refuses_cpu_tensors():
     h, cm, q, qm, p = fvta_case(2, 3, 5, 4, 6, seed=3)
     with pytest.raises(ValueError, match="CUDA"):
@@ -402,32 +644,118 @@ def test_grouped_wrappers_refuse_cpu_tensors():
 
 def test_build_targets_track_source_hash():
     src = sorted(build.CSRC_DIR.glob("*.cu"))
-    assert {"fvta_fwd", "lstm_fwd", "lstm_bwd", "lstm_grouped",
-            "lstm_stream"} <= {s.stem for s in src}
+    # the projection (lstm_proj.cuh) is built into lstm_rec's library, not its own
+    assert {"fvta_fwd", "lstm_fwd", "lstm_bwd", "lstm_grouped", "lstm_stream",
+            "lstm_rec", "lstm_rec_bwd"} <= {s.stem for s in src}
+    assert "lstm_proj" not in {s.stem for s in src}
     targets = [build._target(s) for s in src]
     assert all(t.parent == build.BUILD_DIR and t.name.startswith(s.stem + "-")
                for s, t in zip(src, targets))
     assert len(set(targets)) == len(src)
 
 
+# ---- CPU: the route's geometry against the CUDA sources -------------------------
+# lstm_route's shared-memory sizes (rec_geometry), lane splits (_SPLITS) and
+# thread limits (_MAX_THREADS) restate what csrc/lstm_rec.cuh computes and what
+# lstm_rec.cu / lstm_rec_bwd.cu instantiate; these tests hold the two copies
+# together without a card.
+
+REC_SOURCES = [("lstm_rec.cu", "LSTM_REC_CASE"), ("lstm_rec_bwd.cu", "LSTM_REC_BWD_CASE")]
+
+
+@pytest.mark.parametrize("source,macro", REC_SOURCES)
+def test_route_splits_and_thread_limits_match_the_instantiations(source, macro):
+    text = (build.CSRC_DIR / source).read_text()
+    pairs = {(int(r), int(s)) for r, s in re.findall(rf"^\s*{macro}\((\d+), (\d+)\)", text, re.M)}
+    assert pairs == {(r, s) for r, splits in lstm_fused._SPLITS.items() for s in splits}
+    bounds = re.findall(r"__launch_bounds__\(ROWS == 16 \? (\d+) : (\d+)\)", text)
+    assert len(bounds) == 1
+    assert {16: int(bounds[0][0]), 8: int(bounds[0][1])} == lstm_fused._MAX_THREADS
+
+
+GEOMETRY_MAIN = r'''
+#include <cstdio>
+int main() {
+  const int hs[] = {5, 7, 8, 16, 36, 100, 116, 128, 200, 256, 300};
+  const int splits[] = {4, 8, 16};
+  for (int h : hs)
+    for (int c = 1; c <= 8; c *= 2)
+      for (int rows = 8; rows <= 16; rows *= 2)
+        for (int s : splits) {
+          const lrec::Geometry f = lrec::fwd_geometry(h, c, rows, s);
+          const lrec::Geometry b = lrec::bwd_geometry(h, c, rows, s);
+          std::printf("%d %d %d %d %d %zu %zu\n", h, c, rows, s, f.threads, f.smem, b.smem);
+        }
+  return 0;
+}
+'''
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="needs a host C++ compiler")
+def test_rec_geometry_matches_the_cuda_header(tmp_path):
+    """rec_geometry against lstm_rec.cuh's own fwd_geometry / bwd_geometry,
+    compiled for the host from the header's text (the device code around them
+    needs nvcc)."""
+    header = (build.CSRC_DIR / "lstm_rec.cuh").read_text()
+    start = header.index("__host__ __device__ inline bool conflict_free")
+    end = header.index("inline cudaError_t active_clusters")
+    prog = tmp_path / "geometry.cc"
+    prog.write_text("#include <cstddef>\n#define __host__\n#define __device__\nnamespace lrec {\n"
+                    + header[start:end] + "}\n" + GEOMETRY_MAIN)
+    exe = tmp_path / "geometry"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-o", str(exe), str(prog)], check=True)
+    lines = subprocess.run([str(exe)], check=True, capture_output=True,
+                           text=True).stdout.split("\n")
+    rows = [tuple(map(int, line.split())) for line in lines if line]
+    assert len(rows) == 11 * 4 * 2 * 3
+    for h, c, r, s, threads, fwd, bwd in rows:
+        assert lstm_fused.rec_geometry(h, c, r, s) == (threads, fwd, bwd), (h, c, r, s)
+
+
 # ---- card: kernel vs plain version --------------------------------------------
+
+LSTM_KERNELS = NEW + OLD
+
+
+def lstm_launches() -> dict:
+    return {k: getattr(lstm_fused, k).launches for k in LSTM_KERNELS}
+
+
+def launched_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in lstm_launches().items()}
+
+
+def expected_launches(n, t, d, h, backward: bool) -> dict:
+    """One launch of each kernel of the shape's route (the backward's too under
+    grad), none of the other route's."""
+    kernels = lstm_fused.lstm_route(n, t, d, h).kernels
+    if not backward:
+        kernels = kernels[:-1]
+    return {k: int(k in kernels) for k in LSTM_KERNELS}
+
+# The video bilstm encoder's frames: 8 x 1024 at D = 200 (the full-width step)
+# and `cli video`'s 16 x 1024 at D = 116, both on clusters of 8 CTAs walking
+# 1024 serial steps forward and back (double-buffered h exchange, backward
+# positions L-1-t, carried c and dh over the whole scan).
+LONG_SHAPES = [(8, 1024, 200, 100), (16, 1024, 116, 100)]
+
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("emit_out", [True, False])
 @pytest.mark.parametrize("n,t,d,h", [(12, 7, 10, 5), (4, 11, 33, 7), (768, 10, 200, 100),
                                      (64, 24, 200, 100), (8, 30, 200, 100),
-                                     (32, 8, 200, 100)])
+                                     (32, 8, 200, 100), *LONG_SHAPES])
 def test_lstm_kernel_matches_plain_on_card(cuda, emit_out, n, t, d, h):
     x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=5, device=cuda)
     with torch.no_grad():
         out_r, fin_r = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
-        before = lstm_fused.lstm_fwd.launches
+        before = lstm_launches()
         if emit_out:
             out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
         else:
             fin = lstm_fused.bilstm_fused_final(p_fw, p_bw, x, mask)
         torch.cuda.synchronize()
-    assert lstm_fused.lstm_fwd.launches == before + 1
+    assert launched_since(before) == expected_launches(n, t, d, h, backward=False)
     torch.testing.assert_close(fin, fin_r, **LSTM_TOL)
     assert not fin[~mask.any(1)].any()          # length-0 rows: fin = 0
     if emit_out:
@@ -437,11 +765,12 @@ def test_lstm_kernel_matches_plain_on_card(cuda, emit_out, n, t, d, h):
 
 # The train step's bi-LSTM shapes at batch 64, A = 4 (H = 100): photo titles
 # 256·12 × 10 fin-only (2688 under dedup), time encoders 256 × 12 / 24, the
-# question 64 × 30, the choices 256 × 8 fin-only; plus two small odd shapes.
+# question 64 × 30, the choices 256 × 8 fin-only; plus two small odd shapes and
+# the video frames (LONG_SHAPES).
 K1B_SHAPES = [(12, 7, 10, 5, False), (4, 11, 33, 7, True), (3072, 10, 200, 100, True),
               (2688, 10, 200, 100, True), (256, 12, 200, 100, False),
               (256, 24, 200, 100, False), (64, 30, 200, 100, False),
-              (256, 8, 200, 100, True)]
+              (256, 8, 200, 100, True), *((*shape, False) for shape in LONG_SHAPES)]
 # K1b + products vs autograd through the plain version on the card: the JAX
 # suite's gradient tolerance (tests/test_lstm_fused.py), with N(0, 1) / 64
 # cotangents, above every |cotangent| a train step gives these shapes
@@ -480,11 +809,10 @@ def test_lstm_bwd_kernel_matches_plain_autograd_on_card(cuda, n, t, d, h, fin_on
     x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, fin_only, cuda, COTANGENT_SCALE)
     ref = lstm_grads(lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask),
                      x, p_fw, p_bw, g_out, g_fin)
-    before = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches)
+    before = lstm_launches()
     got = lstm_grads(fused(mask, fin_only), x, p_fw, p_bw, g_out, g_fin)
     torch.cuda.synchronize()
-    assert (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert launched_since(before) == expected_launches(n, t, d, h, backward=True)
     for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"),
                           got, ref):
         torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
@@ -519,6 +847,75 @@ def test_lstm_fwd_cell_output_matches_plain_carried_cells(cuda, n, t, d, h):
                                              1.0, True, emit_cell=True)
         ref = lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask)
     torch.testing.assert_close(cell, ref, **LSTM_TOL)
+
+
+# Edges of the Hopper route, (rows, T, D, H, all lengths 0): H = 100 split
+# unevenly over clusters of 8 and 4 (13 and 25 units a CTA), rows just below and
+# above the cluster and 16-row thresholds (not multiples of the tile), T = 1,
+# an odd width, all rows empty; then a width past the largest cluster, which
+# takes the L2-streaming kernels.
+EDGE_SHAPES = [(64, 5, 200, 100, False), (65, 5, 200, 100, False), (264, 4, 200, 100, False),
+               (265, 4, 200, 100, False), (1056, 3, 200, 100, False),
+               (1057, 3, 200, 100, False), (64, 1, 200, 100, False), (20, 9, 40, 36, False),
+               (24, 6, 200, 100, True), (16, 5, 24, 300, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h,empty", EDGE_SHAPES)
+def test_lstm_route_edges_match_plain_on_card(cuda, n, t, d, h, empty):
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, False, cuda, COTANGENT_SCALE)
+    if empty:
+        mask = torch.zeros_like(mask)
+        x = x * 0.0
+    with torch.no_grad():
+        out_r, fin_r = lstm_ref.bilstm_ref(p_fw, p_bw, x, mask)
+        before = lstm_launches()
+        out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
+        torch.cuda.synchronize()
+    assert launched_since(before) == expected_launches(n, t, d, h, backward=False)
+    torch.testing.assert_close(out, out_r, **LSTM_TOL)
+    torch.testing.assert_close(fin, fin_r, **LSTM_TOL)
+    assert not out[~mask].any() and not fin[~mask.any(1)].any()
+    ref = lstm_grads(lambda pf, pb, xx: lstm_ref.bilstm_ref(pf, pb, xx, mask),
+                     x, p_fw, p_bw, g_out, g_fin)
+    before = lstm_launches()
+    got = lstm_grads(fused(mask, False), x, p_fw, p_bw, g_out, g_fin)
+    torch.cuda.synchronize()
+    assert launched_since(before) == expected_launches(n, t, d, h, backward=True)
+    for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"), got, ref):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h", [(64, 30, 200, 100), (256, 24, 200, 100),
+                                     (3072, 10, 200, 100), (33, 7, 40, 36), *LONG_SHAPES])
+def test_lstm_rec_cells_and_preactivations_match_plain_on_card(cuda, n, t, d, h):
+    x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=15, device=cuda)
+    lengths = mask.sum(1, dtype=torch.int32)
+    with torch.no_grad():
+        xg = lstm_fused.lstm_proj(x, lengths, p_fw, p_bw)
+        proj_r = torch.cat([x @ p.wx + p.b for p in (p_fw, p_bw)], dim=-1)
+        torch.testing.assert_close(xg[mask], proj_r[mask], **LSTM_TOL)
+        out, fin, cell = lstm_fused.lstm_rec(xg, lengths, p_fw, p_bw, 1.0, True,
+                                             emit_cell=True, write_preact=True)
+        cells_r = lstm_ref.bilstm_cells_ref(p_fw, p_bw, x, mask)
+        gates_r = lstm_ref.bilstm_gates_ref(p_fw, p_bw, x, mask)
+        torch.cuda.synchronize()
+    torch.testing.assert_close(cell, cells_r, **LSTM_TOL)
+    torch.testing.assert_close(xg[mask], gates_r[mask], **LSTM_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h", [(64, 30, 200, 100), (256, 12, 200, 100),
+                                     (3072, 10, 200, 100), (8, 1024, 200, 100)])
+def test_lstm_kernels_repeat_bitwise_on_card(cuda, n, t, d, h):
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, False, cuda, 1.0)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
+        runs.append([out, fin, *lstm_grads(fused(mask, False), x, p_fw, p_bw, g_out, g_fin)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.gpu
@@ -592,11 +989,10 @@ def test_wrappers_check_inputs_on_card(cuda):
                                 p_fw, p_bw, 1.0, True)
     # under grad the wrappers run K1 with cells, then K1b in the backward
     p_grad = lstm_ref.LSTMParams(*(a.clone().requires_grad_() for a in p_fw))
-    before = (lstm_fused.lstm_fwd.launches, lstm_fused.lstm_bwd.launches)
+    before = lstm_launches()
     lstm_fused.bilstm_fused(p_grad, p_bw, x, mask)[0].sum().backward()
     assert all(a.grad is not None and torch.isfinite(a.grad).all() for a in p_grad)
-    assert lstm_fused.lstm_fwd.launches == before[0] + 1
-    assert lstm_fused.lstm_bwd.launches == before[1] + 1
+    assert launched_since(before) == expected_launches(6, 5, 8, 4, backward=True)
     h, cm, q, qm, p = fvta_case(2, 3, 5, 4, 6, seed=9, device=cuda)
     with pytest.raises(ValueError, match="q_mask"):
         fvta_fused.fvta_fwd(h, cm.float(), q, qm.float()[:, :2], p["w_x"], p["w_y"],

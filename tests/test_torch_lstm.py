@@ -19,7 +19,7 @@ import torch
 from fvta_memexqa_tpu.ops import lstm_fused as j_fused
 from fvta_memexqa_tpu.ops import lstm_ref as j_ref
 
-from test_torch_kernels import k1_emulated, k1b_emulated
+from test_torch_kernels import hopper_emulated, old_route
 from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -136,9 +136,9 @@ def port_grads(run, case, g_out, g_fin):
 
 
 def emulated_fn(monkeypatch):
-    """`_BiLSTMFn` with K1 and K1b emulated on the CPU (the wrappers' launch path)."""
-    monkeypatch.setattr(lstm_fused, "lstm_fwd", k1_emulated)
-    monkeypatch.setattr(lstm_fused, "lstm_bwd", k1b_emulated)
+    """`_BiLSTMFn` with the L2-streaming K1 and K1b emulated on the CPU (the old
+    route's launch path)."""
+    old_route(monkeypatch)
     return lambda pf, pb, x, mask: lstm_fused._BiLSTMFn.apply(
         x, mask.sum(1, dtype=torch.int32), 1.0, *pf, *pb)
 
@@ -162,3 +162,35 @@ def test_grads_match_jax_fused_and_ref(monkeypatch, shape, final_only):
         for rk, ref in refs.items():
             for name, a, b in zip(names, got, ref):
                 np.testing.assert_allclose(a, b, **GRAD_TOL, err_msg=f"{mk} vs {rk}: {name}")
+
+
+@pytest.mark.parametrize("final_only", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_hopper_route_matches_jax_fused_and_ref(monkeypatch, shape, final_only):
+    """`_BiLSTMFn` on the Hopper route (lstm_proj, lstm_rec writing the
+    pre-activations, lstm_rec_bwd reading them; emulated on the CPU): outputs
+    and gradients vs the JAX package's bilstm_fused / bilstm_fused_final (under
+    grad) and bilstm_ref."""
+    hopper_emulated(monkeypatch)
+    assert lstm_fused.lstm_route(*shape).kernels == lstm_fused.REC_KERNELS
+    case = make_case(*shape, seed=5)
+    n, t, _, h = shape
+    rng = np.random.default_rng(9)
+    g_fin = rng.normal(0, 1, (n, 2 * h)).astype(np.float32)
+    g_out = None if final_only else rng.normal(0, 1, (n, t, 2 * h)).astype(np.float32)
+    jx, jm, jp_fw, jp_bw = as_jax(*case)
+    out_j, fin_j = j_fused.bilstm_fused(jp_fw, jp_bw, jx, jm)
+    x, mask, p_fw, p_bw = as_torch(*case)
+    x = x.clone().requires_grad_()
+    out, fin = lstm_fused._BiLSTMFn.apply(x, mask.sum(1, dtype=torch.int32), 1.0, *p_fw, *p_bw)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(fin.detach().numpy(), np.asarray(fin_j), rtol=RTOL, atol=ATOL)
+    j_fused_fn = j_fused.bilstm_fused_final if final_only else j_fused.bilstm_fused
+    refs = {"jax fused": jax_grads(j_fused_fn, case, g_out, g_fin),
+            "jax ref": jax_grads(j_ref.bilstm_ref, case, g_out, g_fin)}
+    got = port_grads(lambda pf, pb, xx, m: lstm_fused._BiLSTMFn.apply(
+        xx, m.sum(1, dtype=torch.int32), 1.0, *pf, *pb), case, g_out, g_fin)
+    names = ["dx"] + [f"{d}.{f}" for d in ("fw", "bw") for f in FIELDS]
+    for rk, ref in refs.items():
+        for name, a, b in zip(names, got, ref):
+            np.testing.assert_allclose(a, b, **GRAD_TOL, err_msg=f"hopper route vs {rk}: {name}")
