@@ -89,18 +89,29 @@ streaming form of the attention from STREAM_MIN_T frames on):
    with a dead half sequence, an empty example and an all-masked question);
    K4 at 1e-5 / 1e-5, K6 at 1e-4 / 1e-5, a field beyond it passing only on
    the float64 witness (at most 2x the float32 plain version's distance from
-   float64, plus 4 ulps); K6's float64 witness at unit-scale cotangents;
+   float64, plus 4 ulps); K6's float64 witness at unit-scale cotangents; K6
+   with de = gv = 0 and unit geq on the step's own h and q (dC from eq's tie
+   shares alone: dh and dq at 1e-4 / 1e-5 of plain, no witness); two
+   launches of K6 on the step's arguments bitwise equal;
 12. the streaming form vs K2 + recompute at T=1024, forward and gradients;
 13. this slice's main path: `cli video --data --out` (24 steps, T=1024,
    H=100, val every 12) and `cli video-test` on the run directory, with
    every kernel counter zeroed just before and read just after (K5 and K6
-   must launch once per step, the loss must fall);
+   must launch once per step, the two-pass K6 never, the loss must fall);
+   K6's first call there recorded, and K4/K5/K6 held against plain on its
+   arguments as in phase 11, and its bitwise repeat;
 14. the full-width T=4096 step: card vs CPU step-1 gradients at keep_prob 1;
    p50 over 10 steps, peak memory and a torch.profiler breakdown; the
    `--encoder bilstm` step at T=1024 (p50 over 10 steps, peak memory, profile;
    the Hopper bi-LSTM kernels only); bitwise resume of train_video; and the
    crossover of K2 + recompute vs K4 + K5 + K6 at T = 256, 1024, 4096 (time,
-   device time and peak memory of one forward + backward).
+   device time and peak memory of one forward + backward); then K4, K5 at the
+   T=4096 step's call and K6 and the two-pass K6 (csrc/fvta_bwd.cu's
+   fvta_stats_bwd_twopass: dC through device memory, which no path calls) at
+   both main-path calls, timed in turns (old, new, new, old) and replayed
+   from a CUDA graph (device time), split by kernel under torch.profiler,
+   the two-pass K6 also held against plain; the two-pass K6's counter must
+   read 0 outside this timing.
 
 The grouped scans (kernels K7, csrc/lstm_grouped.cu, and K8, csrc/lstm_stream.cu:
 the counterpart of the JAX package's round-1 lstm_pallas API, which no command
@@ -176,6 +187,10 @@ ENGINE_TOL = 1e-4
 # fixed atol stricter).
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 COTANGENT_SCALE = 1.0 / 64
+# a kernel split read from torch.profiler must sum to this share of the CUDA-graph
+# time of the same call (the graph also holds the gaps between launches; the two
+# readings of K6 differed by -6% to +3.4% on the H100)
+SPLIT_SHARE = (0.85, 1.10)
 # The float64 witness: at unit-scale N(0, 1) cotangents the dW sums of K1b run
 # over N*T = 30720 rows (K6's over 32768 frames), and both the kernel and the
 # float32 plain version are ~3e-5 from float64 there: the kernel may be at most
@@ -259,11 +274,50 @@ def f64_witness(got, plain, exact) -> tuple[float, str]:
     return (e_k / limit if limit > 0 else 0.0), f"{e_k:.2e}/{e_p:.2e}"
 
 
-def device_breakdown(fn, reps: int = 1) -> dict:
-    """Wall and device-busy ms per call of fn under torch.profiler."""
+# the host-side calls that each put one item on the device's timeline
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+
+def profile_kernels(fn, reps: int) -> tuple[dict, dict, float]:
+    """({kernel name: device ms per call}, {kernel name: events per call},
+    launch calls per call) of fn over `reps` calls, read from torch.profiler's
+    device events one by one (the step annotation the schedule puts on the
+    device's timeline left out). The profiler traces one warm-up call before
+    the `reps` calls and keeps only the latter. Late in a long process the
+    trace can still miss some of the device's events (7 of 10 calls' kernels
+    seen on the H100), so the host's launch calls are counted beside them."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    ms: dict[str, float] = {}
+    count: dict[str, float] = {}
+    launched = 0.0
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and not e.name.startswith("ProfilerStep")):
+            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+            count[e.name] = count.get(e.name, 0) + 1 / reps
+        elif e.device_type == DeviceType.CPU and e.name.startswith(LAUNCH_CALLS):
+            launched += 1 / reps
+    return ms, count, launched
+
+
+def device_breakdown(fn, reps: int = 1, tries: int = 3) -> dict:
+    """Wall and device-busy ms per call of fn under torch.profiler: the sum of
+    the device events seen, from the most complete of up to `tries` traces
+    (another is taken while fewer events are seen than launch calls made);
+    `device_events_seen` and `launch_calls` say how complete it is."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
@@ -272,23 +326,20 @@ def device_breakdown(fn, reps: int = 1) -> dict:
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels: dict[str, float] = {}
-    count = 0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / reps
-            count += e.count
+    best = None
+    for _ in range(tries):
+        kernels, count, launched = profile_kernels(fn, reps)
+        if best is None or sum(count.values()) > sum(best[1].values()):
+            best = (kernels, count, launched)
+        if sum(count.values()) >= launched:
+            break
+    kernels, count, launched = best
     busy = sum(kernels.values()) if kernels else None
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
-            "device_launches": count / reps, "top_device_ms": {k[:60]: v for k, v in top}}
+            "device_events_seen": sum(count.values()), "launch_calls": launched,
+            "top_device_ms": {k[:60]: v for k, v in top}}
 
 
 class Recorder:
@@ -296,13 +347,14 @@ class Recorder:
     calls the real function; the wrapper carries the launch counter the real
     function increments (it counts the module's current name)."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.calls = module, name, []
+    def __init__(self, module, name, keep=None):
+        self.module, self.name, self.calls, self.keep = module, name, [], keep
         self.real = getattr(module, name)
 
     def __enter__(self):
         def wrapper(*args):
-            self.calls.append(args)
+            if self.keep is None or len(self.calls) < self.keep:
+                self.calls.append(args)
             return self.real(*args)
 
         wrapper.launches = 0
@@ -838,7 +890,8 @@ def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
         fresh.attach_pack(packed)
         return fresh
 
-    stores = iter([fresh_store() for _ in range(2 * reps + 1)])
+    # device_breakdown's calls: a warm-up, `reps` timed, then per trace one more each
+    stores = iter([fresh_store() for _ in range(1 + reps + 3 * (reps + 1))])
     work = {
         "answer_1_request": lambda: engine.answer_batch(asks[:1]),
         "answer_8_requests": lambda: engine.answer_batch(asks[:8]),
@@ -1685,10 +1738,13 @@ def stats_case(n, s, t, j, d, seed, device, masked=False):
     return [a.to(device) for a in (h, cm.float(), q, qm.float(), *w)]
 
 
-# (name, n, s, t, j, d, masked): the main path's shape (synthetic twin), MemexQA's
-# S = T = 24, and the long-question shape of the JAX package's capacity table
+# (name, n, s, t, j, d, masked): the main paths' shapes (synthetic twins of the
+# T=4096 step's call and of `cli video`'s), MemexQA's S = T = 24, and the
+# long-question shape of the JAX package's capacity table
 K4_SYNTH = [("video_main_synthetic", 8, 1, 4096, 30, 200, False),
             ("video_main_masked", 8, 1, 4096, 30, 200, True),
+            ("cli_video_synthetic", 16, 1, 1024, 30, 200, False),
+            ("cli_video_masked", 16, 1, 1024, 30, 200, True),
             ("memexqa_s24_t24", 8, 24, 24, 30, 200, False),
             ("memexqa_s24_t24_masked", 8, 24, 24, 30, 200, True),
             ("long_question", 2, 8, 16384, 512, 200, False),
@@ -1697,99 +1753,158 @@ STATS_NAMES = ("m", "den", "v", "eq", "e")
 BWD_NAMES = ("dh", "dq", "dwx", "dwy", "dwxy")
 
 
-def k456_check(fwd_args, bwd_args) -> dict:
-    """K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly, and >= 1 for every (n, j):
-    each max is reached somewhere), K6 vs stats_bwd_ref, on the main path's own
-    arguments and on the synthetic cases; K6's float64 witness at unit-scale
-    cotangents. Returns the worst errors.
+def field_ok(a, b, c, tol):
+    """(ok, note): a kernel output, b the float32 plain one, c float64. A field
+    beyond `tol` passes only on the float64 witness: at most 2x as far from the
+    float64 plain version as the float32 plain version is, plus 4 ulps of the
+    largest entry. (Sums over 16 384 frames, or an all-masked question's uniform
+    weights over every frame, put near-zero entries of v and dwx ~1e-4 from
+    float64 in both float32 versions: rounding, which no tolerance against the
+    float32 plain version can tell from a fault.)"""
+    if close(a, b, **tol):
+        return True, ""
+    share, note = f64_witness(a, b, c)
+    return share <= 1.0, f"(f64: {note})"
 
-    Each field is held to its tolerance against the float32 plain version. A
-    field beyond it passes only on the float64 witness: at most 2x as far from
-    the float64 plain version as the float32 plain version is, plus 4 ulps of
-    the largest entry. (Sums over 16 384 frames, or an all-masked question's
-    uniform weights over every frame, put near-zero entries of v and dwx ~1e-4
-    from float64 in both float32 versions: rounding, which no tolerance against
-    the float32 plain version can tell from a fault.)"""
+
+def stats_check_case(name, args, cot=None, k6=None):
+    """K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly, and >= 1 for every (n, j):
+    each max is reached somewhere), K6 (`k6`, default stats_bwd) vs
+    stats_bwd_ref, each field at its tolerance or on the float64 witness, on
+    one case: args = (h, cm, q, qm, wx, wy, wxy), cot = (de, geq, gv) (default
+    N(0, 1)). Fatal on a mismatch; returns (K4's, K6's max |err|)."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
-    def field_ok(a, b, c, tol):
-        """(ok, note): a kernel output, b the float32 plain one, c float64."""
-        if close(a, b, **tol):
-            return True, ""
-        share, note = f64_witness(a, b, c)
-        return share <= 1.0, f"(f64: {note})"
+    k6 = k6 or fs.stats_bwd
+    h, cm, q, qm, wx, wy, wxy = args
+    w = (wx, wy, wxy)
+    with torch.no_grad():
+        got = fs.stats_fwd(*args)
+        ref = fs.stats_fwd_ref(*args)
+        cnt = fs.qcnt(h, cm, q, *w, got[3])
+        cnt_r = fs.qcnt_ref(h, cm, q, *w, ref[3])
+        if cot is None:
+            g = torch.Generator().manual_seed(7)
+            n, s, t, d = h.shape
+            cot = [torch.randn(sh, generator=g).to(h.device)
+                   for sh in ((n, s, t), tuple(qm.shape), (n, s, d))]
+        de, geq, gv = cot
+        dk = k6(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
+        dr = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
+        a64 = [a.double() for a in args]
+        r64 = fs.stats_fwd_ref(*a64)
+        d64 = fs.stats_bwd_ref(*a64, de.double(), geq.double(), r64[3],
+                               fs.qcnt_ref(*a64[:3], *a64[4:], r64[3]), r64[4], r64[0],
+                               gv.double())
+    torch.cuda.synchronize()
+    e4 = [max_err(a, b) for a, b in zip(got, ref)]
+    e6 = [max_err(a, b) for a, b in zip(dk, dr)]
+    res4 = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(got, ref, r64)]
+    res6 = [field_ok(a, b, c, GRAD_TOL) for a, b, c in zip(dk, dr, d64)]
+    ok4, ok6 = all(r[0] for r in res4), all(r[0] for r in res6)
+    ok5 = bool(torch.equal(cnt, cnt_r)) and bool((cnt >= 1).all())
+    finite = all(bool(torch.isfinite(a).all()) for a in (*dk, got[1], got[2]))
+    log(f"K4/K5/{k6.__name__} vs plain {name:24s} N={h.shape[0]} S={h.shape[1]} "
+        f"T={h.shape[2]} J={q.shape[1]} D={h.shape[3]}: K4 "
+        + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in zip(STATS_NAMES, e4, res4))
+        + f"; K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
+        f"{float(cnt.min()):.0f}; K6 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
+                                                   zip(BWD_NAMES, e6, res6))
+        + f"  {'ok' if ok4 and ok5 and ok6 and finite else 'MISMATCH'}")
+    if not (ok4 and ok5 and ok6 and finite):
+        fail(f"{name}: K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) or "
+             f"{k6.__name__} ({ok6}, {GRAD_TOL}) disagrees with its plain version "
+             f"(finite {finite})")
+    return max(e4), max(e6)
 
-    def check_case(name, args, cot=None):
-        h, cm, q, qm, wx, wy, wxy = args
-        w = (wx, wy, wxy)
-        with torch.no_grad():
-            got = fs.stats_fwd(*args)
-            ref = fs.stats_fwd_ref(*args)
-            cnt = fs.qcnt(h, cm, q, *w, got[3])
-            cnt_r = fs.qcnt_ref(h, cm, q, *w, ref[3])
-            if cot is None:
-                g = torch.Generator().manual_seed(7)
-                n, s, t, d = h.shape
-                cot = [torch.randn(sh, generator=g).to(h.device)
-                       for sh in ((n, s, t), tuple(qm.shape), (n, s, d))]
-            de, geq, gv = cot
-            dk = fs.stats_bwd(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
-            dr = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
-            a64 = [a.double() for a in args]
-            r64 = fs.stats_fwd_ref(*a64)
-            d64 = fs.stats_bwd_ref(*a64, de.double(), geq.double(), r64[3],
-                                   fs.qcnt_ref(*a64[:3], *a64[4:], r64[3]), r64[4], r64[0],
-                                   gv.double())
-        torch.cuda.synchronize()
-        e4 = [max_err(a, b) for a, b in zip(got, ref)]
-        e6 = [max_err(a, b) for a, b in zip(dk, dr)]
-        res4 = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(got, ref, r64)]
-        res6 = [field_ok(a, b, c, GRAD_TOL) for a, b, c in zip(dk, dr, d64)]
-        ok4, ok6 = all(r[0] for r in res4), all(r[0] for r in res6)
-        ok5 = bool(torch.equal(cnt, cnt_r)) and bool((cnt >= 1).all())
-        finite = all(bool(torch.isfinite(a).all()) for a in (*dk, got[1], got[2]))
-        log(f"K4/K5/K6 vs plain {name:24s} N={h.shape[0]} S={h.shape[1]} T={h.shape[2]} "
-            f"J={q.shape[1]}: K4 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
-                                              zip(STATS_NAMES, e4, res4))
-            + f"; K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
-            f"{float(cnt.min()):.0f}; K6 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
-                                                       zip(BWD_NAMES, e6, res6))
-            + f"  {'ok' if ok4 and ok5 and ok6 and finite else 'MISMATCH'}")
-        if not (ok4 and ok5 and ok6 and finite):
-            fail(f"{name}: K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) or K6 "
-                 f"({ok6}, {GRAD_TOL}) disagrees with its plain version (finite {finite})")
-        return max(e4), max(e6)
 
+def k456_check(fwd_args, bwd_args) -> dict:
+    """stats_check_case on the main path's own arguments (the T=4096 step) and
+    on the synthetic cases; K6's float64 witness at unit-scale cotangents; the
+    geq-only case and the bitwise repeat. Returns the worst errors."""
     h, cm, q, qm, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv = bwd_args
     scale = {"de": float(de.abs().max()), "geq": float(geq.abs().max()),
              "gv": float(gv.abs().max())}
     log(f"cotangents at K6 in the T={VIDEO_T} train step: max |de| {scale['de']:.3e}, "
         f"|geq| {scale['geq']:.3e}, |gv| {scale['gv']:.3e}")
-    worst4, worst6 = check_case("video_main_path", list(fwd_args), [de, geq, gv])
+    worst4, worst6 = stats_check_case("video_main_path", list(fwd_args), [de, geq, gv])
     for name, n, s, t, j, d, masked in K4_SYNTH:
-        a4, a6 = check_case(name, stats_case(n, s, t, j, d, 900 + len(name), "cuda", masked))
+        a4, a6 = stats_check_case(name, stats_case(n, s, t, j, d, 900 + len(name), "cuda",
+                                                   masked))
         worst4, worst6 = max(worst4, a4), max(worst6, a6)
-    witness = k6_rounding_witness()
+    witness = k6_rounding_witness(8, VIDEO_T, 30, 200)
+    geq_only = k6_geq_only_check("the T=4096 step's call", fwd_args)
+    k6_repeat_check("the T=4096 step's call", bwd_args)
     return {"k4_max_abs_err": worst4, "k6_max_abs_err": worst6, "k6_cotangent_max": scale,
-            "k6_witness_worst_share": witness}
+            "k6_witness_worst_share": witness, "k6_geq_only_max_abs_err": geq_only}
 
 
-def k6_rounding_witness() -> float:
-    """Unit-scale N(0, 1) cotangents at the main path's shape (N=8, S=1,
-    T=4096): K6 and the float32 plain backward both against the float64 plain
-    backward; K6 may be at most 2x as far as the float32 plain version, plus 4
-    ulps of the largest entry. Returns the worst share of that limit."""
+def k6_geq_only_check(what: str, fwd_args) -> float:
+    """K6 with de = 0 and gv = 0 on a main-path call's own h, q and weights, and
+    unit-scale N(0, 1) geq: every entry of dC is a share of eq's cotangent,
+    routed to the positions whose recomputed C equals K4's eq bit for bit. A C
+    that differed in its last bit would drop a share (max(qcnt, 1) hides the
+    lost tie) far outside GRAD_TOL. dh and dq must equal plain at GRAD_TOL
+    (no witness), and the shares must reach dq."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
-    h, cm, q, qm, wx, wy, wxy = stats_case(8, 1, VIDEO_T, 30, 200, 950, "cuda")
+    h, cm, q, qm, wx, wy, wxy = fwd_args
+    w = (wx, wy, wxy)
+    n, s, t, d = h.shape
+    geq = torch.randn(tuple(qm.shape), generator=torch.Generator().manual_seed(953)).cuda()
+    de, gv = torch.zeros(n, s, t, device="cuda"), torch.zeros(n, s, d, device="cuda")
+    with torch.no_grad():
+        got, ref = fs.stats_fwd(*fwd_args), fs.stats_fwd_ref(*fwd_args)
+        dk = fs.stats_bwd(h, cm, q, qm, *w, de, geq, got[3], fs.qcnt(h, cm, q, *w, got[3]),
+                          got[4], got[0], gv)
+        dr = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3],
+                              fs.qcnt_ref(h, cm, q, *w, ref[3]), ref[4], ref[0], gv)
+    torch.cuda.synchronize()
+    errs = [max_err(a, b) for a, b in zip(dk, dr)]
+    reach = float(dr[1].abs().max())
+    ok = close(dk[0], dr[0], **GRAD_TOL) and close(dk[1], dr[1], **GRAD_TOL) and reach > 1e-3
+    log(f"K6 geq-only (de = gv = 0, unit geq) at {what}, N={n} S={s} T={t}: max|err| "
+        + " ".join(f"{k} {e:.2e}" for k, e in zip(BWD_NAMES, errs))
+        + f"; max|dq| plain {reach:.3e}  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"K6 with dC from geq alone at {what}: dh or dq beyond {GRAD_TOL} of plain "
+             f"(a dropped tie share), or no share reached dq")
+    return max(errs)
+
+
+def k6_repeat_check(what: str, bwd_args) -> None:
+    """Two launches of K6 on the same inputs must give identical outputs."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    with torch.no_grad():
+        a, b = fs.stats_bwd(*bwd_args), fs.stats_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    differ = [k for k, x, y in zip(BWD_NAMES, a, b) if not torch.equal(x, y)]
+    log(f"K6 bitwise repeat at {what}: {'equal' if not differ else 'DIFFERENT ' + str(differ)}")
+    if differ:
+        fail(f"two launches of K6 on the same inputs differ in {differ} at {what}")
+
+
+def k6_rounding_witness(n: int, t: int, j: int, d: int) -> float:
+    """Unit-scale N(0, 1) cotangents at a main path's shape (N, S=1, T, J, D):
+    K6 and the float32 plain backward both against the float64
+    plain backward; K6 may be at most 2x as far as the float32 plain version,
+    plus 4 ulps of the largest entry. Returns the worst share of that limit."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    h, cm, q, qm, wx, wy, wxy = stats_case(n, 1, t, j, d, 950, "cuda")
     w = (wx, wy, wxy)
     g = torch.Generator().manual_seed(951)
     de, geq, gv = (torch.randn(sh, generator=g).cuda()
-                   for sh in ((8, 1, VIDEO_T), (8, 30), (8, 1, 200)))
+                   for sh in ((n, 1, t), (n, j), (n, 1, d)))
     dbl = lambda xs: [x.double() for x in xs]
     with torch.no_grad():
         got4 = fs.stats_fwd(h, cm, q, qm, *w)
@@ -1808,7 +1923,7 @@ def k6_rounding_witness() -> float:
         share, note = f64_witness(a, b, c)
         worst = max(worst, share)
         line.append(f"{nm} {note}")
-    log(f"K6 rounding at unit-scale cotangents N=8 T={VIDEO_T}: max|err| vs float64, "
+    log(f"K6 rounding at unit-scale cotangents N={n} T={t} J={j} D={d}: max|err| vs float64, "
         f"K6/float32 plain: {' '.join(line)}; worst share of limit {worst:.2f}  "
         f"{'ok' if worst <= 1.0 else 'MISMATCH'}")
     if worst > 1.0:
@@ -1899,17 +2014,22 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     prep_lines = open(os.path.join(workdir, "video_prep.log")).read().strip().splitlines()
     log(f"video pack ready (waited {time.perf_counter() - t0:.1f} s more): {prep_lines[-1]}")
     pack, run = os.path.join(workdir, "video_pack"), os.path.join(workdir, "video_run")
-    counters = {**{k: getattr(lstm_fused, k) for k in NEW_KERNELS + OLD_KERNELS},
-                "fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
-                "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd}
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        cli.main(["video", "--data", pack, "--out", run, "--hidden-dim", "100", "--steps",
-                  str(CLI_STEPS), "--val-period", "12", "--log-period", "1", "--device", "cuda"])
-    wall = time.perf_counter() - t0
+    with Recorder(fvta_stats, "stats_bwd", keep=1) as k6_call:   # K6's first call
+        counters = {**{k: getattr(lstm_fused, k) for k in NEW_KERNELS + OLD_KERNELS},
+                    "fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
+                    "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd,
+                    "stats_bwd_twopass": fvta_stats.stats_bwd_twopass}
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["video", "--data", pack, "--out", run, "--hidden-dim", "100",
+                           "--steps", str(CLI_STEPS), "--val-period", "12", "--log-period",
+                           "1", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"cli video returned {rc}")
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
     launches = {k: fn.launches for k, fn in counters.items()}
     buf = io.StringIO()
@@ -1929,13 +2049,18 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     check_lstm_launches("video", launches, backward=True)
     if launches["qcnt"] != CLI_STEPS or launches["stats_bwd"] != CLI_STEPS:
         fail(f"video: K5 and K6 must launch once per train step ({CLI_STEPS}): {launches}")
+    if launches["stats_bwd_twopass"]:
+        fail(f"video: the two-pass K6 launched on a command's path: {launches}")
     if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) or not last < first:
         fail(f"video: losses not finite, steps missing or not falling: {losses}")
     if test["count"] != res["test_count"] or not 0.0 <= test["acc"] <= 1.0:
         fail(f"video-test on the card-trained run directory: {test}")
+    h, _, q = k6_call.calls[0][:3]
+    log(f"K6's call in cli video: N={h.shape[0]} S={h.shape[1]} T={h.shape[2]} "
+        f"J={q.shape[1]} D={h.shape[3]}")
     return {"steps": len(losses), "wall_s": wall, "launches": launches,
             "loss_first_6": first, "loss_last_6": last, "result": res, "video_test": test,
-            "pack": pack}
+            "pack": pack, "k6_args": k6_call.calls[0]}
 
 
 def video_step_parity() -> dict:
@@ -2094,7 +2219,7 @@ def crossover(ts=(256, 1024, 4096)) -> list:
         for name, fn in (("k2_recompute", k2), ("streaming", streaming)):
             prof = device_breakdown(fn, reps=3)
             row[f"{name}_device_busy_ms"] = prof["device_busy_ms"]
-            row[f"{name}_device_launches"] = prof["device_launches"]
+            row[f"{name}_device_events_seen"] = prof["device_events_seen"]
             row[f"{name}_top_device_ms"] = dict(list(prof["top_device_ms"].items())[:4])
         rows.append(row)
         log(f"crossover T={t}: K2 + recompute {row['k2_recompute_ms']:.3f} / "
@@ -2105,63 +2230,139 @@ def crossover(ts=(256, 1024, 4096)) -> list:
     return rows
 
 
-def stats_kernel_times(fwd_args, bwd_args, launches: dict, errs: dict) -> list:
-    """The kernels-line entries of K4, K5 and K6 at the main path's own
-    arguments (the T=4096 train step): times from CUDA events, plain versions'
-    times, and bounds from these inputs (valid positions only)."""
+def stats_bound_ms(name: str, h, cm, q) -> tuple[float, float]:
+    """(bytes bound, operations bound) in ms of K4, K5 or K6 on these inputs:
+    each input read once and each output written once, over 3.35 TB/s; the
+    FLOPs of the valid (n, s, t) positions over 67 TFLOP/s FP32."""
+    n, s, t, d = h.shape
+    j = q.shape[1]
+    n_ct = float(cm.sum())                  # valid (n, s, t) positions
+    el = 4  # bytes per float32
+    nbytes = {   # K6: h, cm, de, e, q, qm, wx/wy/wxy, geq/eq/qcnt, m, gv in; dh, dq, dw* out
+        "stats_fwd": el * (h.numel() + cm.numel() + q.numel() + n * j + 3 * d
+                           + 2 * n * s + n * s * d + n * j + n * s * t),
+        "qcnt": el * (h.numel() + cm.numel() + q.numel() + 3 * d + 2 * n * j),
+        "stats_bwd": el * (2 * h.numel() + 3 * cm.numel() + 2 * q.numel() + n * j
+                           + 3 * d + 3 * n * j + n * s + n * s * d + 3 * n * d),
+    }[name]
+    flops = {"stats_fwd": n_ct * j * 2 * d + n_ct * 4 * d + n * j * 2 * d,
+             "qcnt": n_ct * j * 2 * d + n * j * 2 * d,
+             "stats_bwd": n_ct * j * 6 * d + n_ct * 6 * d}[name]
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def kernel_split_ms(fn, names, graph: float, calls: int = 10) -> dict:
+    """Device ms of one launch of each kernel of fn whose name contains one of
+    `names` (each launched once per call): the mean duration of its kernel
+    events under torch.profiler over `calls` calls. Fatal unless every kernel
+    of the call is named, each was seen, and together they come to SPLIT_SHARE
+    of `graph`, the CUDA-graph time of the same call (which also holds the gaps
+    between launches). Returns the split, the events seen per call and the
+    share of `graph`."""
+    kernels, count, _ = profile_kernels(fn, calls)
+    per = {name: kernels[name] / count[name] for name in kernels}
+    split = {k: sum(v for name, v in per.items() if k in name) for k in names}
+    seen = {k: sum(c for name, c in count.items() if k in name) for k in names}
+    share = sum(split.values()) / graph
+    stray = [name[:60] for name in per if not any(k in name for k in names)]
+    if stray or min(seen.values()) == 0 or not SPLIT_SHARE[0] <= share <= SPLIT_SHARE[1]:
+        fail(f"profiled kernels {seen} (events per call; others {stray}) sum to "
+             f"{share:.3f} of the CUDA-graph time {graph:.4f} ms, outside {SPLIT_SHARE}: "
+             f"the split cannot be read")
+    return {**split, "events_per_call": seen, "share_of_graph": share}
+
+
+def stats_kernel_times(fwd_args, bwd_args, cli_args, launches: dict, errs: dict) -> tuple:
+    """The kernels-line entries of K4, K5 (at the T=4096 train step's call) and
+    of K6 and the two-pass K6 at both main-path calls (the T=4096 step's and
+    `cli video`'s): times from CUDA events, new and old interleaved (old, new,
+    new, old), the plain versions' times, bounds from these inputs (valid
+    positions only); the two-pass K6 also held against plain on both calls, and
+    both K6s' time split by kernel. Returns (entries, splits, launches of the
+    two-pass K6 made here)."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
     h, cm, q, qm, wx, wy, wxy = fwd_args
-    _, _, _, _, _, _, _, de, geq, eq, cnt, e, m, gv = bwd_args
+    eq = bwd_args[9]
     w = (wx, wy, wxy)
-    n, s, t, d = h.shape
-    j = q.shape[1]
-    n_ct = float(cm.sum())                  # valid (n, s, t) positions
+    old_before = fs.stats_bwd_twopass.launches
+    calls = {"the T=4096 train step's call": bwd_args, "cli video's call": cli_args}
+    timings, splits, old_errs = {}, {}, {}
     with torch.no_grad():
-        timings = {
-            "stats_fwd": (cuda_ms(lambda: fs.stats_fwd(*fwd_args)),
-                          cuda_ms(lambda: fs.stats_fwd_ref(*fwd_args), iters=10)),
-            "qcnt": (cuda_ms(lambda: fs.qcnt(h, cm, q, *w, eq)),
-                     cuda_ms(lambda: fs.qcnt_ref(h, cm, q, *w, eq), iters=10)),
-            "stats_bwd": (cuda_ms(lambda: fs.stats_bwd(*bwd_args)),
-                          cuda_ms(lambda: fs.stats_bwd_ref(*bwd_args), iters=10)),
-        }
-    el = 4  # bytes per float32
-    nbytes = {
-        "stats_fwd": el * (h.numel() + cm.numel() + q.numel() + qm.numel() + 3 * d
-                           + 2 * n * s + n * s * d + n * j + n * s * t),
-        "qcnt": el * (h.numel() + cm.numel() + q.numel() + 3 * d + 2 * n * j),
-        "stats_bwd": el * (2 * h.numel() + 3 * cm.numel() + 2 * q.numel() + qm.numel()
-                           + 3 * d + 3 * n * j + n * s + n * s * d + 3 * n * d),
-    }
-    flops = {"stats_fwd": n_ct * j * 2 * d + n_ct * 4 * d + n * j * 2 * d,
-             "qcnt": n_ct * j * 2 * d + n * j * 2 * d,
-             "stats_bwd": n_ct * j * 6 * d + n_ct * 6 * d}
-    meta = {"stats_fwd": ("fvta_stats.cu", 141, "k4_max_abs_err"),
-            "qcnt": ("fvta_bwd.cu", 197, None), "stats_bwd": ("fvta_bwd.cu", 231,
-                                                             "k6_max_abs_err")}
+        timings["stats_fwd"] = (cuda_ms(lambda: fs.stats_fwd(*fwd_args)),
+                                cuda_ms(lambda: fs.stats_fwd_ref(*fwd_args), iters=10))
+        timings["qcnt"] = (cuda_ms(lambda: fs.qcnt(h, cm, q, *w, eq)),
+                           cuda_ms(lambda: fs.qcnt_ref(h, cm, q, *w, eq), iters=10))
+        for label, a in calls.items():
+            new = lambda: fs.stats_bwd(*a)
+            old = lambda: fs.stats_bwd_twopass(*a)
+            o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
+            g_old, g_new = graph_ms(old), graph_ms(new)   # device time, no host work
+            plain = cuda_ms(lambda: fs.stats_bwd_ref(*a), iters=10)
+            timings[("stats_bwd", label)] = ((n1 + n2) / 2, plain, (n1, n2), g_new)
+            timings[("stats_bwd_twopass", label)] = ((o1 + o2) / 2, plain, (o1, o2), g_old)
+            splits[label] = {
+                "stats_bwd": kernel_split_ms(new, ("bwd_fused_kernel", "bwd_combine_kernel"),
+                                             g_new),
+                "stats_bwd_twopass": kernel_split_ms(old, ("bwd_chunk_kernel",
+                                                           "bwd_reduce_kernel"), g_old)}
+            log(f"K6 at {label}: new {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}), two-pass "
+                f"{o1:.4f} / {o2:.4f} ms (graph {g_old:.4f}), plain {plain:.3f} ms; split "
+                f"{json.dumps(splits[label])}")
+    for label, a in calls.items():
+        old_errs[label] = stats_check_case(f"two-pass K6, {label[:20]}", list(a[:7]),
+                                           [a[7], a[8], a[13]], k6=fs.stats_bwd_twopass)[1]
+    made = fs.stats_bwd_twopass.launches - old_before
     out = []
-    for name, (k_ms, p_ms) in timings.items():
-        b_ms, o_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3, flops[name] / FP32_FLOPS * 1e3
-        src, line, err_key = meta[name]
+
+    def entry(name, label, args, k_ms, p_ms, src_line, err, n_launch, extra=None):
+        b_ms, o_ms = stats_bound_ms(name.split(" ")[0].replace("_twopass", ""), args[0],
+                                    args[1], args[2])
+        n, s, t, d = args[0].shape
         out.append({
-            "name": name, "route": "cuda", "source": f"fvta_memexqa_torch/csrc/{src}",
-            "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{line}",
-            "launches": launches[name],
-            "max_abs_err": errs[err_key] if err_key else 0.0,
-            "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
+            "name": name, "route": "cuda", "source": "fvta_memexqa_torch/csrc/"
+            + ("fvta_stats.cu" if name == "stats_fwd" else "fvta_bwd.cu"),
+            "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{src_line}",
+            "launches": n_launch, "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
-            "timed_work": f"the T={VIDEO_T} train step's call: N={n} S={s} T={t} J={j} D={d}"})
-    return out
+            "timed_work": f"{label}: N={n} S={s} T={t} J={args[2].shape[1]} D={d}",
+            **(extra or {})})
+
+    main = "the T=4096 train step's call"
+    entry("stats_fwd", main, fwd_args, *timings["stats_fwd"], 141, errs["k4_max_abs_err"],
+          launches["stats_fwd"])
+    entry("qcnt", main, fwd_args, *timings["qcnt"], 197, 0.0, launches["qcnt"])
+    for label, a in calls.items():
+        suffix = "" if label == main else " (cli video call)"
+        k_ms, p_ms, pair, g_ms = timings[("stats_bwd", label)]
+        entry("stats_bwd" + suffix, label, a, k_ms, p_ms, 231,
+              errs["k6_max_abs_err"] if label == main else errs["k6_cli_max_abs_err"],
+              launches["stats_bwd"], {"ms_pair": pair, "graph_ms": g_ms,
+                                      "split_ms": splits[label]["stats_bwd"]})
+        k_ms, p_ms, pair, g_ms = timings[("stats_bwd_twopass", label)]
+        entry("stats_bwd_twopass" + suffix, label, a, k_ms, p_ms, 231, old_errs[label],
+              launches["stats_bwd_twopass"],
+              {"ms_pair": pair, "graph_ms": g_ms,
+               "split_ms": splits[label]["stats_bwd_twopass"]})
+    return out, splits, made
 
 
-def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list]:
+def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list, int]:
     fwd_args, bwd_args = video_main_path_args()
     checks = k456_check(fwd_args, bwd_args)
     checks["streaming_vs_k2"] = streaming_vs_k2()
     cli_run = video_cli_run(workdir, prep)
+    cli_args = cli_run.pop("k6_args")
+    checks["k6_cli_max_abs_err"] = stats_check_case(
+        "cli_video_call", list(cli_args[:7]), [cli_args[7], cli_args[8], cli_args[13]])[1]
+    k6_repeat_check("cli video's call", cli_args)
+    checks["k6_cli_geq_only_max_abs_err"] = k6_geq_only_check("cli video's call",
+                                                              list(cli_args[:7]))
+    checks["k6_cli_witness_worst_share"] = k6_rounding_witness(
+        cli_args[0].shape[0], cli_args[0].shape[2], cli_args[2].shape[1], cli_args[0].shape[3])
     parity = video_step_parity()
     step = video_step_times()
     log(f"video train step, full width T={VIDEO_T} batch {VIDEO_N}: p50 "
@@ -2170,9 +2371,11 @@ def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list]:
     bilstm = video_bilstm_step()
     resume = video_resume_check(cli_run.pop("pack"), workdir)
     cross = crossover()
-    entries = stats_kernel_times(fwd_args, bwd_args, cli_run["launches"], checks)
+    entries, splits, old_made = stats_kernel_times(fwd_args, bwd_args, cli_args,
+                                                   cli_run["launches"], checks)
     return ({"checks": checks, "cli_run": cli_run, "parity": parity, "train_step": step,
-             "bilstm_step": bilstm, "resume": resume, "crossover": cross}, entries)
+             "bilstm_step": bilstm, "resume": resume, "crossover": cross,
+             "k6_split_ms": splits}, entries, old_made)
 
 
 # ---- the grouped scans: K7 (csrc/lstm_grouped.cu), K8 (csrc/lstm_stream.cu) --------
@@ -2596,7 +2799,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on a CUDA card")
     try:
-        from fvta_memexqa_torch.ops import build
+        from fvta_memexqa_torch.ops import build, fvta_stats
     except ImportError as e:
         fail(f"cannot import the port ({e}): run from the root of a checkout")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2619,6 +2822,7 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {stem}: {line.strip()}")
 
+    fvta_stats.stats_bwd_twopass.launches = 0
     with tempfile.TemporaryDirectory() as workdir:
         prep = prepare_video_pack(workdir)   # CPU work, overlapped with the card's phases
         try:
@@ -2637,7 +2841,7 @@ def main() -> None:
             trained = run_train_slice(workdir)
             trained["k1b_cotangents"] = cotangents
             log("training " + json.dumps(trained))
-            video, stats_entries = run_video_slice(workdir, prep)
+            video, stats_entries, twopass_made = run_video_slice(workdir, prep)
             log("video " + json.dumps(video))
             from_cli = grouped_counters()
             grouped = grouped_check(device)
@@ -2648,6 +2852,10 @@ def main() -> None:
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
                 fail(f"a command launched K7 or K8 ({from_cli}): no command should reach them")
+            twopass = fvta_stats.stats_bwd_twopass.launches - twopass_made
+            log(f"two-pass K6 launches outside its own timing and check: {twopass}")
+            if twopass:
+                fail(f"a path launched the two-pass K6 {twopass} times: none should")
         finally:
             if prep.poll() is None:
                 prep.kill()

@@ -282,6 +282,7 @@ def cmd_predict(argv):
     p.add_argument("--raw-albums", default=None,
                    help="album_info.json to ingest from (with --raw-photo-npz)")
     p.add_argument("--raw-photo-npz", default=None)
+    p.add_argument("--load-latest", action="store_true")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -290,7 +291,8 @@ def cmd_predict(argv):
     # preingest=False: a one-shot predict only needs the referenced albums,
     # which the store encodes from their pack rows on first use
     engine, store, _ = build_engine(args.packdir, args.rundir, device=args.device,
-                                    batch_size=1, preingest=False)
+                                    load_best=not args.load_latest, batch_size=1,
+                                    preingest=False)
     try:
         album_ids = [a for a in args.album_ids.split(",") if a]
         if args.raw_albums and args.raw_photo_npz:
@@ -517,14 +519,19 @@ def _video_plain(args):
                 s = video_metrics(task, model(shared, vi).logits, vi)
                 totals = {k: totals[k] + float(s[k]) for k in totals}
     n = max(totals["count"], 1.0)
-    out = {"encoder": args.encoder, "task": task, "steps": done, "train_acc": acc,
-           "heldout_acc": totals["correct"] / n, "test_count": int(totals["count"])}
+    # the JAX CLI's keys: a pack's run reports its data, steps and test count,
+    # the synthetic demo its frame count and the --cp it was given
+    out = {"encoder": args.encoder, "task": task}
     if args.data:
-        out["data"] = args.data
+        out.update(data=args.data, steps=done, train_acc=acc,
+                   heldout_acc=totals["correct"] / n, test_count=int(totals["count"]))
     else:
-        out["num_frames"] = args.num_frames
+        out.update(num_frames=args.num_frames, train_acc=acc,
+                   heldout_acc=totals["correct"] / n, cp=args.cp)
     if task == "count":
         out["heldout_mse"] = totals["sq_err"] / n
+    elif task == "frameqa" and args.data:
+        out["answer_vocab_size"] = num_answers
     elif task == "frameqa":
         out["chance"] = 1.0 / max(num_answers, 1)
     else:
@@ -562,9 +569,8 @@ def main(argv=None):
     if not argv or argv[0] not in COMMANDS:
         print(f"usage: python -m fvta_memexqa_torch.cli {{{'|'.join(COMMANDS)}}} ...",
               file=sys.stderr)
-        return 2
-    COMMANDS[argv[0]](argv[1:])
-    return 0
+        return 0 if argv and argv[0] in ("-h", "--help") else 2
+    return COMMANDS[argv[0]](argv[1:]) or 0
 
 
 if __name__ == "__main__":

@@ -24,9 +24,10 @@ the same decomposition as the card. The bilinear similarity has no kernel and
 runs focal_local_stats under autograd.
 
 K4 replaces fvta_memexqa_tpu/ops/fvta_pallas.py:_stats_kernel, K5 :_qcnt_kernel
-and K6 :_bwd_kernel. The TPU-only parts of the JAX dispatch (S >= 8 padding,
-_pick_tblock, the short-T XLA-remat branch of _stats_bwd) have no counterpart:
-on the card the backward is always K5 + K6.
+and K6 :_bwd_kernel. `stats_bwd_twopass`, an earlier K6 that no path calls, is
+kept to be timed and checked beside K6. The TPU-only parts of the JAX dispatch
+(S >= 8 padding, _pick_tblock, the short-T XLA-remat branch of _stats_bwd) have
+no counterpart: on the card the backward is always K5 + K6.
 """
 
 from __future__ import annotations
@@ -108,12 +109,16 @@ def _bwd_lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fvta_qcnt.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.fvta_qcnt.restype = i
-    lib.fvta_stats_bwd.argtypes = [p] * 22 + [i] * 5 + [p]
+    lib.fvta_stats_bwd.argtypes = [p] * 20 + [i] * 9 + [ctypes.c_longlong, p]
     lib.fvta_stats_bwd.restype = i
+    lib.fvta_stats_bwd_geometry.argtypes = [i] * 5 + [p]
+    lib.fvta_stats_bwd_geometry.restype = i
+    lib.fvta_stats_bwd_twopass.argtypes = [p] * 22 + [i] * 5 + [p]
+    lib.fvta_stats_bwd_twopass.restype = i
     lib.fvta_qcnt_smem_bytes.argtypes = [i]
     lib.fvta_qcnt_smem_bytes.restype = ctypes.c_longlong
-    lib.fvta_stats_bwd_smem_bytes.argtypes = [i, i]
-    lib.fvta_stats_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fvta_stats_bwd_twopass_smem_bytes.argtypes = [i, i]
+    lib.fvta_stats_bwd_twopass_smem_bytes.restype = ctypes.c_longlong
     lib.fvta_bwd_error_string.argtypes = [i]
     lib.fvta_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -195,35 +200,89 @@ def qcnt(h, cm_f, q, wx, wy, wxy, eq):
 qcnt.launches = 0
 
 
+def _bwd_args(kernel, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
+    n, s, t, j, d = _check(kernel, h, cm_f, q, wx, wy, wxy, qm_f)
+    for name, a, shape in (("de", de, (n, s, t)), ("geq", geq, (n, j)), ("eq", eq, (n, j)),
+                           ("qcnt", qcnt_, (n, j)), ("e", e, (n, s, t)), ("m", m, (n, s)),
+                           ("gv", gv, (n, s, d))):
+        build.check_f32(name, a, shape, h.device)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=h.device)
+    outs = (empty(n, s, t, d), empty(n, j, d), empty(n, d), empty(n, d), empty(n, d))
+    ins = (h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv)
+    return (n, s, t, j, d), [a.data_ptr() for a in ins + outs], outs, empty
+
+
+def _launched(kernel: str, wrapper, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           f"{_bwd_lib().fvta_bwd_error_string(err).decode()}")
+    build.count_launch(wrapper)
+
+
+@functools.cache
+def _bwd_geometry_on(device: int, n, s, t, j, d) -> dict:
+    out = (ctypes.c_longlong * 6)()
+    with torch.cuda.device(device):
+        err = _bwd_lib().fvta_stats_bwd_geometry(n, s, t, j, d, out)
+    geo = dict(zip(("per_seq", "chunks_per_cta", "smem", "scratch", "h_buffers",
+                    "acc_smem"), out))
+    if err != 0 and geo["smem"] <= build.SMEM_LIMIT:
+        raise RuntimeError(f"fvta_stats_bwd_geometry failed: "
+                           f"{_bwd_lib().fvta_bwd_error_string(err).decode()}")
+    return geo
+
+
+def bwd_geometry(n, s, t, j, d) -> dict:
+    """K6's launch geometry on the current CUDA device, as the library computes
+    it: CTAs per sequence, chunks per CTA, shared memory per CTA (bytes), scratch
+    (floats), h buffers, dC^T h kept in shared memory. Read once per device and
+    shape; `stats_bwd` passes it to the launch unchanged."""
+    return _bwd_geometry_on(torch.cuda.current_device(), n, s, t, j, d)
+
+
 def stats_bwd(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
     """Launch K6 (arguments as `stats_bwd_ref`, all f32 contiguous on one CUDA
     device; qcnt_ from K5, eq, e and m from K4). Returns (dh, dq, dwx, dwy, dwxy)
     with dw* per example [N, D]. Counts its launches in `stats_bwd.launches`."""
-    n, s, t, j, d = _check("stats_bwd", h, cm_f, q, wx, wy, wxy, qm_f)
+    shape, ptrs, outs, empty = _bwd_args("stats_bwd", h, cm_f, q, qm_f, wx, wy, wxy, de, geq,
+                                         eq, qcnt_, e, m, gv)
     dev = h.device
-    for name, a, shape in (("de", de, (n, s, t)), ("geq", geq, (n, j)), ("eq", eq, (n, j)),
-                           ("qcnt", qcnt_, (n, j)), ("e", e, (n, s, t)), ("m", m, (n, s)),
-                           ("gv", gv, (n, s, d))):
-        build.check_f32(name, a, shape, dev)
-    lib = _bwd_lib()
-    _smem_ok("stats_bwd", lib.fvta_stats_bwd_smem_bytes(j, d), f"J={j}, D={d}")
-    chunks = -(-t // TCH)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    dh, dq = empty(n, s, t, d), empty(n, j, d)
-    dwx, dwy, dwxy = empty(n, d), empty(n, d), empty(n, d)
-    dc, dwx_p, colsum_p = empty(n, s, t, j), empty(n, s, chunks, d), empty(n, s, chunks, j)
-    ptrs = [a.data_ptr() for a in (h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m,
-                                   gv, dh, dq, dwx, dwy, dwxy, dc, dwx_p, colsum_p)]
     with torch.cuda.device(dev):
-        err = lib.fvta_stats_bwd(*ptrs, n, s, t, j, d, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"stats_bwd launch failed: "
-                           f"{lib.fvta_bwd_error_string(err).decode()}")
-    build.count_launch(stats_bwd)
-    return dh, dq, dwx, dwy, dwxy
+        geo = bwd_geometry(*shape)
+        _smem_ok("stats_bwd", geo["smem"], f"J={shape[3]}, D={shape[4]}")
+        scratch = empty(geo["scratch"])
+        err = _bwd_lib().fvta_stats_bwd(
+            *ptrs, scratch.data_ptr(), *shape, geo["per_seq"], geo["chunks_per_cta"],
+            geo["h_buffers"], geo["acc_smem"], geo["smem"], _stream(dev))
+    _launched("stats_bwd", stats_bwd, err)
+    return outs
 
 
 stats_bwd.launches = 0
+
+
+def stats_bwd_twopass(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
+    """The two-pass K6 (dC through device memory, then a reduction over 32
+    columns of D a block), computing what `stats_bwd` computes. No path calls it;
+    it is kept to be timed and checked beside `stats_bwd`. Counts its launches
+    in `stats_bwd_twopass.launches`."""
+    shape, ptrs, outs, empty = _bwd_args("stats_bwd_twopass", h, cm_f, q, qm_f, wx, wy, wxy,
+                                         de, geq, eq, qcnt_, e, m, gv)
+    n, s, t, j, d = shape
+    lib = _bwd_lib()
+    _smem_ok("stats_bwd_twopass", lib.fvta_stats_bwd_twopass_smem_bytes(j, d),
+             f"J={j}, D={d}")
+    chunks = -(-t // TCH)
+    scratch = (empty(n, s, t, j), empty(n, s, chunks, d), empty(n, s, chunks, j))
+    dev = h.device
+    with torch.cuda.device(dev):
+        err = lib.fvta_stats_bwd_twopass(*ptrs, *(a.data_ptr() for a in scratch), *shape,
+                                         _stream(dev))
+    _launched("stats_bwd_twopass", stats_bwd_twopass, err)
+    return outs
+
+
+stats_bwd_twopass.launches = 0
 
 
 def _kernels(device: torch.device):

@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from fvta_memexqa_torch.checkpoint import CheckpointManager
 from fvta_memexqa_torch.config import MODALITIES, NUM_CHOICES, Config, load_config
 from fvta_memexqa_torch.convert import load_rundir
 from fvta_memexqa_torch.data.device_prepro import (ModelInputs, SharedTables,
@@ -354,14 +355,20 @@ class QAEngine:
 
 
 def build_engine(packdir: str, rundir: str, device: str | torch.device = "cuda",
-                 batch_size: int = 8, preingest: bool = True):
+                 load_best: bool = True, batch_size: int = 8, preingest: bool = True):
     """Load pack + port run directory onto `device`, pre-ingest the pack's albums
     (preingest=False: they encode lazily on first use), warm up, and return
-    (engine, store, packed)."""
+    (engine, store, packed). load_best=True serves the run's params.pt (the
+    best-on-val weights `train` writes); False its latest checkpoint."""
     dev = resolve_device(device)
     packed = load_pack(packdir)
     cfg = load_config(os.path.join(rundir, "config.json")).replace(data=packed.cfg)
-    _, model = load_rundir(rundir, dev, cfg)
+    if load_best:
+        _, model = load_rundir(rundir, dev, cfg)
+    else:   # as train.restore_model(load_best=False)
+        model = FVTAModel(cfg)
+        model.load_state_dict(CheckpointManager(rundir).load(best=False)["params"])
+        model = model.to(dev).eval()
     shared = SharedTables.from_packed(packed.shared, dev)
     store = AlbumStore(cfg, model, shared, vocab_view(packed.meta))
     if store.attach_pack(packed) and preingest:

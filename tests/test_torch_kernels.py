@@ -551,6 +551,8 @@ def test_stats_wrappers_refuse_cpu_tensors():
         fvta_stats.qcnt(h, cm.float(), q, *w, eq)
     with pytest.raises(ValueError, match="CUDA"):
         fvta_stats.stats_bwd(h, cm.float(), q, qm.float(), *w, e, eq, eq, eq, e, m, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_stats.stats_bwd_twopass(h, cm.float(), q, qm.float(), *w, e, eq, eq, eq, e, m, v)
 
 
 # ---- CPU: dispatch contract ---------------------------------------------------
@@ -1063,6 +1065,135 @@ def test_stats_grad_on_card_matches_plain_autograd(cuda, name):
         torch.testing.assert_close(a, b, **STATS_TOL, msg=field)
     for field, a, b in zip(("h", "q", "w_x", "w_y", "w_xy"), got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=field)
+
+
+# ---- card: K6 (one pass) at its edges, against plain and the two-pass K6 --------
+# T at the chunk edges (1, 31, 32, 33) and past one CTA's range at the video
+# step's width (1023, 1025), `cli video`'s call (N = 16 examples of 8 CTAs of
+# 4 chunks each), J = 512 (question words in 16 tiles of 32), and D = 500,
+# where only one h buffer fits and dC^T h waits in the global slot
+CLI_VIDEO_SHAPE = (16, 1, 1024, 30, 200)
+K6_EDGE_SHAPES = [(2, 1, 1, 30, 200), (2, 1, 31, 30, 200), (2, 1, 32, 30, 200),
+                  (2, 1, 33, 30, 200), (2, 1, 1023, 30, 200), (2, 1, 1025, 30, 200),
+                  CLI_VIDEO_SHAPE, (1, 2, 300, 512, 200), (2, 3, 33, 40, 16),
+                  (1, 1, 100, 30, 500)]
+K6_FIELDS = ("dh", "dq", "dwx", "dwy", "dwxy")
+
+
+def _k6_args(shape, seed, device, masked=False, geq_only=False):
+    """(kernel args, plain args) of K6: eq, e, m and the tie counts from K4 and
+    K5 for the kernel, from their plain versions for the plain K6; cotangents
+    N(0, 1). geq_only: de = gv = 0, so dC comes from eq's cotangent alone."""
+    h, cm, q, qm, w = _card_stats_case(shape, seed, device, masked)
+    n, s, t, d = h.shape
+    rng = np.random.default_rng(seed + 1)
+    de, geq, gv = (torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).to(device)
+                   for sh in ((n, s, t), tuple(qm.shape), (n, s, d)))
+    if geq_only:
+        de, gv = torch.zeros_like(de), torch.zeros_like(gv)
+    with torch.no_grad():
+        got = fvta_stats.stats_fwd(h, cm, q, qm, *w)
+        ref = fvta_stats.stats_fwd_ref(h, cm, q, qm, *w)
+        cnt, cnt_r = (fvta_stats.qcnt(h, cm, q, *w, got[3]),
+                      fvta_stats.qcnt_ref(h, cm, q, *w, ref[3]))
+    head = (h, cm, q, qm, *w, de, geq)
+    return ((*head, got[3], cnt, got[4], got[0], gv), (*head, ref[3], cnt_r, ref[4], ref[0], gv))
+
+
+def _assert_k6_close(got, ref, exact=None):
+    """Each field at 1e-4 / 1e-5; with `exact` (float64 plain outputs), a field
+    beyond it passes only on chip_smoke's float64 witness: at most 2x as far
+    from float64 as `ref` is, plus 4 float32 ulps of the largest entry (unit
+    cotangents over 4096 frames put entries of dwxy near 0 ~1e-5 from float64
+    in both kernels)."""
+    for i, (field, a, b) in enumerate(zip(K6_FIELDS, got, ref)):
+        if exact is None or torch.allclose(a, b, rtol=1e-4, atol=1e-5):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=field)
+            continue
+        c = exact[i]
+        e_a, e_b = float((a.double() - c).abs().max()), float((b.double() - c).abs().max())
+        assert e_a <= 2.0 * e_b + 4.0 * 2.0 ** -23 * float(c.abs().max()), (field, e_a, e_b)
+
+
+def _k6_f64(args_r):
+    """The float64 plain K6 on the plain arguments (tie counts recounted in float64)."""
+    a64 = [a.double() for a in args_r]
+    h, cm, q, qm, wx, wy, wxy = a64[:7]
+    r64 = fvta_stats.stats_fwd_ref(h, cm, q, qm, wx, wy, wxy)
+    cnt = fvta_stats.qcnt_ref(h, cm, q, wx, wy, wxy, r64[3])
+    return fvta_stats.stats_bwd_ref(*a64[:9], r64[3], cnt, r64[4], r64[0], a64[13])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", K6_EDGE_SHAPES)
+def test_k6_edges_match_plain_and_the_two_pass_kernel_on_card(cuda, shape, masked):
+    args, args_r = _k6_args(shape, 43, cuda, masked)
+    before = (fvta_stats.stats_bwd.launches, fvta_stats.stats_bwd_twopass.launches)
+    with torch.no_grad():
+        got = fvta_stats.stats_bwd(*args)
+        old = fvta_stats.stats_bwd_twopass(*args)
+        ref = fvta_stats.stats_bwd_ref(*args_r)
+        torch.cuda.synchronize()
+    assert (fvta_stats.stats_bwd.launches, fvta_stats.stats_bwd_twopass.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_k6_close(got, ref)
+    _assert_k6_close(got, old)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1, 4096, 30, 200), CLI_VIDEO_SHAPE,
+                                   (2, 24, 24, 30, 200)])
+def test_k6_geq_only_matches_plain_on_card(cuda, shape):
+    """de = gv = 0: every entry of dC is a share of eq's cotangent, routed to the
+    positions whose recomputed C equals K4's eq bit for bit. A C that differed in
+    its last bit would drop the share (max(qcnt, 1) hides the lost tie), far
+    outside the tolerance at unit-scale geq."""
+    args, args_r = _k6_args(shape, 44, cuda, geq_only=True)
+    with torch.no_grad():
+        got = fvta_stats.stats_bwd(*args)
+        ref = fvta_stats.stats_bwd_ref(*args_r)
+        torch.cuda.synchronize()
+    assert float(ref[1].abs().max()) > 1e-3    # the shares reach dq, far above atol
+    _assert_k6_close(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1, 4096, 30, 200), CLI_VIDEO_SHAPE,
+                                   (1, 2, 300, 512, 200)])
+def test_k6_repeats_bitwise_and_matches_the_two_pass_kernel_on_card(cuda, shape):
+    args, args_r = _k6_args(shape, 45, cuda)
+    with torch.no_grad():
+        a = fvta_stats.stats_bwd(*args)
+        b = fvta_stats.stats_bwd(*args)
+        old = fvta_stats.stats_bwd_twopass(*args)
+        exact = _k6_f64(args_r)
+        torch.cuda.synchronize()
+    for field, x, y in zip(K6_FIELDS, a, b):
+        assert torch.equal(x, y), field
+    _assert_k6_close(a, old, exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1, 1025, 30, 200), (2, 3, 33, 40, 16)])
+def test_k6_takes_h_off_a_16_byte_boundary_on_card(cuda, shape):
+    """A contiguous h one float past its storage's start: K6 copies its rows 4
+    bytes at a time there (16 where D % 4 == 0 and h is 16-byte aligned) and
+    gives the aligned launch's outputs bit for bit."""
+    args, args_r = _k6_args(shape, 46, cuda)
+    h = args[0]
+    store = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda)
+    h_off = store[1:].view(h.shape)
+    h_off.copy_(h)
+    assert h_off.is_contiguous() and h_off.data_ptr() % 16 != 0
+    with torch.no_grad():
+        a = fvta_stats.stats_bwd(*args)
+        b = fvta_stats.stats_bwd(h_off, *args[1:])
+        ref = fvta_stats.stats_bwd_ref(*args_r)
+        torch.cuda.synchronize()
+    for field, x, y in zip(K6_FIELDS, a, b):
+        assert torch.equal(x, y), field
+    _assert_k6_close(b, ref)
 
 
 # ---- card: K7, K8 vs their plain version ----------------------------------------
