@@ -19,17 +19,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    split, threads, shared memory per CTA, the sources' sizes equal to the
    route's) printed per shape; and at H=300, past the largest cluster, lstm_fwd
    alone;
-3. K2 (csrc/fvta_fwd.cu) vs its plain version on the card at N=8, S=24, T=24,
-   J=30, D=200 (serving) and N=64 (the train step, under grad), plus a long
-   T=512, a dead sequence and an all-masked question; and on unbounded inputs,
-   K2 and the float32 plain version both against the float64 plain version (a
-   rounding witness);
+3. K2 (csrc/fvta_fwd.cu: one thread-block cluster per example) vs its plain
+   version on the card at S=T=24, J=30, D=200 and N=1, 8 (serving), 64 (the
+   train step, under grad) and 128 (an evaluation batch), plus a long T=512,
+   the masked edge cases (a dead sequence, an all-masked question, an example
+   with no valid context) and S=1 at T=1024 and 4096 (K2 called directly:
+   fvta_attention_fused streams there), one launch of K2 and none of the
+   serial K2 (fvta_fwd_serial) per call; and on unbounded inputs at N=1, 8, 64,
+   128 and both video lengths, K2 and the float32 plain version both against
+   the float64 plain version (a rounding witness);
 4. the slice: synthetic MemexQA corpus at F=2537 (64 albums x 12 photos) packed
    at the default DataConfig, a full-width model from a seeded torch.Generator
    saved to a run directory, build_engine (batched pack ingestion) + one raw
    ingest, 32 questions through concurrent QAEngine.ask calls. Both kernels'
-   launch counters are zeroed just before and read just after; the answers must
-   match the same engine built on the CPU (plain versions);
+   launch counters are zeroed just before and read just after (the serial K2 must
+   read 0), K2's first two calls (warm-up, first batch) and every call's N
+   recorded; the answers must match the same engine built on the CPU (plain
+   versions);
 5. times from CUDA events after warm-up: each kernel, its plain version, its
    bound (max of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s FP32, from this run's
    inputs) and, for K1, cuDNN's torch.nn.LSTM on the same function (a yardstick
@@ -39,7 +45,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    on the same inputs, each also replayed from a CUDA graph (device time
    without the host's launch work); and lstm_rec / lstm_rec_bwd under every
    cluster size and tile height at a few shapes (the route sweep), each held
-   against the routed run.
+   against the routed run. K2's times (taken right after phase 3): K2 and
+   the serial K2 at N = 1, 8, 64, 128 (S = T = 24) in turns (old, new, new,
+   old), from a CUDA graph, and as the mean of each kernel's profiler events
+   (at most 1.10x the graph time); and the answer step's device time with K2
+   and with the serial K2 swapped in (phase 4's profile).
 
 The training slice (kernel K1b — csrc/lstm_rec_bwd.cu on the Hopper route,
 csrc/lstm_bwd.cu past the largest cluster — and autograd through K1/K2):
@@ -64,7 +74,8 @@ csrc/lstm_bwd.cu past the largest cluster — and autograd through K1/K2):
    launch lstm_proj, lstm_rec — and lstm_rec_bwd where it trains — and never
    lstm_fwd or lstm_bwd), losses must be finite
    and the last epoch's mean below the first's; the same with
-   --dedup-albums true;
+   --dedup-albums true; K2's first call of the plain run and every call's N are
+   recorded, and the serial K2 must launch on neither;
 8. the card vs the CPU from the same weights and batch at keep_prob 1: the
    step-1 gradients of every parameter tensor, the losses of 3 steps, and on
    the card the dedup step against the plain step;
@@ -130,7 +141,8 @@ reaches) and the evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    are also zeroed before phase 3 and read before phase 15, and zeroed and read
    around phase 16: no command may launch them;
 16. the evaluation path on phase 7's run directories and phase 4's pack, the
-   K1 and K2 counters zeroed before and read after (both must launch): `cli
+   K1 and K2 counters zeroed before and read after (both must launch, the
+   serial K2 never; K2's first call and every call's N recorded): `cli
    test` cached and --no-album-cache (accuracy equal, loss to 1e-5), then
    --by-category (counts sum to the split), --dump-attention and --ensemble
    over the plain and dedup runs; `cli prepro` on the raw files
@@ -138,6 +150,10 @@ reaches) and the evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    array for array, word_emb_init to glove.txt's 5 decimals); `cli ablate
    --num-steps 6` over fvta,flat,none; predict_cached's probabilities on the
    card vs the CPU's from the same weights at 1e-4; evaluate_cached's cache_s;
+    Then K2 on the arguments recorded on the serving, train and evaluation
+    paths, against its plain version and the serial K2 at 1e-5 / 1e-5, the
+    float64 witness on unbounded inputs at the same shapes, and the histogram
+    of the N that K2 saw on each path;
 17. times from CUDA events after warm-up, as projection + scan (the bi-LSTM
    encode from x): K7 and K8 at each phase-15 shape, the plain version, the
    bound, K1 on the same function and cuDNN's nn.LSTM; each kernel alone on
@@ -343,18 +359,21 @@ def device_breakdown(fn, reps: int = 1, tries: int = 3) -> dict:
 
 
 class Recorder:
-    """Replaces module.name by a wrapper that keeps each call's arguments and
-    calls the real function; the wrapper carries the launch counter the real
-    function increments (it counts the module's current name)."""
+    """Replaces module.name by a wrapper that keeps the arguments of the first
+    `keep` calls (all with keep=None) and the shape of every call's first
+    argument, and calls the real function; the wrapper carries the launch
+    counter the real function increments (it counts the module's current name)."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.calls, self.keep = module, name, [], keep
+        self.shapes = []
         self.real = getattr(module, name)
 
     def __enter__(self):
         def wrapper(*args):
             if self.keep is None or len(self.calls) < self.keep:
                 self.calls.append(args)
+            self.shapes.append(tuple(args[0].shape))
             return self.real(*args)
 
         wrapper.launches = 0
@@ -751,91 +770,144 @@ def route_sweep(device) -> list:
 
 # ---- K2 -------------------------------------------------------------------------
 
-def fvta_case(name, seed, device):
+# (name, (n, s, t, j, d), masked): an answer batch of 8 requests and of one, the
+# batch-64 train step, an evaluation batch of 128, a long T, the masked edge
+# cases (a dead sequence, an all-masked question, an example with no valid
+# context), and S = 1 at the video lengths, which fvta_attention_fused sends to
+# the streaming form but the crossover and the streaming-vs-K2 check run on K2
+K2_CASES = [("serving", (8, 24, 24, 30, 200), False), ("one_request", (1, 24, 24, 30, 200), False),
+            ("train", (64, 24, 24, 30, 200), False), ("evaluation", (128, 24, 24, 30, 200), False),
+            ("long_t", (2, 6, 512, 30, 200), False), ("masked", (8, 24, 24, 30, 200), True),
+            ("frames_1024", (8, 1, 1024, 30, 200), True),
+            ("frames_4096", (8, 1, 4096, 30, 200), True)]
+K2_TIMED_N = (1, 8, 64, 128)   # S = T = 24, J = 30, D = 200
+# K2's first calls on each command path (phases 4, 7, 16) and the N of every call
+K2_PATH_CALLS: dict = {}
+K2_PATH_N: dict = {}
+
+
+def fvta_case(shape, seed, device, masked=False, unbounded=False):
     import torch
 
-    n, s, t, j, d = {"long_t": (2, 6, 512, 30, 200),
-                     "train": (64, 24, 24, 30, 200)}.get(name, (8, 24, 24, 30, 200))
+    n, s, t, j, d = shape
     g = torch.Generator().manual_seed(seed)
     h = torch.randn(n, s, t, d, generator=g)
     q = torch.randn(n, j, d, generator=g)
-    if name != "unbounded":
+    if not unbounded:
         # context and question states are bi-LSTM outputs on the main path: |h| < 1
         h, q = torch.tanh(h), torch.tanh(q)
     t_len = torch.randint(1, t + 1, (n, s), generator=g)
     j_len = torch.randint(1, j + 1, (n,), generator=g)
     cm = torch.arange(t)[None, None, :] < t_len[..., None]
     qm = torch.arange(j)[None, :] < j_len[:, None]
-    if name == "masked":
-        cm[:, 3, :] = False       # a dead sequence in every example
-        qm[1, :] = False          # an all-masked question row
-        cm[2] = False             # an example with no valid context at all
+    if masked:
+        if s > 1:
+            cm[:, min(3, s - 1), :] = False   # a dead sequence in every example
+        qm[min(1, n - 1), :] = False          # an all-masked question row
+        cm[min(2, n - 1)] = False             # an example with no valid context at all
     h, q = h * cm[..., None], q * qm[..., None]
     params = {k: torch.randn(d, generator=g).to(device) for k in ("w_x", "w_y", "w_xy")}
     return h.to(device), cm.to(device), q.to(device), qm.to(device), params
 
 
-def k2_check(device) -> float:
+def k2_args(h, cm, q, qm, kind, p):
+    """fvta_fwd's arguments for one attention call (dot: w_x = w_y = 0, w_xy = 1)."""
     import torch
 
-    from fvta_memexqa_torch.ops import fvta_fused, fvta_ref
+    d = h.shape[-1]
+    if kind == "trilinear":
+        w = (p["w_x"], p["w_y"], p["w_xy"])
+    else:
+        w = (torch.zeros(d, device=h.device), torch.zeros(d, device=h.device),
+             torch.ones(d, device=h.device))
+    return (h.contiguous(), cm.float(), q.contiguous(), qm.float(), *w)
+
+
+def k2_run(h, cm, q, qm, kind, p, grad=False):
+    """K2 on one call: through fvta_attention_fused below STREAM_MIN_T (under
+    grad through its autograd Function, as the train step calls it), directly
+    at the long T that fvta_attention_fused sends to the streaming form."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused
+
+    if h.shape[2] >= fvta_fused.STREAM_MIN_T:
+        with torch.no_grad():
+            return list(fvta_fused.fvta_fwd(*k2_args(h, cm, q, qm, kind, p)))
+    with torch.set_grad_enabled(grad):
+        hh = h.clone().requires_grad_(grad)
+        return [a.detach() for a in fvta_fused.fvta_attention_fused(hh, cm, q, qm, kind, p)]
+
+
+def k2_plain(h, cm, q, qm, kind, p):
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_ref
+
+    with torch.no_grad():
+        return fvta_ref.fvta_attention(h, cm, q, qm, fvta_ref.similarity_tensor(h, q, kind, p))
+
+
+def k2_check(device) -> float:
+    """K2 vs its plain version on K2_CASES, trilinear and dot, one launch of K2
+    and none of the serial K2 per call; then the float64 witness at the timed
+    shapes and the video lengths."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused
 
     worst, bad = 0.0, []
-    for i, name in enumerate(("serving", "long_t", "masked", "train")):
+    for i, (name, shape, masked) in enumerate(K2_CASES):
         for kind in ("trilinear", "dot"):
-            h, cm, q, qm, p = fvta_case(name, 300 + i, device)
+            h, cm, q, qm, p = fvta_case(shape, 300 + i, device, masked=masked)
             p = p if kind == "trilinear" else {}
-            with torch.no_grad():
-                c = fvta_ref.similarity_tensor(h, q, kind, p)
-                ref = fvta_ref.fvta_attention(h, cm, q, qm, c)
-            # the train step calls K2 under grad (the autograd Function's forward)
-            with torch.set_grad_enabled(name == "train"):
-                hh = h.clone().requires_grad_(name == "train")
-                out = [a.detach() for a in
-                       fvta_fused.fvta_attention_fused(hh, cm, q, qm, kind, p)]
+            ref = k2_plain(h, cm, q, qm, kind, p)
+            before = (fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches)
+            out = k2_run(h, cm, q, qm, kind, p, grad=name == "train")
             torch.cuda.synchronize()
+            launched = (fvta_fused.fvta_fwd.launches - before[0],
+                        fvta_fused.fvta_fwd_serial.launches - before[1])
             errs = [max_err(a, b) for a, b in zip(out, ref)]
-            ok = all(close(a, b, **FVTA_TOL) for a, b in zip(out, ref))
-            finite = all(bool(torch.isfinite(a).all()) for a in out)
-            log(f"K2 vs plain  {name:8s} {kind:9s} N={h.shape[0]} S={h.shape[1]} "
+            ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(out, ref)) and launched == (1, 0)
+                  and all(bool(torch.isfinite(a).all()) for a in out))
+            log(f"K2 vs plain  {name:12s} {kind:9s} N={h.shape[0]} S={h.shape[1]} "
                 f"T={h.shape[2]}: max|err| ctx {errs[0]:.3e} q {errs[1]:.3e} "
-                f"time {errs[2]:.3e} seq {errs[3]:.3e}  {'ok' if ok and finite else 'MISMATCH'}")
-            if not (ok and finite):
+                f"time {errs[2]:.3e} seq {errs[3]:.3e}; launches {launched}  "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
                 bad.append(f"{name}/{kind}")
             worst = max(worst, *errs)
     if bad:
-        fail(f"K2 disagrees with its plain version at {bad} beyond {FVTA_TOL}")
-    return max(worst, k2_rounding_witness(device))
+        fail(f"K2 disagrees with its plain version at {bad} beyond {FVTA_TOL} (or launched "
+             f"other than once)")
+    shapes = [(n, 24, 24, 30, 200) for n in K2_TIMED_N] + [c[1] for c in K2_CASES[-2:]]
+    return max([worst] + [k2_rounding_witness(f"N={sh[0]} T={sh[2]}", sh, device)
+                          for sh in shapes])
 
 
-def k2_rounding_witness(device) -> float:
+def k2_rounding_witness(label, shape, device, seed=300) -> float:
     """K2 on unbounded inputs (h, q ~ N(0, 1), so |C| reaches ~40 and the
-    softmaxes are sharp): both K2 and the float32 plain version are held against
-    the float64 plain version. Float32 rounding moves both by about as much; a
-    kernel fault would put K2 orders of magnitude farther. Returns the worst
-    K2 vs float32-plain error."""
+    softmaxes are sharp), with the masked edge cases from N = 3: both K2 and the float32
+    plain version are held against the float64 plain version. Float32
+    rounding moves both by about as much; a kernel fault would put K2 orders
+    of magnitude farther. Returns the worst K2 vs float32-plain error."""
     import torch
-
-    from fvta_memexqa_torch.ops import fvta_fused, fvta_ref
 
     worst, bad = 0.0, []
     for kind in ("trilinear", "dot"):
-        h, cm, q, qm, p = fvta_case("unbounded", 300, device)
+        # the masked edge cases where they leave live examples (N >= 3)
+        h, cm, q, qm, p = fvta_case(shape, seed, device, masked=shape[0] >= 3, unbounded=True)
         p = p if kind == "trilinear" else {}
         p64 = {k: v.double() for k, v in p.items()}
-        with torch.no_grad():
-            out = fvta_fused.fvta_attention_fused(h, cm, q, qm, kind, p)
-            ref = fvta_ref.fvta_attention(h, cm, q, qm,
-                                          fvta_ref.similarity_tensor(h, q, kind, p))
-            ref64 = fvta_ref.fvta_attention(h.double(), cm, q.double(), qm,
-                                            fvta_ref.similarity_tensor(
-                                                h.double(), q.double(), kind, p64))
+        out = k2_run(h, cm, q, qm, kind, p)
+        ref = k2_plain(h, cm, q, qm, kind, p)
+        ref64 = k2_plain(h.double(), cm, q.double(), qm, kind, p64)
         torch.cuda.synchronize()
         e_k = max(max_err(a, b) for a, b in zip(out, ref64))
         e_p = max(max_err(a, b) for a, b in zip(ref, ref64))
         e_kp = max(max_err(a, b) for a, b in zip(out, ref))
         ok = e_k <= K2_VS_F64_FACTOR * e_p and all(bool(torch.isfinite(a).all()) for a in out)
-        log(f"K2 rounding  unbounded {kind:9s} N={h.shape[0]} S={h.shape[1]} "
+        log(f"K2 rounding  {label} unbounded {kind:9s} N={h.shape[0]} S={h.shape[1]} "
             f"T={h.shape[2]}: max|err| vs float64 plain: K2 {e_k:.3e}, float32 plain "
             f"{e_p:.3e}; K2 vs float32 plain {e_kp:.3e}  {'ok' if ok else 'MISMATCH'}")
         if not ok:
@@ -843,46 +915,179 @@ def k2_rounding_witness(device) -> float:
         worst = max(worst, e_kp)
     if bad:
         fail(f"K2 is farther from the float64 plain version than "
-             f"{K2_VS_F64_FACTOR}x the float32 plain version at {bad}")
+             f"{K2_VS_F64_FACTOR}x the float32 plain version at {label} {bad}")
     return worst
 
 
-def k2_times(device, launches: int, worst: float) -> dict:
+def k2_path_checks(device) -> dict:
+    """K2 on the arguments its first calls got on the serving, train and
+    evaluation paths: against the plain version and the serial K2 at
+    FVTA_TOL, then unbounded N(0, 1) inputs at the same shapes against the
+    float64 witness; and the histogram of N over every call of each path."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_fused, fvta_ref
 
-    h, cm, q, qm, p = fvta_case("serving", 400, device)
+    out, bad = {}, []
+    for path, calls in K2_PATH_CALLS.items():
+        hist = K2_PATH_N[path]
+        log(f"K2 on the {path} path: {sum(hist.values())} calls, N histogram "
+            f"{json.dumps(dict(sorted(hist.items())))}")
+        for i, args in enumerate(calls):
+            args = [a.detach() for a in args]
+            h, cm_f, q, qm_f, wx, wy, wxy = args
+            with torch.no_grad():
+                ref = fvta_ref.fvta_attention(
+                    h, cm_f > 0.5, q, qm_f > 0.5,
+                    fvta_ref.similarity_tensor(h, q, "trilinear",
+                                               {"w_x": wx, "w_y": wy, "w_xy": wxy}))
+                new = fvta_fused.fvta_fwd(*args)
+                old = fvta_fused.fvta_fwd_serial(*args)
+            torch.cuda.synchronize()
+            e_ref = [max_err(a, b) for a, b in zip(new, ref)]
+            e_old = [max_err(a, b) for a, b in zip(new, old)]
+            e_old_ref = [max_err(a, b) for a, b in zip(old, ref)]
+            ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(new, ref))
+                  and all(close(a, b, **FVTA_TOL) for a, b in zip(new, old)))
+            n, s, t, d = h.shape
+            label = f"{path} call {i} N={n} S={s} T={t} J={q.shape[1]} D={d}"
+            log(f"K2 at the {label}: max|err| vs plain {['%.2e' % e for e in e_ref]}, vs "
+                f"the serial K2 {['%.2e' % e for e in e_old]}; valid context "
+                f"{int((cm_f > 0.5).sum())} of {cm_f.numel()}  {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                bad.append(label)
+            w = k2_rounding_witness(label, (n, s, t, q.shape[1], d), device, seed=310 + i)
+            out[f"{path}_{i}"] = {"shape": [n, s, t, q.shape[1], d],
+                                  "max_abs_err_vs_plain": max(e_ref),
+                                  "max_abs_err_vs_serial": max(e_old),
+                                  "serial_max_abs_err_vs_plain": max(e_old_ref),
+                                  "witness_k2_vs_f32_plain": w}
+        out[f"{path}_n_histogram"] = dict(sorted(hist.items()))
+    if bad:
+        fail(f"K2 disagrees with plain or the serial K2 on recorded path calls: {bad}")
+    return out
+
+
+def k2_bound_ms(h, cm, q, qm) -> tuple[float, float]:
+    """(bytes bound, operations bound) in ms of K2 on these inputs: each input
+    read once and each output written once over 3.35 TB/s; the FLOPs of the
+    valid positions over 67 TFLOP/s FP32."""
     n, s, t, d = h.shape
     j = q.shape[1]
-    with torch.no_grad():
-        k_ms = cuda_ms(lambda: fvta_fused.fvta_attention_fused(h, cm, q, qm, "trilinear", p))
-        p_ms = cuda_ms(lambda: fvta_ref.fvta_attention(
-            h, cm, q, qm, fvta_ref.similarity_tensor(h, q, "trilinear", p)))
     nbytes = 4 * (h.numel() + cm.numel() + q.numel() + qm.numel() + 3 * d
                   + 2 * n * d + n * s * t + n * s)
     n_ct = cm.sum(dim=(1, 2)).double()     # valid context positions per example
     n_j = qm.sum(dim=1).double()           # valid question words per example
     flops = float((n_ct * n_j * 2 * d + n_ct * 6 * d + n_ct * j * 4).sum())
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-    return {
-        "name": "fvta_fwd", "route": "cuda",
-        "source": "fvta_memexqa_torch/csrc/fvta_fwd.cu",
-        "replaces": "fvta_memexqa_tpu/ops/fvta_pallas.py:57",
-        "launches": launches, "max_abs_err": worst,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
-        "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
-        "timed_work": f"one answer batch: N={n} S={s} T={t} J={j} D={d}, trilinear",
-    }
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+
+
+def kernel_event_ms(fn, name: str, calls: int = 10, tries: int = 3) -> tuple[float, float]:
+    """(device ms of one launch, events seen per call) of the kernel of fn whose
+    name contains `name`: the mean duration of its torch.profiler events, from
+    the first of up to `tries` traces that saw any."""
+    for _ in range(tries):
+        kernels, count, _ = profile_kernels(fn, calls)
+        hits = [k for k in kernels if name in k]
+        if hits:
+            return (sum(kernels[k] for k in hits) / sum(count[k] for k in hits),
+                    sum(count[k] for k in hits))
+    fail(f"torch.profiler saw no {name} event in {tries} traces")
+
+
+def k2_timing(device) -> dict:
+    """K2 and the serial K2 at N = 1, 8, 64, 128 (S = T = 24, J = 30, D = 200):
+    times from CUDA events, old and new in turns (old, new, new, old),
+    replayed from a CUDA graph (device time, no host work), each kernel's mean
+    event time under torch.profiler (one kernel a call: held to at most 1.10x
+    the graph time, which also holds the gaps between launches), the plain
+    version's time and the bound of each N. Run early in the process: late in
+    it the profiler can miss every event of a call."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused
+
+    rows = {}
+    for n in K2_TIMED_N:
+        h, cm, q, qm, p = fvta_case((n, 24, 24, 30, 200), 400, device)
+        args = k2_args(h, cm, q, qm, "trilinear", p)
+        new = lambda: fvta_fused.fvta_fwd(*args)
+        old = lambda: fvta_fused.fvta_fwd_serial(*args)
+        with torch.no_grad():
+            o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
+            g_new, g_old = graph_ms(new), graph_ms(old)
+            e_new, seen_new = kernel_event_ms(new, "k2_cluster_kernel")
+            e_old, seen_old = kernel_event_ms(old, "fvta_fwd_serial_kernel")
+            plain = cuda_ms(lambda: k2_plain(h, cm, q, qm, "trilinear", p), iters=10)
+        b_ms, o_ms = k2_bound_ms(h, cm, q, qm)
+        if e_new > SPLIT_SHARE[1] * g_new or e_old > SPLIT_SHARE[1] * g_old:
+            fail(f"K2 at N={n}: profiler event time {e_new:.4f} / {e_old:.4f} ms exceeds "
+                 f"{SPLIT_SHARE[1]}x the CUDA-graph time {g_new:.4f} / {g_old:.4f} ms")
+        rows[n] = {"new_ms": (n1 + n2) / 2, "new_ms_pair": (n1, n2), "new_graph_ms": g_new,
+                   "new_event_ms": e_new, "new_events_per_call": seen_new,
+                   "old_ms": (o1 + o2) / 2, "old_ms_pair": (o1, o2), "old_graph_ms": g_old,
+                   "old_event_ms": e_old, "old_events_per_call": seen_old, "plain_ms": plain,
+                   "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else
+                   "operations", "geometry": fvta_fused.geometry(n, 24, 24, 30, 200)}
+        log(f"K2 at N={n}: new {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}, event {e_new:.4f}), "
+            f"serial K2 {o1:.4f} / {o2:.4f} ms (graph {g_old:.4f}, event {e_old:.4f}), plain "
+            f"{plain:.3f} ms, bound {max(b_ms, o_ms):.5f} ms; geometry "
+            f"{json.dumps(rows[n]['geometry'])}")
+    return rows
+
+
+def k2_times(rows: dict, launches: dict, worst: float, paths: dict, answer: dict) -> list:
+    """The kernels-line entries of K2 and the serial K2, from k2_timing's rows
+    (N = 8, an answer batch, as the entry's own numbers; every N in per_n)."""
+    main = rows[8]
+    common = {"route": "cuda", "source": "fvta_memexqa_torch/csrc/fvta_fwd.cu",
+              "replaces": "fvta_memexqa_tpu/ops/fvta_pallas.py:57", "plain_ms": main["plain_ms"],
+              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+              "timed_work": "one answer batch: N=8 S=24 T=24 J=30 D=200, trilinear; per_n at "
+                            "N = 1, 8, 64, 128"}
+    return [
+        {"name": "fvta_fwd", **common, "launches": launches["serving"]["fvta_fwd"],
+         "launches_by_path": {k: v["fvta_fwd"] for k, v in launches.items()},
+         "max_abs_err": worst, "ms": main["new_ms"], "kernel_ms": main["new_ms"],
+         "graph_ms": main["new_graph_ms"], "recorded_calls": paths,
+         "answer_step_device_ms": answer,
+         "per_n": {n: {k: v for k, v in r.items() if not k.startswith("old")}
+                   for n, r in rows.items()}},
+        {"name": "fvta_fwd_serial", **common, "launches": launches["serving"]["fvta_fwd_serial"],
+         "launches_by_path": {k: v["fvta_fwd_serial"] for k, v in launches.items()},
+         "max_abs_err": max(v["serial_max_abs_err_vs_plain"] for k, v in paths.items()
+                            if not k.endswith("histogram")),
+         "ms": main["old_ms"], "kernel_ms": main["old_ms"], "graph_ms": main["old_graph_ms"],
+         "per_n": {n: {k: v for k, v in r.items() if k.startswith("old") or k == "bound_ms"}
+                   for n, r in rows.items()}},
+    ]
 
 
 # ---- the slice ------------------------------------------------------------------
 
+class Swapped:
+    """module.name replaced by fn inside the block."""
+
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
+        self.real = getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
 def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
     """Wall time (host clock, synchronized) and device busy time (torch.profiler,
     sum of kernel time) per call of the answer step (QAEngine.answer_batch) for
-    one request and for a full micro-batch of 8, and of ingest_pack of the
-    64-album pack into a fresh store."""
+    one request and for a full micro-batch of 8, also with the serial K2
+    (fvta_fwd_serial) swapped in for K2 (the step before this PR's kernel), and
+    of ingest_pack of the 64-album pack into a fresh store."""
+    from fvta_memexqa_torch.ops import fvta_fused
     from fvta_memexqa_torch.serve import AlbumStore
 
     def fresh_store():
@@ -897,7 +1102,19 @@ def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
         "answer_8_requests": lambda: engine.answer_batch(asks[:8]),
         "ingest_64_albums": lambda: next(stores).ingest_pack(batch_size=64),
     }
-    return {name: device_breakdown(fn, reps) for name, fn in work.items()}
+    out = {name: device_breakdown(fn, reps) for name, fn in work.items()}
+    with Swapped(fvta_fused, "fvta_fwd", fvta_fused.fvta_fwd_serial):
+        for name in ("answer_1_request", "answer_8_requests"):
+            out[name + "_serial_k2"] = device_breakdown(work[name], reps)
+    return out
+
+
+def record_k2_path(path: str, rec: Recorder) -> None:
+    """Keep a path's recorded K2 calls and the histogram of their N."""
+    K2_PATH_CALLS[path] = rec.calls
+    hist = K2_PATH_N.setdefault(path, {})
+    for shape in rec.shapes:
+        hist[shape[0]] = hist.get(shape[0], 0) + 1
 
 
 def run_slice(workdir: str) -> dict:
@@ -936,32 +1153,41 @@ def run_slice(workdir: str) -> dict:
         asks.append((qa.question, list(qa.choices), album_ids[:4]))
 
     zero_lstm_counters()
-    fvta_fused.fvta_fwd.launches = 0
+    fvta_fused.fvta_fwd_serial.launches = 0
     t0 = time.perf_counter()
-    engine, store, packed = build_engine(packdir, rundir, device="cuda", batch_size=8)
+    # K2's first two calls (the warm-up's and the first served batch's) and
+    # every call's N are kept
+    with Recorder(fvta_fused, "fvta_fwd", keep=2) as k2_calls:
+        engine, store, packed = build_engine(packdir, rundir, device="cuda", batch_size=8)
+        try:
+            store.ingest(raw, raw_feats)
+            torch.cuda.synchronize()
+            ingest_s = time.perf_counter() - t0
+            results = [None] * len(asks)
+            errors = []
+            barrier = threading.Barrier(len(asks))
+
+            def worker(i):
+                barrier.wait()
+                try:
+                    results[i] = engine.ask(*asks[i], timeout=300)
+                except Exception as e:  # noqa: BLE001 - reported below
+                    errors.append(repr(e))
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(asks))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            concurrent_s = time.perf_counter() - t0
+            launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
+                        "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+        except BaseException:
+            engine.close()
+            raise
+    record_k2_path("serving", k2_calls)
     try:
-        store.ingest(raw, raw_feats)
-        torch.cuda.synchronize()
-        ingest_s = time.perf_counter() - t0
-        results = [None] * len(asks)
-        errors = []
-        barrier = threading.Barrier(len(asks))
-
-        def worker(i):
-            barrier.wait()
-            try:
-                results[i] = engine.ask(*asks[i], timeout=300)
-            except Exception as e:  # noqa: BLE001 - reported below
-                errors.append(repr(e))
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(asks))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        concurrent_s = time.perf_counter() - t0
-        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
         stats = dict(engine.stats)
         conc_lat = engine.latency_stats()
         seq_engine = QAEngine(store, batch_size=8)
@@ -978,8 +1204,9 @@ def run_slice(workdir: str) -> dict:
         fail(f"ask failed on the card: {errors[0]}")
     log(f"slice: launches during the served run {json.dumps(launches)}; "
         f"{stats['questions']} questions in {stats['batches']} micro-batches")
-    if launches["fvta_fwd"] == 0:
-        fail(f"a kernel of the path never launched on the main path: {launches}")
+    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
+        fail(f"a kernel of the path never launched on the main path, or the serial K2 did: "
+             f"{launches}")
     check_lstm_launches("serving", launches, backward=False)
     if stats["batches"] >= stats["questions"]:
         fail("no micro-batch formed from the concurrent asks")
@@ -1406,13 +1633,16 @@ def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
     from fvta_memexqa_torch.ops import fvta_fused
 
     zero_lstm_counters()
-    fvta_fused.fvta_fwd.launches = 0
+    fvta_fused.fvta_fwd_serial.launches = 0
     t0 = time.perf_counter()
-    cli.main(["train", packdir, rundir, "--num-steps", str(TRAIN_STEPS), "--val-period", "12",
-              "--log-period", "1", "--save-period", "1000", "--device", "cuda",
-              "--dedup-albums", "true" if dedup else "false"])
-    wall = time.perf_counter() - t0
-    launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    with Recorder(fvta_fused, "fvta_fwd", keep=0 if dedup else 1) as k2_calls:
+        cli.main(["train", packdir, rundir, "--num-steps", str(TRAIN_STEPS), "--val-period",
+                  "12", "--log-period", "1", "--save-period", "1000", "--device", "cuda",
+                  "--dedup-albums", "true" if dedup else "false"])
+        wall = time.perf_counter() - t0
+        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
+                    "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+    record_k2_path("train_dedup" if dedup else "train", k2_calls)
     recs = read_metrics(os.path.join(rundir, "metrics.jsonl"))
     train_recs = [r for r in recs if r["event"] == "train"]
     losses = [r["loss"] for r in train_recs]
@@ -1428,8 +1658,9 @@ def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
         f"{last:.4f}; val {[(v['step'], round(v['acc'], 4)) for v in vals]}")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"train ({tag}): losses not finite or steps missing: {losses}")
-    if launches["fvta_fwd"] == 0:
-        fail(f"train ({tag}): a kernel of the path never launched: {launches}")
+    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
+        fail(f"train ({tag}): a kernel of the path never launched, or the serial K2 did: "
+             f"{launches}")
     check_lstm_launches(f"train ({tag})", launches, backward=True)
     if len(epochs) < 2 or not last < first:
         fail(f"train ({tag}): the last epoch's mean loss {last} is not below the "
@@ -2016,7 +2247,9 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     pack, run = os.path.join(workdir, "video_pack"), os.path.join(workdir, "video_run")
     with Recorder(fvta_stats, "stats_bwd", keep=1) as k6_call:   # K6's first call
         counters = {**{k: getattr(lstm_fused, k) for k in NEW_KERNELS + OLD_KERNELS},
-                    "fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
+                    "fvta_fwd": fvta_fused.fvta_fwd,
+                    "fvta_fwd_serial": fvta_fused.fvta_fwd_serial,
+                    "stats_fwd": fvta_stats.stats_fwd,
                     "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd,
                     "stats_bwd_twopass": fvta_stats.stats_bwd_twopass}
         for fn in counters.values():
@@ -2049,8 +2282,8 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     check_lstm_launches("video", launches, backward=True)
     if launches["qcnt"] != CLI_STEPS or launches["stats_bwd"] != CLI_STEPS:
         fail(f"video: K5 and K6 must launch once per train step ({CLI_STEPS}): {launches}")
-    if launches["stats_bwd_twopass"]:
-        fail(f"video: the two-pass K6 launched on a command's path: {launches}")
+    if launches["stats_bwd_twopass"] or launches["fvta_fwd_serial"]:
+        fail(f"video: the two-pass K6 or the serial K2 launched on a command's path: {launches}")
     if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) or not last < first:
         fail(f"video: losses not finite, steps missing or not falling: {losses}")
     if test["count"] != res["test_count"] or not 0.0 <= test["acc"] <= 1.0:
@@ -2730,19 +2963,22 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     plain, dedup = (os.path.join(workdir, d) for d in ("train_plain", "train_dedup"))
     attn = os.path.join(workdir, "eval_attention.npz")
     zero_lstm_counters()
-    fvta_fused.fvta_fwd.launches = 0
+    fvta_fused.fvta_fwd_serial.launches = 0
     out, walls = {}, {}
-    for key, extra in (("cached", []), ("uncached", ["--no-album-cache"]),
-                       ("cached_again", []), ("uncached_again", ["--no-album-cache"]),
-                       ("by_category", ["--by-category", "--no-album-cache"]),
-                       ("dump_attention", ["--dump-attention", attn]),
-                       ("ensemble", ["--ensemble", dedup, "--by-category"])):
-        out[key], walls[key] = cli_json(["test", pack, plain, "--device", device, *extra])
-        log(f"cli test {key:15s} {walls[key]:6.2f} s: {json.dumps(out[key])[:200]}")
-    prepro = prepro_check(workdir)
-    ablate, walls["ablate"] = cli_json(["ablate", pack, os.path.join(workdir, "ablate"),
-                                        "--num-steps", "6", "--device", device])
-    launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    with Recorder(fvta_fused, "fvta_fwd", keep=1) as k2_calls:
+        for key, extra in (("cached", []), ("uncached", ["--no-album-cache"]),
+                           ("cached_again", []), ("uncached_again", ["--no-album-cache"]),
+                           ("by_category", ["--by-category", "--no-album-cache"]),
+                           ("dump_attention", ["--dump-attention", attn]),
+                           ("ensemble", ["--ensemble", dedup, "--by-category"])):
+            out[key], walls[key] = cli_json(["test", pack, plain, "--device", device, *extra])
+            log(f"cli test {key:15s} {walls[key]:6.2f} s: {json.dumps(out[key])[:200]}")
+        prepro = prepro_check(workdir)
+        ablate, walls["ablate"] = cli_json(["ablate", pack, os.path.join(workdir, "ablate"),
+                                            "--num-steps", "6", "--device", device])
+        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
+                    "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+    record_k2_path("evaluation", k2_calls)
     grouped = grouped_counters()
     log(f"cli ablate --num-steps 6 ({walls['ablate']:.1f} s): {json.dumps(ablate)}; "
         f"evaluation phase launches {json.dumps(launches)}, K7/K8 {json.dumps(grouped)}")
@@ -2751,8 +2987,8 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     bc = out["by_category"]["by_category"]
     z = np.load(attn)
     problems = []
-    if launches["fvta_fwd"] == 0:
-        problems.append(f"a kernel never launched: {launches}")
+    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
+        problems.append(f"a kernel never launched, or the serial K2 did: {launches}")
     check_lstm_launches("evaluation", launches, backward=True)
     if c["accuracy"] != u["accuracy"] or abs(c["loss"] - u["loss"]) > EVAL_TOL * abs(u["loss"]):
         problems.append(f"cached {c} vs uncached {u}")
@@ -2830,6 +3066,7 @@ def main() -> None:
             k1_err = k1_check(device)
             past_limit = lstm_counters()   # the L2-streaming kernels at H = OLD_H ...
             k2_err = k2_check(device)
+            k2_rows = k2_timing(device)
             zero_grouped_counters()   # K7/K8 over the commands of phases 3-14 ...
             served = run_slice(workdir)
             log("serving " + json.dumps(served))
@@ -2848,6 +3085,8 @@ def main() -> None:
             evaluation = eval_check(workdir)   # ... and of phase 16
             log("evaluation " + json.dumps(evaluation))
             from_cli = {k: v + evaluation["grouped_launches"][k] for k, v in from_cli.items()}
+            k2_paths = k2_path_checks(device)
+            log("k2_paths " + json.dumps(k2_paths))
             log(f"K7/K8 launches over every command run (serving, training, video, "
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
@@ -2862,14 +3101,23 @@ def main() -> None:
                 prep.wait()
     sweep = route_sweep(device)
     k1, k1_rows = k1_times(device, served["launches"], k1_err, past_limit)
-    k2 = k2_times(device, served["launches"]["fvta_fwd"], k2_err)
+    by_path = {"serving": served["launches"], "train": trained["plain_run"]["launches"],
+               "train_dedup": trained["dedup_run"]["launches"],
+               "video": video["cli_run"]["launches"], "evaluation": evaluation["launches"]}
+    bd = served["breakdown"]
+    answer = {f"{k}_request{'s' if k > 1 else ''}": {
+        "k2": bd[f"answer_{k}_request{'s' if k > 1 else ''}"]["device_busy_ms"],
+        "serial_k2": bd[f"answer_{k}_request{'s' if k > 1 else ''}_serial_k2"]["device_busy_ms"]}
+        for k in (1, 8)}
+    log(f"answer step device ms, K2 vs the serial K2 swapped in: {json.dumps(answer)}")
+    k2 = k2_times(k2_rows, by_path, k2_err, k2_paths, answer)
     k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"], k1b_err, past_limit)
     grouped_entries, grouped_rows = grouped_times(device, grouped, from_cli)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
     log("grouped_shapes " + json.dumps(grouped_rows))
     log("route_sweep " + json.dumps(sweep))
-    log(json.dumps({"kernels": [*k1, k2, *k1b, *stats_entries, *grouped_entries]}))
+    log(json.dumps({"kernels": [*k1, *k2, *k1b, *stats_entries, *grouped_entries]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,16 @@ in one kernel for the trilinear and dot similarities, without materializing the
 runs the plain version. The bilinear similarity has no kernel (nor does the
 JAX package) and always runs the plain version.
 
-K2 replaces the TPU kernel fvta_memexqa_tpu/ops/fvta_pallas.py:_kernel. Under
-grad on the card, `_FVTAFn` runs K2 forward and takes the gradient by
-recomputing the plain version under autograd (the JAX package's `_core_bwd`,
-fvta_pallas.py:581-591: at T = 24 there is no backward kernel there either).
+K2 replaces the TPU kernel fvta_memexqa_tpu/ops/fvta_pallas.py:_kernel. It runs
+one thread-block cluster per example, whose CTAs split the example's S x T
+rows and combine their partial softmax statistics through distributed shared
+memory in a fixed order; its geometry comes from the library
+(`fvta_fwd_geometry`), read once per device and shape by `geometry` and
+passed back at each launch. The earlier one-block-per-example kernel stays as
+`fvta_fwd_serial`, which no path calls. Under grad on the card, `_FVTAFn`
+runs K2 forward and takes the gradient by recomputing the plain version under
+autograd (the JAX package's `_core_bwd`, fvta_pallas.py:581-591: at T = 24
+there is no backward kernel there either).
 
 From STREAM_MIN_T time steps on (the repo's video lengths, T = 1024 and 4096),
 the trilinear and dot similarities take the streaming form instead, on both
@@ -37,23 +43,56 @@ STREAM_MIN_T = 1024   # time steps from which the attention takes the streaming 
 @functools.cache
 def _lib():
     lib = build.library("fvta_fwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fvta_fwd.argtypes = [p] * 11 + [i] * 5 + [p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fvta_fwd.argtypes = [p] * 11 + [i] * 12 + [ll, p]
     lib.fvta_fwd.restype = i
-    lib.fvta_fwd_smem_bytes.argtypes = [i, i, i]
-    lib.fvta_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fvta_fwd_geometry.argtypes = [i] * 5 + [p]
+    lib.fvta_fwd_geometry.restype = i
+    lib.fvta_fwd_serial.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.fvta_fwd_serial.restype = i
+    lib.fvta_fwd_serial_smem_bytes.argtypes = [i, i, i]
+    lib.fvta_fwd_serial_smem_bytes.restype = ll
     lib.fvta_fwd_error_string.argtypes = [i]
     lib.fvta_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fvta_fwd(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
-             wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
-    """Launch K2. h [N, S, T, D], cm [N, S, T], q [N, J, D], qm [N, J] (masks as
-    float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
-    Counts its launches in `fvta_fwd.launches`."""
+def _error(kernel: str, err: int) -> RuntimeError:
+    return RuntimeError(f"{kernel} failed: {_lib().fvta_fwd_error_string(err).decode()}")
+
+
+GEOMETRY_KEYS = ("cluster", "chunks", "chunk_len", "segs", "rows", "bufs", "qtile", "smem",
+                 "active_clusters", "sms", "cluster_cap")
+
+
+@functools.cache
+def _geometry_on(device: int, n, s, t, j, d) -> dict:
+    out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
+    with torch.cuda.device(device):
+        err = _lib().fvta_fwd_geometry(n, s, t, j, d, out)
+    geo = dict(zip(GEOMETRY_KEYS, out))
+    if err != 0:
+        if geo["smem"] > build.SMEM_LIMIT:
+            raise ValueError(f"fvta_fwd needs {geo['smem']} B of shared memory per CTA at "
+                             f"{(n, s, t, j, d)}; a block has {build.SMEM_LIMIT}")
+        raise _error("fvta_fwd_geometry", err)
+    return geo
+
+
+def geometry(n, s, t, j, d) -> dict:
+    """K2's launch geometry on the current CUDA device, as the library plans it
+    (csrc/fvta_fwd.cuh) and finds schedulable: CTAs per example (the cluster),
+    chunks per sequence and their length, segments per CTA, rows per staged
+    block, buffers, q staged in tiles, shared memory per CTA (bytes), and what
+    it was planned from. Read once per device and shape; `fvta_fwd` passes it
+    to the launch unchanged."""
+    return _geometry_on(torch.cuda.current_device(), n, s, t, j, d)
+
+
+def _checked(kernel: str, h, cm, q, qm, wx, wy, wxy):
+    """Check the inputs of a K2 launch; returns the shape and empty outputs."""
     if h.device.type != "cuda":
-        raise ValueError(f"fvta_fwd launches on a CUDA device, got {h.device}")
+        raise ValueError(f"{kernel} launches on a CUDA device, got {h.device}")
     n, s, t, d = h.shape
     j = q.shape[1]
     dev = h.device
@@ -62,31 +101,65 @@ def fvta_fwd(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tenso
                            ("w_x", wx, (d,)), ("w_y", wy, (d,)), ("w_xy", wxy, (d,))):
         build.check_f32(name, a, shape, dev)
     if min(s, t, j, d) < 1:
-        raise ValueError(f"fvta_fwd needs S, T, J, D >= 1, got {(s, t, j, d)}")
-    ctx = torch.empty((n, d), dtype=torch.float32, device=dev)
-    qatt = torch.empty((n, d), dtype=torch.float32, device=dev)
-    ta = torch.empty((n, s, t), dtype=torch.float32, device=dev)
-    sa = torch.empty((n, s), dtype=torch.float32, device=dev)
-    if n == 0:
-        return AttentionOutput(ctx, qatt, ta, sa)
-    lib = _lib()
-    smem = lib.fvta_fwd_smem_bytes(s, j, d)
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"fvta_fwd needs {smem} B of shared memory at S={s}, J={j}, "
-                         f"D={d}; a block has {build.SMEM_LIMIT}")
+        raise ValueError(f"{kernel} needs S, T, J, D >= 1, got {(s, t, j, d)}")
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    return (n, s, t, j, d), AttentionOutput(empty(n, d), empty(n, d), empty(n, s, t),
+                                            empty(n, s))
+
+
+def _ptrs(args, out) -> list[int]:
+    return [a.data_ptr() for a in (*args, *out)]
+
+
+def fvta_fwd(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
+             wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
+    """Launch K2. h [N, S, T, D], cm [N, S, T], q [N, J, D], qm [N, J] (masks as
+    float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
+    Counts its launches in `fvta_fwd.launches`."""
+    shape, out = _checked("fvta_fwd", h, cm, q, qm, wx, wy, wxy)
+    if shape[0] == 0:
+        return out
+    dev = h.device
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fvta_fwd(h.data_ptr(), cm.data_ptr(), q.data_ptr(), qm.data_ptr(),
-                           wx.data_ptr(), wy.data_ptr(), wxy.data_ptr(), ctx.data_ptr(),
-                           qatt.data_ptr(), ta.data_ptr(), sa.data_ptr(),
-                           n, s, t, j, d, stream)
+        g = geometry(*shape)
+        err = _lib().fvta_fwd(*_ptrs((h, cm, q, qm, wx, wy, wxy), out), *shape,
+                              g["cluster"], g["chunks"], g["chunk_len"], g["segs"], g["rows"],
+                              g["bufs"], g["qtile"], g["smem"],
+                              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"fvta_fwd launch failed: {lib.fvta_fwd_error_string(err).decode()}")
+        raise _error("fvta_fwd launch", err)
     build.count_launch(fvta_fwd)
-    return AttentionOutput(ctx, qatt, ta, sa)
+    return out
 
 
 fvta_fwd.launches = 0
+
+
+def fvta_fwd_serial(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
+                    wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
+    """The serial K2 (one block per example, a serial walk over t), computing what
+    `fvta_fwd` computes. No path calls it; it is kept to be timed and checked
+    beside K2. Counts its launches in `fvta_fwd_serial.launches`."""
+    shape, out = _checked("fvta_fwd_serial", h, cm, q, qm, wx, wy, wxy)
+    if shape[0] == 0:
+        return out
+    n, s, t, j, d = shape
+    lib = _lib()
+    smem = lib.fvta_fwd_serial_smem_bytes(s, j, d)
+    if smem > build.SMEM_LIMIT:
+        raise ValueError(f"fvta_fwd_serial needs {smem} B of shared memory at S={s}, J={j}, "
+                         f"D={d}; a block has {build.SMEM_LIMIT}")
+    dev = h.device
+    with torch.cuda.device(dev):
+        err = lib.fvta_fwd_serial(*_ptrs((h, cm, q, qm, wx, wy, wxy), out), *shape,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise _error("fvta_fwd_serial launch", err)
+    build.count_launch(fvta_fwd_serial)
+    return out
+
+
+fvta_fwd_serial.launches = 0
 
 
 def fvta_attention_fused(h: torch.Tensor, ctx_mask: torch.Tensor, q: torch.Tensor,

@@ -11,12 +11,16 @@ which kernels, cluster size and tile height `lstm_route` picks per shape, and
 that the bi-LSTM autograd Function with K1 and K1b emulated on the CPU matches
 autograd through the plain version, on both routes (`hopper_emulated`:
 lstm_proj, lstm_rec, lstm_rec_bwd; `old_route`: the L2-streaming kernels;
-tests/test_torch_lstm.py also uses them).
+tests/test_torch_lstm.py also uses them). K2's cluster decomposition and its
+geometry are restated here for the CPU (`k2_emulated`, `k2_plan`;
+tests/test_torch_k2.py holds them against the JAX package and the CUDA header).
 """
 
+import math
 import re
 import shutil
 import subprocess
+from collections import namedtuple
 
 import numpy as np
 import pytest
@@ -24,10 +28,13 @@ import torch
 
 from fvta_memexqa_torch.ops import (build, fvta_fused, fvta_ref, fvta_stats, lstm_fused,
                                     lstm_grouped, lstm_ref)
+from fvta_memexqa_torch.ops.fvta_ref import AttentionOutput
 
 # Kernel vs plain on the card, both float32; the plain version sums in another
 # order (cuBLAS tiles vs per-column FMA chains / warp shuffles), the recurrence
-# carries rounding over up to 30 steps, and K2's time softmax is online.
+# carries rounding over up to 30 steps, and K2 splits each example's rows over
+# a cluster: its time softmax is online across blocks and chunks, and its
+# context a fixed-order sum of the CTAs' partials.
 LSTM_TOL = dict(rtol=1e-5, atol=1e-6)
 FVTA_TOL = dict(rtol=1e-5, atol=1e-5)
 FIELDS = ("context", "question", "time_attn", "seq_attn")
@@ -555,6 +562,136 @@ def test_stats_wrappers_refuse_cpu_tensors():
         fvta_stats.stats_bwd_twopass(h, cm.float(), q, qm.float(), *w, e, eq, eq, eq, e, m, v)
 
 
+# ---- CPU emulation of K2's decomposition ----------------------------------------
+# K2 (csrc/fvta_fwd.cu) splits each example's S x T rows over the CTAs of a
+# cluster: sequence chunks ("segments") of chunk_len steps, `segs` of them per
+# CTA, staged in blocks of `rows` rows; each CTA keeps per-segment softmax
+# statistics (online across its blocks) and its question-side maxima, and the
+# cluster combines them in a fixed order. `k2_plan` restates the geometry of
+# csrc/fvta_fwd.cuh (tests/test_torch_k2.py holds the two together with the
+# host compiler) and `k2_emulated` walks the same decomposition in torch for a
+# given plan, so the CPU checks the split, the merges and the combine that only
+# the card runs.
+
+K2Plan = namedtuple("K2Plan", "cluster chunks chunk_len segs rows bufs qtile smem")
+K2_WARPS, K2_SUB, K2_JT = 8, 32, 32
+K2_RESIDENT_ROWS, K2_STREAM_ROWS, K2_MAX_CLUSTER = 96, 32, 16
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round4(v):
+    return _cdiv(v, 4) * 4
+
+
+def k2_vec_stride(d):
+    s = _cdiv(d, 4) * 4
+    return s if (s // 4) % 2 else s + 4
+
+
+def k2_smem(j, d, cluster, segs, rows, bufs, qtile):
+    """Bytes of fvta_fwd.cuh's layout()."""
+    ds, jc, g = k2_vec_stride(d), _cdiv(j + 1, K2_JT) * K2_JT, _round4(segs)
+    floats = (bufs * rows * ds + _round4(bufs * rows) + (K2_JT if qtile else jc) * ds + 2 * ds
+              + (0 if qtile else _round4(j * _cdiv(d, cluster))) + _round4(K2_SUB * (K2_JT + 1))
+              + 2 * K2_SUB + _round4(rows) + (4 + K2_WARPS) * jc + segs * ds
+              + _round4(cluster * _cdiv(d, cluster)) + 8 * g + 4)
+    return 4 * floats
+
+
+def k2_plan(n, s, t, j, d, sms, smem_max, cmax):
+    """fvta_fwd.cuh's plan(): the cluster, the segments, the staging."""
+    c = 1
+    while c < cmax and n * c < sms:
+        c *= 2
+    c = min(c, cmax)
+    while True:
+        if s >= c:
+            chunks, chunk_len, segs = 1, t, _cdiv(s, c)
+            cluster = _cdiv(s, segs)
+        else:
+            chunk_len = _cdiv(t, min(c // s, t))
+            chunks, segs = _cdiv(t, chunk_len), 1
+            cluster = s * chunks
+        span = segs * chunk_len
+        natural = ((1, _cdiv(span, K2_SUB) * K2_SUB) if span <= K2_RESIDENT_ROWS
+                   else (2, K2_STREAM_ROWS))
+        for qtile in (0, 1):
+            for bufs, rows in (natural, (2, K2_STREAM_ROWS), (1, K2_SUB)):
+                smem = k2_smem(j, d, cluster, segs, rows, bufs, qtile)
+                if smem <= smem_max:
+                    return K2Plan(cluster, chunks, chunk_len, segs, rows, bufs, qtile, smem)
+        if c >= cmax:
+            return K2Plan(cluster, chunks, chunk_len, segs, rows, bufs, qtile, smem)
+        c *= 2
+
+
+def k2_emulated(h, cm_f, q, qm_f, wx, wy, wxy, plan):
+    """K2's function, computed as its CTAs and its cluster combine compute it
+    under `plan` (K2Plan; bufs, qtile and smem, which change only where the
+    operands wait, are not read)."""
+    n_, s_, t_, d_ = h.shape
+    C, P, L, G, RB = plan.cluster, plan.chunks, plan.chunk_len, plan.segs, plan.rows
+    nseg = s_ * P
+    assert _cdiv(nseg, G) == C and all(min((k + 1) * L, t_) > k * L for k in range(P))
+    start = lambda seg: (seg // P) * t_ + (seg % P) * L
+    end = lambda seg: (seg // P) * t_ + min((seg % P + 1) * L, t_)
+    out = (h.new_zeros(n_, d_), h.new_zeros(n_, d_), h.new_zeros(n_, s_ * t_),
+           h.new_zeros(n_, s_))
+    for n in range(n_):
+        hn, cmn, qmn = h[n].reshape(s_ * t_, d_), cm_f[n].reshape(s_ * t_), qm_f[n]
+        qw, sy = q[n] * wxy, q[n] @ wy
+        m, den, cmx = h.new_empty(nseg), h.new_empty(nseg), h.new_empty(nseg)
+        v, e_raw = h.new_zeros(nseg, d_), h.new_empty(s_ * t_)
+        qmx_cta = []
+        for r in range(C):                        # each CTA: its rows, block by block
+            mine = range(r * G, min(r * G + G, nseg))
+            r0, r1 = start(mine[0]), end(mine[-1])
+            qmx = torch.full_like(sy, -math.inf)
+            for b0 in range(r0, r1, RB):
+                b1 = min(b0 + RB, r1)
+                hb, cb = hn[b0:b1], cmn[b0:b1]
+                c = hb @ qw.T + (hb @ wx)[:, None] + sy[None, :]
+                e = (c + (1.0 - qmn) * NEG).amax(1) + (1.0 - cb) * NEG
+                qmx = torch.maximum(qmx, (c + ((1.0 - cb) * NEG)[:, None]).amax(0))
+                e_raw[b0:b1] = e
+                for seg in mine:                  # the time softmax, online per block
+                    lo, hi = max(start(seg), b0), min(end(seg), b1)
+                    if lo >= hi:
+                        continue
+                    eb, mb, cmb = e[lo - b0:hi - b0], e[lo - b0:hi - b0].max(), \
+                        cb[lo - b0:hi - b0].max()
+                    first = start(seg) >= b0
+                    m_new = mb if first else torch.maximum(m[seg], mb)
+                    scale = 0.0 if first else torch.exp(m[seg] - m_new)
+                    p = torch.exp(eb - m_new)
+                    den[seg] = p.sum() if first else den[seg] * scale + p.sum()
+                    cmx[seg] = cmb if first else torch.maximum(cmx[seg], cmb)
+                    v[seg] = v[seg] * scale + p @ hn[lo:hi]
+                    m[seg] = m_new
+            qmx_cta.append(qmx)
+        # the cluster combine: chunks of a sequence in order, then sequences
+        mc, dc, cc = m.view(s_, P), den.view(s_, P), cmx.view(s_, P)
+        big_m = mc.amax(1)
+        valid = (cc.amax(1) > 0.5).to(h.dtype)
+        g = big_m + (1.0 - valid) * NEG
+        eg = torch.exp(g - g.max())
+        b = eg / eg.sum()
+        den_s = (dc * torch.exp(mc - big_m[:, None])).sum(1)
+        inv = 1.0 / torch.clamp(den_s, min=1e-30)
+        w = (b * inv)[:, None] * torch.exp(mc - big_m[:, None])          # [S, P]
+        wv = w.reshape(nseg)[:, None] * v
+        out[0][n] = sum(wv[r * G:min(r * G + G, nseg)].sum(0) for r in range(C))
+        qv = torch.stack(qmx_cta).amax(0) + (1.0 - qmn) * NEG
+        out[1][n] = torch.softmax(qv, 0) @ q[n]
+        seq = torch.arange(s_ * t_) // t_
+        out[2][n] = torch.where(valid[seq] > 0.5, torch.exp(e_raw - big_m[seq]) * inv[seq], 0.0)
+        out[3][n] = b * valid
+    return AttentionOutput(out[0], out[1], out[2].view(n_, s_, t_), out[3])
+
+
 # ---- CPU: dispatch contract ---------------------------------------------------
 
 def test_cpu_path_runs_plain_versions_without_a_build(monkeypatch):
@@ -977,6 +1114,121 @@ def test_fvta_kernel_rounding_on_unbounded_inputs(cuda, kind):
                                         fvta_ref.similarity_tensor(h.double(), q.double(),
                                                                    kind, p64))
     err = lambda a, b: max(float((x.double() - y).abs().max()) for x, y in zip(a, b))
+    assert err(out, ref64) <= 2.0 * err(ref, ref64)
+
+
+# ---- card: K2 at the main paths' shapes, and the serial K2 beside it ----------
+# (n, s, t, j, d): an answer step for 1 and 8 requests, the train step (N = 64)
+# and an evaluation batch (N = 128), all at S = T = 24; S = 1 at the video
+# lengths, which `fvta_attention_fused` sends to the streaming form but the
+# crossover and the streaming-vs-K2 check run through K2.
+K2_MAIN_SHAPES = [(1, 24, 24, 30, 200), (8, 24, 24, 30, 200), (64, 24, 24, 30, 200),
+                  (128, 24, 24, 30, 200)]
+K2_LONG_SHAPES = [(8, 1, 1024, 30, 200), (8, 1, 4096, 30, 200)]
+
+
+def _k2_args(shape, seed, device, dead=False, bounded=True):
+    h, cm, q, qm, p = fvta_case(*shape, seed=seed, device=device, dead=dead, bounded=bounded)
+    args = (h, cm.float(), q, qm.float(), p["w_x"], p["w_y"], p["w_xy"])
+    ref = fvta_ref.fvta_attention(h, cm, q, qm, fvta_ref.similarity_tensor(h, q, "trilinear", p))
+    return args, ref
+
+
+def _k2_launches():
+    return fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K2_MAIN_SHAPES + K2_LONG_SHAPES)
+@pytest.mark.parametrize("dead", [False, True])
+def test_k2_matches_plain_at_main_path_shapes_on_card(cuda, shape, dead):
+    """One launch of K2 and none of the serial K2 per call; every field within
+    1e-5 / 1e-5 of plain, with and without a dead sequence, an all-masked
+    question and an example with no valid context."""
+    with torch.no_grad():
+        args, ref = _k2_args(shape, 50, cuda, dead=dead)
+        before = _k2_launches()
+        out = fvta_fused.fvta_fwd(*args)
+        torch.cuda.synchronize()
+    new, old = _k2_launches()
+    assert (new - before[0], old - before[1]) == (1, 0)
+    for x, y, field in zip(out, ref, FIELDS):
+        assert torch.isfinite(x).all(), field
+        torch.testing.assert_close(x, y, **FVTA_TOL, msg=field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K2_MAIN_SHAPES + K2_LONG_SHAPES + [
+    (2, 6, 512, 30, 200), (3, 1, 7, 40, 16), (8, 24, 24, 200, 200), (200, 300, 3, 30, 200)])
+def test_k2_geometry_is_the_plan_and_schedulable_on_card(cuda, shape):
+    """The library's geometry is fvta_fwd.cuh's plan (k2_plan) at the cluster
+    cap it settled on, schedulable, within a CTA's shared memory."""
+    geo = fvta_fused.geometry(*shape)
+    assert fvta_fused.geometry(*shape) is geo          # read once per device and shape
+    plan = k2_plan(*shape, geo["sms"], build.SMEM_LIMIT, geo["cluster_cap"])
+    assert tuple(geo[k] for k in K2Plan._fields) == tuple(plan)
+    assert geo["active_clusters"] >= 1 and 1 <= geo["cluster"] <= K2_MAX_CLUSTER
+    assert geo["smem"] <= build.SMEM_LIMIT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K2_MAIN_SHAPES + [(8, 1, 4096, 30, 200),
+                                                    (2, 6, 512, 30, 200), (3, 1, 7, 40, 16),
+                                                    (8, 24, 24, 200, 200)])
+def test_k2_repeats_bitwise_and_matches_the_serial_kernel_on_card(cuda, shape):
+    """Two launches equal bit for bit; within 1e-5 / 1e-5 of the serial K2
+    (J = 200 stages q in tiles of 32 columns)."""
+    with torch.no_grad():
+        args, ref = _k2_args(shape, 51, cuda, dead=True)
+        before = _k2_launches()
+        a = fvta_fused.fvta_fwd(*args)
+        b = fvta_fused.fvta_fwd(*args)
+        old = fvta_fused.fvta_fwd_serial(*args)
+        torch.cuda.synchronize()
+    new, old_n = _k2_launches()
+    assert (new - before[0], old_n - before[1]) == (2, 1)
+    for x, y, z, field in zip(a, b, old, FIELDS):
+        assert torch.equal(x, y), field
+        torch.testing.assert_close(x, z, **FVTA_TOL, msg=field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 24, 24, 30, 200), (2, 1, 1025, 30, 200),
+                                   (3, 1, 7, 40, 16), (2, 6, 33, 5, 18)])
+def test_k2_takes_h_off_a_16_byte_boundary_on_card(cuda, shape):
+    """A contiguous h one float past its storage's start: K2 copies its rows 4
+    bytes at a time there (16 where D % 4 == 0 and h is 16-byte aligned) and
+    gives the aligned launch's outputs bit for bit."""
+    with torch.no_grad():
+        args, ref = _k2_args(shape, 52, cuda, dead=True)
+        h = args[0]
+        store = torch.empty(h.numel() + 1, dtype=h.dtype, device=cuda)
+        h_off = store[1:].view(h.shape)
+        h_off.copy_(h)
+        assert h_off.is_contiguous() and h_off.data_ptr() % 16 != 0
+        a = fvta_fused.fvta_fwd(*args)
+        b = fvta_fused.fvta_fwd(h_off, *args[1:])
+        torch.cuda.synchronize()
+    for x, y, z, field in zip(a, b, ref, FIELDS):
+        assert torch.equal(x, y), field
+        torch.testing.assert_close(y, z, **FVTA_TOL, msg=field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K2_MAIN_SHAPES + K2_LONG_SHAPES)
+def test_k2_rounding_on_unbounded_inputs_at_main_path_shapes(cuda, shape):
+    """Unbounded h, q at the main paths' shapes: K2 is at most 2x as far from
+    the float64 plain version as the float32 plain version is."""
+    with torch.no_grad():
+        args, ref = _k2_args(shape, 53, cuda, dead=True, bounded=False)
+        h, cm, q, qm = args[0], args[1] > 0.5, args[2], args[3] > 0.5
+        p64 = dict(zip(("w_x", "w_y", "w_xy"), (w.double() for w in args[4:])))
+        ref64 = fvta_ref.fvta_attention(h.double(), cm, q.double(), qm,
+                                        fvta_ref.similarity_tensor(h.double(), q.double(),
+                                                                   "trilinear", p64))
+        out = fvta_fused.fvta_fwd(*args)
+    err = lambda a, b: max(float((x.double() - y).abs().max()) for x, y in zip(a, b))
+    assert all(torch.isfinite(x).all() for x in out)
     assert err(out, ref64) <= 2.0 * err(ref, ref64)
 
 
