@@ -86,8 +86,9 @@ csrc/lstm_bwd.cu past the largest cluster — and autograd through K1/K2):
    qa_pairs/s, peak device memory, dedup vs plain, torch.profiler breakdown
    of one step).
 
-The video slice (kernels K4, csrc/fvta_stats.cu, and K5/K6, csrc/fvta_bwd.cu; the
-streaming form of the attention from STREAM_MIN_T frames on):
+The video slice (kernels K4, csrc/fvta_stats.cu, and K5/K6, csrc/fvta_bwd.cu; K4
+and K5 walk runs of chunks, one CTA per run, csrc/fvta_corr.cuh; the streaming
+form of the attention from STREAM_MIN_T frames on):
 
 0. at the start, a CPU child process writes a synthetic raw corpus (`cli
    synth-video`, 48 videos of 512-2047 frames x 2537 features) and packs it
@@ -96,33 +97,40 @@ streaming form of the attention from STREAM_MIN_T frames on):
    config, dilated-conv encoder, batch 8, keep_prob 0.9) gives K4 and K6, read
    by wrapping them; K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly equal, and
    >= 1 for every (n, j)), K6 vs stats_bwd_ref on those arguments and on
-   synthetic cases (the main shape, S=T=24, S=8 x T=16384 x J=512; each also
+   synthetic cases (the main shapes, S=T=24, S=8 x T=16384 x J=512; each also
    with a dead half sequence, an empty example and an all-masked question);
    K4 at 1e-5 / 1e-5, K6 at 1e-4 / 1e-5, a field beyond it passing only on
    the float64 witness (at most 2x the float32 plain version's distance from
-   float64, plus 4 ulps); K6's float64 witness at unit-scale cotangents; K6
-   with de = gv = 0 and unit geq on the step's own h and q (dC from eq's tie
-   shares alone: dh and dq at 1e-4 / 1e-5 of plain, no witness); two
-   launches of K6 on the step's arguments bitwise equal;
+   float64, plus 4 ulps); on every one of these cases also the chunked K4
+   and K5 (csrc/fvta_stats.cu fvta_stats_chunked, csrc/fvta_bwd.cu
+   fvta_qcnt_chunked: one block per chunk, which no path calls): the chunked
+   K4 vs plain as K4, K4's maxima (m, eq, e) and K5's counts bitwise equal to
+   theirs, and K6 fed their outputs bitwise equal to K6 fed K4's and K5's;
+   K6's float64 witness at unit-scale cotangents; K6 with de = gv = 0 and
+   unit geq on the step's own h and q (dC from eq's tie shares alone: dh and
+   dq at 1e-4 / 1e-5 of plain, no witness); two launches each of K4, K5 and
+   K6 on the step's arguments bitwise equal;
 12. the streaming form vs K2 + recompute at T=1024, forward and gradients;
 13. this slice's main path: `cli video --data --out` (24 steps, T=1024,
    H=100, val every 12) and `cli video-test` on the run directory, with
    every kernel counter zeroed just before and read just after (K5 and K6
-   must launch once per step, the two-pass K6 never, the loss must fall);
-   K6's first call there recorded, and K4/K5/K6 held against plain on its
-   arguments as in phase 11, and its bitwise repeat;
+   must launch once per step; the chunked K4 and K5 and the two-pass K6
+   never; the loss must fall); K6's first call there recorded, and K4/K5/K6
+   held against plain and the chunked kernels on its arguments as in phase
+   11, with the bitwise repeats;
 14. the full-width T=4096 step: card vs CPU step-1 gradients at keep_prob 1;
    p50 over 10 steps, peak memory and a torch.profiler breakdown; the
    `--encoder bilstm` step at T=1024 (p50 over 10 steps, peak memory, profile;
    the Hopper bi-LSTM kernels only); bitwise resume of train_video; and the
    crossover of K2 + recompute vs K4 + K5 + K6 at T = 256, 1024, 4096 (time,
-   device time and peak memory of one forward + backward); then K4, K5 at the
-   T=4096 step's call and K6 and the two-pass K6 (csrc/fvta_bwd.cu's
+   device time and peak memory of one forward + backward); then K4, K5 and
+   K6 beside the kept old kernels (the chunked K4 and K5; csrc/fvta_bwd.cu's
    fvta_stats_bwd_twopass: dC through device memory, which no path calls) at
-   both main-path calls, timed in turns (old, new, new, old) and replayed
-   from a CUDA graph (device time), split by kernel under torch.profiler,
-   the two-pass K6 also held against plain; the two-pass K6's counter must
-   read 0 outside this timing.
+   both main-path calls (the T=4096 step's and `cli video`'s), timed in turns
+   (old, new, new, old) and replayed from a CUDA graph (device time), each
+   split by kernel under torch.profiler, the two-pass K6 also held against
+   plain; the old kernels' counters must read 0 outside their checks and
+   timing.
 
 The grouped scans (kernels K7, csrc/lstm_grouped.cu, and K8, csrc/lstm_stream.cu:
 the counterpart of the JAX package's round-1 lstm_pallas API, which no command
@@ -167,6 +175,7 @@ Prints a {"kernels": [...]} line, then the card line, then as the last line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -292,35 +301,41 @@ def f64_witness(got, plain, exact) -> tuple[float, str]:
 
 # the host-side calls that each put one item on the device's timeline
 LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+MEASURED_RANGE = "chip_smoke.measured"   # the host range of a trace's measured calls
 
 
 def profile_kernels(fn, reps: int) -> tuple[dict, dict, float]:
     """({kernel name: device ms per call}, {kernel name: events per call},
     launch calls per call) of fn over `reps` calls, read from torch.profiler's
-    device events one by one (the step annotation the schedule puts on the
-    device's timeline left out). The profiler traces one warm-up call before
-    the `reps` calls and keeps only the latter. Late in a long process the
-    trace can still miss some of the device's events (7 of 10 calls' kernels
-    seen on the H100), so the host's launch calls are counted beside them."""
+    device events one by one. The trace also holds `reps` calls before and
+    after the measured ones, each group closed by a synchronize, and only the
+    events inside the measured calls' host range are read: a trace on the
+    H100 can lose ~6 device events at its edges late in a long run. It can
+    still miss events, so the host's launch calls are counted beside them and
+    the callers retry."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
+    def calls():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-        prof.step()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        calls()
+        with record_function(MEASURED_RANGE):
+            calls()
+        calls()
+    events = prof.events()
+    window = next(e.time_range for e in events if e.name == MEASURED_RANGE)
     ms: dict[str, float] = {}
     count: dict[str, float] = {}
     launched = 0.0
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-                and not e.name.startswith("ProfilerStep")):
+    for e in events:
+        if not window.start <= e.time_range.start <= e.time_range.end <= window.end:
+            continue
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
             count[e.name] = count.get(e.name, 0) + 1 / reps
         elif e.device_type == DeviceType.CPU and e.name.startswith(LAUNCH_CALLS):
@@ -1095,8 +1110,9 @@ def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
         fresh.attach_pack(packed)
         return fresh
 
-    # device_breakdown's calls: a warm-up, `reps` timed, then per trace one more each
-    stores = iter([fresh_store() for _ in range(1 + reps + 3 * (reps + 1))])
+    # device_breakdown's calls: a warm-up, `reps` timed, then per trace (at most
+    # 3) `reps` before, `reps` measured and `reps` after
+    stores = iter([fresh_store() for _ in range(1 + reps + 3 * 3 * reps)])
     work = {
         "answer_1_request": lambda: engine.answer_batch(asks[:1]),
         "answer_8_requests": lambda: engine.answer_batch(asks[:8]),
@@ -1998,12 +2014,34 @@ def field_ok(a, b, c, tol):
     return share <= 1.0, f"(f64: {note})"
 
 
+OLD_STATS = ("stats_fwd_chunked", "qcnt_chunked", "stats_bwd_twopass")
+OLD_STATS_MADE = dict.fromkeys(OLD_STATS, 0)   # their launches made on purpose
+
+
+@contextlib.contextmanager
+def old_stats_made():
+    """Counts the launches of the kept old stats kernels (the chunked K4 and K5,
+    the two-pass K6) made inside as made on purpose, by a check or a timing:
+    main() fails if any other launch of them was counted."""
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    before = {k: getattr(fs, k).launches for k in OLD_STATS}
+    try:
+        yield
+    finally:
+        for k in OLD_STATS:
+            OLD_STATS_MADE[k] += getattr(fs, k).launches - before[k]
+
+
 def stats_check_case(name, args, cot=None, k6=None):
     """K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly, and >= 1 for every (n, j):
     each max is reached somewhere), K6 (`k6`, default stats_bwd) vs
     stats_bwd_ref, each field at its tolerance or on the float64 witness, on
     one case: args = (h, cm, q, qm, wx, wy, wxy), cot = (de, geq, gv) (default
-    N(0, 1)). Fatal on a mismatch; returns (K4's, K6's max |err|)."""
+    N(0, 1)). Also the chunked K4 and K5: the chunked K4 vs plain as K4, and
+    K4's maxima (eq, e, m) and K5's counts bitwise equal to theirs, and `k6`
+    fed the chunked kernels' outputs bitwise equal to `k6` fed K4's and K5's.
+    Fatal on a mismatch; returns the max |err| of K4, the chunked K4 and K6."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
@@ -2011,10 +2049,12 @@ def stats_check_case(name, args, cot=None, k6=None):
     k6 = k6 or fs.stats_bwd
     h, cm, q, qm, wx, wy, wxy = args
     w = (wx, wy, wxy)
-    with torch.no_grad():
+    with torch.no_grad(), old_stats_made():
         got = fs.stats_fwd(*args)
+        old = fs.stats_fwd_chunked(*args)
         ref = fs.stats_fwd_ref(*args)
         cnt = fs.qcnt(h, cm, q, *w, got[3])
+        cnt_old = fs.qcnt_chunked(h, cm, q, *w, old[3])
         cnt_r = fs.qcnt_ref(h, cm, q, *w, ref[3])
         if cot is None:
             g = torch.Generator().manual_seed(7)
@@ -2023,6 +2063,7 @@ def stats_check_case(name, args, cot=None, k6=None):
                    for sh in ((n, s, t), tuple(qm.shape), (n, s, d))]
         de, geq, gv = cot
         dk = k6(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
+        dk_old = k6(h, cm, q, qm, *w, de, geq, old[3], cnt_old, old[4], old[0], gv)
         dr = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
         a64 = [a.double() for a in args]
         r64 = fs.stats_fwd_ref(*a64)
@@ -2031,44 +2072,56 @@ def stats_check_case(name, args, cot=None, k6=None):
                                gv.double())
     torch.cuda.synchronize()
     e4 = [max_err(a, b) for a, b in zip(got, ref)]
+    e4_old = [max_err(a, b) for a, b in zip(old, ref)]
     e6 = [max_err(a, b) for a, b in zip(dk, dr)]
     res4 = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(got, ref, r64)]
+    res4_old = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(old, ref, r64)]
     res6 = [field_ok(a, b, c, GRAD_TOL) for a, b, c in zip(dk, dr, d64)]
-    ok4, ok6 = all(r[0] for r in res4), all(r[0] for r in res6)
+    ok4, ok6 = all(r[0] for r in res4 + res4_old), all(r[0] for r in res6)
     ok5 = bool(torch.equal(cnt, cnt_r)) and bool((cnt >= 1).all())
+    same = ([k for i, k in enumerate(STATS_NAMES) if i in (0, 3, 4)
+             and not torch.equal(got[i], old[i])]
+            + ([] if torch.equal(cnt, cnt_old) else ["qcnt"])
+            + [k for k, a, b in zip(BWD_NAMES, dk, dk_old) if not torch.equal(a, b)])
     finite = all(bool(torch.isfinite(a).all()) for a in (*dk, got[1], got[2]))
     log(f"K4/K5/{k6.__name__} vs plain {name:24s} N={h.shape[0]} S={h.shape[1]} "
         f"T={h.shape[2]} J={q.shape[1]} D={h.shape[3]}: K4 "
         + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in zip(STATS_NAMES, e4, res4))
-        + f"; K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
+        + " (chunked K4 " + " ".join(f"{e:.2e}{r[1]}" for e, r in zip(e4_old, res4_old))
+        + f"); K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
         f"{float(cnt.min()):.0f}; K6 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
                                                    zip(BWD_NAMES, e6, res6))
-        + f"  {'ok' if ok4 and ok5 and ok6 and finite else 'MISMATCH'}")
+        + f"; vs the chunked K4/K5 and {k6.__name__} on theirs: "
+        + ("bitwise equal" if not same else f"DIFFERENT {same}")
+        + f"  {'ok' if ok4 and ok5 and ok6 and finite and not same else 'MISMATCH'}")
     if not (ok4 and ok5 and ok6 and finite):
-        fail(f"{name}: K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) or "
-             f"{k6.__name__} ({ok6}, {GRAD_TOL}) disagrees with its plain version "
+        fail(f"{name}: K4 or the chunked K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) "
+             f"or {k6.__name__} ({ok6}, {GRAD_TOL}) disagrees with its plain version "
              f"(finite {finite})")
-    return max(e4), max(e6)
+    if same:
+        fail(f"{name}: K4's maxima, K5's counts or {k6.__name__} on them differ from the "
+             f"chunked kernels' in {same}")
+    return {"k4": max(e4), "k4_chunked": max(e4_old), "k6": max(e6)}
 
 
 def k456_check(fwd_args, bwd_args) -> dict:
     """stats_check_case on the main path's own arguments (the T=4096 step) and
     on the synthetic cases; K6's float64 witness at unit-scale cotangents; the
-    geq-only case and the bitwise repeat. Returns the worst errors."""
+    geq-only case and the bitwise repeats. Returns the worst errors."""
     h, cm, q, qm, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv = bwd_args
     scale = {"de": float(de.abs().max()), "geq": float(geq.abs().max()),
              "gv": float(gv.abs().max())}
     log(f"cotangents at K6 in the T={VIDEO_T} train step: max |de| {scale['de']:.3e}, "
         f"|geq| {scale['geq']:.3e}, |gv| {scale['gv']:.3e}")
-    worst4, worst6 = stats_check_case("video_main_path", list(fwd_args), [de, geq, gv])
+    worst = stats_check_case("video_main_path", list(fwd_args), [de, geq, gv])
     for name, n, s, t, j, d, masked in K4_SYNTH:
-        a4, a6 = stats_check_case(name, stats_case(n, s, t, j, d, 900 + len(name), "cuda",
-                                                   masked))
-        worst4, worst6 = max(worst4, a4), max(worst6, a6)
+        errs = stats_check_case(name, stats_case(n, s, t, j, d, 900 + len(name), "cuda", masked))
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
     witness = k6_rounding_witness(8, VIDEO_T, 30, 200)
     geq_only = k6_geq_only_check("the T=4096 step's call", fwd_args)
-    k6_repeat_check("the T=4096 step's call", bwd_args)
-    return {"k4_max_abs_err": worst4, "k6_max_abs_err": worst6, "k6_cotangent_max": scale,
+    stats_repeat_check("the T=4096 step's call", bwd_args)
+    return {"k4_max_abs_err": worst["k4"], "k4_chunked_max_abs_err": worst["k4_chunked"],
+            "k6_max_abs_err": worst["k6"], "k6_cotangent_max": scale,
             "k6_witness_worst_share": witness, "k6_geq_only_max_abs_err": geq_only}
 
 
@@ -2107,19 +2160,28 @@ def k6_geq_only_check(what: str, fwd_args) -> float:
     return max(errs)
 
 
-def k6_repeat_check(what: str, bwd_args) -> None:
-    """Two launches of K6 on the same inputs must give identical outputs."""
+def stats_repeat_check(what: str, bwd_args) -> None:
+    """Two launches each of K4, K5 and K6 on the same inputs must give
+    identical outputs."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
+    h, cm, q, qm, wx, wy, wxy = bwd_args[:7]
+    eq = bwd_args[9]
+    runs = {"K4": (lambda: fs.stats_fwd(*bwd_args[:7]), STATS_NAMES),
+            "K5": (lambda: (fs.qcnt(h, cm, q, wx, wy, wxy, eq),), ("qcnt",)),
+            "K6": (lambda: fs.stats_bwd(*bwd_args), BWD_NAMES)}
+    differ = []
     with torch.no_grad():
-        a, b = fs.stats_bwd(*bwd_args), fs.stats_bwd(*bwd_args)
+        for kernel, (fn, names) in runs.items():
+            a, b = fn(), fn()
+            differ += [f"{kernel} {k}" for k, x, y in zip(names, a, b) if not torch.equal(x, y)]
     torch.cuda.synchronize()
-    differ = [k for k, x, y in zip(BWD_NAMES, a, b) if not torch.equal(x, y)]
-    log(f"K6 bitwise repeat at {what}: {'equal' if not differ else 'DIFFERENT ' + str(differ)}")
+    log(f"K4, K5, K6 bitwise repeats at {what}: "
+        f"{'equal' if not differ else 'DIFFERENT ' + str(differ)}")
     if differ:
-        fail(f"two launches of K6 on the same inputs differ in {differ} at {what}")
+        fail(f"two launches on the same inputs differ in {differ} at {what}")
 
 
 def k6_rounding_witness(n: int, t: int, j: int, d: int) -> float:
@@ -2251,9 +2313,10 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
                     "fvta_fwd_serial": fvta_fused.fvta_fwd_serial,
                     "stats_fwd": fvta_stats.stats_fwd,
                     "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd,
-                    "stats_bwd_twopass": fvta_stats.stats_bwd_twopass}
+                    **{k: getattr(fvta_stats, k) for k in OLD_STATS}}
         for fn in counters.values():
             fn.launches = 0
+        OLD_STATS_MADE.update(dict.fromkeys(OLD_STATS, 0))   # counted from here on
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -2282,8 +2345,9 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     check_lstm_launches("video", launches, backward=True)
     if launches["qcnt"] != CLI_STEPS or launches["stats_bwd"] != CLI_STEPS:
         fail(f"video: K5 and K6 must launch once per train step ({CLI_STEPS}): {launches}")
-    if launches["stats_bwd_twopass"] or launches["fvta_fwd_serial"]:
-        fail(f"video: the two-pass K6 or the serial K2 launched on a command's path: {launches}")
+    if any(launches[k] for k in OLD_STATS) or launches["fvta_fwd_serial"]:
+        fail(f"video: a chunked K4/K5, the two-pass K6 or the serial K2 launched on a "
+             f"command's path: {launches}")
     if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) or not last < first:
         fail(f"video: losses not finite, steps missing or not falling: {losses}")
     if test["count"] != res["test_count"] or not 0.0 <= test["acc"] <= 1.0:
@@ -2484,18 +2548,22 @@ def stats_bound_ms(name: str, h, cm, q) -> tuple[float, float]:
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
 
 
-def kernel_split_ms(fn, names, graph: float, calls: int = 10) -> dict:
+def kernel_split_ms(fn, names, graph: float, calls: int = 10, tries: int = 3) -> dict:
     """Device ms of one launch of each kernel of fn whose name contains one of
-    `names` (each launched once per call): the mean duration of its kernel
-    events under torch.profiler over `calls` calls. Fatal unless every kernel
-    of the call is named, each was seen, and together they come to SPLIT_SHARE
-    of `graph`, the CUDA-graph time of the same call (which also holds the gaps
-    between launches). Returns the split, the events seen per call and the
-    share of `graph`."""
-    kernels, count, _ = profile_kernels(fn, calls)
+    `names`: the mean duration of its kernel events under torch.profiler over
+    `calls` calls, from the first of up to `tries` traces that saw every one
+    (a trace can come back without the device's events). Fatal unless every
+    kernel of the call is named, each was seen, and together they come to
+    SPLIT_SHARE of `graph`, the CUDA-graph time of the same call (which also
+    holds the gaps between launches). Returns the split, the events seen per
+    call and the share of `graph`."""
+    for _ in range(tries):
+        kernels, count, _ = profile_kernels(fn, calls)
+        seen = {k: sum(c for name, c in count.items() if k in name) for k in names}
+        if min(seen.values()) > 0:
+            break
     per = {name: kernels[name] / count[name] for name in kernels}
     split = {k: sum(v for name, v in per.items() if k in name) for k in names}
-    seen = {k: sum(c for name, c in count.items() if k in name) for k in names}
     share = sum(split.values()) / graph
     stray = [name[:60] for name in per if not any(k in name for k in names)]
     if stray or min(seen.values()) == 0 or not SPLIT_SHARE[0] <= share <= SPLIT_SHARE[1]:
@@ -2505,110 +2573,125 @@ def kernel_split_ms(fn, names, graph: float, calls: int = 10) -> dict:
     return {**split, "events_per_call": seen, "share_of_graph": share}
 
 
-def stats_kernel_times(fwd_args, bwd_args, cli_args, launches: dict, errs: dict) -> tuple:
-    """The kernels-line entries of K4, K5 (at the T=4096 train step's call) and
-    of K6 and the two-pass K6 at both main-path calls (the T=4096 step's and
-    `cli video`'s): times from CUDA events, new and old interleaved (old, new,
-    new, old), the plain versions' times, bounds from these inputs (valid
-    positions only); the two-pass K6 also held against plain on both calls, and
-    both K6s' time split by kernel. Returns (entries, splits, launches of the
-    two-pass K6 made here)."""
+# (kernel, the kept old kernel, each one's kernel names in a profile, the
+# TPU kernel's line in fvta_pallas.py, source): K5's call also zeroes its int32
+# counts and converts them to float32 (torch's elementwise kernels)
+STATS_PAIRS = [
+    ("stats_fwd", "stats_fwd_chunked", ("stats_run_kernel", "stats_merge_kernel"),
+     ("stats_chunk_kernel", "stats_combine_kernel"), 141, "fvta_stats.cu"),
+    ("qcnt", "qcnt_chunked", ("qcnt_run_kernel", "elementwise_kernel"),
+     ("qcnt_chunk_kernel", "elementwise_kernel"), 197, "fvta_bwd.cu"),
+    ("stats_bwd", "stats_bwd_twopass", ("bwd_fused_kernel", "bwd_combine_kernel"),
+     ("bwd_chunk_kernel", "bwd_reduce_kernel"), 231, "fvta_bwd.cu"),
+]
+
+
+def stats_call(name: str, args):
+    """A call of K4, K5 or K6 (or of a kept old kernel or a plain version of
+    theirs) on the arguments a K6 call was given: (h, cm, q, qm, wx, wy, wxy,
+    de, geq, eq, qcnt, e, m, gv)."""
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    fn = getattr(fs, name)
+    if name.startswith("stats_fwd"):
+        return lambda: fn(*args[:7])
+    if name.startswith("qcnt"):
+        return lambda: fn(*args[:3], *args[4:7], args[9])
+    return lambda: fn(*args)
+
+
+def stats_kernel_times(calls: dict, launches: dict, errs: dict) -> tuple[list, dict]:
+    """The kernels-line entries of K4, K5 and K6 and of the kept old kernels
+    (the chunked K4 and K5, the two-pass K6) at both main-path calls (`calls`:
+    label -> a K6 call's arguments; the T=4096 step's and `cli video`'s):
+    times from CUDA events, new and old interleaved (old, new, new, old), the
+    CUDA-graph time of each, each one's time split by kernel (mean profiler
+    events, fatal unless 0.85-1.10 of the graph time), the plain versions'
+    times, bounds from these inputs (valid positions only); the two-pass K6
+    also held against plain on both calls. Returns (entries, splits)."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
-    h, cm, q, qm, wx, wy, wxy = fwd_args
-    eq = bwd_args[9]
-    w = (wx, wy, wxy)
-    old_before = fs.stats_bwd_twopass.launches
-    calls = {"the T=4096 train step's call": bwd_args, "cli video's call": cli_args}
-    timings, splits, old_errs = {}, {}, {}
-    with torch.no_grad():
-        timings["stats_fwd"] = (cuda_ms(lambda: fs.stats_fwd(*fwd_args)),
-                                cuda_ms(lambda: fs.stats_fwd_ref(*fwd_args), iters=10))
-        timings["qcnt"] = (cuda_ms(lambda: fs.qcnt(h, cm, q, *w, eq)),
-                           cuda_ms(lambda: fs.qcnt_ref(h, cm, q, *w, eq), iters=10))
+    rows, splits, old_errs = {}, {}, {}
+    with torch.no_grad(), old_stats_made():
         for label, a in calls.items():
-            new = lambda: fs.stats_bwd(*a)
-            old = lambda: fs.stats_bwd_twopass(*a)
-            o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
-            g_old, g_new = graph_ms(old), graph_ms(new)   # device time, no host work
-            plain = cuda_ms(lambda: fs.stats_bwd_ref(*a), iters=10)
-            timings[("stats_bwd", label)] = ((n1 + n2) / 2, plain, (n1, n2), g_new)
-            timings[("stats_bwd_twopass", label)] = ((o1 + o2) / 2, plain, (o1, o2), g_old)
-            splits[label] = {
-                "stats_bwd": kernel_split_ms(new, ("bwd_fused_kernel", "bwd_combine_kernel"),
-                                             g_new),
-                "stats_bwd_twopass": kernel_split_ms(old, ("bwd_chunk_kernel",
-                                                           "bwd_reduce_kernel"), g_old)}
-            log(f"K6 at {label}: new {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}), two-pass "
-                f"{o1:.4f} / {o2:.4f} ms (graph {g_old:.4f}), plain {plain:.3f} ms; split "
-                f"{json.dumps(splits[label])}")
+            splits[label] = {}
+            for name, old_name, names, old_names, _, _ in STATS_PAIRS:
+                new, old = stats_call(name, a), stats_call(old_name, a)
+                o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
+                g_old, g_new = graph_ms(old), graph_ms(new)   # device time, no host work
+                plain = cuda_ms(stats_call(name + "_ref", a), iters=10)
+                splits[label][name] = kernel_split_ms(new, names, g_new)
+                splits[label][old_name] = kernel_split_ms(old, old_names, g_old)
+                rows[(name, label)] = ((n1 + n2) / 2, plain, (n1, n2), g_new)
+                rows[(old_name, label)] = ((o1 + o2) / 2, plain, (o1, o2), g_old)
+                log(f"{name} at {label}: {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}), {old_name} "
+                    f"{o1:.4f} / {o2:.4f} ms (graph {g_old:.4f}), plain {plain:.3f} ms; split "
+                    f"{json.dumps(splits[label][name])} vs {json.dumps(splits[label][old_name])}")
     for label, a in calls.items():
         old_errs[label] = stats_check_case(f"two-pass K6, {label[:20]}", list(a[:7]),
-                                           [a[7], a[8], a[13]], k6=fs.stats_bwd_twopass)[1]
-    made = fs.stats_bwd_twopass.launches - old_before
+                                           [a[7], a[8], a[13]], k6=fs.stats_bwd_twopass)
     out = []
-
-    def entry(name, label, args, k_ms, p_ms, src_line, err, n_launch, extra=None):
-        b_ms, o_ms = stats_bound_ms(name.split(" ")[0].replace("_twopass", ""), args[0],
-                                    args[1], args[2])
-        n, s, t, d = args[0].shape
-        out.append({
-            "name": name, "route": "cuda", "source": "fvta_memexqa_torch/csrc/"
-            + ("fvta_stats.cu" if name == "stats_fwd" else "fvta_bwd.cu"),
-            "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{src_line}",
-            "launches": n_launch, "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
-            "timed_work": f"{label}: N={n} S={s} T={t} J={args[2].shape[1]} D={d}",
-            **(extra or {})})
-
     main = "the T=4096 train step's call"
-    entry("stats_fwd", main, fwd_args, *timings["stats_fwd"], 141, errs["k4_max_abs_err"],
-          launches["stats_fwd"])
-    entry("qcnt", main, fwd_args, *timings["qcnt"], 197, 0.0, launches["qcnt"])
     for label, a in calls.items():
+        at = "main" if label == main else "cli"
         suffix = "" if label == main else " (cli video call)"
-        k_ms, p_ms, pair, g_ms = timings[("stats_bwd", label)]
-        entry("stats_bwd" + suffix, label, a, k_ms, p_ms, 231,
-              errs["k6_max_abs_err"] if label == main else errs["k6_cli_max_abs_err"],
-              launches["stats_bwd"], {"ms_pair": pair, "graph_ms": g_ms,
-                                      "split_ms": splits[label]["stats_bwd"]})
-        k_ms, p_ms, pair, g_ms = timings[("stats_bwd_twopass", label)]
-        entry("stats_bwd_twopass" + suffix, label, a, k_ms, p_ms, 231, old_errs[label],
-              launches["stats_bwd_twopass"],
-              {"ms_pair": pair, "graph_ms": g_ms,
-               "split_ms": splits[label]["stats_bwd_twopass"]})
-    return out, splits, made
+        for name, old_name, _, _, line, src in STATS_PAIRS:
+            for kname in (name, old_name):
+                k_ms, p_ms, pair, g_ms = rows[(kname, label)]
+                b_ms, o_ms = stats_bound_ms(name, *a[:3])
+                err = {"stats_fwd": errs[f"k4_{at}"], "stats_fwd_chunked": errs[f"k4_chunked_{at}"],
+                       "stats_bwd": errs[f"k6_{at}"], "stats_bwd_twopass": old_errs[label]["k6"]
+                       }.get(kname, 0.0)   # K5's counts: exactly equal (checked)
+                n, s, t, d = a[0].shape
+                out.append({
+                    "name": kname + suffix, "route": "cuda",
+                    "source": f"fvta_memexqa_torch/csrc/{src}",
+                    "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{line}",
+                    "launches": launches[kname], "max_abs_err": err, "ms": k_ms,
+                    "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
+                    "timed_work": f"{label}: N={n} S={s} T={t} J={a[2].shape[1]} D={d}",
+                    "ms_pair": pair, "graph_ms": g_ms, "split_ms": splits[label][kname]})
+    return out, splits
 
 
-def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list, int]:
+def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list]:
     fwd_args, bwd_args = video_main_path_args()
     checks = k456_check(fwd_args, bwd_args)
     checks["streaming_vs_k2"] = streaming_vs_k2()
     cli_run = video_cli_run(workdir, prep)
     cli_args = cli_run.pop("k6_args")
-    checks["k6_cli_max_abs_err"] = stats_check_case(
-        "cli_video_call", list(cli_args[:7]), [cli_args[7], cli_args[8], cli_args[13]])[1]
-    k6_repeat_check("cli video's call", cli_args)
+    cli_errs = stats_check_case("cli_video_call", list(cli_args[:7]),
+                                [cli_args[7], cli_args[8], cli_args[13]])
+    checks.update({f"{k}_cli_max_abs_err": v for k, v in cli_errs.items()})
+    stats_repeat_check("cli video's call", cli_args)
     checks["k6_cli_geq_only_max_abs_err"] = k6_geq_only_check("cli video's call",
                                                               list(cli_args[:7]))
     checks["k6_cli_witness_worst_share"] = k6_rounding_witness(
         cli_args[0].shape[0], cli_args[0].shape[2], cli_args[2].shape[1], cli_args[0].shape[3])
     parity = video_step_parity()
     step = video_step_times()
+    prof = step["profiled_step"]
     log(f"video train step, full width T={VIDEO_T} batch {VIDEO_N}: p50 "
         f"{step['p50_step_ms']:.2f} ms ({step['frames_per_s']:.0f} frames/s), peak "
-        f"{step['peak_device_gib']:.2f} GiB; profiled step {json.dumps(step['profiled_step'])}")
+        f"{step['peak_device_gib']:.2f} GiB; device {prof['device_busy_ms']} ms with "
+        f"{prof['device_events_seen']:.0f} device events seen for "
+        f"{prof['launch_calls']:.0f} launch calls; profiled step {json.dumps(prof)}")
     bilstm = video_bilstm_step()
     resume = video_resume_check(cli_run.pop("pack"), workdir)
     cross = crossover()
-    entries, splits, old_made = stats_kernel_times(fwd_args, bwd_args, cli_args,
-                                                   cli_run["launches"], checks)
+    errs = {"k4_main": checks["k4_max_abs_err"],
+            "k4_chunked_main": checks["k4_chunked_max_abs_err"],
+            "k6_main": checks["k6_max_abs_err"], "k4_cli": cli_errs["k4"],
+            "k4_chunked_cli": cli_errs["k4_chunked"], "k6_cli": cli_errs["k6"]}
+    entries, splits = stats_kernel_times(
+        {"the T=4096 train step's call": bwd_args, "cli video's call": cli_args},
+        cli_run["launches"], errs)
     return ({"checks": checks, "cli_run": cli_run, "parity": parity, "train_step": step,
              "bilstm_step": bilstm, "resume": resume, "crossover": cross,
-             "k6_split_ms": splits}, entries, old_made)
+             "stats_split_ms": splits}, entries)
 
 
 # ---- the grouped scans: K7 (csrc/lstm_grouped.cu), K8 (csrc/lstm_stream.cu) --------
@@ -3058,7 +3141,8 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {stem}: {line.strip()}")
 
-    fvta_stats.stats_bwd_twopass.launches = 0
+    for k in OLD_STATS:
+        getattr(fvta_stats, k).launches = 0
     with tempfile.TemporaryDirectory() as workdir:
         prep = prepare_video_pack(workdir)   # CPU work, overlapped with the card's phases
         try:
@@ -3078,7 +3162,7 @@ def main() -> None:
             trained = run_train_slice(workdir)
             trained["k1b_cotangents"] = cotangents
             log("training " + json.dumps(trained))
-            video, stats_entries, twopass_made = run_video_slice(workdir, prep)
+            video, stats_entries = run_video_slice(workdir, prep)
             log("video " + json.dumps(video))
             from_cli = grouped_counters()
             grouped = grouped_check(device)
@@ -3091,10 +3175,11 @@ def main() -> None:
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
                 fail(f"a command launched K7 or K8 ({from_cli}): no command should reach them")
-            twopass = fvta_stats.stats_bwd_twopass.launches - twopass_made
-            log(f"two-pass K6 launches outside its own timing and check: {twopass}")
-            if twopass:
-                fail(f"a path launched the two-pass K6 {twopass} times: none should")
+            stray = {k: getattr(fvta_stats, k).launches - OLD_STATS_MADE[k] for k in OLD_STATS}
+            log(f"launches of the chunked K4/K5 and the two-pass K6 outside their own checks "
+                f"and timing: {json.dumps(stray)} (made there: {json.dumps(OLD_STATS_MADE)})")
+            if any(stray.values()):
+                fail(f"a path launched a kept old stats kernel: {stray}; none should")
         finally:
             if prep.poll() is None:
                 prep.kill()

@@ -21,9 +21,15 @@
 // C is recomputed by the routine K4 uses (fvta_corr.cuh), bit for bit, so the
 // exact-equality tie tests find the positions K4's maxima came from.
 //
-// K5: one block per (time chunk of 32 steps, sequence, example), the
-// correlation as in K4, per-chunk tie counts added into an int32 [N,J] with
-// integer atomics (exact, so the order does not matter).
+// K5 (fvta_qcnt, qcnt_run_kernel): K4's run of chunks (fvta_corr.cuh
+// run_geometry / walk_run: one CTA per run of chunks, about one per SM, passes
+// of 64 rows double-buffered with cp.async, C in 4 x 2 register tiles), each C
+// element tested against eq[j] with the ctx mask; the counts carried in shared
+// memory per (warp, j) across the run, summed in warp order and added into an
+// int32 [N,J] once per (CTA, j) with integer atomics (exact, so the order of
+// the CTAs does not matter). The chunked K5 (fvta_qcnt_chunked, qcnt_chunk_kernel),
+// kept to be timed and checked beside it: one block per (chunk, sequence,
+// example), C with corr(), one serial chain per element.
 //
 // Bound on the H100 (the video train step: N=8, S=1, T=4096, J=30, D=200). K5
 // must read h (26 MB, 7.8 us) and do 2*N*S*T*J*D FLOPs (5.9 us): bytes. K6 must
@@ -69,9 +75,6 @@ namespace {
 
 using namespace fvta;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-
 struct BwdLayout {
   size_t hs, hw, qs, sx, sy, cmv, cbuf, rowsum, pt, wc, total;
 };
@@ -96,7 +99,7 @@ __host__ __device__ inline BwdLayout bwd_layout(int J, int D) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-qcnt_kernel(const float* __restrict__ h, const float* __restrict__ cm,
+qcnt_chunk_kernel(const float* __restrict__ h, const float* __restrict__ cm,
             const float* __restrict__ q, const float* __restrict__ wx,
             const float* __restrict__ wy, const float* __restrict__ wxy,
             const float* __restrict__ eq, int* __restrict__ cnt, int S, int T, int J, int D) {
@@ -132,6 +135,51 @@ qcnt_kernel(const float* __restrict__ h, const float* __restrict__ cm,
       if (total) atomicAdd(cnt + (size_t)n * J + j0 + tid, total);
     }
     __syncthreads();
+  }
+}
+
+// K5: one CTA per (run of chunks, sequence, example) of run_geometry.
+__global__ void __launch_bounds__(THREADS, 1)
+qcnt_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
+                const float* __restrict__ q, const float* __restrict__ wx,
+                const float* __restrict__ wy, const float* __restrict__ wxy,
+                const float* __restrict__ eq, int* __restrict__ cnt, int S, int T, int J,
+                int D, int cpc, int rows_max, int nbuf, int vec) {
+  extern __shared__ __align__(16) float smem_r[];
+  float* smem = smem_r;
+  const RunLayout l = run_layout(J, D, rows_max, nbuf);
+  int* wc = reinterpret_cast<int*>(smem + l.wq);   // tie counts per (warp, word)
+  const float* eqv = smem + l.eqv;
+  const int p = blockIdx.x, s = blockIdx.y, n = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, jq = tid % 16;
+  const int jp = round_j(J), chunks = (T + TCH - 1) / TCH;
+  const size_t seq = (size_t)n * S + s;
+  for (int i = tid; i < WARPS * jp; i += THREADS) wc[i] = 0;
+  const RunArgs a{h + seq * T * D, cm + seq * T, q + (size_t)n * J * D, nullptr,
+                  eq + (size_t)n * J, wx, wy, wxy, T, J, D, p * cpc,
+                  min(p * cpc + cpc, chunks), rows_max, nbuf, vec};
+  walk_run(
+      a, smem,
+      [&](int jt, int, int rows, const float* cmv, const int (&row)[4],
+          const float (&c)[4][2]) {
+        int hits[2] = {0, 0};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int j = jt * QT + jq + 16 * b;
+            if (row[r] < rows && j < J) hits[b] += masked(c[r][b], cmv[row[r]]) == eqv[j];
+          }
+#pragma unroll
+        for (int b = 0; b < 2; ++b) hits[b] += __shfl_xor_sync(0xffffffffu, hits[b], 16);
+        if (lane < 16)   // each (warp, word) slot has this one writer
+          for (int b = 0; b < 2; ++b) wc[warp * jp + jt * QT + jq + 16 * b] += hits[b];
+      },
+      [](int, int, int, const float*) {});
+  for (int j = tid; j < J; j += THREADS) {
+    int total = 0;
+    for (int w = 0; w < WARPS; ++w) total += wc[w * jp + j];
+    if (total) atomicAdd(cnt + (size_t)n * J + j, total);
   }
 }
 
@@ -300,17 +348,6 @@ bwd_reduce_kernel(const float* __restrict__ h, const float* __restrict__ q,
 
 constexpr int RB = 8;   // rows (dh) or question words (dq) per thread item
 
-// Row stride of the staged rows: D rounded up to 4 floats (16-byte rows for
-// float4 loads and cp.async), then to an odd number of 16-byte units, so that
-// eight threads reading eight consecutive rows at one column hit eight
-// distinct 16-byte bank groups.
-__host__ __device__ inline int vec_stride(int d) {
-  const int s = (d + 3) / 4 * 4;
-  return (s / 4) % 2 ? s : s + 4;
-}
-
-__host__ __device__ inline int round_j(int j) { return (j + QT - 1) / QT * QT; }
-
 struct FusedLayout {
   size_t hbuf, hw, qs, acc, cbuf, wxs, wys, wxys, gvs, dwxacc, syv, qmv, eqv, gsh, colacc,
       sx, cmv, pt, der, rowsum, total;
@@ -377,56 +414,6 @@ inline FusedGeometry fused_geometry(int n, int s, int t, int j, int d, int sms,
   const size_t slots = (size_t)ns * g.per, ds = vec_stride(d), jp = round_j(j);
   g.scratch = slots * (jp * ds + jp + ds);   // dC^T h, column sums, dwx per slot
   return g;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy rows [t0, t0 + rows) of h_seq [T, D] into dst (stride ds) with cp.async
-// and zero the rows past them, so the buffer holds exactly the chunk (its
-// columns past D were zeroed once). vec: 16-byte copies, for D % 4 == 0 and h
-// on a 16-byte boundary (the host checks both); 4-byte copies otherwise.
-__device__ __forceinline__ void issue_rows(float* dst, const float* __restrict__ h_seq,
-                                           int t0, int rows, int D, int ds, bool vec) {
-  if (vec) {
-    const int dv = D / 4;
-    for (int i = threadIdx.x; i < rows * dv; i += THREADS) {
-      const int r = i / dv, v = i % dv;
-      cp_async16(dst + r * ds + 4 * v, h_seq + (size_t)(t0 + r) * D + 4 * v);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      cp_async4(dst + r * ds + c, h_seq + (size_t)(t0 + r) * D + c);
-    }
-  }
-  for (int i = threadIdx.x; i < (TCH - rows) * D; i += THREADS)
-    dst[(rows + i / D) * ds + i % D] = 0.0f;
-}
-
-// Question rows [j0, j0 + QT) of q_n [J, D] into qs (stride ds, zero past J and D).
-__device__ __forceinline__ void stage_q(float* qs, const float* __restrict__ q_n, int j0,
-                                        int J, int D, int ds) {
-  for (int i = threadIdx.x; i < QT * ds; i += THREADS) {
-    const int l = i / ds, c = i % ds;
-    qs[i] = (j0 + l < J && c < D) ? q_n[(size_t)(j0 + l) * D + c] : 0.0f;
-  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -716,7 +703,7 @@ bwd_combine_kernel(const float* __restrict__ q, const float* __restrict__ wy,
 
 extern "C" {
 
-long long fvta_qcnt_smem_bytes(int d) { return (long long)bwd_layout(0, d).total; }
+long long fvta_qcnt_chunked_smem_bytes(int d) { return (long long)bwd_layout(0, d).total; }
 
 long long fvta_stats_bwd_twopass_smem_bytes(int j, int d) {
   return (long long)bwd_layout(j, d).total;
@@ -724,18 +711,45 @@ long long fvta_stats_bwd_twopass_smem_bytes(int j, int d) {
 
 const char* fvta_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// cnt: int32 [N,J], zeroed by the caller. Returns the cudaError_t (0 = success).
-int fvta_qcnt(const float* h, const float* cm, const float* q, const float* wx,
-              const float* wy, const float* wxy, const float* eq, int* cnt, int n, int s,
-              int t, int j, int d, void* stream) {
+// The chunked K5. cnt: int32 [N,J], zeroed by the caller. Returns the
+// cudaError_t (0 = success).
+int fvta_qcnt_chunked(const float* h, const float* cm, const float* q, const float* wx,
+                      const float* wy, const float* wxy, const float* eq, int* cnt, int n,
+                      int s, int t, int j, int d, void* stream) {
   const int chunks = (t + TCH - 1) / TCH;
   const size_t smem = bwd_layout(0, d).total;
-  cudaError_t err = cudaFuncSetAttribute(qcnt_kernel,
+  cudaError_t err = cudaFuncSetAttribute(qcnt_chunk_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  qcnt_kernel<<<dim3(chunks, s, n), THREADS, smem, (cudaStream_t)stream>>>(
+  qcnt_chunk_kernel<<<dim3(chunks, s, n), THREADS, smem, (cudaStream_t)stream>>>(
       h, cm, q, wx, wy, wxy, eq, cnt, s, t, j, d);
+  return (int)cudaGetLastError();
+}
+
+// K5. cnt: int32 [N,J], zeroed by the caller. per, cpc, rows, nbuf and smem are
+// run_geometry for this shape on the current device (fvta_stats_geometry in
+// the K4 library), read once by the caller and passed back unchanged; the
+// kernel's shared-memory limit is raised once per device. Returns the
+// cudaError_t (0 = success).
+int fvta_qcnt(const float* h, const float* cm, const float* q, const float* wx,
+              const float* wy, const float* wxy, const float* eq, int* cnt, int n, int s,
+              int t, int j, int d, int per, int cpc, int rows, int nbuf, long long smem,
+              void* stream) {
+  static long long smem_set[64] = {0};   // per device: the limit set so far (0: none)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(qcnt_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  qcnt_run_kernel<<<dim3(per, s, n), THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+      h, cm, q, wx, wy, wxy, eq, cnt, s, t, j, d, cpc, rows, nbuf, vec);
   return (int)cudaGetLastError();
 }
 

@@ -10,34 +10,46 @@
 //   m[s]     = max_t e,  den[s] = sum_t exp(e - m),  v[s] = sum_t exp(e - m) h[s,t]
 //   eq[j]    = max over (s,t) of (C + (1-cm[s,t])*NEG)
 //
-// Design. The TPU kernel walks the time blocks of one example in order and
-// carries (m, den, v) in VMEM; here the blocks run in parallel. Pass 1 gives
-// every (time chunk of TCH = 32 steps, sequence, example) its own block: it
-// stages the chunk's h rows in shared memory, walks the question in tiles of 32
-// words (one per lane), and writes the chunk's scores e, its local stats
-// (m_c, den_c, v_c) and its local eq. Pass 2, one block per example, combines the
-// chunks in chunk order: m = max_c m_c, den = sum_c den_c exp(m_c - m),
-// v = sum_c v_c exp(m_c - m), eq = max. Every sum runs in a fixed order and no
-// atomics are used, so the result is deterministic. expf, not __expf.
+// Design (fvta_stats, stats_run_kernel + stats_merge_kernel). The TPU kernel
+// walks the time blocks of one example in order and carries (m, den, v) in
+// VMEM. Here one CTA per (run of cpc chunks of TCH = 32 steps, sequence,
+// example), about one CTA per SM (fvta_corr.cuh run_geometry: 8 x 16 CTAs of 8
+// chunks at the video train step, 16 x 8 of 4 at `cli video`'s call), walks its
+// run with fvta_corr.cuh's walk_run in passes of 64 rows: the question tile, sy
+// and the masks staged once, h and the context mask double-buffered with
+// cp.async, C in 4 x 2 register tiles. From each tile it takes the q-masked
+// row maxima (e, written once) and the ctx-masked column maxima (eq, per warp
+// in shared memory); after each pass it updates (m, den, v) online: m' =
+// max(m, max_t e), den' = den exp(m - m') + sum_t exp(e - m'), v' likewise with
+// h from shared memory. Every score is finite (NEG = -1e30 for a masked entry),
+// so no -inf meets an exp and a fully masked pass merges as exp(-1e30 - m) = 0.
+// The CTA writes (m, den, v, eq) into its slot; stats_merge_kernel, one block per (32 columns of D,
+// example), combines each sequence's slots in slot order: m = max, den and v
+// rescaled by exp(m_p - m) and summed, eq = max. No float atomics, every sum in
+// a fixed order, expf (not __expf): two launches on one card are bitwise equal,
+// and e, m and eq (maxima) equal the chunked kernel's bit for bit.
+//
+// The chunked K4 (fvta_stats_chunked: stats_chunk_kernel + stats_combine_kernel),
+// kept to be timed and checked beside it: one block per (chunk, sequence,
+// example) that restages the question tile and recomputes sy and sx, C with
+// corr() (one serial chain per element, both operands from shared memory), and a
+// combine of N blocks over every chunk's partials.
 //
 // Bound on the H100. The pass must read h once (N*S*T*D floats: 26 MB at the
 // video train step's N=8, S=1, T=4096, D=200, 7.8 us at 3.35 TB/s) and do
 // 2*N*S*T*J*D FLOPs (0.39 GFLOP, 5.9 us at 67 TFLOP/s FP32): bytes bound it, and
 // the correlation runs on the CUDA cores in FP32 (no tensor cores: the exact
-// equality K5/K6 rely on rules out TF32). At S=1, N=8 pass 1 has 1024 blocks, so
-// the card is full; pass 2 is N blocks and short.
+// equality K5/K6 rely on rules out TF32).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "fvta_corr.cuh"
 
 namespace {
 
 using namespace fvta;
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
 
 struct ChunkLayout {
   size_t hs, hw, qs, sx, sy, qmt, cmv, emax, pr, wq, total;
@@ -178,21 +190,160 @@ stats_combine_kernel(const float* __restrict__ m_p, const float* __restrict__ de
   }
 }
 
+// K4's pass: one CTA per (run of chunks, sequence, example) of run_geometry;
+// writes e and the CTA's partial (m, den, v, eq) into its slot.
+__global__ void __launch_bounds__(THREADS, 1)
+stats_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
+                 const float* __restrict__ q, const float* __restrict__ qm,
+                 const float* __restrict__ wx, const float* __restrict__ wy,
+                 const float* __restrict__ wxy, float* __restrict__ e_out,
+                 float* __restrict__ m_p, float* __restrict__ den_p, float* __restrict__ v_p,
+                 float* __restrict__ eq_p, int S, int T, int J, int D, int cpc, int rows_max,
+                 int nbuf, int vec) {
+  extern __shared__ __align__(16) float smem_r[];
+  float* smem = smem_r;
+  const RunLayout l = run_layout(J, D, rows_max, nbuf);
+  const float* qmv = smem + l.qmv;
+  float *erow = smem + l.erow, *prow = smem + l.prow, *wq = smem + l.wq, *vacc = smem + l.vacc;
+  const int p = blockIdx.x, s = blockIdx.y, n = blockIdx.z, per = gridDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, jq = tid % 16;
+  const int jp = round_j(J), ds = vec_stride(D), ntiles = jp / QT, chunks = (T + TCH - 1) / TCH;
+  const size_t seq = (size_t)n * S + s, slot = seq * per + p;
+  for (int i = tid; i < WARPS * jp; i += THREADS) wq[i] = -INFINITY;
+  float* e_seq = e_out + seq * T;
+  float rmax[4];             // this thread's rows' max of the q-masked C over the words so far
+  float m = 0.0f, den = 0.0f;   // the run's statistics, held by warp 0
+  const RunArgs a{h + seq * T * D, cm + seq * T, q + (size_t)n * J * D, qm + (size_t)n * J,
+                  nullptr, wx, wy, wxy, T, J, D, p * cpc, min(p * cpc + cpc, chunks),
+                  rows_max, nbuf, vec};
+  walk_run(
+      a, smem,
+      [&](int jt, int t0, int rows, const float* cmv, const int (&row)[4],
+          const float (&c)[4][2]) {
+        float col[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (jt == 0) rmax[r] = -INFINITY;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const int j = jt * QT + jq + 16 * b;
+            if (j < J) {
+              rmax[r] = fmaxf(rmax[r], masked(c[r][b], qmv[j]));
+              if (row[r] < rows) col[b] = fmaxf(col[b], masked(c[r][b], cmv[row[r]]));
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < 2; ++b)
+          col[b] = fmaxf(col[b], __shfl_xor_sync(0xffffffffu, col[b], 16));
+        if (lane < 16)   // each (warp, word) slot has this one writer
+          for (int b = 0; b < 2; ++b) {
+            float* w = wq + warp * jp + jt * QT + jq + 16 * b;
+            *w = fmaxf(*w, col[b]);
+          }
+        if (jt == ntiles - 1) {   // the row maxima over every word: e
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int o = 8; o > 0; o >>= 1)
+              rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], o));
+          if (jq == 0)
+            for (int r = 0; r < 4; ++r)
+              if (row[r] < rows) {
+                const float e = masked(rmax[r], cmv[row[r]]);
+                erow[row[r]] = e;
+                e_seq[t0 + row[r]] = e;
+              }
+        }
+      },
+      [&](int k, int, int rows, const float* hs) {
+        __syncthreads();   // erow complete
+        if (warp == 0) {   // rows lane and lane + 32
+          const float e0 = lane < rows ? erow[lane] : -INFINITY;
+          const float e1 = lane + 32 < rows ? erow[lane + 32] : -INFINITY;
+          const float mc = warp_max(fmaxf(e0, e1));
+          const float m_new = k == 0 ? mc : fmaxf(m, mc);
+          const float scale = k == 0 ? 0.0f : expf(m - m_new);
+          const float p0 = lane < rows ? expf(e0 - m_new) : 0.0f;
+          const float p1 = lane + 32 < rows ? expf(e1 - m_new) : 0.0f;
+          den = den * scale + warp_sum(p0 + p1);
+          m = m_new;
+          prow[lane] = p0;
+          if (lane + 32 < rows_max) prow[lane + 32] = p1;
+          if (lane == 0) prow[rows_max] = scale;
+        }
+        __syncthreads();
+        const float scale = prow[rows_max];
+        for (int d = tid; d < D; d += THREADS) {
+          float acc = k == 0 ? 0.0f : vacc[d] * scale;
+          for (int r = 0; r < rows; ++r) acc = fmaf(prow[r], hs[r * ds + d], acc);
+          vacc[d] = acc;
+        }
+      });
+  if (tid == 0) {
+    m_p[slot] = m;
+    den_p[slot] = den;
+  }
+  for (int d = tid; d < D; d += THREADS) v_p[slot * D + d] = vacc[d];
+  for (int j = tid; j < J; j += THREADS) {
+    float v = -INFINITY;
+    for (int w = 0; w < WARPS; ++w) v = fmaxf(v, wq[w * jp + j]);
+    eq_p[slot * J + j] = v;
+  }
+}
+
+// K4's combine: one block per (32 columns of D, example) merges each sequence's
+// `per` slots in slot order (block 0 also m, den and eq).
+__global__ void __launch_bounds__(THREADS)
+stats_merge_kernel(const float* __restrict__ m_p, const float* __restrict__ den_p,
+                   const float* __restrict__ v_p, const float* __restrict__ eq_p,
+                   float* __restrict__ m_out, float* __restrict__ den_out,
+                   float* __restrict__ v_out, float* __restrict__ eq_out, int S, int per,
+                   int J, int D) {
+  const int n = blockIdx.y, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int d = blockIdx.x * 32 + lane;
+  for (int s = warp; s < S; s += WARPS) {
+    const size_t seq = (size_t)n * S + s, base = seq * per;
+    float m = m_p[base];
+    for (int p = 1; p < per; ++p) m = fmaxf(m, m_p[base + p]);
+    if (d < D) {
+      float acc = 0.0f;
+      for (int p = 0; p < per; ++p)
+        acc = fmaf(v_p[(base + p) * D + d], expf(m_p[base + p] - m), acc);
+      v_out[seq * D + d] = acc;
+    }
+    if (blockIdx.x == 0 && lane == 0) {
+      float den = 0.0f;
+      for (int p = 0; p < per; ++p) den = fmaf(den_p[base + p], expf(m_p[base + p] - m), den);
+      m_out[seq] = m;
+      den_out[seq] = den;
+    }
+  }
+  if (blockIdx.x == 0)
+    for (int j = tid; j < J; j += THREADS) {
+      const float* col = eq_p + (size_t)n * S * per * J + j;
+      float v = -INFINITY;
+      for (int sp = 0; sp < S * per; ++sp) v = fmaxf(v, col[(size_t)sp * J]);
+      eq_out[(size_t)n * J + j] = v;
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
-long long fvta_stats_smem_bytes(int d) { return (long long)chunk_layout(d).total; }
+long long fvta_stats_chunked_smem_bytes(int d) { return (long long)chunk_layout(d).total; }
 
 const char* fvta_stats_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Outputs m, den [N,S], v [N,S,D], eq [N,J], e [N,S,T]; scratch m_p, den_p
-// [N,S,C], v_p [N,S,C,D], eq_p [N,S,C,J] with C = ceil(T/32). Returns the
-// cudaError_t of the launches (0 = success).
-int fvta_stats(const float* h, const float* cm, const float* q, const float* qm,
-               const float* wx, const float* wy, const float* wxy, float* m, float* den,
-               float* v, float* eq, float* e, float* m_p, float* den_p, float* v_p,
-               float* eq_p, int n, int s, int t, int j, int d, void* stream) {
+// The chunked K4. Outputs m, den [N,S], v [N,S,D], eq [N,J], e [N,S,T]; scratch
+// m_p, den_p [N,S,C], v_p [N,S,C,D], eq_p [N,S,C,J] with C = ceil(T/32).
+// Returns the cudaError_t of the launches (0 = success).
+int fvta_stats_chunked(const float* h, const float* cm, const float* q, const float* qm,
+                       const float* wx, const float* wy, const float* wxy, float* m,
+                       float* den, float* v, float* eq, float* e, float* m_p, float* den_p,
+                       float* v_p, float* eq_p, int n, int s, int t, int j, int d,
+                       void* stream) {
   const int chunks = (t + TCH - 1) / TCH;
   const size_t smem = chunk_layout(d).total;
   cudaError_t err = cudaFuncSetAttribute(stats_chunk_kernel,
@@ -212,6 +363,62 @@ int fvta_stats(const float* h, const float* cm, const float* q, const float* qm,
   }
   stats_combine_kernel<<<n, THREADS, smem2, st>>>(m_p, den_p, v_p, eq_p, m, den, v, eq,
                                                  s, chunks, j, d);
+  return (int)cudaGetLastError();
+}
+
+// K4's and K5's geometry (fvta_corr.cuh run_geometry) on the current device:
+// out = {CTAs per sequence, chunks per CTA, rows per pass, h buffers, shared
+// memory per CTA in bytes, K4's scratch floats}. Returns the cudaError_t
+// (cudaErrorInvalidConfiguration: the shape needs more shared memory than a
+// block has; out is filled all the same).
+int fvta_stats_geometry(int n, int s, int t, int j, int d, long long* out) {
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const RunGeometry g = run_geometry(n, s, t, j, d, sms, (size_t)smem_max);
+  const long long v[6] = {g.per, g.cpc, g.rows, g.nbuf, (long long)g.smem,
+                          (long long)g.scratch};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return g.smem > (size_t)smem_max ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// K4. Outputs m, den [N,S], v [N,S,D], eq [N,J], e [N,S,T]; scratch: the floats
+// fvta_stats_geometry gives (each CTA's partials, written before read). per,
+// cpc, rows, nbuf and smem are that geometry, read once by the caller for this shape
+// on the current device and passed back unchanged, so a launch queries
+// nothing; the kernel's shared-memory limit is raised once per device. Returns
+// the cudaError_t of the launches (0 = success).
+int fvta_stats(const float* h, const float* cm, const float* q, const float* qm,
+               const float* wx, const float* wy, const float* wxy, float* m, float* den,
+               float* v, float* eq, float* e, float* scratch, int n, int s, int t, int j,
+               int d, int per, int cpc, int rows, int nbuf, long long smem, void* stream) {
+  static long long smem_set[64] = {0};   // per device: the limit set so far (0: none)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(stats_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = smem;
+  }
+  const size_t slots = (size_t)n * s * per;
+  float* m_p = scratch;
+  float* den_p = m_p + slots;
+  float* v_p = den_p + slots;
+  float* eq_p = v_p + slots * d;
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  stats_run_kernel<<<dim3(per, s, n), THREADS, (size_t)smem, st>>>(
+      h, cm, q, qm, wx, wy, wxy, e, m_p, den_p, v_p, eq_p, s, t, j, d, cpc, rows, nbuf, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_merge_kernel<<<dim3((d + 31) / 32, n), THREADS, 0, st>>>(m_p, den_p, v_p, eq_p, m,
+                                                                 den, v, eq, s, per, j, d);
   return (int)cudaGetLastError();
 }
 

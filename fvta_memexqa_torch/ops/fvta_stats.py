@@ -24,10 +24,14 @@ the same decomposition as the card. The bilinear similarity has no kernel and
 runs focal_local_stats under autograd.
 
 K4 replaces fvta_memexqa_tpu/ops/fvta_pallas.py:_stats_kernel, K5 :_qcnt_kernel
-and K6 :_bwd_kernel. `stats_bwd_twopass`, an earlier K6 that no path calls, is
-kept to be timed and checked beside K6. The TPU-only parts of the JAX dispatch
-(S >= 8 padding, _pick_tblock, the short-T XLA-remat branch of _stats_bwd) have
-no counterpart: on the card the backward is always K5 + K6.
+and K6 :_bwd_kernel. K4 and K5 walk the time axis in runs of chunks, one CTA
+per run, with the geometry `run_geometry` reads once per device and shape.
+Earlier kernels that no path calls are kept to be timed and checked beside
+the ones the paths launch: `stats_fwd_chunked` and `qcnt_chunked` (one block
+per chunk of 32 steps) and `stats_bwd_twopass` (dC through device memory).
+The TPU-only parts of the JAX dispatch (S >= 8 padding, _pick_tblock, the
+short-T XLA-remat branch of _stats_bwd) have no counterpart: on the card the
+backward is always K5 + K6.
 """
 
 from __future__ import annotations
@@ -93,11 +97,15 @@ def stats_bwd_ref(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv):
 @functools.cache
 def _stats_lib():
     lib = build.library("fvta_stats")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fvta_stats.argtypes = [p] * 16 + [i] * 5 + [p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fvta_stats.argtypes = [p] * 13 + [i] * 9 + [ll, p]
     lib.fvta_stats.restype = i
-    lib.fvta_stats_smem_bytes.argtypes = [i]
-    lib.fvta_stats_smem_bytes.restype = ctypes.c_longlong
+    lib.fvta_stats_geometry.argtypes = [i] * 5 + [p]
+    lib.fvta_stats_geometry.restype = i
+    lib.fvta_stats_chunked.argtypes = [p] * 16 + [i] * 5 + [p]
+    lib.fvta_stats_chunked.restype = i
+    lib.fvta_stats_chunked_smem_bytes.argtypes = [i]
+    lib.fvta_stats_chunked_smem_bytes.restype = ll
     lib.fvta_stats_error_string.argtypes = [i]
     lib.fvta_stats_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,19 +114,21 @@ def _stats_lib():
 @functools.cache
 def _bwd_lib():
     lib = build.library("fvta_bwd")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fvta_qcnt.argtypes = [p] * 8 + [i] * 5 + [p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fvta_qcnt.argtypes = [p] * 8 + [i] * 9 + [ll, p]
     lib.fvta_qcnt.restype = i
-    lib.fvta_stats_bwd.argtypes = [p] * 20 + [i] * 9 + [ctypes.c_longlong, p]
+    lib.fvta_qcnt_chunked.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.fvta_qcnt_chunked.restype = i
+    lib.fvta_stats_bwd.argtypes = [p] * 20 + [i] * 9 + [ll, p]
     lib.fvta_stats_bwd.restype = i
     lib.fvta_stats_bwd_geometry.argtypes = [i] * 5 + [p]
     lib.fvta_stats_bwd_geometry.restype = i
     lib.fvta_stats_bwd_twopass.argtypes = [p] * 22 + [i] * 5 + [p]
     lib.fvta_stats_bwd_twopass.restype = i
-    lib.fvta_qcnt_smem_bytes.argtypes = [i]
-    lib.fvta_qcnt_smem_bytes.restype = ctypes.c_longlong
+    lib.fvta_qcnt_chunked_smem_bytes.argtypes = [i]
+    lib.fvta_qcnt_chunked_smem_bytes.restype = ll
     lib.fvta_stats_bwd_twopass_smem_bytes.argtypes = [i, i]
-    lib.fvta_stats_bwd_twopass_smem_bytes.restype = ctypes.c_longlong
+    lib.fvta_stats_bwd_twopass_smem_bytes.restype = ll
     lib.fvta_bwd_error_string.argtypes = [i]
     lib.fvta_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,24 +161,54 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@functools.cache
+def _run_geometry_on(device: int, n, s, t, j, d) -> dict:
+    out = (ctypes.c_longlong * 6)()
+    lib = _stats_lib()
+    with torch.cuda.device(device):
+        err = lib.fvta_stats_geometry(n, s, t, j, d, out)
+    geo = dict(zip(("per_seq", "chunks_per_cta", "rows", "h_buffers", "smem", "scratch"),
+                   out))
+    if err != 0 and geo["smem"] <= build.SMEM_LIMIT:
+        raise RuntimeError(f"fvta_stats_geometry failed: "
+                           f"{lib.fvta_stats_error_string(err).decode()}")
+    return geo
+
+
+def run_geometry(n, s, t, j, d) -> dict:
+    """K4's and K5's launch geometry on the current CUDA device, as the library
+    computes it (csrc/fvta_corr.cuh run_geometry): CTAs per sequence, chunks per
+    CTA, rows per pass, h buffers, shared memory per CTA (bytes), K4's scratch
+    (floats). Read
+    once per device and shape; `stats_fwd` and `qcnt` pass it to the launch
+    unchanged."""
+    return _run_geometry_on(torch.cuda.current_device(), n, s, t, j, d)
+
+
+def _run_launch(kernel: str, shape) -> dict:
+    geo = run_geometry(*shape)
+    _smem_ok(kernel, geo["smem"], f"J={shape[3]}, D={shape[4]}")
+    return geo
+
+
 def stats_fwd(h, cm_f, q, qm_f, wx, wy, wxy):
     """Launch K4. h [N,S,T,D], cm_f [N,S,T], q [N,J,D], qm_f [N,J] (masks as
     float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
     Returns (m [N,S], den [N,S], v [N,S,D], eq [N,J], e [N,S,T]). Counts its
     launches in `stats_fwd.launches`."""
-    n, s, t, j, d = _check("stats_fwd", h, cm_f, q, wx, wy, wxy, qm_f)
-    lib = _stats_lib()
-    _smem_ok("stats_fwd", lib.fvta_stats_smem_bytes(d), f"D={d}")
+    shape = _check("stats_fwd", h, cm_f, q, wx, wy, wxy, qm_f)
+    n, s, t, j, d = shape
     dev = h.device
-    chunks = -(-t // TCH)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    empty = lambda *sh: torch.empty(sh, dtype=torch.float32, device=dev)
     m, den, v, eq, e = empty(n, s), empty(n, s), empty(n, s, d), empty(n, j), empty(n, s, t)
-    m_p, den_p = empty(n, s, chunks), empty(n, s, chunks)
-    v_p, eq_p = empty(n, s, chunks, d), empty(n, s, chunks, j)
-    ptrs = [a.data_ptr() for a in (h, cm_f, q, qm_f, wx, wy, wxy, m, den, v, eq, e,
-                                   m_p, den_p, v_p, eq_p)]
+    lib = _stats_lib()
     with torch.cuda.device(dev):
-        err = lib.fvta_stats(*ptrs, n, s, t, j, d, _stream(dev))
+        geo = _run_launch("stats_fwd", shape)
+        scratch = empty(geo["scratch"])
+        ptrs = [a.data_ptr() for a in (h, cm_f, q, qm_f, wx, wy, wxy, m, den, v, eq, e,
+                                       scratch)]
+        err = lib.fvta_stats(*ptrs, *shape, geo["per_seq"], geo["chunks_per_cta"],
+                             geo["rows"], geo["h_buffers"], geo["smem"], _stream(dev))
     if err != 0:
         raise RuntimeError(f"stats_fwd launch failed: "
                            f"{lib.fvta_stats_error_string(err).decode()}")
@@ -179,25 +219,73 @@ def stats_fwd(h, cm_f, q, qm_f, wx, wy, wxy):
 stats_fwd.launches = 0
 
 
+def stats_fwd_chunked(h, cm_f, q, qm_f, wx, wy, wxy):
+    """The chunked K4 (one block per chunk of 32 steps, then a combine of N
+    blocks), computing what `stats_fwd` computes. No path calls it; it is kept
+    to be timed and checked beside `stats_fwd`. Counts its launches in
+    `stats_fwd_chunked.launches`."""
+    n, s, t, j, d = _check("stats_fwd_chunked", h, cm_f, q, wx, wy, wxy, qm_f)
+    lib = _stats_lib()
+    _smem_ok("stats_fwd_chunked", lib.fvta_stats_chunked_smem_bytes(d), f"D={d}")
+    dev = h.device
+    chunks = -(-t // TCH)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    m, den, v, eq, e = empty(n, s), empty(n, s), empty(n, s, d), empty(n, j), empty(n, s, t)
+    m_p, den_p = empty(n, s, chunks), empty(n, s, chunks)
+    v_p, eq_p = empty(n, s, chunks, d), empty(n, s, chunks, j)
+    ptrs = [a.data_ptr() for a in (h, cm_f, q, qm_f, wx, wy, wxy, m, den, v, eq, e,
+                                   m_p, den_p, v_p, eq_p)]
+    with torch.cuda.device(dev):
+        err = lib.fvta_stats_chunked(*ptrs, n, s, t, j, d, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"stats_fwd_chunked launch failed: "
+                           f"{lib.fvta_stats_error_string(err).decode()}")
+    build.count_launch(stats_fwd_chunked)
+    return m, den, v, eq, e
+
+
+stats_fwd_chunked.launches = 0
+
+
 def qcnt(h, cm_f, q, wx, wy, wxy, eq):
     """Launch K5: qcnt [N, J] f32 from K4's eq [N, J]. Inputs as for
     `stats_fwd`. Counts its launches in `qcnt.launches`."""
-    n, s, t, j, d = _check("qcnt", h, cm_f, q, wx, wy, wxy)
+    shape = _check("qcnt", h, cm_f, q, wx, wy, wxy)
+    n, j = shape[0], shape[3]
     build.check_f32("eq", eq, (n, j), h.device)
-    lib = _bwd_lib()
-    _smem_ok("qcnt", lib.fvta_qcnt_smem_bytes(d), f"D={d}")
     dev = h.device
     cnt = torch.zeros((n, j), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = lib.fvta_qcnt(*(a.data_ptr() for a in (h, cm_f, q, wx, wy, wxy, eq, cnt)),
-                            n, s, t, j, d, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"qcnt launch failed: {lib.fvta_bwd_error_string(err).decode()}")
-    build.count_launch(qcnt)
+        geo = _run_launch("qcnt", shape)
+        err = _bwd_lib().fvta_qcnt(
+            *(a.data_ptr() for a in (h, cm_f, q, wx, wy, wxy, eq, cnt)), *shape,
+            geo["per_seq"], geo["chunks_per_cta"], geo["rows"], geo["h_buffers"], geo["smem"],
+            _stream(dev))
+    _launched("qcnt", qcnt, err)
     return cnt.to(torch.float32)
 
 
 qcnt.launches = 0
+
+
+def qcnt_chunked(h, cm_f, q, wx, wy, wxy, eq):
+    """The chunked K5 (one block per chunk of 32 steps), computing what `qcnt`
+    computes. No path calls it; it is kept to be timed and checked beside
+    `qcnt`. Counts its launches in `qcnt_chunked.launches`."""
+    n, s, t, j, d = _check("qcnt_chunked", h, cm_f, q, wx, wy, wxy)
+    build.check_f32("eq", eq, (n, j), h.device)
+    lib = _bwd_lib()
+    _smem_ok("qcnt_chunked", lib.fvta_qcnt_chunked_smem_bytes(d), f"D={d}")
+    dev = h.device
+    cnt = torch.zeros((n, j), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fvta_qcnt_chunked(*(a.data_ptr() for a in (h, cm_f, q, wx, wy, wxy, eq, cnt)),
+                                    n, s, t, j, d, _stream(dev))
+    _launched("qcnt_chunked", qcnt_chunked, err)
+    return cnt.to(torch.float32)
+
+
+qcnt_chunked.launches = 0
 
 
 def _bwd_args(kernel, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):

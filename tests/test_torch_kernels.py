@@ -13,7 +13,11 @@ autograd through the plain version, on both routes (`hopper_emulated`:
 lstm_proj, lstm_rec, lstm_rec_bwd; `old_route`: the L2-streaming kernels;
 tests/test_torch_lstm.py also uses them). K2's cluster decomposition and its
 geometry are restated here for the CPU (`k2_emulated`, `k2_plan`;
-tests/test_torch_k2.py holds them against the JAX package and the CUDA header).
+tests/test_torch_k2.py holds them against the JAX package and the CUDA header),
+and so are K4's and K5's runs of chunks (`k4_run_emulated`, `k5_run_emulated`,
+`k45_geometry`; tests/test_torch_k45.py). The `gpu` tests of K4 and K5 also
+hold them against the chunked kernels they replaced, bit for bit where the
+result is a maximum or a count.
 """
 
 import math
@@ -690,6 +694,110 @@ def k2_emulated(h, cm_f, q, qm_f, wx, wy, wxy, plan):
         out[2][n] = torch.where(valid[seq] > 0.5, torch.exp(e_raw - big_m[seq]) * inv[seq], 0.0)
         out[3][n] = b * valid
     return AttentionOutput(out[0], out[1], out[2].view(n_, s_, t_), out[3])
+
+
+# ---- CPU emulation of K4's and K5's runs of chunks --------------------------------
+# K4 (csrc/fvta_stats.cu) and K5 (csrc/fvta_bwd.cu) give each (run of `cpc`
+# chunks of 32 steps, sequence, example) one CTA, which walks its run in passes
+# of `rows` rows: K4 carries (m, den, v) online across its run's passes and the
+# column maxima of the ctx-masked C, then a merge combines each sequence's
+# `per` partials in slot order; K5 adds up its run's tie counts.
+# `k45_geometry` restates csrc/fvta_corr.cuh's run_geometry
+# (tests/test_torch_k45.py holds the two together with the host compiler);
+# `k4_run_emulated` and `k5_run_emulated` walk the same decomposition in torch
+# for a given geometry, with C from the plain version, so the CPU checks the
+# split, the online merges and the combine that only the card runs.
+
+RunGeometry = namedtuple("RunGeometry", "per cpc rows nbuf smem scratch")
+RUN_WARPS = 8
+RUN_STAGING = ((64, 2), (32, 2), (64, 1), (32, 1))   # (rows per pass, h buffers)
+
+
+def run_smem(j, d, rows, nbuf):
+    """Bytes of fvta_corr.cuh's run_layout()."""
+    ds, jp = k2_vec_stride(d), _cdiv(j, 32) * 32
+    return 4 * ((nbuf * rows * ds + nbuf * rows) + rows * ds + 32 * ds + 3 * ds + 3 * jp
+                + rows + rows + (rows + 4) + RUN_WARPS * jp + ds)
+
+
+def k45_geometry(n, s, t, j, d, sms, smem_max):
+    """fvta_corr.cuh's run_geometry(): CTAs per sequence, chunks per CTA, rows
+    per pass, h buffers, shared memory per CTA, K4's scratch floats."""
+    chunks, ns = _cdiv(t, 32), n * s
+    per = sms // ns if sms // ns > 1 else 1
+    cpc = _cdiv(chunks, per)
+    per = _cdiv(chunks, cpc)
+    for rows, nbuf in RUN_STAGING:
+        smem = run_smem(j, d, rows, nbuf)
+        if smem <= smem_max:
+            break
+    return RunGeometry(per, cpc, rows, nbuf, smem, ns * per * (2 + d + j))
+
+
+def run_chunks(t, geo):
+    """Each CTA's chunks, in slot order."""
+    chunks = _cdiv(t, 32)
+    return [list(range(p * geo.cpc, min(p * geo.cpc + geo.cpc, chunks)))
+            for p in range(geo.per)]
+
+
+def run_passes(t, geo):
+    """Each CTA's passes, as (t0, t1) row ranges: `geo.rows` rows at most,
+    within the CTA's run and T."""
+    out = []
+    for run in run_chunks(t, geo):
+        end = min((run[-1] + 1) * 32, t)
+        out.append([(t0, min(t0 + geo.rows, end)) for t0 in range(run[0] * 32, end, geo.rows)])
+    return out
+
+
+def _plain_c(h, q, wx, wy, wxy):
+    return fvta_ref.similarity_tensor(h, q, "trilinear", {"w_x": wx, "w_y": wy, "w_xy": wxy})
+
+
+def k4_run_emulated(h, cm_f, q, qm_f, wx, wy, wxy, geo):
+    """K4's function, computed as its CTAs and its merge compute it under `geo`
+    (RunGeometry; nbuf, smem and scratch change only where the operands wait):
+    per CTA the passes of its run in order, (m, den, v) updated online after
+    each, the ctx-masked column maxima carried; then each sequence's slots
+    merged in slot order."""
+    c = _plain_c(h, q, wx, wy, wxy)
+    e = (c + (1.0 - qm_f)[:, None, None, :] * NEG).amax(-1) + (1.0 - cm_f) * NEG
+    cs = c + (1.0 - cm_f)[..., None] * NEG
+    slots = []
+    for run in run_passes(h.shape[2], geo):
+        for k, (t0, t1) in enumerate(run):
+            ec = e[:, :, t0:t1]
+            mc = ec.amax(-1)
+            m_new = mc if k == 0 else torch.maximum(m, mc)
+            scale = torch.zeros_like(mc) if k == 0 else torch.exp(m - m_new)
+            p = torch.exp(ec - m_new[..., None])
+            den = (0.0 if k == 0 else den * scale) + p.sum(-1)
+            pv = torch.einsum("nst,nstd->nsd", p, h[:, :, t0:t1])
+            v = pv if k == 0 else v * scale[..., None] + pv
+            colmax = cs[:, :, t0:t1].amax(2)
+            eq = colmax if k == 0 else torch.maximum(eq, colmax)
+            m = m_new
+        slots.append((m, den, v, eq))
+    m = torch.stack([sl[0] for sl in slots]).amax(0)
+    den, v = torch.zeros_like(m), torch.zeros_like(slots[0][2])
+    for m_p, den_p, v_p, _ in slots:
+        w = torch.exp(m_p - m)
+        den = den + den_p * w
+        v = v + v_p * w[..., None]
+    eq = torch.stack([sl[3] for sl in slots]).amax(0).amax(1)
+    return m, den, v, eq, e
+
+
+def k5_run_emulated(h, cm_f, q, wx, wy, wxy, eq, geo):
+    """K5's function as its CTAs compute it under `geo`: each CTA's tie counts
+    over its run's passes, added up over the CTAs."""
+    cs = _plain_c(h, q, wx, wy, wxy) + (1.0 - cm_f)[..., None] * NEG
+    hits = (cs == eq[:, None, None, :]).to(torch.int32)
+    cnt = torch.zeros(eq.shape, dtype=torch.int32)
+    for run in run_passes(h.shape[2], geo):
+        cnt += sum(hits[:, :, t0:t1].sum(dim=(1, 2)) for t0, t1 in run)
+    return cnt.to(h.dtype)
 
 
 # ---- CPU: dispatch contract ---------------------------------------------------
@@ -1446,6 +1554,159 @@ def test_k6_takes_h_off_a_16_byte_boundary_on_card(cuda, shape):
     for field, x, y in zip(K6_FIELDS, a, b):
         assert torch.equal(x, y), field
     _assert_k6_close(b, ref)
+
+
+# ---- card: K4 and K5 (runs of chunks) against plain and the chunked kernels -----
+# chip_smoke's K4_SYNTH shapes (the T=4096 step's and `cli video`'s twins,
+# MemexQA-like S = 24, the J = 512 long question), then the edges: T at a chunk
+# edge (1, 31, 32, 33), past one CTA's run (1023, 1025 in runs of one chunk),
+# T below one run (200 examples: one CTA per sequence, a run of 4 chunks, the
+# last partial), J = 40 at D = 16, and D = 500 (one h buffer)
+K45_SHAPES = [(8, 1, 4096, 30, 200), CLI_VIDEO_SHAPE, (8, 24, 24, 30, 200),
+              (2, 8, 16384, 512, 200)]
+K45_EDGE_SHAPES = [(2, 1, 1, 30, 200), (2, 1, 31, 30, 200), (2, 1, 32, 30, 200),
+                   (2, 1, 33, 30, 200), (2, 1, 1023, 30, 200), (2, 1, 1025, 30, 200),
+                   (200, 1, 100, 30, 200), (2, 3, 33, 40, 16), (1, 1, 100, 30, 500)]
+K45_STATE = ("stats_fwd", "qcnt", "stats_fwd_chunked", "qcnt_chunked")
+
+
+def _k45_launches():
+    return tuple(getattr(fvta_stats, k).launches for k in K45_STATE)
+
+
+def _k45_args(shape, seed, device, masked):
+    h, cm, q, qm, w = _card_stats_case(shape, seed, device, masked)
+    return (h, cm, q, qm, *w)
+
+
+def _assert_stats_close(got, ref, exact):
+    """Each field of K4 at the stats tolerance; a field beyond it passes only
+    on chip_smoke's float64 witness (sums over 16 384 frames put v ~1e-4 from
+    float64 in both the kernel and the float32 plain version)."""
+    for i, (field, a, b) in enumerate(zip(("m", "den", "v", "eq", "e"), got, ref)):
+        if torch.allclose(a, b, **STATS_TOL):
+            continue
+        c = exact[i]
+        e_a, e_b = float((a.double() - c).abs().max()), float((b.double() - c).abs().max())
+        assert e_a <= 2.0 * e_b + 4.0 * 2.0 ** -23 * float(c.abs().max()), (field, e_a, e_b)
+
+
+def _k45_check(args):
+    """K4 and K5 against plain and the chunked kernels on one case: K4's
+    fields at the stats tolerance (or the float64 witness), its maxima (m, eq,
+    e) and K5's counts bitwise the chunked kernels', the counts exactly
+    qcnt_ref's and >= 1; one launch each. Returns K4's and K5's outputs and the
+    chunked ones."""
+    h, cm, q, qm, wx, wy, wxy = args
+    w = (wx, wy, wxy)
+    before = _k45_launches()
+    with torch.no_grad():
+        got = fvta_stats.stats_fwd(*args)
+        cnt = fvta_stats.qcnt(h, cm, q, *w, got[3])
+        old = fvta_stats.stats_fwd_chunked(*args)
+        cnt_old = fvta_stats.qcnt_chunked(h, cm, q, *w, old[3])
+        ref = fvta_stats.stats_fwd_ref(*args)
+        cnt_r = fvta_stats.qcnt_ref(h, cm, q, *w, ref[3])
+        exact = fvta_stats.stats_fwd_ref(*(a.double() for a in args))
+        torch.cuda.synchronize()
+    assert _k45_launches() == tuple(x + 1 for x in before)
+    _assert_stats_close(got, ref, exact)
+    for i in (0, 3, 4):
+        assert torch.equal(got[i], old[i]), i
+    assert torch.equal(cnt, cnt_r) and torch.equal(cnt, cnt_old) and (cnt >= 1).all()
+    return got, cnt, old, cnt_old
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", K45_SHAPES + K45_EDGE_SHAPES)
+def test_k45_match_plain_and_the_chunked_kernels_on_card(cuda, shape, masked):
+    _k45_check(_k45_args(shape, 47, cuda, masked))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K45_SHAPES[:3] + [(200, 1, 100, 30, 200)])
+def test_k6_on_k45_outputs_equals_k6_on_the_chunked_outputs_on_card(cuda, shape):
+    """K6 fed the new K4's and K5's outputs, and K6 fed the chunked kernels',
+    give the same bits (K4's maxima and K5's counts are the chunked ones')."""
+    args = _k45_args(shape, 48, cuda, False)
+    got, cnt, old, cnt_old = _k45_check(args)
+    n, s, t, d = args[0].shape
+    rng = np.random.default_rng(49)
+    de, geq, gv = (torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).to(cuda)
+                   for sh in ((n, s, t), tuple(args[3].shape), (n, s, d)))
+    with torch.no_grad():
+        a = fvta_stats.stats_bwd(*args, de, geq, got[3], cnt, got[4], got[0], gv)
+        b = fvta_stats.stats_bwd(*args, de, geq, old[3], cnt_old, old[4], old[0], gv)
+        torch.cuda.synchronize()
+    for field, x, y in zip(K6_FIELDS, a, b):
+        assert torch.equal(x, y), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K45_SHAPES)
+def test_k45_repeat_bitwise_on_card(cuda, shape):
+    h, cm, q, qm, wx, wy, wxy = _k45_args(shape, 50, cuda, True)
+    with torch.no_grad():
+        a, b = (fvta_stats.stats_fwd(h, cm, q, qm, wx, wy, wxy) for _ in range(2))
+        c1, c2 = (fvta_stats.qcnt(h, cm, q, wx, wy, wxy, a[3]) for _ in range(2))
+        torch.cuda.synchronize()
+    for field, x, y in zip(("m", "den", "v", "eq", "e"), a, b):
+        assert torch.equal(x, y), field
+    assert torch.equal(c1, c2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1, 1025, 30, 200), (2, 3, 33, 40, 16), CLI_VIDEO_SHAPE])
+def test_k45_take_h_and_q_off_a_16_byte_boundary_on_card(cuda, shape):
+    """h and q one float past their storage's start: K4 and K5 copy h's rows 4
+    bytes at a time there (16 where D % 4 == 0 and h is 16-byte aligned) and give
+    the aligned launch's outputs bit for bit."""
+    args = _k45_args(shape, 51, cuda, True)
+    h, cm, q, qm, wx, wy, wxy = args
+
+    def off(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        y = store[1:].view(x.shape)
+        y.copy_(x)
+        assert y.is_contiguous() and y.data_ptr() % 16 != 0
+        return y
+
+    h_off, q_off = off(h), off(q)
+    with torch.no_grad():
+        a = fvta_stats.stats_fwd(*args)
+        b = fvta_stats.stats_fwd(h_off, cm, q_off, qm, wx, wy, wxy)
+        c1 = fvta_stats.qcnt(h, cm, q, wx, wy, wxy, a[3])
+        c2 = fvta_stats.qcnt(h_off, cm, q_off, wx, wy, wxy, a[3])
+        torch.cuda.synchronize()
+    for field, x, y in zip(("m", "den", "v", "eq", "e"), a, b):
+        assert torch.equal(x, y), field
+    assert torch.equal(c1, c2)
+    _k45_check((h_off, cm, q_off, qm, wx, wy, wxy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K45_SHAPES + K45_EDGE_SHAPES)
+def test_k45_geometry_is_the_mirror_on_card(cuda, shape):
+    """The geometry the wrappers launch with (and allocate K4's scratch from)
+    is run_geometry's Python mirror at this card's SM count and shared-memory
+    limit, and fits a CTA."""
+    props = torch.cuda.get_device_properties(cuda)
+    smem_max = getattr(props, "shared_memory_per_block_optin", build.SMEM_LIMIT)
+    with torch.cuda.device(cuda):
+        geo = fvta_stats.run_geometry(*shape)
+    mirror = k45_geometry(*shape, sms=props.multi_processor_count, smem_max=smem_max)
+    assert tuple(geo.values()) == tuple(mirror)
+    assert geo["smem"] <= smem_max
+
+
+@pytest.mark.gpu
+def test_stats_fused_launches_the_runs_and_not_the_chunked_kernels_on_card(cuda):
+    h, cm, q, qm, p = stats_case("s1_long", seed=52, device=cuda)
+    before = _k45_launches()
+    stats_grads(fvta_stats.fvta_stats_fused, h, cm, q, qm, p)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _k45_launches())) == (1, 1, 0, 0)
 
 
 # ---- card: K7, K8 vs their plain version ----------------------------------------
