@@ -132,9 +132,10 @@ form of the attention from STREAM_MIN_T frames on):
    plain; the old kernels' counters must read 0 outside their checks and
    timing.
 
-The grouped scans (kernels K7, csrc/lstm_grouped.cu, and K8, csrc/lstm_stream.cu:
-the counterpart of the JAX package's round-1 lstm_pallas API, which no command
-reaches) and the evaluation path (`cli prepro | test | ablate`, on K1 and K2):
+The grouped scans (kernels K7, csrc/lstm_grouped.cu, and K8, csrc/lstm_stream.cu,
+both K1's Hopper recurrence over G groups, csrc/lstm_gscan.cuh: the counterpart of
+the JAX package's round-1 lstm_pallas API, which no command reaches) and the
+evaluation path (`cli prepro | test | ablate`, on K1 and K2):
 
 15. the grouped-scan API at D=200, H=100 on the batch-64 train step's bi-LSTM
    shapes (photo titles 3072 x 10, which routes to K8; the six encoders at 256
@@ -145,9 +146,13 @@ reaches) and the evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    plain references and vs K1 (bilstm_fused) at 1e-5 / 1e-6; gradients under
    autograd (backward by recompute through the plain reference) vs plain
    autograd at 1e-4 / 1e-5; then K7 and K8 directly at every shape, G=2 and
-   G=1, vs the plain grouped scan and vs each other. K7's and K8's counters
-   are also zeroed before phase 3 and read before phase 15, and zeroed and read
-   around phase 16: no command may launch them;
+   G=1, vs the plain grouped scan, K7 == K8 and each == its repeat bit for bit,
+   the row-tile kernels (kept, on no path) vs plain and vs K7, and at G=2
+   K7 and K8 fed K1's own projection == K1's out and fin bit for bit. K7's and
+   K8's counters are also zeroed before phase 3 and read before phase 15, and
+   zeroed and read around phase 16: no command may launch them; the row-tile
+   kernels' counters, less their checks' and timings' launches, must read 0
+   at the end;
 16. the evaluation path on phase 7's run directories and phase 4's pack, the
    K1 and K2 counters zeroed before and read after (both must launch, the
    serial K2 never; K2's first call and every call's N recorded): `cli
@@ -162,12 +167,16 @@ reaches) and the evaluation path (`cli prepro | test | ablate`, on K1 and K2):
     paths, against its plain version and the serial K2 at 1e-5 / 1e-5, the
     float64 witness on unbounded inputs at the same shapes, and the histogram
     of the N that K2 saw on each path;
-17. times from CUDA events after warm-up, as projection + scan (the bi-LSTM
-   encode from x): K7 and K8 at each phase-15 shape, the plain version, the
-   bound, K1 on the same function and cuDNN's nn.LSTM; each kernel alone on
-   the precomputed x_proj, and K7's scan with Wh read from global memory at
-   every step (bit-equal to K7; what residency alone is worth); and `cli
-   test`'s wall times (phase 16).
+17. the grouped scans' times: the scan alone on the precomputed x_proj at each
+   phase-15 shape, K7, K8 and the row-tile kernels under CUDA events in turns
+   (row-tile, new, new, row-tile) and replayed from a CUDA graph, beside its
+   plain version and its own bound; the API's projection + scan as routed, by
+   events and graph, with this host path and the stacked one it replaced
+   (with the new kernels, and with the row-tile kernels), forced through K7
+   and K8, through the plain scan,
+   beside K1, cuDNN's nn.LSTM and the encode's bound; the API's host trace
+   (host ms per op, both forms) at two shapes; and `cli test`'s wall times
+   (phase 16).
 
 Prints a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2552,25 +2561,32 @@ def kernel_split_ms(fn, names, graph: float, calls: int = 10, tries: int = 3) ->
     """Device ms of one launch of each kernel of fn whose name contains one of
     `names`: the mean duration of its kernel events under torch.profiler over
     `calls` calls, from the first of up to `tries` traces that saw every one
-    (a trace can come back without the device's events). Fatal unless every
-    kernel of the call is named, each was seen, and together they come to
-    SPLIT_SHARE of `graph`, the CUDA-graph time of the same call (which also
-    holds the gaps between launches). Returns the split, the events seen per
-    call and the share of `graph`."""
+    and whose events come to SPLIT_SHARE of `graph`, the CUDA-graph time of
+    the same call (which also holds the gaps between launches). A trace can
+    come back without the device's events, or, on the H100, with every event
+    seen and durations that sum to 0.47 or 1.13 of the same call's graph time
+    (two runs of this script, the chunked K4 and the two-pass K6, at calls
+    where every other trace read 0.98-1.01); such a trace is taken again. Fatal
+    unless every kernel of the call is named, each was seen, and one trace
+    agrees with the graph time. Returns the split, the events seen per call,
+    the share of `graph` and the shares of the traces taken again."""
+    retaken = []
     for _ in range(tries):
         kernels, count, _ = profile_kernels(fn, calls)
         seen = {k: sum(c for name, c in count.items() if k in name) for k in names}
-        if min(seen.values()) > 0:
+        per = {name: kernels[name] / count[name] for name in kernels}
+        split = {k: sum(v for name, v in per.items() if k in name) for k in names}
+        share = sum(split.values()) / graph
+        stray = [name[:60] for name in per if not any(k in name for k in names)]
+        if stray or (min(seen.values()) > 0 and SPLIT_SHARE[0] <= share <= SPLIT_SHARE[1]):
             break
-    per = {name: kernels[name] / count[name] for name in kernels}
-    split = {k: sum(v for name, v in per.items() if k in name) for k in names}
-    share = sum(split.values()) / graph
-    stray = [name[:60] for name in per if not any(k in name for k in names)]
+        retaken.append(share)
     if stray or min(seen.values()) == 0 or not SPLIT_SHARE[0] <= share <= SPLIT_SHARE[1]:
         fail(f"profiled kernels {seen} (events per call; others {stray}) sum to "
-             f"{share:.3f} of the CUDA-graph time {graph:.4f} ms, outside {SPLIT_SHARE}: "
-             f"the split cannot be read")
-    return {**split, "events_per_call": seen, "share_of_graph": share}
+             f"{share:.3f} of the CUDA-graph time {graph:.4f} ms, outside {SPLIT_SHARE} "
+             f"(earlier traces {retaken}): the split cannot be read")
+    return {**split, "events_per_call": seen, "share_of_graph": share,
+            "traces_retaken": retaken}
 
 
 # (kernel, the kept old kernel, each one's kernel names in a profile, the
@@ -2750,6 +2766,30 @@ def zero_grouped_counters() -> None:
     lstm_grouped.scan_grouped.launches = lstm_grouped.scan_stream.launches = 0
 
 
+# The row-tile K7 and K8, kept beside the Hopper kernels: only their checks
+# and timings may launch them (counted here), no path
+ROWTILE = ("scan_grouped_rowtile", "scan_stream_rowtile")
+ROWTILE_MADE = dict.fromkeys(ROWTILE, 0)
+
+
+def rowtile(name: str):
+    """The row-tile wrapper `name`, counting each call in ROWTILE_MADE."""
+    from fvta_memexqa_torch.ops import lstm_grouped
+
+    def call(*args):
+        ROWTILE_MADE[name] += 1
+        return getattr(lstm_grouped, name)(*args)
+
+    return call
+
+
+def rowtile_stray() -> dict:
+    """Row-tile launches made outside their own checks and timings."""
+    from fvta_memexqa_torch.ops import lstm_grouped
+
+    return {k: getattr(lstm_grouped, k).launches - ROWTILE_MADE[k] for k in ROWTILE}
+
+
 def grouped_x_proj(x, mask, p_fw, p_bw):
     """The G = 2 scan inputs bilstm_grouped builds: (x_proj [2, N, T, 4H], int32
     lengths [2, N], wh [2, H, 4H])."""
@@ -2763,14 +2803,39 @@ def grouped_x_proj(x, mask, p_fw, p_bw):
             torch.stack([p_fw.wh, p_bw.wh]).contiguous())
 
 
+def k1_fed_scan(x, mask, p_fw, p_bw, kernels):
+    """K1 (lstm_proj then lstm_rec) and each of `kernels` fed K1's projection as
+    two groups (the backward half flipped to the front, its output flipped
+    back): (K1's (out, fin), [each kernel's (out, fin)] in K1's layout)."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused
+    from fvta_memexqa_torch.ops.lstm_ref import _flip_to_front
+
+    l32 = mask.sum(1, dtype=torch.int32)
+    h = p_fw.wh.shape[0]
+    xg = lstm_fused.lstm_proj(x, l32, p_fw, p_bw)
+    out_k1, fin_k1, _ = lstm_fused.lstm_rec(xg, l32, p_fw, p_bw, 1.0, emit_out=True)
+    xp = torch.stack([xg[..., :4 * h], _flip_to_front(xg[..., 4 * h:], l32)]).contiguous()
+    got = []
+    for k in kernels:
+        out, fin = k(xp, l32[None].expand(2, -1), (p_fw.wh, p_bw.wh), 1.0)
+        got.append((torch.cat([out[0], _flip_to_front(out[1], l32)], -1),
+                    torch.cat([fin[0], fin[1]], -1)))
+    return (out_k1, fin_k1), got
+
+
 def grouped_check(device) -> dict:
     """Phase 15. The grouped-scan API (this slice's path: no command reaches
     K7 or K8) with the counters zeroed before and read after: at every shape
     bilstm_grouped (G = 2) and lstm_scan_grouped (G = 1) launch the kernel the
     routing names once per call; outputs vs the plain references and vs K1 at
     LSTM_TOL; gradients under autograd vs plain autograd at GRAD_TOL. Then both
-    kernels directly at every shape, against the plain grouped scan and against
-    each other."""
+    kernels directly at every shape, G = 2 and G = 1: against the plain grouped
+    scan at LSTM_TOL, K7 and K8 bit for bit equal and each equal to its own
+    repeat; the row-tile kernels against plain and against K7 at LSTM_TOL;
+    and, at G = 2, K7 and K8 fed K1's own projection equal to K1's out and fin
+    bit for bit (the routes share K1's lane split at these shapes)."""
     import torch
 
     from fvta_memexqa_torch.ops import lstm_fused, lstm_grouped, lstm_ref
@@ -2824,144 +2889,267 @@ def grouped_check(device) -> dict:
              f"{LSTM_TOL} / {GRAD_TOL}, or launched other kernels than the routing names, "
              f"at {bad}: launches {launches}, expected {expected}")
     # both kernels directly at every shape, G = 2 and G = 1 (comparison launches)
-    direct = {"lstm_grouped": 0.0, "lstm_stream": 0.0}
+    kernels = {"lstm_grouped": k7, "lstm_stream": k8,
+               "lstm_grouped_rowtile": rowtile("scan_grouped_rowtile"),
+               "lstm_stream_rowtile": rowtile("scan_stream_rowtile")}
+    direct = dict.fromkeys(kernels, 0.0)
+    rowtile_vs_new = dict.fromkeys(kernels, 0.0)
     for i, (name, n, t) in enumerate(GROUPED_SHAPES):
         x, mask, p_fw, p_bw = lstm_case(n, t, GROUPED_D, H, 950 + i, device)
         xp, lens, wh = grouped_x_proj(x, mask, p_fw, p_bw)
+        route = lstm_grouped.grouped_route(2, n, t, H)
         with torch.no_grad():
-            res = {}
             for g in (2, 1):
-                ref = lstm_grouped.grouped_scan_ref(xp[:g], lens[:g], wh[:g], 1.0)
-                for stem, k in (("lstm_grouped", k7), ("lstm_stream", k8)):
-                    res[(stem, g)] = k(xp[:g].contiguous(), lens[:g].contiguous(),
-                                       wh[:g].contiguous(), 1.0)
-                    e = max(max_err(a, b) for a, b in zip(res[(stem, g)], ref))
+                args = (xp[:g].contiguous(), lens[:g].contiguous(), wh[:g].contiguous(), 1.0)
+                ref = lstm_grouped.grouped_scan_ref(*args)
+                res = {stem: k(*args) for stem, k in kernels.items()}
+                repeats = [k7(*args), k8(*args)]
+                torch.cuda.synchronize()
+                for stem, got in res.items():
+                    e = max(max_err(a, b) for a, b in zip(got, ref))
                     direct[stem] = max(direct[stem], e)
-                    if not all(close(a, b, **LSTM_TOL) for a, b in zip(res[(stem, g)], ref)):
+                    if not all(close(a, b, **LSTM_TOL) for a, b in zip(got, ref)):
                         bad.append(f"{stem}/{name}/G={g} ({e:.2e})")
+                for stem in ("lstm_grouped_rowtile", "lstm_stream_rowtile"):
+                    pair = zip(res[stem], res["lstm_grouped"])
+                    e = max(max_err(a, b) for a, b in pair)
+                    rowtile_vs_new[stem] = max(rowtile_vs_new[stem], e)
+                    if not all(close(a, b, **LSTM_TOL)
+                               for a, b in zip(res[stem], res["lstm_grouped"])):
+                        bad.append(f"{stem} vs K7 at {name}/G={g} ({e:.2e})")
+                same = (all(torch.equal(a, b) for a, b in zip(res["lstm_grouped"],
+                                                               res["lstm_stream"]))
+                        and all(torch.equal(a, b) for a, b in zip(res["lstm_grouped"],
+                                                                   repeats[0]))
+                        and all(torch.equal(a, b) for a, b in zip(res["lstm_stream"],
+                                                                   repeats[1])))
+                if not same:
+                    bad.append(f"K7 / K8 / their repeats not bitwise equal at {name}/G={g}")
+            if route.split != lstm_fused.lstm_route(n, t, GROUPED_D, H).split:
+                fail(f"grouped_route {route} and lstm_route split {name} differently")
+            k1_res, fed = k1_fed_scan(x, mask, p_fw, p_bw, (k7, k8))
             torch.cuda.synchronize()
-            k7_k8 = max(max_err(a, b) for a, b in zip(res[("lstm_grouped", 2)],
-                                                      res[("lstm_stream", 2)]))
-            if not all(close(a, b, **LSTM_TOL) for a, b in zip(res[("lstm_grouped", 2)],
-                                                                res[("lstm_stream", 2)])):
-                bad.append(f"K7 vs K8 at {name} ({k7_k8:.2e})")
+            if not all(torch.equal(a, b) for got in fed for a, b in zip(got, k1_res)):
+                e = max(max_err(a, b) for got in fed for a, b in zip(got, k1_res))
+                bad.append(f"K7/K8 fed K1's projection differ from K1 at {name} ({e:.2e})")
     log(f"K7, K8 directly vs the plain grouped scan at {len(GROUPED_SHAPES)} shapes, G=2 and "
-        f"G=1: max|err| K7 {direct['lstm_grouped']:.2e}, K8 {direct['lstm_stream']:.2e}  "
-        f"{'ok' if not bad else 'MISMATCH ' + str(bad)}")
+        f"G=1: max|err| " + ", ".join(f"{k} {v:.2e}" for k, v in direct.items())
+        + "; row-tile vs K7 " + ", ".join(f"{k} {rowtile_vs_new[k]:.2e}" for k in
+                                          ("lstm_grouped_rowtile", "lstm_stream_rowtile"))
+        + "; K7 == K8 == repeats bitwise; K7, K8 fed K1's projection == K1 bitwise  "
+        + ("ok" if not bad else "MISMATCH " + str(bad)))
     if bad:
-        fail(f"K7 or K8 disagrees with the plain grouped scan (or each other) at {bad}")
+        fail(f"K7 or K8 disagrees with the plain grouped scan, each other, K1 or the "
+             f"row-tile kernels at {bad}")
     return {"launches": launches, "max_abs_err": direct, "api_max_abs_err": api,
-            "max_abs_err_vs_k1": vs_k1}
+            "max_abs_err_vs_k1": vs_k1, "rowtile_vs_k7": rowtile_vs_new}
 
 
-def k7_wh_global(xp, lens, wh):
-    """K7 with Wh read from global memory at every step, as K1 reads its weights
-    (csrc/lstm_grouped.cu's lstm_grouped_wh_global: no wrapper in the package,
-    no launch count): the measurement of what residency alone is worth."""
-    import ctypes
-
+@contextlib.contextmanager
+def stacked_api_form():
+    """bilstm_grouped's former host path, swapped in for
+    lstm_grouped._bi_forward: x_proj stacked from two products and their bias
+    adds, lengths and both directions' Wh copied into new stacked tensors at
+    every call. The "before" of the host-work repairs; it launches whatever
+    kernel the routing (or forced_scan) gives it."""
     import torch
 
     from fvta_memexqa_torch.ops import lstm_grouped
+    from fvta_memexqa_torch.ops.lstm_ref import _flip_to_front
 
-    fn = lstm_grouped._lib("lstm_grouped").lstm_grouped_wh_global
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    g, n, t, _ = xp.shape
-    h = wh.shape[1]
-    out = torch.empty((g, n, t, h), device=xp.device)
-    fin = torch.empty((g, n, h), device=xp.device)
-    err = fn(xp.data_ptr(), lens.data_ptr(), wh.data_ptr(), out.data_ptr(), fin.data_ptr(),
-             g, n, t, h, 1.0, torch.cuda.current_stream().cuda_stream)
-    if err:
-        fail(f"lstm_grouped_wh_global launch failed: cudaError {err}")
-    return out, fin
+    def bi_forward(x, mask, forget_bias, wx_f, wh_f, b_f, wx_b, wh_b, b_b):
+        lengths = mask.sum(1, dtype=torch.int32)
+        xp = torch.stack([x @ wx_f + b_f, _flip_to_front(x, lengths) @ wx_b + b_b])
+        n, t = x.shape[:2]
+        k7, k8 = lstm_grouped._kernels(x.device)
+        out, fin = (k8 if lstm_grouped.uses_stream(n, t) else k7)(
+            xp.contiguous(), lengths[None].expand(2, -1).contiguous(),
+            torch.stack([wh_f, wh_b]).contiguous(), forget_bias)
+        return (torch.cat([out[0], _flip_to_front(out[1], lengths)], dim=-1),
+                torch.cat([fin[0], fin[1]], dim=-1))
+
+    real = lstm_grouped._bi_forward
+    lstm_grouped._bi_forward = bi_forward
+    try:
+        yield
+    finally:
+        lstm_grouped._bi_forward = real
 
 
-def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list]:
-    """Phase 17, the kernels: per shape, as projection + scan (the bi-LSTM encode
-    from x, G = 2): the API forced through K7 and through K8, the plain grouped
-    scan, K1 (bilstm_fused: the same function) and cuDNN's nn.LSTM; and each
-    kernel alone on the precomputed x_proj, and K7 with Wh read from global
-    memory (k7_wh_global; it must give K7's bits). Bounds from these inputs over
-    the valid positions (the formula of k1_times: the same function). `grouped` is
-    grouped_check's result; `from_cli` the K7/K8 launches counted over every
-    command this script ran (each 0: no command reaches them)."""
+def host_trace(fn, reps: int = 5) -> dict:
+    """Host work of one call of fn: its wall time with nothing waited on
+    (host_ms: Python, the ops' dispatch and the launches), and torch.profiler's
+    CPU-only trace of the same calls: each op's self host ms per call, largest
+    first, and their sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.self_cpu_time_total / 1e3 / reps for e in prof.key_averages()
+           if e.key != "cudaDeviceSynchronize"}
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+    calls = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / reps
+    # where the three largest ops are called from: self ms per call by caller chain
+    callers: dict[str, dict[str, float]] = {name: {} for name, _ in top[:3]}
+    for e in prof.events():
+        if e.name in callers:
+            chain, p = [], e.cpu_parent
+            while p is not None and len(chain) < 3:
+                chain.append(p.name)
+                p = p.cpu_parent
+            key = " < ".join(chain) or "(top level)"
+            ms = e.self_cpu_time_total / 1e3 / reps
+            callers[e.name][key] = callers[e.name].get(key, 0.0) + ms
+    return {"host_ms": host, "ops_self_ms_sum": sum(ops.values()), "aten_ops_per_call": calls,
+            "top_ops_self_ms": dict(top), "top_ops_callers": callers}
+
+
+GROUPED_TRACED = ("photo_title_words", "enc_album_title")   # host traces of the API
+
+
+def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list, dict]:
+    """Phase 17. Per phase-15 shape (G = 2): the scan alone on the precomputed
+    x_proj — K7, K8 and the row-tile kernels under CUDA events in turns
+    (row-tile, new, new, row-tile) and replayed from a CUDA graph — and its
+    plain version; the API's projection + scan (the bi-LSTM encode from x) as
+    routed, by events and graph, with its host path and with the stacked one
+    it replaced (stacked_api_form: with the new kernel, and with the row-tile
+    kernel, the former API as a whole),
+    forced through K7 and K8, through the plain scan, beside K1 (bilstm_fused:
+    the same function) and cuDNN's nn.LSTM. Bounds over the valid positions:
+    the scan's own (x_proj, Wh → out, fin: k1_bounds' "rec") and the encode's
+    (x and the weights → out, fin: k1_bounds' "fn"). At GROUPED_TRACED, the
+    API's host trace in both forms. `grouped` is grouped_check's result;
+    `from_cli` the K7/K8 launches counted over every command this script ran
+    (each 0: no command reaches them)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
     from fvta_memexqa_torch.ops import lstm_fused, lstm_grouped
 
-    rows, tot = [], {k: 0.0 for k in ("k7_ms", "k8_ms", "k7_kernel_ms", "k8_kernel_ms",
-                                       "k7_wh_global_kernel_ms", "plain_ms", "k1_ms",
-                                       "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
     k7, k8 = lstm_grouped.scan_grouped, lstm_grouped.scan_stream
+    r7, r8 = rowtile("scan_grouped_rowtile"), rowtile("scan_stream_rowtile")
+    rows, tot, traces = [], {}, {}
     for i, (name, n, t) in enumerate(GROUPED_SHAPES):
         d = GROUPED_D
         x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 1000 + i, device)
         lens = mask.sum(1)
-        xp, l2, wh = grouped_x_proj(x, mask, p_fw, p_bw)
+        args = grouped_x_proj(x, mask, p_fw, p_bw) + (1.0,)
+        scans = {"k7": lambda: k7(*args), "k8": lambda: k8(*args),
+                 "k7_rowtile": lambda: r7(*args), "k8_rowtile": lambda: r8(*args)}
+        routed = r8 if lstm_grouped.uses_stream(n, t) else r7
         api = lambda: lstm_grouped.bilstm_grouped(p_fw, p_bw, x, mask)
         with torch.no_grad():
             row = {"name": name, "rows": n, "T": t, "D": d,
-                   "route": "lstm_stream" if lstm_grouped.uses_stream(n, t) else "lstm_grouped"}
-            with forced_scan(k7):
-                row["k7_ms"] = cuda_ms(api)
-            with forced_scan(k8):
-                row["k8_ms"] = cuda_ms(api)
-            row["k7_kernel_ms"] = cuda_ms(lambda: k7(xp, l2, wh, 1.0))
-            row["k8_kernel_ms"] = cuda_ms(lambda: k8(xp, l2, wh, 1.0))
-            if not all(torch.equal(a, b) for a, b in zip(k7_wh_global(xp, l2, wh),
-                                                         k7(xp, l2, wh, 1.0))):
-                fail(f"K7 with Wh from global memory differs from K7 at {name}")
-            row["k7_wh_global_kernel_ms"] = cuda_ms(lambda: k7_wh_global(xp, l2, wh))
+                   "kernel": "lstm_stream" if lstm_grouped.uses_stream(n, t) else "lstm_grouped",
+                   "route": lstm_grouped.grouped_route(2, n, t, H)._asdict()}
+            for new, old in (("k7", "k7_rowtile"), ("k8", "k8_rowtile")):
+                o1, n1, n2, o2 = (cuda_ms(scans[k]) for k in (old, new, new, old))
+                row[f"{new}_ms"], row[f"{old}_ms"] = (n1 + n2) / 2, (o1 + o2) / 2
+                row[f"{new}_events_ms"], row[f"{old}_events_ms"] = [n1, n2], [o1, o2]
+            for k, fn in scans.items():
+                row[f"{k}_graph_ms"] = graph_ms(fn)
+            row["plain_ms"] = cuda_ms(lambda: lstm_grouped.grouped_scan_ref(*args), iters=5,
+                                      warmup=1)
+            row["api_ms"], row["api_graph_ms"] = cuda_ms(api), graph_ms(api)
+            with stacked_api_form():
+                row["api_stacked_ms"] = cuda_ms(api)
+                row["api_stacked_graph_ms"] = graph_ms(api)
+                with forced_scan(routed):
+                    row["api_stacked_rowtile_ms"] = cuda_ms(api)
+                    row["api_stacked_rowtile_graph_ms"] = graph_ms(api)
+            for key, kernel in (("api_k7", k7), ("api_k8", k8)):
+                with forced_scan(kernel):
+                    row[f"{key}_ms"] = cuda_ms(api)
             with forced_scan(lstm_grouped.grouped_scan_ref):
-                row["plain_ms"] = cuda_ms(api, iters=10)
-            row["k1_ms"] = cuda_ms(lambda: lstm_fused.bilstm_fused(p_fw, p_bw, x, mask))
+                row["api_plain_ms"] = cuda_ms(api, iters=10)
+            k1 = lambda: lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
+            row["k1_ms"], row["k1_graph_ms"] = cuda_ms(k1), graph_ms(k1)
             lstm = cudnn_lstm(p_fw, p_bw, 1.0, d, H, device)
             live = lens > 0
             packed = pack_padded_sequence(x[live], lens[live].cpu(), batch_first=True,
                                           enforce_sorted=False)
             row["library_ms"] = cuda_ms(lambda: lstm(packed))
+            if name in GROUPED_TRACED:
+                traces[name] = {"api": host_trace(api)}
+                with stacked_api_form():
+                    traces[name]["api_stacked"] = host_trace(api)
         steps = int(lens.sum())
-        nbytes = 4 * (steps * d + n + 2 * (d * 4 * H + H * 4 * H + 4 * H)
-                      + n * t * 2 * H + n * 2 * H)
-        flops = 2 * steps * (2 * (d + H) * 4 * H + 12 * H)
-        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
-        row.update(valid_steps=steps, bound_ms=max(b_ms, o_ms),
-                   bound_by="bytes" if b_ms >= o_ms else "operations")
+        bounds = k1_bounds(n, t, d, H, steps, True)
+        row.update(valid_steps=steps, bound_ms=max(bounds["rec"]),
+                   bound_by="bytes" if bounds["rec"][0] >= bounds["rec"][1] else "operations",
+                   encode_bound_ms=max(bounds["fn"]))
         rows.append(row)
-        for k in tot:
-            tot[k] += row.get(k, 0.0)
-        tot["bytes_ms"] += b_ms
-        tot["ops_ms"] += o_ms
-        log(f"K7/K8 times  {name:18s} N={n:4d} T={t:2d}: projection + K7 {row['k7_ms']:.3f} "
-            f"(scan {row['k7_kernel_ms']:.3f}; Wh from global "
-            f"{row['k7_wh_global_kernel_ms']:.3f}), + K8 {row['k8_ms']:.3f} (scan "
-            f"{row['k8_kernel_ms']:.3f}), plain {row['plain_ms']:.3f}, K1 {row['k1_ms']:.3f}, "
-            f"cuDNN {row['library_ms']:.3f}, bound {row['bound_ms']:.4f} ms")
-    by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    work = (f"projection + scan: the bi-LSTM encode from x (G = 2) at the {len(rows)} "
-            "shapes of phase 15 (the 9 calls of a batch-64 train step and the two routing "
-            "edges), sum; kernel_ms is the scan alone on the precomputed x_proj; k1_ms is "
-            "K1 on the same function; kernel_ms_wh_global is K7's scan with Wh read from "
-            "global memory at every step")
+        for k, v in row.items():
+            if k.endswith("_ms") and isinstance(v, float):
+                tot[k] = tot.get(k, 0.0) + v
+        for k, (b_ms, o_ms) in (("scan", bounds["rec"]), ("encode", bounds["fn"])):
+            tot[f"{k}_bytes"] = tot.get(f"{k}_bytes", 0.0) + b_ms
+            tot[f"{k}_ops"] = tot.get(f"{k}_ops", 0.0) + o_ms
+        log(f"K7/K8 times  {name:18s} N={n:4d} T={t:2d} {json.dumps(row['route'])}: scan K7 "
+            f"{row['k7_ms']:.4f} (graph {row['k7_graph_ms']:.4f}), K8 {row['k8_ms']:.4f} "
+            f"({row['k8_graph_ms']:.4f}); row-tile K7 {row['k7_rowtile_ms']:.4f} "
+            f"({row['k7_rowtile_graph_ms']:.4f}), K8 {row['k8_rowtile_ms']:.4f} "
+            f"({row['k8_rowtile_graph_ms']:.4f}); scan bound {row['bound_ms']:.4f}; API "
+            f"{row['api_ms']:.3f} (graph {row['api_graph_ms']:.3f}), stacked form "
+            f"{row['api_stacked_ms']:.3f} ({row['api_stacked_graph_ms']:.3f}), with the "
+            f"row-tile kernel {row['api_stacked_rowtile_ms']:.3f} "
+            f"({row['api_stacked_rowtile_graph_ms']:.3f}); K1 {row['k1_ms']:.3f} "
+            f"({row['k1_graph_ms']:.3f}), cuDNN {row['library_ms']:.3f}, encode bound "
+            f"{row['encode_bound_ms']:.4f} ms")
+    by = "bytes" if tot["scan_bytes"] >= tot["scan_ops"] else "operations"
+    work = (f"the scan alone on the precomputed x_proj (G = 2) at the {len(rows)} shapes of "
+            "phase 15 (the 9 bi-LSTM calls of a batch-64 train step and the two routing "
+            "edges), sum; ms: CUDA events, the mean of two runs in turns with the row-tile "
+            "kernel; graph_ms: replayed from a CUDA graph; api_*: the API's projection + "
+            "scan (the bi-LSTM encode from x) forced through this kernel (api_ms, events) and "
+            "as routed (api_routed_*); encode_*: the encode's bound, cuDNN's nn.LSTM and K1 "
+            "on the same function")
     entries = []
-    for stem, key, line, tpu in (("lstm_grouped", "k7", 35, "_grouped_kernel"),
-                                 ("lstm_stream", "k8", 123, "_stream_kernel")):
-        entries.append({
-            "name": stem, "route": "cuda", "source": f"fvta_memexqa_torch/csrc/{stem}.cu",
+    for stem, key, line, launches in (
+            ("lstm_grouped", "k7", 35, grouped["launches"]["lstm_grouped"]),
+            ("lstm_stream", "k8", 123, grouped["launches"]["lstm_stream"]),
+            ("lstm_grouped_rowtile", "k7_rowtile", 35, 0),
+            ("lstm_stream_rowtile", "k8_rowtile", 123, 0)):
+        entry = {
+            "name": stem, "route": "cuda",
+            "source": f"fvta_memexqa_torch/csrc/{stem.removesuffix('_rowtile')}.cu",
             "replaces": f"fvta_memexqa_tpu/ops/lstm_pallas.py:{line}",
-            "launches": grouped["launches"][stem], "launches_from_cli": from_cli[stem],
+            "launches": launches, "launches_from_cli": from_cli.get(stem),
             "max_abs_err": grouped["max_abs_err"][stem],
-            "api_max_abs_err": grouped["api_max_abs_err"][stem],
-            "max_abs_err_vs_k1": grouped["max_abs_err_vs_k1"][stem],
-            "ms": tot[f"{key}_ms"], "kernel_ms": tot[f"{key}_kernel_ms"],
-            **({"kernel_ms_wh_global": tot["k7_wh_global_kernel_ms"]} if key == "k7" else {}),
-            "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": by,
-            "library_ms": tot["library_ms"], "k1_ms": tot["k1_ms"],
-            "timed_work": work})
-    return entries, rows
+            "ms": tot[f"{key}_ms"], "kernel_ms": tot[f"{key}_ms"],
+            "graph_ms": tot[f"{key}_graph_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": max(tot["scan_bytes"], tot["scan_ops"]), "bound_by": by,
+            "library_ms": None,
+            "encode_bound_ms": max(tot["encode_bytes"], tot["encode_ops"]),
+            "encode_library_ms": tot["library_ms"], "encode_k1_ms": tot["k1_ms"],
+            "encode_k1_graph_ms": tot["k1_graph_ms"], "encode_plain_ms": tot["api_plain_ms"],
+            "timed_work": work}
+        if stem.endswith("rowtile"):
+            entry["launches_note"] = "no path calls it; only its checks and timings launch it"
+            entry["max_abs_err_vs_k7"] = grouped["rowtile_vs_k7"][stem]
+        else:
+            entry.update(api_max_abs_err=grouped["api_max_abs_err"][stem],
+                         max_abs_err_vs_k1=grouped["max_abs_err_vs_k1"][stem],
+                         api_ms=tot[f"api_{key}_ms"], api_routed_ms=tot["api_ms"],
+                         api_routed_graph_ms=tot["api_graph_ms"],
+                         api_routed_stacked_ms=tot["api_stacked_ms"],
+                         api_routed_stacked_graph_ms=tot["api_stacked_graph_ms"],
+                         api_routed_stacked_rowtile_ms=tot["api_stacked_rowtile_ms"],
+                         api_routed_stacked_rowtile_graph_ms=tot["api_stacked_rowtile_graph_ms"])
+        entries.append(entry)
+    return entries, rows, traces
 
 
 # ---- the evaluation path: cli prepro | test | ablate -------------------------------
@@ -3143,6 +3331,10 @@ def main() -> None:
 
     for k in OLD_STATS:
         getattr(fvta_stats, k).launches = 0
+    from fvta_memexqa_torch.ops import lstm_grouped
+
+    for k in ROWTILE:
+        getattr(lstm_grouped, k).launches = 0
     with tempfile.TemporaryDirectory() as workdir:
         prep = prepare_video_pack(workdir)   # CPU work, overlapped with the card's phases
         try:
@@ -3197,10 +3389,16 @@ def main() -> None:
     log(f"answer step device ms, K2 vs the serial K2 swapped in: {json.dumps(answer)}")
     k2 = k2_times(k2_rows, by_path, k2_err, k2_paths, answer)
     k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"], k1b_err, past_limit)
-    grouped_entries, grouped_rows = grouped_times(device, grouped, from_cli)
+    grouped_entries, grouped_rows, grouped_traces = grouped_times(device, grouped, from_cli)
+    stray = rowtile_stray()
+    log(f"launches of the row-tile K7/K8 outside their own checks and timing: "
+        f"{json.dumps(stray)} (made there: {json.dumps(ROWTILE_MADE)})")
+    if any(stray.values()):
+        fail(f"a path launched a row-tile grouped scan: {stray}; none should")
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
     log("grouped_shapes " + json.dumps(grouped_rows))
+    log("grouped_api_host_traces " + json.dumps(grouped_traces))
     log("route_sweep " + json.dumps(sweep))
     log(json.dumps({"kernels": [*k1, *k2, *k1b, *stats_entries, *grouped_entries]}))
     log(smi)

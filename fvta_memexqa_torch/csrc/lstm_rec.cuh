@@ -1,6 +1,7 @@
 // The geometry, reduction and cluster launch shared by the redesigned bi-LSTM
 // recurrences: the forward lstm_rec.cu (K1 with lstm_proj.cuh) and the backward
-// lstm_rec_bwd.cu (K1b).
+// lstm_rec_bwd.cu (K1b); the grouped scans K7 and K8 (lstm_gscan.cuh) run the
+// forward's recurrence over G groups with the same parts.
 //
 // Work split. A cluster of C CTAs owns one tile of ROWS rows of one direction at
 // a time (grid (C . clusters, 2); a cluster walks tiles with the grid's stride
@@ -211,16 +212,17 @@ inline cudaError_t active_clusters(const void* fn, const cudaLaunchConfig_t& cfg
   return cudaSuccess;
 }
 
-// Launch `kernel` for `tiles` tiles in both directions, clusters of c CTAs along
-// x: a grid of (c . min(tiles, clusters the card runs at once / 2), 2), each
-// cluster walking tiles with a stride of the grid (so that a full grid keeps
-// its Wh slices resident over several tiles). Returns the cudaError_t, or
-// CLUSTER_UNSCHEDULABLE when no cluster fits.
+// Launch `kernel` for `tiles` tiles in each of `groups` independent scans (the
+// two directions of a bi-LSTM, or the G groups of the grouped scans), clusters
+// of c CTAs along x: a grid of (c . min(tiles, clusters the card runs at once /
+// groups), groups), each cluster walking tiles with a stride of the grid (so
+// that a full grid keeps its Wh slices resident over several tiles). Returns
+// the cudaError_t, or CLUSTER_UNSCHEDULABLE when no cluster fits.
 template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int tiles, int c, const Geometry& g,
-                    void* stream, Args... args) {
+int launch_groups(void (*kernel)(Params...), int tiles, int groups, int c, const Geometry& g,
+                  void* stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * c, 2, 1);
+  cfg.gridDim = dim3(tiles * c, groups, 1);
   cfg.blockDim = dim3(g.threads, 1, 1);
   cfg.dynamicSmemBytes = g.smem;
   cfg.stream = (cudaStream_t)stream;
@@ -235,10 +237,18 @@ int launch_clusters(void (*kernel)(Params...), int tiles, int c, const Geometry&
   cudaError_t e = active_clusters((const void*)kernel, cfg, (unsigned)c, &clusters);
   if (e != cudaSuccess) return (int)e;
   if (clusters < 1) return CLUSTER_UNSCHEDULABLE;
-  cfg.gridDim.x = c * (tiles < clusters / 2 ? tiles : (clusters / 2 > 0 ? clusters / 2 : 1));
+  const int per = clusters / groups > 0 ? clusters / groups : 1;
+  cfg.gridDim.x = c * (tiles < per ? tiles : per);
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// launch_groups over the two directions of a bi-LSTM (K1, K1b).
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), int tiles, int c, const Geometry& g,
+                    void* stream, Args... args) {
+  return launch_groups(kernel, tiles, 2, c, g, stream, args...);
 }
 
 inline const char* error_string(int err) {

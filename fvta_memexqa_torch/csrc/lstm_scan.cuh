@@ -1,5 +1,7 @@
-// The device code shared by the grouped LSTM scans K7 (lstm_grouped.cu) and K8
-// (lstm_stream.cu): both compute, for G independent scans over a precomputed
+// The device code shared by the first port's row-tile grouped LSTM scans, kept
+// beside the Hopper K7 and K8 (lstm_gscan.cuh) as lstm_grouped_rowtile
+// (lstm_grouped.cu) and lstm_stream_rowtile (lstm_stream.cu); no path calls
+// them. Both compute, for G independent scans over a precomputed
 // x_proj [G, N, T, 4H], gates = x_proj[t] + h.Wh in (i, j, f, o) order, the TF1
 // cell with forget_bias inside the sigmoid, and prefix-length masking (at t >= L
 // a row's h and c stop updating and its output is 0), writing out [G, N, T, H]

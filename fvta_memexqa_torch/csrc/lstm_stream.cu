@@ -3,35 +3,45 @@
 //
 // Replaces the TPU kernel fvta_memexqa_tpu/ops/lstm_pallas.py:_stream_kernel
 // (launched by _pallas_scan_stream). The same function and interface as K7
-// (lstm_grouped.cu), with the same gate, cell and write code (lstm_scan.cuh):
-// G independent scans, gates = x_proj[t] + h.Wh in (i, j, f, o) order,
-// forget_bias inside the cell, prefix-length masking, fin = the last carried h.
-// x_proj [G, N, T, 4H], lengths [G, N] int32, wh [G, H, 4H] → out
-// [G, N, T, H], fin [G, N, H].
+// (lstm_grouped.cu): G independent scans, gates = x_proj[t] + h.Wh in (i, j, f,
+// o) order, forget_bias inside the cell, prefix-length masking, fin = the last
+// carried h. x_proj [G, N, T, 4H], lengths [G, N] int32 (group stride 0 shares
+// one row), group g's Wh [H, 4H] at wh + g . wh_stride floats → out [G, N, T, H],
+// fin [G, N, H].
 //
-// What differs from K7 is how x_proj arrives, which is what the TPU kernel is
-// about: there x_proj stays in HBM and each step's tile is DMA'd into a two-slot
-// VMEM buffer while the previous step computes. Here the block copies x_proj[t+1]
-// of its ROWS rows with cp.async (16-byte pieces, .cg: through L2, not L1) into a
-// two-slot ring in shared memory while step t computes, and waits on slot t
-// (cp.async.wait_group 1, then a barrier) before it reads it. The copy of step
-// t+1 is issued at the top of step t, so it overlaps step t's h.Wh chain; the
-// slot it fills was last read by step t-1's gate phase, which ended before step
-// t's first barrier. Outputs go straight to global memory: a GPU store does not
-// stall the step the way a TPU output DMA does, so the TPU kernel's output ring
-// has no counterpart.
+// Design (lstm_gscan.cuh): K7's recurrence, cluster split and sum order, so
+// the two give the same bits; what differs is how x_proj arrives, which is what
+// the TPU kernel is about (x_proj stays in HBM and each step's tile is DMA'd
+// into a two-slot VMEM buffer while the previous step computes). Here each CTA
+// keeps a two-slot ring of the ROWS x 4 x Hc slice of x_proj its units read:
+// at the top of step t one warp fills step t + 1's slot with 1-D bulk async
+// copies (one run of Hc floats per live row and gate; the slot's mbarrier
+// counts the bytes), and the lanes wait on that mbarrier after step t + 1's
+// dot products, so the copies fly under a whole step. Where the runs are not
+// 16-byte aligned (H or Hc not a multiple of 4, or x_proj off a 16-byte
+// boundary) every thread starts 4-byte cp.async copies instead and arrives on
+// the mbarrier when they land. Outputs go straight to global memory between
+// the cluster barrier's arrive and wait: a GPU store does not stall the step
+// the way a TPU output DMA does, so the TPU kernel's output ring has no
+// counterpart.
 //
-// Shared memory, at H = 100 and ROWS = 8: Wh resident 4H.H.4 = 160 000 B; the
-// ring 2 slots . ROWS . 4H . 4 = 25 600 B (two slots: one being read by the
-// step, one being filled for the next; a third would only help if one step's
-// copy took longer than a step's compute); the gates ROWS.4H.4 = 12 800 B; h and
-// c 2.ROWS.H.4 = 6 400 B: 204 800 B of the 232 448 a block may use.
+// Shared memory at H = 100: a one-CTA cluster with tiles of 16 rows (the route
+// of the photo titles, 3072 x 10) holds Wh 4 . 100 . 416 floats (166 400 B), h
+// 2 x 100 x 16 (12 800 B), the ring 2 x 16 x 4 x 100 (51 200 B) and a 128-byte
+// header: 230 528 of the 232 448 bytes a CTA may use.
 //
-// Bound on the H100: as K7's, latency of the serial per-step chain; x_proj's
-// read is off that chain here. Rows past a tile's lengths are not copied.
+// Bound on the H100: as K7's, the latency of the serial per-step chain; the
+// ring takes the x_proj loads off the lanes. Rows past their lengths are not
+// copied.
+//
+// The first port's kernel stays as lstm_stream_rowtile (one block per 8-row
+// tile and group, 16-byte cp.async into a ring with a block-wide wait each
+// step, lstm_scan.cuh): no path calls it; it is timed and held against this
+// one.
 
 #include <cuda_runtime.h>
 
+#include "lstm_gscan.cuh"
 #include "lstm_scan.cuh"
 
 namespace {
@@ -66,11 +76,12 @@ __device__ __forceinline__ void prefetch(float* slot, const float* __restrict__ 
   }
 }
 
-__global__ void lstm_stream_kernel(const float* __restrict__ x_proj,
-                                   const int* __restrict__ lengths,
-                                   const float* __restrict__ wh, float* __restrict__ out,
-                                   float* __restrict__ fin, int n, int T, int H,
-                                   float forget_bias) {
+// The row-tile K8: one block per (tile of ROWS rows, group), Wh resident whole; the
+// block copies x_proj[t + 1] of its rows with 16-byte cp.async into a two-slot
+// ring while step t computes, then waits (cp.async.wait_group 1 and a barrier).
+__global__ void rowtile_kernel(const float* __restrict__ x_proj, const int* __restrict__ lengths,
+                               const float* __restrict__ wh, float* __restrict__ out,
+                               float* __restrict__ fin, int n, int T, int H, float forget_bias) {
   extern __shared__ __align__(16) float smem[];
   const int G4 = 4 * H;
   float* whs = smem;                  // [H][4H]
@@ -124,7 +135,7 @@ __global__ void lstm_stream_kernel(const float* __restrict__ x_proj,
   lstm_scan::finish(hs, out, fin, grow0, row0, n, T, max_len, H, tid, nt);
 }
 
-size_t smem_bytes(int H) {
+size_t rowtile_smem_bytes(int H) {
   return sizeof(float) * ((size_t)H * 4 * H + 2 * (size_t)ROWS * 4 * H +
                           (size_t)ROWS * 4 * H + 2 * (size_t)ROWS * H);
 }
@@ -133,15 +144,44 @@ size_t smem_bytes(int H) {
 
 extern "C" {
 
-long long lstm_stream_smem_bytes(int h) { return (long long)smem_bytes(h); }
+// As lstm_grouped_route (the same route: it already sizes K8's ring).
+int lstm_stream_route(int g, int n, int t, int h, int* cluster, int* rows, int* split) {
+  (void)t;
+  return gscan::route_c(g, n, h, cluster, rows, split);
+}
 
-const char* lstm_stream_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+long long lstm_stream_smem_bytes(int h, int c, int rows, int split) {
+  return (long long)gscan::smem_bytes(h, c, rows, split, true);
+}
 
-// Returns the cudaError_t of the launch (0 = success). x_proj must be 16-byte
-// aligned (the wrapper checks it).
-int lstm_stream(const float* x_proj, const int* lengths, const float* wh, float* out,
-                float* fin, int g, int n, int t, int h, float forget_bias, void* stream) {
-  return lstm_scan::launch(lstm_stream_kernel, smem_bytes(h), x_proj, lengths, wh, out, fin,
+const char* lstm_stream_error_string(int err) { return lrec::error_string(err); }
+
+// K8, arguments as lstm_grouped's. Returns the cudaError_t of the launch, -1
+// when the cluster cannot be scheduled, or 22 (cudaErrorInvalidValue) for a
+// (rows, split) pair with no instantiation.
+int lstm_stream(const float* x_proj, const int* lengths, long long len_stride, const float* wh,
+                long long wh_stride, float* out, float* fin, int g, int n, int t, int h, int c,
+                int rows, int split, float forget_bias, void* stream) {
+#define LSTM_STREAM_CASE(R, S_)                                                           \
+  if (rows == R && split == S_)                                                           \
+    return gscan::launch<R, S_, true>(x_proj, lengths, len_stride, wh, wh_stride, out, fin, \
+                                      g, n, t, h, c, forget_bias, stream);
+  LSTM_STREAM_CASE(8, 4)
+  LSTM_STREAM_CASE(8, 8)
+  LSTM_STREAM_CASE(8, 16)
+  LSTM_STREAM_CASE(16, 4)
+#undef LSTM_STREAM_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+long long lstm_stream_rowtile_smem_bytes(int h) { return (long long)rowtile_smem_bytes(h); }
+
+// The row-tile K8 on x_proj [G, N, T, 4H] (16-byte aligned), lengths [G, N], wh
+// [G, H, 4H] (contiguous). Returns the cudaError_t of the launch.
+int lstm_stream_rowtile(const float* x_proj, const int* lengths, const float* wh, float* out,
+                        float* fin, int g, int n, int t, int h, float forget_bias,
+                        void* stream) {
+  return lstm_scan::launch(rowtile_kernel, rowtile_smem_bytes(h), x_proj, lengths, wh, out, fin,
                            g, n, t, h, forget_bias, stream);
 }
 

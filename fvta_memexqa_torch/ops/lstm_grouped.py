@@ -12,11 +12,18 @@ row's length, fin the last carried h.
   for G independent scans in one launch (G = 2 for the two directions of a
   bi-LSTM, whose backward direction reads the length-aware flip of x and has
   its output flipped back).
+- Both kernels run K1's Hopper recurrence (csrc/lstm_gscan.cuh over
+  csrc/lstm_rec.cuh) over G groups: thread-block clusters split the hidden
+  units, `grouped_route` picks (cluster, rows per tile, lanes per unit) and the
+  library's own route is read once per device and shape. They differ only in
+  how x_proj arrives: K7 loads step t + 1 into registers during step t, K8
+  streams it into a shared-memory ring by bulk async copies. The sums run in
+  the same order, so K7 and K8 give the same bits, and a G = 2 call fed K1's
+  projection gives K1's bits wherever the routes share a lane split.
 - A call on the card routes by the JAX package's rule (`_run_grouped`,
-  lstm_pallas.py:280): K8, which streams x_proj[t + 1] into shared memory while
-  step t computes, when n >= 1024 and t >= 2; K7, which reads x_proj[t] from
-  global memory at step t, otherwise. The rule was tuned for the TPU; it is
-  kept so that the same calls reach the same kernels in both packages.
+  lstm_pallas.py:280): K8 when n >= 1024 and t >= 2, K7 otherwise. The rule
+  was tuned for the TPU; it is kept so that the same calls reach the same
+  kernels in both packages.
 - `block_b` is read and selects nothing (the TPU's batch tile); the kernels
   tile rows themselves.
 - Backward: as in the JAX package's custom_vjp (lstm_pallas.py:317-326,
@@ -25,23 +32,27 @@ row's length, fin the last carried h.
   returns its gradients; that is the reference's own design, not a fallback.
 
 On a CUDA tensor the forward launches K7 or K8 (a kernel that fails to build or
-launch raises; there is no fallback); on a CPU tensor it runs the plain
-`grouped_scan_ref` through the same routing. Masks must be contiguous prefixes:
-the kernels see only lengths = mask.sum(1).
+launch raises, and so does a width past the largest cluster; there is no
+fallback); on a CPU tensor it runs the plain `grouped_scan_ref` through the
+same routing. Masks must be contiguous prefixes: the kernels see only lengths =
+mask.sum(1).
 
 K7 replaces fvta_memexqa_tpu/ops/lstm_pallas.py:_grouped_kernel, K8
 :_stream_kernel. Nothing on the model's paths calls them (the model runs
-lstm_fused's K1/K1b); the public functions here are their only route.
+lstm_fused's K1/K1b); the public functions here are their only route. The
+first port's kernels stay as `scan_grouped_rowtile` / `scan_stream_rowtile`, which no path
+calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Sequence
 
 import torch
 
-from fvta_memexqa_torch.ops import build
+from fvta_memexqa_torch.ops import build, lstm_fused
 from fvta_memexqa_torch.ops.lstm_ref import (LSTMParams, _flip_to_front, bilstm_ref,
                                              lstm_cell, lstm_scan_ref)
 
@@ -56,11 +67,15 @@ def uses_stream(n: int, t: int) -> bool:
 
 # ---- plain version ----------------------------------------------------------------
 
-def grouped_scan_ref(x_proj: torch.Tensor, lengths: torch.Tensor, wh: torch.Tensor,
-                     forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
+def grouped_scan_ref(x_proj: torch.Tensor, lengths: torch.Tensor,
+                     wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7's and K8's function: x_proj [G, N, T, 4H], lengths int [G, N], wh
-    [G, H, 4H] → (out [G, N, T, H], fin [G, N, H]); step t updates h and c of
-    the rows with t < length and outputs 0 for the others."""
+    [G, H, 4H] (or G tensors [H, 4H]) → (out [G, N, T, H], fin [G, N, H]);
+    step t updates h and c of the rows with t < length and outputs 0 for the
+    others."""
+    if not torch.is_tensor(wh):
+        wh = torch.stack(list(wh))
     g, n, t, g4 = x_proj.shape
     hdim = g4 // 4
     h = x_proj.new_zeros(g, n, hdim)
@@ -76,51 +91,159 @@ def grouped_scan_ref(x_proj: torch.Tensor, lengths: torch.Tensor, wh: torch.Tens
     return out, h
 
 
+# ---- the route: cluster, rows per tile, lanes per unit ----------------------------
+
+HEADER_BYTES = 128   # shared memory of the ring's mbarriers and the tile's lengths
+
+
+class GroupedRoute(NamedTuple):
+    """The launch shape of K7 and K8 for one call: clusters of `cluster` CTAs,
+    tiles of `rows` rows, `split` lanes per hidden unit."""
+    cluster: int
+    rows: int
+    split: int
+
+
+def ring_stride(h: int, cluster: int) -> int:
+    """Floats between the (row, gate) runs of K8's ring: ceil(H / C) rounded up
+    to 4 (gscan::ring_stride)."""
+    return -(-(-(-h // cluster)) // 4) * 4
+
+
+def grouped_smem(h: int, cluster: int, rows: int, split: int, stream: bool) -> int:
+    """Dynamic shared memory per CTA of K7 (stream=False) or K8: the header,
+    lstm_rec's forward geometry (Wh slice, h double-buffered) and K8's ring
+    (gscan::smem_bytes)."""
+    _, fwd, _ = lstm_fused.rec_geometry(h, cluster, rows, split)
+    ring = 4 * 2 * 4 * rows * ring_stride(h, cluster) if stream else 0
+    return HEADER_BYTES + fwd + ring
+
+
+def _split(h: int, cluster: int, rows: int) -> int | None:
+    """The most lanes per unit within the thread limit whose K8 fits; None if
+    none does (gscan::pick_split)."""
+    for split in lstm_fused._SPLITS[rows]:
+        threads = lstm_fused.rec_geometry(h, cluster, rows, split)[0]
+        if (threads <= lstm_fused._MAX_THREADS[rows]
+                and grouped_smem(h, cluster, rows, split, True) <= build.SMEM_LIMIT):
+            return split
+    return None
+
+
+@functools.cache
+def grouped_route(g: int, n: int, t: int, h: int) -> GroupedRoute | None:
+    """The Python mirror of csrc/lstm_gscan.cuh's `route`: lstm_fused.lstm_route's
+    rule with blocks = g x ceil(n / 8) for g groups and the grouped kernels' own
+    shared memory (K8's ring included, so that K7 and K8 share a route); None
+    past the largest cluster. At g = 2 it picks lstm_route's (cluster, rows,
+    split) wherever K8's ring fits beside K1's choice (every width up to 100,
+    the repo's). t does not change the choice."""
+    del t
+    fit = next((c for c in (1, 2, 4, 8) if _split(h, c, 8) is not None), None)
+    if fit is None:
+        return None
+    sms = lstm_fused.SM_COUNT
+    blocks = g * -(-n // 8)
+    if blocks > 2 * sms:
+        if fit == 1 and g * -(-n // 16) >= sms and _split(h, 1, 16) is not None:
+            return GroupedRoute(1, 16, _split(h, 1, 16))
+        return GroupedRoute(fit, 8, _split(h, fit, 8))
+    c = fit
+    while (2 * c <= lstm_fused.MAX_CLUSTER and (c < 2 or blocks * 2 * c <= sms)
+           and -(-h // (2 * c)) >= lstm_fused.MIN_UNITS_PER_CTA
+           and _split(h, 2 * c, 8) is not None):
+        c *= 2
+    return GroupedRoute(c, 8, _split(h, c, 8))
+
+
 # ---- kernel wrappers -----------------------------------------------------------------
 
 @functools.cache
 def _lib(stem: str) -> ctypes.CDLL:
-    """csrc/<stem>.cu's library: <stem>(x_proj, lengths, wh, out, fin, g, n, t, h,
-    forget_bias, stream), <stem>_smem_bytes(h), <stem>_error_string(err)."""
+    """csrc/<stem>.cu's library: <stem> (the Hopper kernel), <stem>_route,
+    <stem>_smem_bytes, <stem>_rowtile (the row-tile kernel), <stem>_rowtile_smem_bytes
+    and <stem>_error_string."""
     lib = build.library(stem)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, stem)
-    fn.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float, p]
-    fn.restype = i
-    getattr(lib, f"{stem}_smem_bytes").argtypes = [i]
-    getattr(lib, f"{stem}_smem_bytes").restype = ctypes.c_longlong
-    getattr(lib, f"{stem}_error_string").argtypes = [i]
-    getattr(lib, f"{stem}_error_string").restype = ctypes.c_char_p
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    pi = ctypes.POINTER(ctypes.c_int)
+    for name, args, res in (
+            (stem, [p, p, ll, p, ll, p, p] + [i] * 7 + [f, p], i),
+            (f"{stem}_route", [i] * 4 + [pi] * 3, i),
+            (f"{stem}_smem_bytes", [i] * 4, ll),
+            (f"{stem}_rowtile", [p] * 5 + [i] * 4 + [f, p], i),
+            (f"{stem}_rowtile_smem_bytes", [i], ll),
+            (f"{stem}_error_string", [i], ctypes.c_char_p)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     return lib
 
 
-def _launch(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor,
-            wh: torch.Tensor, forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"{stem} launches on a CUDA device, got {x_proj.device}")
-    g, n, t, g4 = x_proj.shape
-    h = wh.shape[1]
-    dev = x_proj.device
-    build.check_f32("x_proj", x_proj, (g, n, t, 4 * h), dev)
-    build.check_f32("wh", wh, (g, h, 4 * h), dev)
-    if lengths.device != dev or lengths.dtype != torch.int32 or tuple(lengths.shape) != (g, n):
-        raise ValueError("lengths must be int32 [G, N] on the device of x_proj")
+@functools.cache
+def _route(stem: str, device: int, g: int, n: int, t: int, h: int) -> GroupedRoute:
+    """The library's route for a call (read once per device and shape)."""
+    del device   # one route for every H100; the key keeps a second card's read apart
+    c, rows, split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if getattr(_lib(stem), f"{stem}_route")(g, n, t, h, ctypes.byref(c), ctypes.byref(rows),
+                                             ctypes.byref(split)) != 0:
+        raise ValueError(f"{stem} keeps Wh resident in shared memory and takes no H={h}: "
+                         "past the largest cluster no CTA holds its slice")
+    return GroupedRoute(c.value, rows.value, split.value)
+
+
+def _wh_layout(wh, g: int, h: int, dev) -> tuple[int, int]:
+    """(pointer, group stride in floats) of Wh: a [G, H, 4H] tensor, or G tensors
+    [H, 4H] read where they lie (one stride between consecutive ones)."""
+    if torch.is_tensor(wh):
+        build.check_f32("wh", wh, (g, h, 4 * h), dev)
+        return wh.data_ptr(), h * 4 * h
+    if len(wh) != g:
+        raise ValueError(f"{len(wh)} Wh tensors for {g} groups")
+    for k, w in enumerate(wh):
+        build.check_f32(f"wh[{k}]", w, (h, 4 * h), dev)
+    ptrs = [w.data_ptr() for w in wh]
+    steps = {b - a for a, b in zip(ptrs, ptrs[1:])}
+    if len(steps) > 1 or any(s % 4 for s in steps):
+        raise ValueError("the groups' Wh tensors must lie one stride of whole floats apart")
+    return ptrs[0], (steps.pop() // 4 if steps else 0)
+
+
+def _outputs(g: int, n: int, t: int, h: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
     if g * n * t == 0:
         return (torch.zeros((g, n, t, h), dtype=torch.float32, device=dev),
                 torch.zeros((g, n, h), dtype=torch.float32, device=dev))
     # the kernels write every element of out and fin
-    out = torch.empty((g, n, t, h), dtype=torch.float32, device=dev)
-    fin = torch.empty((g, n, h), dtype=torch.float32, device=dev)
+    return (torch.empty((g, n, t, h), dtype=torch.float32, device=dev),
+            torch.empty((g, n, h), dtype=torch.float32, device=dev))
+
+
+def _check(stem: str, x_proj: torch.Tensor, lengths: torch.Tensor) -> tuple[int, int, int, int]:
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"{stem} launches on a CUDA device, got {x_proj.device}")
+    g, n, t, g4 = x_proj.shape
+    h = g4 // 4
+    build.check_f32("x_proj", x_proj, (g, n, t, 4 * h), x_proj.device)
+    if (lengths.device != x_proj.device or lengths.dtype != torch.int32
+            or tuple(lengths.shape) != (g, n) or (n > 1 and lengths.stride(1) != 1)):
+        raise ValueError("lengths must be int32 [G, N] on the device of x_proj, "
+                         "contiguous along N")
+    return g, n, t, h
+
+
+def _launch(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor, wh,
+            forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
+    g, n, t, h = _check(stem, x_proj, lengths)
+    dev = x_proj.device
+    wh_ptr, wh_stride = _wh_layout(wh, g, h, dev)
+    out, fin = _outputs(g, n, t, h, dev)
+    if g * n * t == 0:
+        return out, fin
+    route = _route(stem, dev.index, g, n, t, h)
     lib = _lib(stem)
-    smem = getattr(lib, f"{stem}_smem_bytes")(h)
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"{stem} keeps Wh resident and needs {smem} B of shared memory at "
-                         f"H={h}; a block has {build.SMEM_LIMIT}")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, stem)(x_proj.data_ptr(), lengths.data_ptr(), wh.data_ptr(),
-                                 out.data_ptr(), fin.data_ptr(), g, n, t, h,
-                                 float(forget_bias), stream)
+        err = getattr(lib, stem)(x_proj.data_ptr(), lengths.data_ptr(), lengths.stride(0),
+                                 wh_ptr, wh_stride, out.data_ptr(), fin.data_ptr(), g, n, t, h,
+                                 route.cluster, route.rows, route.split, float(forget_bias),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = getattr(lib, f"{stem}_error_string")(err).decode()
         raise RuntimeError(f"{stem} launch failed: {msg}")
@@ -128,10 +251,13 @@ def _launch(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor,
     return out, fin
 
 
-def scan_grouped(x_proj: torch.Tensor, lengths: torch.Tensor, wh: torch.Tensor,
-                 forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
+def scan_grouped(x_proj: torch.Tensor, lengths: torch.Tensor,
+                 wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K7 (arguments and results as `grouped_scan_ref`; float32,
-    contiguous, on one CUDA device; lengths int32). Counts its launches in
+    contiguous, on one CUDA device; lengths int32, contiguous along N, its
+    group stride may be 0; wh a [G, H, 4H] tensor or G [H, 4H] tensors at one
+    stride, read where they lie). Counts its launches in
     `scan_grouped.launches`."""
     return _launch(scan_grouped, "lstm_grouped", x_proj, lengths, wh, forget_bias)
 
@@ -139,17 +265,70 @@ def scan_grouped(x_proj: torch.Tensor, lengths: torch.Tensor, wh: torch.Tensor,
 scan_grouped.launches = 0
 
 
-def scan_stream(x_proj: torch.Tensor, lengths: torch.Tensor, wh: torch.Tensor,
-                forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K8 (as `scan_grouped`; x_proj 16-byte aligned, as K8 copies it in
-    16-byte pieces). Counts its launches in `scan_stream.launches`."""
-    if x_proj.data_ptr() % 16:
-        raise ValueError("lstm_stream copies x_proj in 16-byte pieces: its data must be "
-                         "16-byte aligned")
+def scan_stream(x_proj: torch.Tensor, lengths: torch.Tensor,
+                wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K8 (as `scan_grouped`). Counts its launches in
+    `scan_stream.launches`."""
     return _launch(scan_stream, "lstm_stream", x_proj, lengths, wh, forget_bias)
 
 
 scan_stream.launches = 0
+
+
+def _launch_rowtile(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor, wh,
+                    forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
+    g, n, t, h = _check(f"{stem}_rowtile", x_proj, lengths)
+    dev = x_proj.device
+    if not torch.is_tensor(wh):
+        wh = torch.stack(list(wh))
+    build.check_f32("wh", wh, (g, h, 4 * h), dev)
+    lengths = lengths.contiguous()
+    out, fin = _outputs(g, n, t, h, dev)
+    if g * n * t == 0:
+        return out, fin
+    lib = _lib(stem)
+    smem = getattr(lib, f"{stem}_rowtile_smem_bytes")(h)
+    if smem > build.SMEM_LIMIT:
+        raise ValueError(f"{stem}_rowtile keeps Wh resident and needs {smem} B of shared "
+                         f"memory at H={h}; a block has {build.SMEM_LIMIT}")
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"{stem}_rowtile")(x_proj.data_ptr(), lengths.data_ptr(),
+                                              wh.data_ptr(), out.data_ptr(), fin.data_ptr(),
+                                              g, n, t, h, float(forget_bias),
+                                              torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = getattr(lib, f"{stem}_error_string")(err).decode()
+        raise RuntimeError(f"{stem}_rowtile launch failed: {msg}")
+    build.count_launch(wrapper)
+    return out, fin
+
+
+def scan_grouped_rowtile(x_proj: torch.Tensor, lengths: torch.Tensor,
+                         wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the row-tile K7 (one block per 8-row tile and group; H up to ~110).
+    No path calls it; counts its launches in `scan_grouped_rowtile.launches`."""
+    return _launch_rowtile(scan_grouped_rowtile, "lstm_grouped", x_proj, lengths, wh,
+                           forget_bias)
+
+
+scan_grouped_rowtile.launches = 0
+
+
+def scan_stream_rowtile(x_proj: torch.Tensor, lengths: torch.Tensor,
+                        wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the row-tile K8 (x_proj 16-byte aligned: it copies 16-byte pieces). No
+    path calls it; counts its launches in `scan_stream_rowtile.launches`."""
+    if x_proj.data_ptr() % 16:
+        raise ValueError("lstm_stream_rowtile copies x_proj in 16-byte pieces: its data "
+                         "must be 16-byte aligned")
+    return _launch_rowtile(scan_stream_rowtile, "lstm_stream", x_proj, lengths, wh,
+                           forget_bias)
+
+
+scan_stream_rowtile.launches = 0
 
 
 def _kernels(device: torch.device):
@@ -160,28 +339,38 @@ def _kernels(device: torch.device):
     return scan_grouped, scan_stream
 
 
-def _scan(x_proj, lengths, wh, forget_bias):
-    """The routed grouped scan: K8 or K7 by the JAX package's rule."""
+def _scan(x_proj, lengths, whs, forget_bias):
+    """The routed grouped scan over the G tensors `whs`: K8 or K7 by the JAX
+    package's rule."""
     _, n, t, _ = x_proj.shape
     k7, k8 = _kernels(x_proj.device)
-    return (k8 if uses_stream(n, t) else k7)(x_proj.contiguous(), lengths, wh.contiguous(),
-                                            forget_bias)
+    return (k8 if uses_stream(n, t) else k7)(x_proj.contiguous(), lengths,
+                                            tuple(w.contiguous() for w in whs), forget_bias)
 
 
 # ---- the API ---------------------------------------------------------------------------
 
+def _project(xs, wxs, bs):
+    """x @ wx + b of each (x [N, T, D], wx, b) into one [G, N, T, 4H], written in
+    place (no stacked copy; a product, then the bias added, as `x @ wx + b`
+    rounds: cuBLASLt's fused bias costs more host time per call than the add)."""
+    n, t, _ = xs[0].shape
+    xp = xs[0].new_empty(len(xs), n, t, wxs[0].shape[1])
+    for k, (x, wx, b) in enumerate(zip(xs, wxs, bs)):
+        torch.matmul(x, wx, out=xp[k]).add_(b)
+    return xp
+
+
 def _uni_forward(x, mask, forget_bias, wx, wh, b):
-    out, fin = _scan((x @ wx + b)[None], mask.sum(1, dtype=torch.int32)[None], wh[None],
-                     forget_bias)
+    lengths = mask.sum(1, dtype=torch.int32)
+    out, fin = _scan(_project([x], [wx], [b]), lengths[None], (wh,), forget_bias)
     return out[0], fin[0]
 
 
 def _bi_forward(x, mask, forget_bias, wx_f, wh_f, b_f, wx_b, wh_b, b_b):
     lengths = mask.sum(1, dtype=torch.int32)
-    x_rev = _flip_to_front(x, lengths)
-    xp = torch.stack([x @ wx_f + b_f, x_rev @ wx_b + b_b])
-    out, fin = _scan(xp, lengths[None].expand(2, -1).contiguous(), torch.stack([wh_f, wh_b]),
-                     forget_bias)
+    xp = _project([x, _flip_to_front(x, lengths)], [wx_f, wx_b], [b_f, b_b])
+    out, fin = _scan(xp, lengths[None].expand(2, -1), (wh_f, wh_b), forget_bias)
     out_bw = _flip_to_front(out[1], lengths)
     return torch.cat([out[0], out_bw], dim=-1), torch.cat([fin[0], fin[1]], dim=-1)
 

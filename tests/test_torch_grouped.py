@@ -138,8 +138,12 @@ def emulated(name):
     """The plain grouped scan as a stand-in kernel that counts its launches and
     checks what a kernel wrapper checks of its arguments."""
     def kernel(x_proj, lengths, wh, forget_bias):
-        assert x_proj.is_contiguous() and wh.is_contiguous()
+        # wh: the G groups' [H, 4H] tensors, read where they lie (no stacked copy)
+        assert x_proj.is_contiguous() and len(wh) == x_proj.shape[0]
+        assert all(w.is_contiguous() and w.shape == (x_proj.shape[-1] // 4, x_proj.shape[-1])
+                   for w in wh)
         assert lengths.dtype == torch.int32 and lengths.shape == x_proj.shape[:2]
+        assert lengths.stride(1) == 1 or lengths.shape[1] <= 1
         kernel.launches += 1
         return lstm_grouped.grouped_scan_ref(x_proj, lengths, wh, forget_bias)
     kernel.launches = 0

@@ -884,7 +884,8 @@ def grouped_case(g, n, t, h, seed, device="cpu"):
 
 def test_grouped_wrappers_refuse_cpu_tensors():
     xp, lens, wh = grouped_case(2, 4, 3, 5, seed=20)
-    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream):
+    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream,
+                    lstm_grouped.scan_grouped_rowtile, lstm_grouped.scan_stream_rowtile):
         with pytest.raises(ValueError, match="CUDA"):
             wrapper(xp, lens, wh, 1.0)
 
@@ -1713,9 +1714,20 @@ def test_stats_fused_launches_the_runs_and_not_the_chunked_kernels_on_card(cuda)
 # (g, n, t, h): small odd shapes, and at H = 100 the batch-64 train step's
 # bi-LSTM shapes as a G = 2 group (photo titles 3072 x 10, the encoders at 256
 # rows, the question 64 x 30, the choices 256 x 8), the routing edge
-# n = 1024, t = 2 and n = 1023, and G = 1.
+# n = 1024, t = 2 and n = 1023, and G = 1; then widths past the row-tile kernels'
+# limit (~110): H = 128 and H = 200, on clusters of 1 to 8 CTAs, and G = 3.
+# K8's ring takes bulk copies where Hc is a multiple of 4 (3072 x 10 at H =
+# 100, every H = 128 shape) and 4-byte cp.async elsewhere.
 GROUPED_SHAPES = [(1, 12, 7, 5), (2, 9, 11, 7), (2, 3072, 10, 100), (2, 256, 24, 100),
-                  (2, 64, 30, 100), (2, 256, 8, 100), (2, 1024, 2, 100), (1, 1023, 12, 100)]
+                  (2, 64, 30, 100), (2, 256, 8, 100), (2, 1024, 2, 100), (1, 1023, 12, 100),
+                  (2, 256, 12, 128), (2, 1024, 4, 128), (3, 40, 9, 128), (2, 64, 30, 200),
+                  (2, 2048, 5, 200)]
+ROWTILE_SHAPES = [s for s in GROUPED_SHAPES if s[3] <= 100]   # the row-tile kernels stop at ~110
+
+
+def _grouped_launches():
+    return tuple(getattr(lstm_grouped, k).launches for k in
+                 ("scan_grouped", "scan_stream", "scan_grouped_rowtile", "scan_stream_rowtile"))
 
 
 @pytest.mark.gpu
@@ -1724,10 +1736,11 @@ GROUPED_SHAPES = [(1, 12, 7, 5), (2, 9, 11, 7), (2, 3072, 10, 100), (2, 256, 24,
 def test_grouped_kernels_match_plain_on_card(cuda, kernel, g, n, t, h):
     xp, lens, wh = grouped_case(g, n, t, h, seed=21, device=cuda)
     wrapper = getattr(lstm_grouped, kernel)
-    before = wrapper.launches
+    before = _grouped_launches()
     out, fin = wrapper(xp, lens, wh, 1.0)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    launched = [b - a for a, b in zip(before, _grouped_launches())]
+    assert launched == ([1, 0, 0, 0] if kernel == "scan_grouped" else [0, 1, 0, 0])
     out_r, fin_r = lstm_grouped.grouped_scan_ref(xp, lens, wh, 1.0)
     torch.testing.assert_close(out, out_r, **LSTM_TOL)
     torch.testing.assert_close(fin, fin_r, **LSTM_TOL)
@@ -1736,12 +1749,99 @@ def test_grouped_kernels_match_plain_on_card(cuda, kernel, g, n, t, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("g,n,t,h", GROUPED_SHAPES[2:5])
+@pytest.mark.parametrize("g,n,t,h", GROUPED_SHAPES)
 def test_k7_and_k8_agree_on_card(cuda, g, n, t, h):
+    """The same sums in the same order: K7 and K8 agree bit for bit, and each
+    repeats its own bits."""
     xp, lens, wh = grouped_case(g, n, t, h, seed=22, device=cuda)
-    for a, b in zip(lstm_grouped.scan_grouped(xp, lens, wh, 1.0),
-                    lstm_grouped.scan_stream(xp, lens, wh, 1.0)):
+    k7 = lstm_grouped.scan_grouped(xp, lens, wh, 1.0)
+    k8 = lstm_grouped.scan_stream(xp, lens, wh, 1.0)
+    for a, b, a2, b2 in zip(k7, k8, lstm_grouped.scan_grouped(xp, lens, wh, 1.0),
+                            lstm_grouped.scan_stream(xp, lens, wh, 1.0)):
+        assert torch.equal(a, b) and torch.equal(a, a2) and torch.equal(b, b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", [s for s in GROUPED_SHAPES if s[0] == 2])
+def test_grouped_kernels_fed_k1_projection_give_k1_bits_on_card(cuda, g, n, t, h):
+    """K1's projection (lstm_proj) as two groups, the backward half flipped to
+    the front: K7 and K8 return lstm_rec's out and fin bit for bit (the same
+    lane split, so the same sums)."""
+    x, mask, p_fw, p_bw = lstm_case(n, t, 2 * h, h, seed=24, device=cuda)
+    route = lstm_fused.lstm_route(n, t, 2 * h, h)
+    assert lstm_grouped.grouped_route(2, n, t, h).split == route.split
+    l32 = mask.sum(1, dtype=torch.int32)
+    with torch.no_grad():
+        xg = lstm_fused.lstm_proj(x, l32, p_fw, p_bw)
+        out_k1, fin_k1, _ = lstm_fused.lstm_rec(xg, l32, p_fw, p_bw, 1.0, emit_out=True)
+        xp = torch.stack([xg[..., :4 * h], lstm_ref._flip_to_front(xg[..., 4 * h:], l32)])
+        for kernel in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream):
+            out, fin = kernel(xp.contiguous(), l32[None].expand(2, -1), (p_fw.wh, p_bw.wh),
+                              1.0)
+            assert torch.equal(out[0], out_k1[..., :h])
+            assert torch.equal(lstm_ref._flip_to_front(out[1], l32), out_k1[..., h:])
+            assert torch.equal(torch.cat([fin[0], fin[1]], -1), fin_k1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", GROUPED_SHAPES[2:])
+def test_grouped_kernels_take_wh_and_x_proj_where_they_lie_on_card(cuda, g, n, t, h):
+    """Wh as G separate tensors and lengths shared by every group (stride 0)
+    give the stacked call's bits; x_proj off a 16-byte boundary sends K8 to its
+    4-byte copies, with the same bits."""
+    xp, lens, wh = grouped_case(g, n, t, h, seed=25, device=cuda)
+    lens[:] = lens[0]
+    ref = lstm_grouped.scan_grouped(xp, lens, wh, 1.0)
+    # two separate allocations always lie one stride apart; three need not
+    apart = [w.clone() for w in wh] if g <= 2 else list(wh.clone().unbind(0))
+    shifted = torch.empty(xp.numel() + 1, device=cuda)[1:].view_as(xp)
+    shifted.copy_(xp)
+    for kernel in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream):
+        for a, b in zip(kernel(xp, lens[:1].expand(g, -1), apart, 1.0), ref):
+            assert torch.equal(a, b)
+        for a, b in zip(kernel(shifted, lens, wh, 1.0), ref):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", ROWTILE_SHAPES)
+@pytest.mark.parametrize("kernel", ["scan_grouped_rowtile", "scan_stream_rowtile"])
+def test_rowtile_kernels_match_plain_and_the_new_kernels_on_card(cuda, kernel, g, n, t, h):
+    """The row-tile kernels, kept beside K7 and K8, still agree with plain and with
+    the new kernels (other sum orders: LSTM_TOL)."""
+    xp, lens, wh = grouped_case(g, n, t, h, seed=26, device=cuda)
+    wrapper = getattr(lstm_grouped, kernel)
+    before = wrapper.launches
+    got = wrapper(xp, lens, wh, 1.0)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    for a, b, c in zip(got, lstm_grouped.grouped_scan_ref(xp, lens, wh, 1.0),
+                       lstm_grouped.scan_grouped(xp, lens, wh, 1.0)):
         torch.testing.assert_close(a, b, **LSTM_TOL)
+        torch.testing.assert_close(a, c, **LSTM_TOL)
+
+
+@pytest.mark.gpu
+def test_grouped_wrappers_raise_past_the_largest_cluster_on_card(cuda):
+    assert lstm_grouped.grouped_route(2, 64, 4, 400) is None
+    xp, lens, wh = grouped_case(2, 64, 4, 400, seed=27, device=cuda)
+    before = _grouped_launches()
+    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream,
+                    lstm_grouped.scan_grouped_rowtile, lstm_grouped.scan_stream_rowtile):
+        with pytest.raises(ValueError, match="H=400"):
+            wrapper(xp, lens, wh, 1.0)
+    assert _grouped_launches() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", GROUPED_SHAPES)
+def test_grouped_route_is_the_mirror_on_card(cuda, g, n, t, h):
+    """The libraries' route and shared memory equal the Python mirror's."""
+    route = lstm_grouped.grouped_route(g, n, t, h)
+    for stem, stream in (("lstm_grouped", False), ("lstm_stream", True)):
+        assert lstm_grouped._route(stem, cuda.index or 0, g, n, t, h) == route
+        assert (getattr(lstm_grouped._lib(stem), f"{stem}_smem_bytes")(h, *route)
+                == lstm_grouped.grouped_smem(h, *route, stream))
 
 
 @pytest.mark.gpu
