@@ -176,7 +176,28 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    and K8, through the plain scan,
    beside K1, cuDNN's nn.LSTM and the encode's bound; the API's host trace
    (host ms per op, both forms) at two shapes; and `cli test`'s wall times
-   (phase 16).
+   (phase 16);
+18. every width the JAX package takes. Each routed kernel's launches on its
+   global route (h and q, or Wh, read from device memory past the shared
+   memory's limit) over phases 2-17 must read 0. K4/K5 and K6 vs plain at the
+   last staged and the first global D of each (J = 30 and 512, found from the
+   library's geometry) and at D = 2048; forced global vs staged bit for bit
+   at the T=4096 step's shape (K4's fields, K5's counts, K6's outputs, K6 on
+   either route's K4/K5, every global kernel repeating); K6's geq-only case at
+   J = 30, D = 560 (K4/K5 staged, K6 global); K2 vs plain at both sides of
+   its limit at three shapes and at D = 2048, forced global vs staged; K7/K8
+   vs plain at H = 315, 316, 512 and 1024 (K7 == K8 == repeats), forced Wh
+   global == resident bit for bit at H = 100 and 315; `cli video
+   --hidden-dim 279 / 300 --num-frames 1024` (3 steps, finite losses, the
+   global counters); each global route timed past its limit and forced at
+   the repo's width beside the staged route; the staged routes' graph times
+   of phases 3-17 beside PERF.md's;
+19. bench_lib at realistic_config (the `bench` line): train and dedup train at
+   batch 64, cached inference (f32 and bf16 cache), inference at 8, 64 and
+   256, video at T = 1024 and 4096, step costs with each layer's FLOP and byte
+   share, and a profile of one train step;
+20. capacity_probe.probe_largest_t at batch 8, J = 512, D = 200, S = 8,
+   forward and with grad, T from 16384 up to 1048576 (the `capacity` line).
 
 Prints a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -386,7 +407,7 @@ class Recorder:
     """Replaces module.name by a wrapper that keeps the arguments of the first
     `keep` calls (all with keep=None) and the shape of every call's first
     argument, and calls the real function; the wrapper carries the launch
-    counter the real function increments (it counts the module's current name)."""
+    counters the real function increments (it counts the module's current name)."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.calls, self.keep = module, name, [], keep
@@ -400,7 +421,7 @@ class Recorder:
             self.shapes.append(tuple(args[0].shape))
             return self.real(*args)
 
-        wrapper.launches = 0
+        wrapper.launches = wrapper.global_launches = 0
         setattr(self.module, self.name, wrapper)
         return self
 
@@ -3300,6 +3321,598 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
             "cache_s": cache_s}
 
 
+# ---- phase 18: every width the JAX package takes (the global routes) -------------
+
+# PERF.md section 6's CUDA-graph ms of the routes the repo's widths take (K7/K8
+# summed over the phase-15 shapes; NVIDIA H100 80GB HBM3, 700 W). The global
+# routes leave these routes' code as it was: this run's times are printed
+# beside them.
+PERF_MD_GRAPH_MS = {
+    "fvta_fwd N=1": 0.0210, "fvta_fwd N=8": 0.0265, "fvta_fwd N=64": 0.0711,
+    "fvta_fwd N=128": 0.0969, "stats_fwd": 0.0460, "qcnt": 0.0389, "stats_bwd": 0.1545,
+    "stats_fwd (cli video call)": 0.0280, "qcnt (cli video call)": 0.0250,
+    "stats_bwd (cli video call)": 0.0823, "lstm_grouped": 0.8975, "lstm_stream": 0.9945}
+K2_FIELDS = ("context", "question", "time_attn", "seq_attn")
+WIDTH_VIDEO_STEPS = 3
+
+
+def global_wrappers() -> dict:
+    """The kernels with a global route, by their launch counters' names."""
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_grouped
+
+    return {"fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
+            "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd,
+            "scan_grouped": lstm_grouped.scan_grouped, "scan_stream": lstm_grouped.scan_stream}
+
+
+def global_counters() -> dict:
+    """Each routed kernel's launches on its global route so far."""
+    return {k: fn.global_launches for k, fn in global_wrappers().items()}
+
+
+def zero_global_counters() -> None:
+    for fn in global_wrappers().values():
+        fn.global_launches = 0
+
+
+def last_staged(route_of, lo: int, hi: int) -> int:
+    """The largest width in [lo, hi) whose geometry stages: route_of(lo) is
+    "staged", route_of(hi) "global", and the routes stage up to one limit."""
+    if route_of(lo) != "staged" or route_of(hi) != "global":
+        fail(f"widths: the routes at {lo} and {hi} are {route_of(lo)} and {route_of(hi)}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if route_of(mid) == "staged" else (lo, mid)
+    return lo
+
+
+def width_stats_case(label: str, args, force_global: bool = False) -> dict:
+    """K4, K5 (from K4's eq) and K6 (N(0, 1) cotangents) on the routes the
+    shape takes, or forced global, vs their plain versions: K4's and K6's
+    fields at their tolerances or on the float64 witness, K5's counts exactly
+    and >= 1. Fatal on a mismatch; returns the routes, the errors, the outputs
+    and the cotangents."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    h, cm, q, qm, wx, wy, wxy = args
+    n, s, t, d = h.shape
+    j = q.shape[1]
+    k4, k5, k6 = ((fs.stats_fwd_global, fs.qcnt_global, fs.stats_bwd_global) if force_global
+                  else (fs.stats_fwd, fs.qcnt, fs.stats_bwd))
+    g = torch.Generator().manual_seed(71)
+    cot = [torch.randn(sh, generator=g).to(h.device) for sh in ((n, s, t), (n, j), (n, s, d))]
+    de, geq, gv = cot
+    with torch.no_grad():
+        st = k4(*args)
+        cnt = k5(h, cm, q, wx, wy, wxy, st[3])
+        dk = k6(*args, de, geq, st[3], cnt, st[4], st[0], gv)
+        ref = fs.stats_fwd_ref(*args)
+        cnt_r = fs.qcnt_ref(h, cm, q, wx, wy, wxy, ref[3])
+        dr = fs.stats_bwd_ref(*args, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
+        a64 = [a.double() for a in args]
+        r64 = fs.stats_fwd_ref(*a64)
+        d64 = fs.stats_bwd_ref(*a64, de.double(), geq.double(), r64[3],
+                               fs.qcnt_ref(*a64[:3], *a64[4:], r64[3]), r64[4], r64[0],
+                               gv.double())
+    torch.cuda.synchronize()
+    res4 = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(st, ref, r64)]
+    res6 = [field_ok(a, b, c, GRAD_TOL) for a, b, c in zip(dk, dr, d64)]
+    ok5 = bool(torch.equal(cnt, cnt_r)) and bool((cnt >= 1).all())
+    finite = all(bool(torch.isfinite(a).all()) for a in (*st[:3], *dk))
+    routes = (fs.run_geometry(n, s, t, j, d, force_global)["route"],
+              fs.bwd_geometry(n, s, t, j, d, force_global)["route"])
+    e4 = [max_err(a, b) for a, b in zip(st, ref)]
+    e6 = [max_err(a, b) for a, b in zip(dk, dr)]
+    ok = all(r[0] for r in res4 + res6) and ok5 and finite
+    log(f"widths: K4/K5/K6 {label:28s} N={n} S={s} T={t} J={j} D={d} routes K4/K5 "
+        f"{routes[0]}, K6 {routes[1]}: K4 " + " ".join(
+            f"{k} {e:.2e}{r[1]}" for k, e, r in zip(STATS_NAMES, e4, res4))
+        + f"; K5 {'equal' if ok5 else 'DIFFERENT'}; K6 " + " ".join(
+            f"{k} {e:.2e}{r[1]}" for k, e, r in zip(BWD_NAMES, e6, res6))
+        + f"  {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"widths: K4/K5/K6 at {label} ({routes}) disagree with their plain versions")
+    return {"routes": routes, "k4_max_abs_err": max(e4), "k6_max_abs_err": max(e6),
+            "out": (st, cnt, dk), "cot": cot}
+
+
+def same_bits(what: str, a, b) -> None:
+    import torch
+
+    if not all(bool(torch.equal(x, y)) for x, y in zip(a, b)):
+        fail(f"widths: {what} differ in their bits")
+
+
+def width_stats_checks() -> dict:
+    """K4/K5 and K6 vs plain at both sides of each of their limits (J = 30 and
+    512) and at D = 2048; the forced global route against the staged one bit
+    for bit at the T=4096 step's shape (K4's fields, K5's counts, K6's outputs;
+    K6 fed either route's K4/K5; two launches of each global kernel); K6's
+    geq-only case at J = 30, D = 560, where K4/K5 stage and K6 does not."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    out = {"limits": {}, "cases": {}}
+    for j, t in ((30, 100), (512, 70)):
+        d45 = last_staged(lambda d: fs.run_geometry(1, 1, t, j, d)["route"], 100, 2048)
+        d6 = last_staged(lambda d: fs.bwd_geometry(1, 1, t, j, d)["route"], 100, 2048)
+        out["limits"][f"J={j}"] = {"k45_last_staged_d": d45, "k6_last_staged_d": d6}
+        for d in (d45, d45 + 1, d6, d6 + 1) + ((2048,) if j == 30 else ()):
+            r = width_stats_case(f"J={j} D={d}", stats_case(2, 1, t, j, d, 500 + d, "cuda", True))
+            want = ("staged" if d <= d45 else "global", "staged" if d <= d6 else "global")
+            if r["routes"] != want:
+                fail(f"widths: J={j} D={d} took {r['routes']}, expected {want}")
+            out["cases"][f"J={j} D={d}"] = {k: r[k] for k in ("routes", "k4_max_abs_err",
+                                                               "k6_max_abs_err")}
+    args = stats_case(8, 1, VIDEO_T, 30, 200, 501, "cuda", True)
+    staged = width_stats_case("staged, the T=4096 shape", args)
+    forced = width_stats_case("forced global, T=4096 shape", args, force_global=True)
+    if staged["routes"] != ("staged", "staged") or forced["routes"] != ("global", "global"):
+        fail(f"widths: routes {staged['routes']} / {forced['routes']}")
+    same_bits("K4's fields on the two routes", staged["out"][0], forced["out"][0])
+    same_bits("K5's counts on the two routes", staged["out"][1:2], forced["out"][1:2])
+    same_bits("K6's outputs on the two routes", staged["out"][2], forced["out"][2])
+    st_g, cnt_g, _ = forced["out"]
+    de, geq, gv = forced["cot"]
+    h, cm, q, qm, wx, wy, wxy = args
+    with torch.no_grad():
+        k6_on_global = fs.stats_bwd(*args, de, geq, st_g[3], cnt_g, st_g[4], st_g[0], gv)
+        again = (fs.stats_fwd_global(*args), fs.qcnt_global(h, cm, q, wx, wy, wxy, st_g[3]),
+                 fs.stats_bwd_global(*args, de, geq, st_g[3], cnt_g, st_g[4], st_g[0], gv))
+        torch.cuda.synchronize()
+    same_bits("K6 fed the global and the staged K4/K5", k6_on_global, staged["out"][2])
+    same_bits("two launches of the global K4", again[0], st_g)
+    same_bits("two launches of the global K5", again[1:2], [cnt_g])
+    same_bits("two launches of the global K6", again[2], forced["out"][2])
+    log("widths: at N=8 S=1 T=4096 J=30 D=200 the forced global K4, K5 and K6 equal the "
+        "staged ones bit for bit, K6 on either route's K4/K5 too, and each global kernel "
+        "repeats its bits")
+    geq_args = stats_case(2, 1, 1024, 30, 560, 502, "cuda")
+    routes = (fs.run_geometry(2, 1, 1024, 30, 560)["route"],
+              fs.bwd_geometry(2, 1, 1024, 30, 560)["route"])
+    if routes != ("staged", "global"):
+        fail(f"widths: at J=30 D=560 K4/K5 and K6 took {routes}, expected staged / global")
+    out["k6_geq_only_d560_max_abs_err"] = k6_geq_only_check("J=30 D=560 (K4/K5 staged, "
+                                                            "K6 global)", geq_args)
+    out["forced_global_bitwise_at_d200"] = True
+    return out
+
+
+def width_k2_checks() -> dict:
+    """K2 vs plain at both sides of its limit at three shapes (MemexQA's S = T
+    = 24, one long sequence, the long question) and at D = 2048 (similarity
+    weights at the models' N(0, 0.1) scale); the forced global route at the
+    answer batch's D = 200 within FVTA_TOL of the staged one, and repeating
+    its bits."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused
+
+    out = {}
+    for n, s, t, j in ((2, 24, 24, 30), (2, 1, 512, 30), (2, 8, 64, 512)):
+        d_last = last_staged(lambda d: fvta_fused.geometry(n, s, t, j, d)["route"], 200, 2048)
+        for d in (d_last, d_last + 1, 2048):
+            h, cm, q, qm, p = fvta_case((n, s, t, j, d), 510 + d, "cuda", masked=True)
+            p = {k: 0.1 * v for k, v in p.items()}
+            before = fvta_fused.fvta_fwd.global_launches
+            with torch.no_grad():
+                got = fvta_fused.fvta_fwd(*k2_args(h, cm, q, qm, "trilinear", p))
+            ref = k2_plain(h, cm, q, qm, "trilinear", p)
+            torch.cuda.synchronize()
+            route = fvta_fused.geometry(n, s, t, j, d)["route"]
+            errs = [max_err(a, b) for a, b in zip(got, ref)]
+            ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(got, ref))
+                  and route == ("staged" if d <= d_last else "global")
+                  and fvta_fused.fvta_fwd.global_launches == before + (route == "global"))
+            log(f"widths: K2 N={n} S={s} T={t} J={j} D={d} ({route}) vs plain: "
+                + " ".join(f"{k} {e:.2e}" for k, e in zip(K2_FIELDS, errs))
+                + f"  {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"widths: K2 at N={n} S={s} T={t} J={j} D={d} ({route})")
+            out[f"S={s} T={t} J={j} D={d}"] = {"route": route, "max_abs_err": max(errs)}
+        out[f"S={s} T={t} J={j} last staged D"] = d_last
+    h, cm, q, qm, p = fvta_case((8, 24, 24, 30, 200), 520, "cuda", masked=True)
+    args = k2_args(h, cm, q, qm, "trilinear", p)
+    with torch.no_grad():
+        a, b = fvta_fused.fvta_fwd_global(*args), fvta_fused.fvta_fwd_global(*args)
+        staged = fvta_fused.fvta_fwd(*args)
+    torch.cuda.synchronize()
+    same_bits("two launches of the global K2", a, b)
+    if not all(close(x, y, **FVTA_TOL) for x, y in zip(a, staged)):
+        fail("widths: the forced global K2 is beyond FVTA_TOL of the staged one")
+    out["forced_global_vs_staged_d200_max_abs_err"] = max(max_err(x, y)
+                                                          for x, y in zip(a, staged))
+    return out
+
+
+def width_scan_case(g: int, n: int, t: int, h: int, seed: int):
+    """G groups' scan inputs (x_proj [G, N, T, 4H], lengths, Wh [G, H, 4H]) of
+    a bi-LSTM at width h over x of width 200."""
+    x, mask, p_fw, p_bw = lstm_case(n, t, 200, h, seed, "cuda")
+    xp, lens, wh = grouped_x_proj(x, mask, p_fw, p_bw)
+    return xp[:g].contiguous(), lens[:g].contiguous(), wh[:g].contiguous()
+
+
+def width_scan_checks() -> dict:
+    """K7 and K8 vs plain at H = 315 (the last width whose Wh slices a cluster
+    holds), 316, 512 and 1024: K7 == K8 and repeats bitwise, the global
+    launches counted; with Wh forced global at the resident route's (C, rows,
+    S), the resident kernels' bits (H = 100 at clusters of 2 and of 1 with
+    16-row tiles, H = 315 at clusters of 8)."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_grouped as lg
+
+    out = {}
+    for g, n, t, h in ((2, 64, 6, 315), (2, 64, 6, 316), (2, 256, 8, 512), (1, 17, 3, 1024)):
+        xp, lens, wh = width_scan_case(g, n, t, h, 530 + h)
+        route = lg.grouped_route(g, n, t, h)
+        g7, g8 = lg.scan_grouped.global_launches, lg.scan_stream.global_launches
+        with torch.no_grad():
+            k7, k8 = lg.scan_grouped(xp, lens, wh, 1.0), lg.scan_stream(xp, lens, wh, 1.0)
+            k7b, k8b = lg.scan_grouped(xp, lens, wh, 1.0), lg.scan_stream(xp, lens, wh, 1.0)
+            ref = lg.grouped_scan_ref(xp, lens, wh, 1.0)
+        torch.cuda.synchronize()
+        same_bits(f"K7 and K8 at H={h}", k7, k8)
+        same_bits(f"two launches of K7 at H={h}", k7, k7b)
+        same_bits(f"two launches of K8 at H={h}", k8, k8b)
+        errs = [max_err(a, b) for a, b in zip(k7, ref)]
+        glob = lg.takes_wh_global(g, n, t, h)
+        counted = (lg.scan_grouped.global_launches - g7, lg.scan_stream.global_launches - g8)
+        ok = (all(close(a, b, **LSTM_TOL) for a, b in zip(k7, ref)) and glob == (h > 315)
+              and counted == ((2, 2) if glob else (0, 0)))
+        log(f"widths: K7/K8 G={g} N={n} T={t} H={h} route {tuple(route)} Wh "
+            f"{'global' if glob else 'resident'}: vs plain out {errs[0]:.2e} fin {errs[1]:.2e}, "
+            f"K7 == K8 == repeats bitwise, global launches {counted}  "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"widths: K7/K8 at H={h}")
+        out[f"H={h}"] = {"route": tuple(route), "wh_global": glob, "max_abs_err": max(errs)}
+    for g, n, t, h in ((2, 256, 12, 100), (2, 3072, 4, 100), (2, 64, 6, 315)):
+        xp, lens, wh = width_scan_case(g, n, t, h, 540 + n)
+        route = lg.grouped_route(g, n, t, h)
+        with torch.no_grad():
+            for res, forced in ((lg.scan_grouped, lg.scan_grouped_wh_global),
+                                (lg.scan_stream, lg.scan_stream_wh_global)):
+                same_bits(f"{forced.__name__} and {res.__name__} at {tuple(route)}, H={h}",
+                          res(xp, lens, wh, 1.0), forced(xp, lens, wh, 1.0, route))
+        out[f"forced_wh_global_bitwise H={h} route {tuple(route)}"] = True
+    log("widths: K7 and K8 with Wh forced global equal the resident kernels bit for bit at "
+        "H = 100 (routes (2, 8, 8), (1, 16, 4)) and H = 315 ((8, 8, 4))")
+    return out
+
+
+def width_video_runs() -> dict:
+    """The synthetic `cli video` demo at T = 1024 and H = 279 (D = 558: K4/K5
+    stage, K6 takes the global route; before the global routes it raised) and H = 300
+    (D = 600: all three global), WIDTH_VIDEO_STEPS steps each: finite losses,
+    and the counters of K4, K5 and K6 and of their global routes."""
+    import contextlib
+    import io
+
+    from fvta_memexqa_torch import cli
+    from fvta_memexqa_torch.models import video as video_mod
+    from fvta_memexqa_torch.ops import fvta_stats as fs
+
+    out = {}
+    for hid, want in ((279, ("staged", "global")), (300, ("global", "global"))):
+        losses = []
+        real = video_mod.video_loss
+
+        def recorded(*a, **k):
+            loss, m = real(*a, **k)
+            losses.append(float(loss.detach()))
+            return loss, m
+
+        kernels = (fs.stats_fwd, fs.qcnt, fs.stats_bwd)
+        before = [(k.launches, k.global_launches) for k in kernels]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with Swapped(video_mod, "video_loss", recorded), contextlib.redirect_stdout(buf):
+            rc = cli.main(["video", "--hidden-dim", str(hid), "--num-frames", "1024",
+                           "--num-videos", "16", "--steps", str(WIDTH_VIDEO_STEPS),
+                           "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: (k.launches - b[0], k.global_launches - b[1])
+                  for k, b in zip(kernels, before)}
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        glob = {"stats_fwd": want[0], "qcnt": want[0], "stats_bwd": want[1]}
+        ok = (rc == 0 and len(losses) >= WIDTH_VIDEO_STEPS
+              and all(map(math.isfinite, losses))
+              and counts["qcnt"][0] == counts["stats_bwd"][0] == WIDTH_VIDEO_STEPS
+              and all(counts[k][1] == (counts[k][0] if glob[k] == "global" else 0)
+                      for k in counts))
+        log(f"widths: cli video --hidden-dim {hid} --num-frames 1024 ({WIDTH_VIDEO_STEPS} "
+            f"steps, {wall:.1f} s): rc {rc}, losses {losses}, launches (all, global) "
+            f"{json.dumps(counts)}; {json.dumps(res)}  {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"widths: cli video --hidden-dim {hid} --num-frames 1024")
+        out[f"hidden_dim_{hid}"] = {"rc": rc, "losses": losses, "launches": counts,
+                                    "wall_s": wall, "result": res}
+    return out
+
+
+def width_times() -> dict:
+    """Each global route timed at a width past its limit and, forced, at the
+    repo's width beside the staged route (CUDA events of back-to-back calls,
+    CUDA-graph replays, the plain version, the bound from these inputs): K2 at
+    N=8 S=T=24 J=30 D=1024 (H = 512) and D=200; K4/K5/K6 at `cli video`'s
+    N=16 S=1 T=1024 J=30, D=600 and D=200; K7/K8 at G=2 N=256 T=24 (an album
+    encoder) H=512 and H=100."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats as fs, lstm_grouped as lg
+
+    out = {}
+
+    def timed(fn, plain=None):
+        with torch.no_grad():
+            r = {"ms": cuda_ms(fn, iters=20), "graph_ms": graph_ms(fn)}
+            if plain is not None:
+                r["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+        return r
+
+    for d in (1024, 200):
+        h, cm, q, qm, p = fvta_case((8, 24, 24, 30, d), 550 + d, "cuda")
+        p = {k: 0.1 * v for k, v in p.items()}
+        args = k2_args(h, cm, q, qm, "trilinear", p)
+        b_ms, o_ms = k2_bound_ms(h, cm, q, qm)
+        row = {"global": timed(lambda: fvta_fused.fvta_fwd_global(*args),
+                               lambda: k2_plain(h, cm, q, qm, "trilinear", p)),
+               "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else
+               "operations", "route_by_shape": fvta_fused.geometry(8, 24, 24, 30, d)["route"]}
+        if d == 200:
+            row["staged"] = timed(lambda: fvta_fused.fvta_fwd(*args))
+        out[f"fvta_fwd D={d}"] = row
+    for d in (600, 200):
+        a = stats_case(16, 1, 1024, 30, d, 560 + d, "cuda")
+        h, cm, q, qm, wx, wy, wxy = a
+        with torch.no_grad():
+            st = fs.stats_fwd_global(*a)
+            cnt = fs.qcnt_global(h, cm, q, wx, wy, wxy, st[3])
+        g = torch.Generator().manual_seed(73)
+        de, geq, gv = (torch.randn(sh, generator=g).cuda() for sh in ((16, 1, 1024), (16, 30),
+                                                                      (16, 1, d)))
+        bwd = (*a, de, geq, st[3], cnt, st[4], st[0], gv)
+        for name in ("stats_fwd", "qcnt", "stats_bwd"):
+            call = lambda k: stats_call(k, bwd)
+            b_ms, o_ms = stats_bound_ms(name, h, cm, q)
+            row = {"global": timed(call(name + "_global"), call(name + "_ref")),
+                   "bound_ms": max(b_ms, o_ms),
+                   "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                   "route_by_shape": (fs.run_geometry(16, 1, 1024, 30, d) if name != "stats_bwd"
+                                      else fs.bwd_geometry(16, 1, 1024, 30, d))["route"]}
+            if d == 200:
+                row["staged"] = timed(call(name))
+            out[f"{name} D={d}"] = row
+    for h_dim in (512, 100):
+        xp, lens, wh = width_scan_case(2, 256, 24, h_dim, 570 + h_dim)
+        route = lg.grouped_route(2, 256, 24, h_dim)
+        steps = int(lens[0].sum())
+        b_ms, o_ms = k1_bounds(256, 24, 200, h_dim, steps, True)["rec"]
+        for name, stem in (("scan_grouped", "lstm_grouped"), ("scan_stream", "lstm_stream")):
+            forced = getattr(lg, f"{name}_wh_global")
+            row = {"global": timed(lambda: forced(xp, lens, wh, 1.0, route),
+                                   lambda: lg.grouped_scan_ref(xp, lens, wh, 1.0)),
+                   "bound_ms": max(b_ms, o_ms),
+                   "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                   "route": tuple(route),
+                   "wh_global_by_shape": lg.takes_wh_global(2, 256, 24, h_dim)}
+            if h_dim == 100:
+                row["staged"] = timed(lambda: getattr(lg, name)(xp, lens, wh, 1.0))
+            out[f"{stem} H={h_dim}"] = row
+    for k, v in out.items():
+        log(f"widths: time {k}: {json.dumps(v)}")
+    return out
+
+
+def staged_vs_perf_md(entries: list) -> dict:
+    """This run's CUDA-graph ms of the routes the repo's widths take, from the
+    kernels line's entries, beside PERF.md section 6's."""
+    got = {}
+    for e in entries:
+        if e["name"] == "fvta_fwd":
+            got.update({f"fvta_fwd N={n}": r["new_graph_ms"] for n, r in e["per_n"].items()})
+        elif e["name"] in PERF_MD_GRAPH_MS:
+            got[e["name"]] = e["graph_ms"]
+    return {k: {"graph_ms": got[k], "perf_md_graph_ms": v, "ratio": got[k] / v}
+            for k, v in PERF_MD_GRAPH_MS.items() if k in got}
+
+
+def widths_phase() -> dict:
+    """Phase 18: every width the JAX package takes (the checks above and the
+    global routes' times), with each routed kernel's global launches on the
+    main path (every earlier phase) read first: 0 at the repo's widths."""
+    main_path = global_counters()
+    log(f"widths: global-route launches over every earlier phase: {json.dumps(main_path)}")
+    if any(main_path.values()):
+        fail(f"widths: a global route launched at the repo's widths: {main_path}")
+    zero_global_counters()
+    out = {"main_path_global_launches": main_path, "stats": width_stats_checks(),
+           "k2": width_k2_checks(), "scans": width_scan_checks(),
+           "cli_video": width_video_runs(), "times": width_times()}
+    out["phase_global_launches"] = global_counters()
+    return out
+
+
+def add_global_routes(entries: list, widths: dict) -> None:
+    """Each routed kernel's kernels-line entry gains its global route: the
+    times of widths_phase, its launches on the main path (0) and in the
+    widths phase."""
+    keys = {"fvta_fwd": ("fvta_fwd", "fvta_fwd D=1024", "fvta_fwd D=200"),
+            "stats_fwd": ("stats_fwd", "stats_fwd D=600", "stats_fwd D=200"),
+            "qcnt": ("qcnt", "qcnt D=600", "qcnt D=200"),
+            "stats_bwd": ("stats_bwd", "stats_bwd D=600", "stats_bwd D=200"),
+            "lstm_grouped": ("scan_grouped", "lstm_grouped H=512", "lstm_grouped H=100"),
+            "lstm_stream": ("scan_stream", "lstm_stream H=512", "lstm_stream H=100")}
+    for e in entries:
+        if e["name"] in keys:
+            counter, past, forced = keys[e["name"]]
+            e["global_route"] = {
+                "launches": widths["main_path_global_launches"][counter],
+                "launches_in_widths_phase": widths["phase_global_launches"][counter],
+                "past_the_limit": widths["times"][past],
+                "forced_at_the_repo_width": widths["times"][forced]}
+
+
+# ---- phase 19: the benchmark functions at realistic size -----------------------------
+
+BENCH_K = dict(k_small=10, k_large=60, reps=5)   # the train steps (the JAX bench's K)
+BENCH_K_FAST = dict(k_small=25, k_large=250, reps=5)   # inference steps (the JAX bench's K)
+BENCH_VIDEO = dict(reps=5, min_signal_s=0.6, k_small=5, k_large=60)   # bench_video's defaults
+PROFILED_TRAIN_STEPS = 10   # the train step's breakdown: wall and device time over 10 steps
+
+
+class SlopeRecorder:
+    """bench_lib._median_slope called through a wrapper that times each of its
+    run(k) calls, so that every reading carries the spread of its reps: the
+    library's median is returned unchanged, and `spread()` gives the last
+    call's rep slopes (each rep: run(k_small), then run(k_small) and
+    run(k_large) timed, as _median_slope times them)."""
+
+    def __init__(self, bl):
+        self.bl, self.real, self.calls = bl, bl._median_slope, []
+
+    def __enter__(self):
+        def recording(run, k_small, k_large, reps):
+            durations = []
+
+            def timed(k):
+                t0 = time.perf_counter()
+                run(k)
+                durations.append(time.perf_counter() - t0)
+
+            per = self.real(timed, k_small, k_large, reps)
+            # the two warm-up calls, then (drain, k_small, k_large) per rep
+            self.calls.append([(durations[3 * r + 4] - durations[3 * r + 3])
+                               / (k_large - k_small) for r in range(reps)])
+            return per
+
+        self.bl._median_slope = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.bl._median_slope = self.real
+        return False
+
+    def spread(self, call: int = -1) -> dict:
+        """A call's rep slopes (default the last call's): min, median, max (ms
+        per step) and (max - min) / median."""
+        slopes = sorted(self.calls[call])
+        med = slopes[len(slopes) // 2]
+        return {"reps": len(slopes), "rel_spread": (slopes[-1] - slopes[0]) / med,
+                "min_step_ms": slopes[0] * 1e3, "median_step_ms": med * 1e3,
+                "max_step_ms": slopes[-1] * 1e3}
+
+
+def bench_phase(smi: str) -> dict:
+    """Phase 19: bench_lib at realistic_config (12000 words, 630 albums, 5090
+    photos, F = 2537, H = 100) on this card: train and dedup train at batch
+    64, cached inference at batch 64 (f32 and bf16 cache, with the cache's
+    seconds), full inference at 8, 64 and 256, video at T = 1024 and 4096
+    (frames/s, the MFU guard against device_peaks), step_cost of the serving
+    forward and the train step with each layer's FLOP and byte share, and a
+    torch.profiler breakdown of the train step over PROFILED_TRAIN_STEPS steps
+    (the index backward's share). Every reading is the median of its reps
+    with their spread (`spread`); K's and reps are the JAX bench's defaults
+    (BENCH_K, BENCH_K_FAST, BENCH_VIDEO), reps raised to 5."""
+    import torch
+
+    from fvta_memexqa_torch import bench_lib as bl
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.optim import Optimizer
+
+    cfg = bl.realistic_config()
+    peaks = bl.device_peaks()
+    out = {"card": smi, "peaks": peaks, "k": {"train": BENCH_K, "inference": BENCH_K_FAST,
+                                             "video": BENCH_VIDEO}}
+    spread = {}
+    t0 = time.perf_counter()
+    with SlopeRecorder(bl) as rec:
+        out["train_qa_pairs_per_s"] = bl.bench_train(cfg, 64, **BENCH_K)
+        spread["train"] = rec.spread()
+        out["train_dedup_qa_pairs_per_s"], out["dedup_unique_frac"] = bl.bench_train_dedup(
+            cfg, 64, **BENCH_K)
+        spread["train_dedup"] = rec.spread()
+        qps, cache_s, pre = bl.bench_cached_inference(cfg, 64, **BENCH_K_FAST)
+        spread["cached_inference"] = rec.spread()
+        qps16, _, _ = bl.bench_cached_inference(cfg, 64, prebuilt=pre,
+                                                cache_dtype="bfloat16", **BENCH_K_FAST)
+        spread["cached_inference_bf16"] = rec.spread()
+        out["cached_inference"] = {"qa_pairs_per_s": qps, "cache_s": cache_s,
+                                   "bf16_cache_qa_pairs_per_s": qps16}
+        out["inference"] = [dataclasses.asdict(r) for r in
+                            bl.bench_inference(cfg, (8, 64, 256), **BENCH_K_FAST)]
+        for i, r in enumerate(out["inference"]):
+            spread[f"inference_b{r['batch_size']}"] = rec.spread(i - 3)
+        out["video"] = {}
+        for t in (1024, 4096):
+            cost = bl.video_step_cost(t)
+            fps = bl.bench_video(t, True, 8, flops_per_step=cost["flops"],
+                                 peak_flops=peaks[0] if peaks else None, **BENCH_VIDEO)
+            spread[f"video_T{t}"] = rec.spread()
+            out["video"][f"T={t}"] = {"frames_per_s": fps, "flops_per_step": cost["flops"],
+                                      "bytes_per_step": cost["bytes"],
+                                      "mfu": None if fps is None or not peaks else
+                                      cost["flops"] * fps / (8 * t) / peaks[0]}
+    out["spread"] = spread
+    costs = {"serving_forward_b64": bl.step_cost(cfg, 64),
+             "train_step_b64": bl.step_cost(cfg, 64, train=True)}
+    for name, c in costs.items():
+        c["flop_share"] = {k: v["flops"] / c["flops"] for k, v in c["layers"].items()}
+        c["byte_share"] = {k: v["bytes"] / c["bytes"] for k, v in c["layers"].items()}
+    out["step_cost"] = costs
+    step_s = 64 / out["train_qa_pairs_per_s"]
+    out["train_step_implied"] = {
+        "step_ms": step_s * 1e3, "flop_per_s": costs["train_step_b64"]["flops"] / step_s,
+        "mfu": None if not peaks else costs["train_step_b64"]["flops"] / step_s / peaks[0],
+        "hbm_share": None if not peaks else costs["train_step_b64"]["bytes"] / step_s / peaks[1]}
+    # the train step under torch.profiler, as bench_train runs it
+    shared = bl.synth_shared(cfg)
+    batch = bl.synth_batch(cfg, 64)
+    state, opt = tr.init_state(cfg, "cuda"), Optimizer(cfg.train)
+    with tr.deterministic_algorithms(torch.device("cuda")):
+        prof = device_breakdown(lambda: tr.train_step(state, opt, shared, batch),
+                                reps=PROFILED_TRAIN_STEPS)
+    index_bwd = sum(v for k, v in prof["top_device_ms"].items() if "indexing_backward" in k)
+    prof["index_backward_ms"] = index_bwd
+    prof["index_backward_share_of_device"] = (index_bwd / prof["device_busy_ms"]
+                                              if prof["device_busy_ms"] else None)
+    out["train_step_profile"] = prof
+    out["wall_s"] = time.perf_counter() - t0
+    log("bench " + json.dumps(out))
+    return out
+
+
+# ---- phase 20: the capacity probe ---------------------------------------------------
+
+CAPACITY_T_CAP = 1 << 20   # 1048576 frames: the doubling stops there (the time budget)
+
+
+def capacity_phase() -> dict:
+    """Phase 20: capacity_probe.probe_largest_t at batch 8, J = 512, D = 200,
+    S = 8 from T = 16384, forward and with grad, both paths (the plain one
+    materialises C [N, S, T, J]; the kernel path streams through K4/K5/K6),
+    up to CAPACITY_T_CAP."""
+    import torch
+
+    from fvta_memexqa_torch import capacity_probe as cp
+
+    t0 = time.perf_counter()
+    out = {}
+    for grad in (False, True):
+        out["grad" if grad else "forward"] = cp.probe_largest_t(
+            batch=8, j=512, d=200, s=8, t_start=1 << 14, t_cap=CAPACITY_T_CAP, grad=grad)
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    out["device_gib"] = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    log("capacity " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3331,6 +3944,7 @@ def main() -> None:
 
     for k in OLD_STATS:
         getattr(fvta_stats, k).launches = 0
+    zero_global_counters()   # read again at phase 18: no earlier phase takes a global route
     from fvta_memexqa_torch.ops import lstm_grouped
 
     for k in ROWTILE:
@@ -3395,12 +4009,23 @@ def main() -> None:
         f"{json.dumps(stray)} (made there: {json.dumps(ROWTILE_MADE)})")
     if any(stray.values()):
         fail(f"a path launched a row-tile grouped scan: {stray}; none should")
+    t0 = time.perf_counter()
+    widths = widths_phase()
+    t_widths = time.perf_counter() - t0
+    bench = bench_phase(smi)
+    capacity = capacity_phase()
+    entries = [*k1, *k2, *k1b, *stats_entries, *grouped_entries]
+    add_global_routes(entries, widths)
+    widths["staged_graph_ms_vs_perf_md"] = staged_vs_perf_md(entries)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
     log("grouped_shapes " + json.dumps(grouped_rows))
     log("grouped_api_host_traces " + json.dumps(grouped_traces))
     log("route_sweep " + json.dumps(sweep))
-    log(json.dumps({"kernels": [*k1, *k2, *k1b, *stats_entries, *grouped_entries]}))
+    log("widths " + json.dumps(widths))
+    log(f"phases 18-20 wall time: widths {t_widths:.1f} s, bench {bench['wall_s']:.1f} s, "
+        f"capacity {capacity['wall_s']:.1f} s")
+    log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

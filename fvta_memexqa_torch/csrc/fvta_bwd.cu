@@ -138,7 +138,9 @@ qcnt_chunk_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   }
 }
 
-// K5: one CTA per (run of chunks, sequence, example) of run_geometry.
+// K5: one CTA per (run of chunks, sequence, example) of run_geometry; G: the
+// global route (walk_run_global).
+template <bool G>
 __global__ void __launch_bounds__(THREADS, 1)
 qcnt_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                 const float* __restrict__ q, const float* __restrict__ wx,
@@ -147,7 +149,7 @@ qcnt_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                 int D, int cpc, int rows_max, int nbuf, int vec) {
   extern __shared__ __align__(16) float smem_r[];
   float* smem = smem_r;
-  const RunLayout l = run_layout(J, D, rows_max, nbuf);
+  const RunLayout l = run_layout(J, D, rows_max, nbuf, G);
   int* wc = reinterpret_cast<int*>(smem + l.wq);   // tie counts per (warp, word)
   const float* eqv = smem + l.eqv;
   const int p = blockIdx.x, s = blockIdx.y, n = blockIdx.z;
@@ -158,10 +160,8 @@ qcnt_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   const RunArgs a{h + seq * T * D, cm + seq * T, q + (size_t)n * J * D, nullptr,
                   eq + (size_t)n * J, wx, wy, wxy, T, J, D, p * cpc,
                   min(p * cpc + cpc, chunks), rows_max, nbuf, vec};
-  walk_run(
-      a, smem,
-      [&](int jt, int, int rows, const float* cmv, const int (&row)[4],
-          const float (&c)[4][2]) {
+  auto tile = [&](int jt, int, int rows, const float* cmv, const int (&row)[4],
+                  const float (&c)[4][2]) {
         int hits[2] = {0, 0};
 #pragma unroll
         for (int r = 0; r < 4; ++r)
@@ -174,8 +174,12 @@ qcnt_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
         for (int b = 0; b < 2; ++b) hits[b] += __shfl_xor_sync(0xffffffffu, hits[b], 16);
         if (lane < 16)   // each (warp, word) slot has this one writer
           for (int b = 0; b < 2; ++b) wc[warp * jp + jt * QT + jq + 16 * b] += hits[b];
-      },
-      [](int, int, int, const float*) {});
+      };
+  auto pass = [](int, int, int, const float*, int) {};
+  if constexpr (G)
+    walk_run_global(a, smem, tile, pass);
+  else
+    walk_run(a, smem, tile, pass);
   for (int j = tid; j < J; j += THREADS) {
     int total = 0;
     for (int w = 0; w < WARPS; ++w) total += wc[w * jp + j];
@@ -355,10 +359,13 @@ struct FusedLayout {
 
 // nbuf h buffers (2: the next chunk is copied while this one computes);
 // acc_smem: dC^T h carried in shared memory (only when J <= QT). Every array
-// starts on a 16-byte boundary.
-__host__ __device__ inline FusedLayout fused_layout(int J, int D, int nbuf, bool acc_smem) {
+// starts on a 16-byte boundary. global: the global route's layout, with no
+// array that grows with D (h, q and the weights read from device memory, dwx
+// carried in the CTA's own slot).
+__host__ __device__ inline FusedLayout fused_layout(int J, int D, int nbuf, bool acc_smem,
+                                                    bool global = false) {
   FusedLayout l;
-  const size_t ds = vec_stride(D), jp = round_j(J);
+  const size_t ds = global ? 0 : vec_stride(D), jp = round_j(J);
   size_t o = 0;
   l.hbuf = o;   o += (size_t)nbuf * TCH * ds;
   l.hw = o;     o += TCH * ds;
@@ -386,15 +393,20 @@ __host__ __device__ inline FusedLayout fused_layout(int J, int D, int nbuf, bool
 
 // The launch geometry, in one place for the launch and for the wrapper that
 // allocates the scratch: per = CTAs per sequence, cpc = chunks per CTA, the
-// shared-memory layout and the scratch size in floats.
+// shared-memory layout and the scratch size in floats. route 1 (global): no
+// staging fits (D = 556 at J = 30, 380 at J = 512 on the H100), so h, q, the
+// weights and dC^T h are read from device memory, cbuf and the per-row and
+// per-word arrays stay in shared memory; force_global takes it at any width.
 struct FusedGeometry {
   int per, cpc, nbuf;
   bool acc_smem;
   size_t smem, scratch;
+  int route;
 };
 
-inline FusedGeometry fused_geometry(int n, int s, int t, int j, int d, int sms,
-                                    size_t smem_max) {
+__host__ __device__ inline FusedGeometry fused_geometry(int n, int s, int t, int j, int d,
+                                                        int sms, size_t smem_max,
+                                                        bool force_global = false) {
   FusedGeometry g;
   const int chunks = (t + TCH - 1) / TCH, ns = n * s;
   g.per = sms / ns > 1 ? sms / ns : 1;
@@ -411,11 +423,22 @@ inline FusedGeometry fused_geometry(int n, int s, int t, int j, int d, int sms,
     }
   }
   g.smem = fused_layout(j, d, g.nbuf, g.acc_smem).total;
+  g.route = force_global || g.smem > smem_max ? 1 : 0;
+  if (g.route) {
+    g.nbuf = 1;
+    g.acc_smem = false;
+    g.smem = fused_layout(j, d, 1, false, true).total;
+  }
   const size_t slots = (size_t)ns * g.per, ds = vec_stride(d), jp = round_j(j);
   g.scratch = slots * (jp * ds + jp + ds);   // dC^T h, column sums, dwx per slot
   return g;
 }
 
+// G: the global route (fused_geometry route 1). Every sum keeps the staged
+// route's order over the same nonzero terms (the staged zero padding of h, q
+// and dC adds exactly nothing: no accumulator here is ever -0), so both routes
+// give the same bits.
+template <bool G>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                  const float* __restrict__ q, const float* __restrict__ qm,
@@ -429,7 +452,7 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                  int J, int D, int per, int cpc, int nbuf, int acc_smem, int vec) {
   extern __shared__ __align__(16) float smem_v[];
   float* smem = smem_v;
-  const FusedLayout l = fused_layout(J, D, nbuf, acc_smem);
+  const FusedLayout l = fused_layout(J, D, nbuf, acc_smem, G);
   float *hbuf = smem + l.hbuf, *hw = smem + l.hw, *qs = smem + l.qs, *cbuf = smem + l.cbuf;
   float *wxs = smem + l.wxs, *wys = smem + l.wys, *wxys = smem + l.wxys, *gvs = smem + l.gvs;
   float *syv = smem + l.syv, *qmv = smem + l.qmv, *eqv = smem + l.eqv, *gsh = smem + l.gsh;
@@ -444,19 +467,27 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   const float* q_n = q + (size_t)n * J * D;
   float* acc_g = part + slot * jp * ds;   // this CTA's dC^T h partial [jp, ds]
   float* acc = acc_smem ? smem + l.acc : acc_g;
-
-  // the first chunk's rows fly while the CTA stages everything else
-  for (int i = tid; i < nbuf * TCH; i += THREADS)
-    for (int c = D; c < ds; ++c) hbuf[i * ds + c] = 0.0f;
-  issue_rows(hbuf, h_seq, c0 * TCH, min(TCH, T - c0 * TCH), D, ds, vec);
-  cp_async_commit();
-  for (int c = tid; c < ds; c += THREADS) {
-    const bool v = c < D;
-    wxs[c] = v ? wx[c] : 0.0f;
-    wys[c] = v ? wy[c] : 0.0f;
-    wxys[c] = v ? wxy[c] : 0.0f;
-    gvs[c] = v ? gv[seq * D + c] : 0.0f;
-    dwxacc[c] = 0.0f;
+  if constexpr (G) {   // the weights where they lie; dwx in the CTA's own slot
+    wxs = const_cast<float*>(wx);
+    wys = const_cast<float*>(wy);
+    wxys = const_cast<float*>(wxy);
+    gvs = const_cast<float*>(gv + seq * D);
+    dwxacc = dwxpart + slot * ds;
+    for (int c = tid; c < ds; c += THREADS) dwxacc[c] = 0.0f;
+  } else {
+    // the first chunk's rows fly while the CTA stages everything else
+    for (int i = tid; i < nbuf * TCH; i += THREADS)
+      for (int c = D; c < ds; ++c) hbuf[i * ds + c] = 0.0f;
+    issue_rows(hbuf, h_seq, c0 * TCH, min(TCH, T - c0 * TCH), D, ds, vec);
+    cp_async_commit();
+    for (int c = tid; c < ds; c += THREADS) {
+      const bool v = c < D;
+      wxs[c] = v ? wx[c] : 0.0f;
+      wys[c] = v ? wy[c] : 0.0f;
+      wxys[c] = v ? wxy[c] : 0.0f;
+      gvs[c] = v ? gv[seq * D + c] : 0.0f;
+      dwxacc[c] = 0.0f;
+    }
   }
   for (int j = tid; j < jp; j += THREADS) {
     const bool v = j < J;
@@ -470,33 +501,44 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     for (int i = tid; i < QT * ds; i += THREADS) acc[i] = 0.0f;
   // sy = <wy, q_j>, serial as K4 computes it (stage_qtile), tile by tile; with
   // one tile, qs keeps it for every chunk
-  for (int jt = 0; jt < ntiles; ++jt) {
-    __syncthreads();
-    stage_q(qs, q_n, jt * QT, J, D, ds);
-    __syncthreads();
-    if (tid < QT) syv[jt * QT + tid] = serial_dot(qs + tid * ds, wys, D);
+  if constexpr (G) {
+    for (int j = tid; j < jp; j += THREADS)
+      syv[j] = j < J ? serial_dot(q_n + (size_t)j * D, wy, D) : 0.0f;
+  } else {
+    for (int jt = 0; jt < ntiles; ++jt) {
+      __syncthreads();
+      stage_q(qs, q_n, jt * QT, J, D, ds);
+      __syncthreads();
+      if (tid < QT) syv[jt * QT + tid] = serial_dot(qs + tid * ds, wys, D);
+    }
   }
 
   const int rp = tid / 16, jq = tid % 16;   // C tile: rows rp, rp+16; words jq, jq+16
   for (int c = c0; c < c1; ++c) {
     const int k = c - c0, buf = nbuf == 2 ? (k & 1) : 0, t0 = c * TCH;
     const int rows = min(TCH, T - t0);
-    if (nbuf == 2) {
-      if (c + 1 < c1)
-        issue_rows(hbuf + (buf ^ 1) * TCH * ds, h_seq, t0 + TCH, min(TCH, T - t0 - TCH), D,
-                   ds, vec);
-      cp_async_commit();   // an empty group on the last chunk keeps the count uniform
-      cp_async_wait<1>();
-    } else {
-      if (k > 0) issue_rows(hbuf, h_seq, t0, rows, D, ds, vec);
-      cp_async_commit();
-      cp_async_wait<0>();
+    if constexpr (!G) {
+      if (nbuf == 2) {
+        if (c + 1 < c1)
+          issue_rows(hbuf + (buf ^ 1) * TCH * ds, h_seq, t0 + TCH, min(TCH, T - t0 - TCH), D,
+                     ds, vec);
+        cp_async_commit();   // an empty group on the last chunk keeps the count uniform
+        cp_async_wait<1>();
+      } else {
+        if (k > 0) issue_rows(hbuf, h_seq, t0, rows, D, ds, vec);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
     }
     __syncthreads();
-    const float* hs = hbuf + buf * TCH * ds;
+    // this chunk's rows of h: staged (stride ds), or where they lie (stride D)
+    const float* hs = G ? h_seq + (size_t)t0 * D : hbuf + buf * TCH * ds;
+    const int ld = G ? D : ds;
 
-    // (a) hw = h*wxy as K4 stages it, and the rows' scalars
-    for (int i = tid; i < TCH * ds; i += THREADS) hw[i] = __fmul_rn(hs[i], wxys[i % ds]);
+    // (a) hw = h*wxy as K4 stages it (formed per term on the global route), and
+    // the rows' scalars
+    if constexpr (!G)
+      for (int i = tid; i < TCH * ds; i += THREADS) hw[i] = __fmul_rn(hs[i], wxys[i % ds]);
     for (int r = tid; r < TCH; r += THREADS) {
       const bool v = r < rows;
       const size_t st = seq * T + t0 + r;
@@ -508,17 +550,29 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
 
     // (b) C into cbuf in 2 x 2 register tiles, warp 0 also carrying the rows' sx
     for (int jt = 0; jt < ntiles; ++jt) {
-      if (ntiles > 1) {
+      if (!G && ntiles > 1) {
         stage_q(qs, q_n, jt * QT, J, D, ds);
         __syncthreads();
       }
       float dot[2][2];
-      const float *a0 = hw + rp * ds, *a1 = hw + (rp + 16) * ds;
-      const float *b0 = qs + jq * ds, *b1 = qs + (jq + 16) * ds;
-      if (warp == 0 && jt == 0)
-        serial_dot_2x2<true>(a0, a1, b0, b1, ds, dot, hs + lane * ds, wxs, sx + lane);
-      else
-        serial_dot_2x2<false>(a0, a1, b0, b1, ds, dot);
+      if constexpr (G) {   // rows past the chunk and words past J: values ignored
+        const float* a0 = hs + (size_t)min(rp, rows - 1) * D;
+        const float* a1 = hs + (size_t)min(rp + 16, rows - 1) * D;
+        const float* b0 = q_n + (size_t)min(jt * QT + jq, J - 1) * D;
+        const float* b1 = q_n + (size_t)min(jt * QT + jq + 16, J - 1) * D;
+        if (warp == 0 && jt == 0)
+          serial_dot_2x2_global<true>(a0, a1, b0, b1, wxy, D, dot,
+                                      hs + (size_t)min(lane, rows - 1) * D, wx, sx + lane);
+        else
+          serial_dot_2x2_global<false>(a0, a1, b0, b1, wxy, D, dot);
+      } else {
+        const float *a0 = hw + rp * ds, *a1 = hw + (rp + 16) * ds;
+        const float *b0 = qs + jq * ds, *b1 = qs + (jq + 16) * ds;
+        if (warp == 0 && jt == 0)
+          serial_dot_2x2<true>(a0, a1, b0, b1, ds, dot, hs + lane * ds, wxs, sx + lane);
+        else
+          serial_dot_2x2<false>(a0, a1, b0, b1, ds, dot);
+      }
       __syncthreads();   // sx written; every read of qs done
 #pragma unroll
       for (int a = 0; a < 2; ++a)
@@ -566,12 +620,13 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     // thread) and dC^T h carried in acc (RB words x 4 columns a thread), both
     // from shared memory only
     for (int jt = 0; jt < ntiles; ++jt) {
-      if (ntiles > 1) {
+      if (!G && ntiles > 1) {
         __syncthreads();
         stage_q(qs, q_n, jt * QT, J, D, ds);
         __syncthreads();
       }
       const bool last = jt == ntiles - 1;
+      const int jn = min(QT, J - jt * QT);   // the tile's words (the global route's terms)
       for (int i = tid; i < (TCH / RB) * dv; i += THREADS) {
         const int r0 = (i / dv) * RB, c = 4 * (i % dv);
         float a[RB][4];
@@ -584,8 +639,15 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
             a[rr][kk] = (jt > 0 && r < rows && cc < D) ? dh[(seq * T + t0 + r) * D + cc]
                                                        : 0.0f;
           }
-        for (int j = 0; j < QT; ++j) {
-          const float4 qv = *reinterpret_cast<const float4*>(qs + j * ds + c);
+        for (int j = 0; j < (G ? jn : QT); ++j) {
+          float4 qv;
+          if constexpr (G) {
+            const float* qr = q_n + (size_t)(jt * QT + j) * D + c;
+            qv = make_float4(c < D ? __ldg(qr) : 0.0f, c + 1 < D ? __ldg(qr + 1) : 0.0f,
+                             c + 2 < D ? __ldg(qr + 2) : 0.0f, c + 3 < D ? __ldg(qr + 3) : 0.0f);
+          } else {
+            qv = *reinterpret_cast<const float4*>(qs + j * ds + c);
+          }
 #pragma unroll
           for (int rr = 0; rr < RB; ++rr) {
             const float dcv = cbuf[(r0 + rr) * jp + jt * QT + j];
@@ -618,8 +680,15 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
         for (int jj = 0; jj < RB; ++jj)
           a[jj] = fresh ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
                         : *reinterpret_cast<const float4*>(acc_t + (j0 + jj) * ds + c);
-        for (int r = 0; r < TCH; ++r) {
-          const float4 hv = *reinterpret_cast<const float4*>(hs + r * ds + c);
+        for (int r = 0; r < (G ? rows : TCH); ++r) {
+          float4 hv;
+          if constexpr (G) {
+            const float* hr = hs + (size_t)r * D + c;
+            hv = make_float4(c < D ? __ldg(hr) : 0.0f, c + 1 < D ? __ldg(hr + 1) : 0.0f,
+                             c + 2 < D ? __ldg(hr + 2) : 0.0f, c + 3 < D ? __ldg(hr + 3) : 0.0f);
+          } else {
+            hv = *reinterpret_cast<const float4*>(hs + r * ds + c);
+          }
           const float* dr = cbuf + r * jp + jt * QT + j0;
           const float4 x0 = *reinterpret_cast<const float4*>(dr);
           const float4 x1 = *reinterpret_cast<const float4*>(dr + 4);
@@ -644,7 +713,7 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     }
     for (int c = tid; c < D; c += THREADS) {
       float v = dwxacc[c];
-      for (int r = 0; r < TCH; ++r) v = fmaf(rowsum[r], hs[r * ds + c], v);
+      for (int r = 0; r < (G ? rows : TCH); ++r) v = fmaf(rowsum[r], hs[r * ld + c], v);
       dwxacc[c] = v;
     }
     __syncthreads();   // the buffers are free for the next chunk's copy
@@ -653,7 +722,8 @@ bwd_fused_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   if (acc_smem)
     for (int i = tid; i < QT * ds; i += THREADS) acc_g[i] = acc[i];
   for (int j = tid; j < jp; j += THREADS) colpart[slot * jp + j] = colacc[j];
-  for (int c = tid; c < ds; c += THREADS) dwxpart[slot * ds + c] = dwxacc[c];
+  if constexpr (!G)
+    for (int c = tid; c < ds; c += THREADS) dwxpart[slot * ds + c] = dwxacc[c];
 }
 
 // dq, dwx, dwy, dwxy from the CTAs' partials, summed over each example's
@@ -727,28 +797,28 @@ int fvta_qcnt_chunked(const float* h, const float* cm, const float* q, const flo
   return (int)cudaGetLastError();
 }
 
-// K5. cnt: int32 [N,J], zeroed by the caller. per, cpc, rows, nbuf and smem are
-// run_geometry for this shape on the current device (fvta_stats_geometry in
-// the K4 library), read once by the caller and passed back unchanged; the
-// kernel's shared-memory limit is raised once per device. Returns the
-// cudaError_t (0 = success).
+// K5. cnt: int32 [N,J], zeroed by the caller. per, cpc, rows, nbuf, smem and
+// route are run_geometry for this shape on the current device
+// (fvta_stats_geometry in the K4 library), read once by the caller and passed
+// back unchanged; each route's shared-memory limit is raised once per device.
+// Returns the cudaError_t (0 = success).
 int fvta_qcnt(const float* h, const float* cm, const float* q, const float* wx,
               const float* wy, const float* wxy, const float* eq, int* cnt, int n, int s,
               int t, int j, int d, int per, int cpc, int rows, int nbuf, long long smem,
-              void* stream) {
-  static long long smem_set[64] = {0};   // per device: the limit set so far (0: none)
+              int route, void* stream) {
+  static long long smem_set[2][64] = {};   // per route and device: the limit set so far
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(qcnt_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  const auto kernel = route ? qcnt_run_kernel<true> : qcnt_run_kernel<false>;
+  if (smem > smem_set[route != 0][dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = smem;
+    smem_set[route != 0][dev] = smem;
   }
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
-  qcnt_run_kernel<<<dim3(per, s, n), THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+  kernel<<<dim3(per, s, n), THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       h, cm, q, wx, wy, wxy, eq, cnt, s, t, j, d, cpc, rows, nbuf, vec);
   return (int)cudaGetLastError();
 }
@@ -778,7 +848,8 @@ int fvta_stats_bwd_twopass(const float* h, const float* cm, const float* q, cons
   return (int)cudaGetLastError();
 }
 
-static int fused_geometry_here(int n, int s, int t, int j, int d, FusedGeometry* g) {
+static int fused_geometry_here(int n, int s, int t, int j, int d, bool force_global,
+                               FusedGeometry* g) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -786,49 +857,64 @@ static int fused_geometry_here(int n, int s, int t, int j, int d, FusedGeometry*
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  *g = fused_geometry(n, s, t, j, d, sms, (size_t)smem_max);
+  *g = fused_geometry(n, s, t, j, d, sms, (size_t)smem_max, force_global);
   return g->smem > (size_t)smem_max ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+static int bwd_geometry_out(int n, int s, int t, int j, int d, bool force_global,
+                            long long* out) {
+  FusedGeometry g;
+  const int err = fused_geometry_here(n, s, t, j, d, force_global, &g);
+  const long long v[7] = {g.per, g.cpc, (long long)g.smem, (long long)g.scratch, g.nbuf,
+                          g.acc_smem ? 1 : 0, g.route};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return err;
 }
 
 // K6's geometry on the current device: out = {CTAs per sequence, chunks per CTA,
 // shared memory per CTA in bytes, scratch floats, h buffers, dC^T h in shared
-// memory (0/1)}. The wrapper allocates the scratch from it. Returns the
-// cudaError_t (cudaErrorInvalidConfiguration: the shape needs more shared
-// memory than a block has; out is filled all the same).
+// memory (0/1), route (0 staged, 1 global)}. The wrapper allocates the scratch
+// from it. Returns the cudaError_t (cudaErrorInvalidConfiguration: the shape
+// needs more shared memory than a block has even on the global route; out is
+// filled all the same).
 int fvta_stats_bwd_geometry(int n, int s, int t, int j, int d, long long* out) {
-  FusedGeometry g;
-  const int err = fused_geometry_here(n, s, t, j, d, &g);
-  const long long v[6] = {g.per, g.cpc, (long long)g.smem, (long long)g.scratch, g.nbuf,
-                          g.acc_smem ? 1 : 0};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
-  return err;
+  return bwd_geometry_out(n, s, t, j, d, false, out);
+}
+
+// fvta_stats_bwd_geometry with the global route forced at any width: no
+// package path asks for it; the card tests hold the two routes against each
+// other with it.
+int fvta_stats_bwd_geometry_global(int n, int s, int t, int j, int d, long long* out) {
+  return bwd_geometry_out(n, s, t, j, d, true, out);
 }
 
 // Outputs dh [N,S,T,D], dq [N,J,D], dwx/dwy/dwxy [N,D]; scratch: the floats
 // fvta_stats_bwd_geometry gives (the CTAs' partials, each written before read).
-// per, cpc, nbuf, acc_smem and smem are that geometry, read once by the caller
-// for this shape on the current device and passed back unchanged, so a launch
-// queries nothing. The kernel's shared-memory limit is raised once per device.
+// per, cpc, nbuf, acc_smem, smem and route are that geometry, read once by the
+// caller for this shape on the current device and passed back unchanged, so a
+// launch queries nothing. Each route's shared-memory limit is raised once per
+// device.
 int fvta_stats_bwd(const float* h, const float* cm, const float* q, const float* qm,
                    const float* wx, const float* wy, const float* wxy, const float* de,
                    const float* geq, const float* eq, const float* qcnt, const float* e,
                    const float* m, const float* gv, float* dh, float* dq, float* dwx,
                    float* dwy, float* dwxy, float* scratch, int n, int s, int t, int j, int d,
-                   int per, int cpc, int nbuf, int acc_smem, long long smem, void* stream) {
-  static int smem_set[64] = {0};   // per device: the limit set so far (0: none)
+                   int per, int cpc, int nbuf, int acc_smem, long long smem, int route,
+                   void* stream) {
+  static int smem_set[2][64] = {};   // per route and device: the limit set so far (0: none)
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
+  const auto kernel = route ? bwd_fused_kernel<true> : bwd_fused_kernel<false>;
+  if (smem > smem_set[route != 0][dev]) {
     int smem_max = 0;
     err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess && smem > smem_max) err = cudaErrorInvalidConfiguration;
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(bwd_fused_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
     if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = smem_max;
+    smem_set[route != 0][dev] = smem_max;
   }
   const size_t slots = (size_t)n * s * per, ds = vec_stride(d), jp = round_j(j);
   float* part = scratch;
@@ -836,7 +922,7 @@ int fvta_stats_bwd(const float* h, const float* cm, const float* q, const float*
   float* dwxpart = colpart + slots * jp;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  bwd_fused_kernel<<<dim3(per, s, n), THREADS, (size_t)smem, st>>>(
+  kernel<<<dim3(per, s, n), THREADS, (size_t)smem, st>>>(
       h, cm, q, qm, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv, dh, part, colpart, dwxpart, s,
       t, j, d, per, cpc, nbuf, acc_smem, vec);
   err = cudaGetLastError();

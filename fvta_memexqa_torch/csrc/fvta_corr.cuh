@@ -23,8 +23,20 @@
 // C in 4 x 2 register tiles (`serial_dot_4x2`) that `walk_run` hands to the
 // kernel's own per-tile and per-pass steps.
 //
+// The global route (K4 and K5 past the widths whose staged run fits a CTA's
+// shared memory: D = 572 at J = 30, 516 at J = 512 on the H100). run_geometry
+// chooses it by shape, never after a failed launch. h rows, hw = h*wxy and the
+// question rows are read from device memory (they stay in L2), hw formed in
+// registers as each term is taken; only the per-row and per-word arrays (the
+// pass's context-mask values, sx, syv, qmv, eqv, the kernels' erow, prow and
+// wq) stay in shared memory, so its size no longer grows with D. Every C
+// element is still one serial __fmaf_rn chain from d = 0 over the same terms
+// (the staged route's zero padding adds exactly nothing), so both routes give
+// the same bits and K5/K6 find K4's maxima whichever route each of them took.
+//
 // The geometry is plain C++, so the host compiler checks it against its Python
-// mirror (tests/test_torch_k45.py); the device code needs nvcc.
+// mirror (tests/test_torch_k45.py, tests/test_torch_widths.py); the device code
+// needs nvcc.
 
 #pragma once
 
@@ -70,9 +82,10 @@ struct RunLayout {
   size_t hbuf, cmbuf, hw, qs, wxs, wys, wxys, syv, qmv, eqv, sx, erow, prow, wq, vacc, total;
 };
 
-FVTA_HD inline RunLayout run_layout(int j, int d, int rows, int nbuf) {
+// global: the global route's layout, with no array that grows with D.
+FVTA_HD inline RunLayout run_layout(int j, int d, int rows, int nbuf, bool global = false) {
   RunLayout l;
-  const size_t ds = vec_stride(d), jp = round_j(j);
+  const size_t ds = global ? 0 : vec_stride(d), jp = round_j(j);
   size_t o = 0;
   l.hbuf = o;   o += (size_t)nbuf * rows * ds;
   l.cmbuf = o;  o += (size_t)nbuf * rows;
@@ -99,14 +112,18 @@ FVTA_HD inline RunLayout run_layout(int j, int d, int rows, int nbuf) {
 // and h buffers (the first of 64 x 2, 32 x 2, 64 x 1, 32 x 1 that fits), smem
 // bytes per CTA, scratch floats (K4's partials: m and den per CTA, then v [D]
 // and eq [J] per CTA). N*S*per is about the SM count where N*S is below it;
-// per = 1 (a run of all of T) where N*S fills the card.
+// per = 1 (a run of all of T) where N*S fills the card. route 1 (global): none
+// of the four stagings fits, so h and q are read from device memory in passes
+// of 64 rows (one buffer of context-mask values); force_global takes that route
+// at any width (the card tests hold the two routes against each other with it).
 struct RunGeometry {
   int per, cpc, rows, nbuf;
   size_t smem, scratch;
+  int route;
 };
 
 FVTA_HD inline RunGeometry run_geometry(int n, int s, int t, int j, int d, int sms,
-                                        size_t smem_max) {
+                                        size_t smem_max, bool force_global = false) {
   RunGeometry g;
   const int chunks = (t + TCH - 1) / TCH, ns = n * s;
   g.per = sms / ns > 1 ? sms / ns : 1;
@@ -118,6 +135,12 @@ FVTA_HD inline RunGeometry run_geometry(int n, int s, int t, int j, int d, int s
     g.nbuf = staging[k][1];
     g.smem = run_layout(j, d, g.rows, g.nbuf).total;
     if (g.smem <= smem_max) break;
+  }
+  g.route = force_global || g.smem > smem_max ? 1 : 0;
+  if (g.route) {
+    g.rows = RUN_ROWS;
+    g.nbuf = 1;
+    g.smem = run_layout(j, d, g.rows, g.nbuf, true).total;
   }
   g.scratch = (size_t)ns * g.per * (2 + d + j);
   return g;
@@ -219,6 +242,61 @@ __device__ __forceinline__ void serial_dot_4x2(const float* const a[4], const fl
     out[r][0] = c[r][0];
     out[r][1] = c[r][1];
   }
+  if constexpr (SX) *sx = cx;
+}
+
+// serial_dot_4x2 on the global route: rows a[r] of h and question rows b0, b1
+// in device memory (stride D, no alignment), hw = __fmul_rn(h, wxy) formed per
+// term: out[r][b] = serial_dot(h_r * wxy, b_b, D) and sx = serial_dot(xs, wx, D)
+// bit for bit, each chain in the staged form's order without its zero padding.
+template <bool SX>
+__device__ __forceinline__ void serial_dot_4x2_global(const float* const a[4], const float* b0,
+                                                      const float* b1, const float* wxy, int d,
+                                                      float out[4][2],
+                                                      const float* xs = nullptr,
+                                                      const float* wx = nullptr,
+                                                      float* sx = nullptr) {
+  float c[4][2] = {}, cx = 0.0f;
+  for (int i = 0; i < d; ++i) {
+    const float w = __ldg(wxy + i), y0 = __ldg(b0 + i), y1 = __ldg(b1 + i);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = __fmul_rn(__ldg(a[r] + i), w);
+      c[r][0] = __fmaf_rn(x, y0, c[r][0]);
+      c[r][1] = __fmaf_rn(x, y1, c[r][1]);
+    }
+    if constexpr (SX) cx = __fmaf_rn(__ldg(xs + i), __ldg(wx + i), cx);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    out[r][0] = c[r][0];
+    out[r][1] = c[r][1];
+  }
+  if constexpr (SX) *sx = cx;
+}
+
+// serial_dot_2x2 on the global route (K6): serial_dot_4x2_global for rows a0, a1.
+template <bool SX>
+__device__ __forceinline__ void serial_dot_2x2_global(const float* a0, const float* a1,
+                                                      const float* b0, const float* b1,
+                                                      const float* wxy, int d, float out[2][2],
+                                                      const float* xs = nullptr,
+                                                      const float* wx = nullptr,
+                                                      float* sx = nullptr) {
+  float c00 = 0.0f, c01 = 0.0f, c10 = 0.0f, c11 = 0.0f, cx = 0.0f;
+  for (int i = 0; i < d; ++i) {
+    const float w = __ldg(wxy + i), y0 = __ldg(b0 + i), y1 = __ldg(b1 + i);
+    const float x0 = __fmul_rn(__ldg(a0 + i), w), x1 = __fmul_rn(__ldg(a1 + i), w);
+    c00 = __fmaf_rn(x0, y0, c00);
+    c01 = __fmaf_rn(x0, y1, c01);
+    c10 = __fmaf_rn(x1, y0, c10);
+    c11 = __fmaf_rn(x1, y1, c11);
+    if constexpr (SX) cx = __fmaf_rn(__ldg(xs + i), __ldg(wx + i), cx);
+  }
+  out[0][0] = c00;
+  out[0][1] = c01;
+  out[1][0] = c10;
+  out[1][1] = c11;
   if constexpr (SX) *sx = cx;
 }
 
@@ -369,7 +447,8 @@ __device__ __forceinline__ void issue_pass(float* hdst, float* cmdst, const RunA
 // for each tile jt of QT words:
 //   tile(jt, t0, rows, cmv, row, c)   c[k][b] = C at row[k], word jt*QT + jq + 16b
 // (rows past `rows` and words past J hold values to be ignored); then
-//   pass(k, t0, rows, hs)             k = pass index within the run, hs its h rows
+//   pass(k, t0, rows, hs, ld)         k = pass index within the run, hs its h rows
+//                                     (row stride ld)
 // Both are called by every thread, with no barrier after the last tile, so
 // pass starts with __syncthreads() where it reads what tile wrote. The walk
 // ends with __syncthreads(). smem holds run_layout(J, D, rows, nbuf).
@@ -465,8 +544,69 @@ __device__ __forceinline__ void walk_run(const RunArgs& a, float* smem, Tile&& t
             cv[r][b] = __fadd_rn(__fadd_rn(dot[r][b], sx[row[r]]), syv[jt * QT + jq + 16 * b]);
       tile(jt, t0, rows, cmv, row, cv);
     }
-    pass(k, t0, rows, hs);
+    pass(k, t0, rows, hs, ds);
     __syncthreads();   // the buffers are free for the next pass's copy
+  }
+}
+
+// walk_run on the global route (run_geometry route 1): the same passes, tiles
+// and callbacks, with h and q read from device memory (pass gets hs = the
+// pass's rows of h_seq, ld = D). Rows past the pass and words past J read the
+// last valid row and word; their values are ignored, as on the staged route.
+// smem holds run_layout(J, D, rows, 1, true).
+template <class Tile, class Pass>
+__device__ __forceinline__ void walk_run_global(const RunArgs& a, float* smem, Tile&& tile,
+                                                Pass&& pass) {
+  const int R = a.rows, D = a.D;
+  const RunLayout l = run_layout(a.J, D, R, 1, true);
+  float *cmv = smem + l.cmbuf, *syv = smem + l.syv, *qmv = smem + l.qmv, *eqv = smem + l.eqv;
+  float* sx = smem + l.sx;
+  const int jp = round_j(a.J), ntiles = jp / QT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, step = R / TCH;
+  for (int j = tid; j < jp; j += THREADS) {
+    const bool v = j < a.J;
+    qmv[j] = v && a.qm_n ? a.qm_n[j] : 0.0f;
+    eqv[j] = v && a.eq_n ? a.eq_n[j] : 0.0f;
+    // sy = <wy, q_j>, serial from d = 0 (a zero row past J gives +0, as staged)
+    syv[j] = v ? serial_dot(a.q_n + (size_t)j * D, a.wy, D) : 0.0f;
+  }
+  const bool active = tid < 4 * R;
+  const int jq = tid % 16;
+  int row[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) row[k] = active ? tid / 16 + k * (R / 4) : R;
+  for (int c = a.c0; c < a.c1; c += step) {
+    const int k = (c - a.c0) / step, t0 = c * TCH, rows = pass_rows(a, c);
+    for (int r = tid; r < R; r += THREADS) cmv[r] = r < rows ? a.cm_seq[t0 + r] : 0.0f;
+    __syncthreads();
+    const float* hs = a.h_seq + (size_t)t0 * D;
+    for (int jt = 0; jt < ntiles; ++jt) {
+      float dot[4][2];
+      if (active) {
+        const float* ar[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) ar[r] = hs + (size_t)min(row[r], rows - 1) * D;
+        const float* b0 = a.q_n + (size_t)min(jt * QT + jq, a.J - 1) * D;
+        const float* b1 = a.q_n + (size_t)min(jt * QT + jq + 16, a.J - 1) * D;
+        if (jt == 0 && warp < R / 32)   // these warps also carry the rows' sx = <wx, h>
+          serial_dot_4x2_global<true>(ar, b0, b1, a.wxy, D, dot,
+                                      hs + (size_t)min(lane + 32 * warp, rows - 1) * D, a.wx,
+                                      sx + lane + 32 * warp);
+        else
+          serial_dot_4x2_global<false>(ar, b0, b1, a.wxy, D, dot);
+      }
+      __syncthreads();   // sx written
+      float cv[4][2] = {};
+      if (active)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+            cv[r][b] = __fadd_rn(__fadd_rn(dot[r][b], sx[row[r]]), syv[jt * QT + jq + 16 * b]);
+      tile(jt, t0, rows, cmv, row, cv);
+    }
+    pass(k, t0, rows, hs, D);
+    __syncthreads();   // cmv and sx are free for the next pass
   }
 }
 

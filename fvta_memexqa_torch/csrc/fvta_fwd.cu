@@ -402,20 +402,80 @@ __device__ __forceinline__ void dot_pass(const float* a, const float* b, int ds,
     }
 }
 
+// dot_pass on the global route: rows rp, rp + 16 of a pass (nr valid rows from
+// hp, stride D; a row past nr reads the last valid one, its values ignored)
+// against columns ct + jq, ct + jq + 16 of C's right-hand side (column 0 w_x,
+// column c in 1..J q_{c-1} * w_xy, zero past J), all read from device memory.
+// Term d goes to chain d % 8, the chains summed pairwise as dot_pass sums them:
+// the staged form's order without its zero padding.
+__device__ __forceinline__ void dot_pass_global(const float* hp, int nr, const float* qn,
+                                                const float* wx, const float* wxy, int J, int D,
+                                                int ct, float* cbuf, int cs, int rp, int jq) {
+  const float* const x[2] = {hp + (size_t)min(rp, nr - 1) * D,
+                             hp + (size_t)min(rp + 16, nr - 1) * D};
+  const float* y[2];
+  bool scaled[2], zero[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int col = ct + jq + 16 * c;
+    zero[c] = col > J;
+    scaled[c] = col > 0;
+    y[c] = col == 0 || zero[c] ? wx : qn + (size_t)(col - 1) * D;
+  }
+  float acc[2][2][8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[r][c][e] = 0.0f;
+  auto term = [&](int d, int e) {
+    const float w = __ldg(wxy + d);
+    float yv[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) yv[c] = scaled[c] ? __fmul_rn(__ldg(y[c] + d), w) : __ldg(y[c] + d);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float xv = __ldg(x[r] + d);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) acc[r][c][e] = fmaf(xv, yv[c], acc[r][c][e]);
+    }
+  };
+  int i = 0;
+  for (; i + 8 <= D; i += 8) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) term(i + e, e);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (i + e < D) term(i + e, e);
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float* a = acc[r][c];
+      cbuf[(rp + 16 * r) * cs + jq + 16 * c] =
+          zero[c] ? 0.0f : ((a[0] + a[4]) + (a[1] + a[5])) + ((a[2] + a[6]) + (a[3] + a[7]));
+    }
+}
+
+// GLOBAL: the global route (plan route 1): h, q and the weights read from
+// device memory, each segment's V row in vscr ([grid, segs, D]).
+template <bool GLOBAL>
 __global__ void __launch_bounds__(THREADS, 2)
 k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                   const float* __restrict__ q, const float* __restrict__ qm,
                   const float* __restrict__ wx, const float* __restrict__ wy,
                   const float* __restrict__ wxy, float* __restrict__ ctx,
                   float* __restrict__ qatt, float* __restrict__ ta, float* __restrict__ sa,
-                  int S, int T, int J, int D, int C, int P, int L, int G, int RB, int bufs,
-                  int qtile, int vec) {
+                  float* __restrict__ vscr, int S, int T, int J, int D, int C, int P, int L,
+                  int G, int RB, int bufs, int qtile, int vec) {
   extern __shared__ __align__(16) float smem_v[];
   float* smem = smem_v;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n = blockIdx.x / C;
-  const k2::Layout l = k2::layout(J, D, C, G, RB, bufs, qtile);
+  const k2::Layout l = k2::layout(J, D, C, G, RB, bufs, qtile, GLOBAL);
   float *hbuf = smem + l.hbuf, *cmv = smem + l.cmv, *qs = smem + l.qs, *wxys = smem + l.wxys;
   float *wys = smem + l.wys, *qsl = smem + l.qsl, *cbuf = smem + l.cbuf, *eb = smem + l.eb;
   float *sxr = smem + l.sxr, *rowmax = smem + l.rowmax;
@@ -437,13 +497,17 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   const float* qn = q + (size_t)n * J * D;
   const int dc = (D + C - 1) / C, d0 = rank * dc;   // this CTA's slice of D for ctx and q~
   const int dw = d0 < D ? (d0 + dc < D ? dc : D - d0) : 0;
+  // each own segment's V row: in shared memory (stride ds), or on the global
+  // route in this CTA's rows of the scratch (stride D)
+  float* const Vp = GLOBAL ? vscr + (size_t)blockIdx.x * G * D : V;
+  const int vld = GLOBAL ? D : ds;
 
   // (0) cp.async group 1: the question side (w_x as column 0 and q's rows as
   // columns 1..J of C's right-hand side, w_y, w_xy, q's mask, q's columns of
   // this CTA's slice of D); group 2: the first block's rows of h and of the
   // context mask. Pads are zeroed by plain stores. With qtile, the right-hand
   // side is staged one tile at a time in the loop instead.
-  if (!qtile) {
+  if (!GLOBAL && !qtile) {
     issue_rows(qs + ds, qn, J, D, ds, vec & 2);
     for (int c = tid; c < D; c += THREADS) cp_async4(qs + c, wx + c);
     for (int i = tid; i < J * dw; i += THREADS)
@@ -452,13 +516,15 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
       qs[(i / (ds - D)) * ds + D + i % (ds - D)] = 0.0f;
     for (int i = (J + 1) * ds + tid; i < jc * ds; i += THREADS) qs[i] = 0.0f;
   }
-  for (int c = tid; c < ds; c += THREADS) {
-    if (c < D) {
-      cp_async4(wys + c, wy + c);
-      cp_async4(wxys + c, wxy + c);
-    } else {
-      wys[c] = 0.0f;
-      wxys[c] = 0.0f;
+  if constexpr (!GLOBAL) {
+    for (int c = tid; c < ds; c += THREADS) {
+      if (c < D) {
+        cp_async4(wys + c, wy + c);
+        cp_async4(wxys + c, wxy + c);
+      } else {
+        wys[c] = 0.0f;
+        wxys[c] = 0.0f;
+      }
     }
   }
   for (int i = tid; i < jc; i += THREADS) {
@@ -466,16 +532,18 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     else qmv[i] = 0.0f;
   }
   cp_async_commit();
-  for (int i = tid; i < bufs * RB * (ds - D); i += THREADS)
-    hbuf[(i / (ds - D)) * ds + D + i % (ds - D)] = 0.0f;
   {
     const int rows = nrows < RB ? nrows : RB;
-    issue_rows(hbuf, hx, rows, D, ds, vec & 1);
+    if constexpr (!GLOBAL) {
+      for (int i = tid; i < bufs * RB * (ds - D); i += THREADS)
+        hbuf[(i / (ds - D)) * ds + D + i % (ds - D)] = 0.0f;
+      issue_rows(hbuf, hx, rows, D, ds, vec & 1);
+    }
     for (int r = tid; r < rows; r += THREADS) cp_async4(cmv + r, cmx + r);
   }
   cp_async_commit();
   for (int i = tid; i < WARPS * jc; i += THREADS) wqmx[i] = -INFINITY;
-  for (int i = tid; i < G * ds; i += THREADS) V[i] = 0.0f;
+  for (int i = tid; i < G * vld; i += THREADS) Vp[i] = 0.0f;
   cp_async_wait<1>();   // the question side has landed
   __syncthreads();
   // sy = <wy, q_j> (summed in double, one rounding) and q_j * w_xy in place
@@ -485,7 +553,7 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     double p = 0.0;
     if (qtile) {
       for (int c = lane; c < D; c += 32)
-        p = __fma_rn((double)qn[(size_t)j * D + c], (double)wys[c], p);
+        p = __fma_rn((double)qn[(size_t)j * D + c], (double)(GLOBAL ? wy[c] : wys[c]), p);
     } else {
       float4* row = reinterpret_cast<float4*>(qs + (j + 1) * ds);
       for (int c = lane; c < dv; c += 32) {
@@ -526,7 +594,7 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
       cp_async_wait<1>();
     } else {
       if (b > 0) {
-        issue_rows(hs, hx + (size_t)r0 * D, nr, D, ds, vec & 1);
+        if constexpr (!GLOBAL) issue_rows(hs, hx + (size_t)r0 * D, nr, D, ds, vec & 1);
         for (int r = tid; r < nr; r += THREADS) cp_async4(cmb + r, cmx + r0 + r);
         cp_async_commit();
       }
@@ -540,7 +608,7 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     // last tile E and the raw score into time_attn
     for (int st = 0; st < nr; st += SUB) {
       for (int ct = 0; ct < jc; ct += JT) {
-        if (qtile) {   // columns [ct, ct + JT) of the right-hand side
+        if (!GLOBAL && qtile) {   // columns [ct, ct + JT) of the right-hand side
           __syncthreads();
           for (int i = tid; i < JT * ds; i += THREADS) {   // w_x, and zeros past J
             const int col = ct + i / ds, c = i % ds;
@@ -559,8 +627,13 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
             qs[i] *= wxys[i % ds];
           __syncthreads();
         }
-        const float* qb = qs + (qtile ? 0 : ct) * ds;
-        dot_pass(hs + st * ds, qb, ds, cbuf, cs, rp, jq);
+        if constexpr (GLOBAL) {
+          dot_pass_global(hx + (size_t)(r0 + st) * D, nr - st, qn, wx, wxy, J, D, ct, cbuf,
+                          cs, rp, jq);
+        } else {
+          const float* qb = qs + (qtile ? 0 : ct) * ds;
+          dot_pass(hs + st * ds, qb, ds, cbuf, cs, rp, jq);
+        }
         __syncthreads();
         for (int r = warp; r < SUB && st + r < nr; r += WARPS) {
           const int rl = st + r, j = ct + lane - 1;   // this lane's word (column 0 is w_x)
@@ -626,8 +699,20 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
     __syncthreads();
 
     // (c) V = V * scale + p . h over the block's rows of each segment, a float4
-    // of columns a thread, rows in order
-    for (int i = tid; i < (gb - ga + 1) * dv; i += THREADS) {
+    // of columns a thread (on the global route a column), rows in order
+    if constexpr (GLOBAL) {
+      for (int i = tid; i < (gb - ga + 1) * D; i += THREADS) {
+        const int g = ga + i / D, c = i % D, seg = seg0 + g;
+        const int lo = (sg.start(seg) > xb ? sg.start(seg) : xb) - xb;
+        const int hi = (sg.end(seg) < xb + nr ? sg.end(seg) : xb + nr) - xb;
+        float* vp = Vp + (size_t)g * D + c;
+        float a = *vp;
+        a *= sscale[g];
+        for (int r = lo; r < hi; ++r) a = fmaf(eb[r], __ldg(hx + (size_t)(r0 + r) * D + c), a);
+        *vp = a;
+      }
+    }
+    for (int i = tid; i < (GLOBAL ? 0 : (gb - ga + 1) * dv); i += THREADS) {
       const int g = ga + i / dv, c = 4 * (i % dv), seg = seg0 + g;
       const int lo = (sg.start(seg) > xb ? sg.start(seg) : xb) - xb;
       const int hi = (sg.end(seg) < xb + nr ? sg.end(seg) : xb + nr) - xb;
@@ -772,7 +857,7 @@ k2_cluster_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   // for this CTA's slice
   for (int c = tid; c < D; c += THREADS) {
     float a = 0.0f;
-    for (int g = 0; g < mine; ++g) a = fmaf(wsl[g], V[g * ds + c], a);
+    for (int g = 0; g < mine; ++g) a = fmaf(wsl[g], Vp[g * vld + c], a);
     *cluster.map_shared_rank(pcs + rank * dc + c % dc, c / dc) = a;
   }
   for (int i = tid; i < dw; i += THREADS) {
@@ -810,12 +895,14 @@ int prepare_device(int dev) {
   int smem_max = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k2_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_max);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k2_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const void* kernels[2] = {(const void*)k2_cluster_kernel<false>,
+                            (const void*)k2_cluster_kernel<true>};
+  for (const void* kernel : kernels) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
   if (err != cudaSuccess) return (int)err;
   done[dev] = true;
   return 0;
@@ -870,15 +957,7 @@ int fvta_fwd_serial(const float* h, const float* cm, const float* q, const float
   return (int)cudaGetLastError();
 }
 
-// K2's geometry on the current device: out = {cluster, chunks per sequence,
-// chunk length, segments per CTA, rows per block, buffers, q in tiles (0/1),
-// shared memory per CTA (bytes), clusters the card holds at once, SMs, the
-// cluster cap the plan was made with}. The plan (fvta_fwd.cuh) is tried with a cap of 16, then 8,
-// 4, 2, 1; the first whose N clusters the card holds at once
-// (cudaOccupancyMaxActiveClusters) is taken, else the last schedulable one.
-// Returns 0, a cudaError_t, cudaErrorInvalidConfiguration where the shape
-// needs more shared memory than a CTA has, or CLUSTER_UNSCHEDULABLE.
-int fvta_fwd_geometry(int n, int s, int t, int j, int d, long long* out) {
+static int geometry(int n, int s, int t, int j, int d, bool force_global, long long* out) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -889,37 +968,64 @@ int fvta_fwd_geometry(int n, int s, int t, int j, int d, long long* out) {
   if (err != 0) return err;
   bool found = false;
   for (int cmax = k2::MAX_CLUSTER; cmax >= 1; cmax /= 2) {
-    const k2::Plan p = k2::plan(n, s, t, j, d, sms, (size_t)smem_max, cmax);
+    const k2::Plan p = k2::plan(n, s, t, j, d, sms, (size_t)smem_max, cmax, force_global);
     if (p.smem > (size_t)smem_max) {
       if (found) break;
       out[7] = (long long)p.smem;
       return (int)cudaErrorInvalidConfiguration;
     }
+    if (p.route && found && !force_global) break;   // a staged plan runs at a larger cap
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = launch_config(p.cluster, p.cluster, p.smem, 0, attr);
     int active = 0;
-    e = cudaOccupancyMaxActiveClusters(&active, (const void*)k2_cluster_kernel, &cfg);
+    e = cudaOccupancyMaxActiveClusters(
+        &active, (const void*)(p.route ? k2_cluster_kernel<true> : k2_cluster_kernel<false>),
+        &cfg);
     if (e != cudaSuccess) {
       cudaGetLastError();   // not sticky: try a smaller cluster
       continue;
     }
     if (active < 1) continue;
-    const long long v[11] = {p.cluster, p.chunks, p.chunk_len, p.segs, p.rows, p.bufs,
-                             p.qtile, (long long)p.smem, active, sms, cmax};
-    for (int i = 0; i < 11; ++i) out[i] = v[i];
+    const long long v[13] = {p.cluster, p.chunks, p.chunk_len, p.segs, p.rows, p.bufs,
+                             p.qtile, (long long)p.smem, active, sms, cmax, p.route,
+                             (long long)k2::v_scratch(p, n, d)};
+    for (int i = 0; i < 13; ++i) out[i] = v[i];
     found = true;
     if (n <= active) break;   // one wave
   }
   return found ? 0 : CLUSTER_UNSCHEDULABLE;
 }
 
-// K2. cluster .. smem are the geometry fvta_fwd_geometry gave for this shape on
-// the current device, read once by the caller and passed back unchanged, so a
-// launch queries nothing. Returns the cudaError_t of the launch (0 = success).
+// K2's geometry on the current device: out = {cluster, chunks per sequence,
+// chunk length, segments per CTA, rows per block, buffers, q in tiles (0/1),
+// shared memory per CTA (bytes), clusters the card holds at once, SMs, the
+// cluster cap the plan was made with, route (0 staged, 1 global), floats of the
+// global route's V scratch}. The plan (fvta_fwd.cuh) is tried with a cap of 16,
+// then 8, 4, 2, 1; the first whose N clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters) is taken, else the last schedulable one; a
+// global plan is taken only where no cap gives a staged one. Returns 0, a
+// cudaError_t, cudaErrorInvalidConfiguration where the shape needs more shared
+// memory than a CTA has even on the global route, or CLUSTER_UNSCHEDULABLE.
+int fvta_fwd_geometry(int n, int s, int t, int j, int d, long long* out) {
+  return geometry(n, s, t, j, d, false, out);
+}
+
+// fvta_fwd_geometry with the global route forced at any width: no package path
+// asks for it; the card tests hold the two routes against each other with it.
+int fvta_fwd_geometry_global(int n, int s, int t, int j, int d, long long* out) {
+  return geometry(n, s, t, j, d, true, out);
+}
+
+// K2. cluster .. route are the geometry fvta_fwd_geometry gave for this shape
+// on the current device, read once by the caller and passed back unchanged, so
+// a launch queries nothing; vscr holds the geometry's V scratch floats (unused,
+// may be null, on the staged route). Returns the cudaError_t of the launch (0 =
+// success).
 int fvta_fwd(const float* h, const float* cm, const float* q, const float* qm, const float* wx,
              const float* wy, const float* wxy, float* ctx, float* qatt, float* ta, float* sa,
-             int n, int s, int t, int j, int d, int cluster, int chunks, int chunk_len,
-             int segs, int rows, int bufs, int qtile, long long smem, void* stream) {
+             float* vscr, int n, int s, int t, int j, int d, int cluster, int chunks,
+             int chunk_len, int segs, int rows, int bufs, int qtile, long long smem, int route,
+             void* stream) {
   int dev = 0;
   const cudaError_t de = cudaGetDevice(&dev);
   if (de != cudaSuccess) return (int)de;
@@ -931,9 +1037,10 @@ int fvta_fwd(const float* h, const float* cm, const float* q, const float* qm, c
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(n * cluster, cluster, (size_t)smem, (cudaStream_t)stream, attr);
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, k2_cluster_kernel, h, cm, q, qm, wx, wy, wxy,
-                                           ctx, qatt, ta, sa, s, t, j, d, cluster, chunks,
-                                           chunk_len, segs, rows, bufs, qtile, vec);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, route ? k2_cluster_kernel<true> : k2_cluster_kernel<false>, h, cm, q, qm, wx, wy,
+      wxy, ctx, qatt, ta, sa, vscr, s, t, j, d, cluster, chunks, chunk_len, segs, rows, bufs,
+      qtile, vec);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,13 @@
 // one computes, with the time softmax carried online per segment. Where that
 // does not fit a CTA's shared memory, q is staged in tiles of JT columns, and
 // past that the cluster grows (fewer segments per CTA).
+//
+// The global route (route 1), past the last staging that fits at the largest
+// cluster (D ~ 812 at S = T = 24, J = 30 on the H100): the h blocks, q and w_*
+// are read from device memory (they stay in L2) and each segment's V row lives
+// in a scratch buffer in device memory ([N * C, segs, D]); the blocks are 32
+// rows, one buffer of context-mask values. Nothing left in shared memory grows
+// with D but pcs, the cluster's partial contexts over this CTA's slice of D.
 
 #pragma once
 
@@ -64,17 +71,18 @@ struct Layout {
 // (none with qtile: q~ then reads q from device memory). pcs is written by
 // every CTA of the cluster: each CTA's partial context over this CTA's slice
 // of D.
+// global: the global route's layout (no hbuf, qs, wxys, wys, qsl or v).
 K2_HD inline Layout layout(int j, int d, int cluster, int segs, int rows, int bufs,
-                           int qtile) {
+                           int qtile, bool global = false) {
   Layout l;
-  const size_t ds = vec_stride(d), jc = c_cols(j), g = round4(segs);
+  const size_t ds = global ? 0 : vec_stride(d), jc = c_cols(j), g = round4(segs);
   size_t o = 0;
   l.hbuf = o;     o += (size_t)bufs * rows * ds;
   l.cmv = o;      o += round4((size_t)bufs * rows);
   l.qs = o;       o += (qtile ? JT : jc) * ds;
   l.wxys = o;     o += ds;
   l.wys = o;      o += ds;
-  l.qsl = o;      o += qtile ? 0 : round4((size_t)j * ceil_div(d, cluster));
+  l.qsl = o;      o += qtile || global ? 0 : round4((size_t)j * ceil_div(d, cluster));
   l.cbuf = o;     o += round4(SUB * (JT + 1));
   l.sxr = o;      o += SUB;
   l.rowmax = o;   o += SUB;
@@ -108,7 +116,13 @@ struct Plan {
   int bufs;        // 1: the CTA's rows staged once (or one pass at a time); 2: double-buffered
   int qtile;       // 1: q staged JT columns at a time (it does not fit whole)
   size_t smem;     // dynamic shared memory per CTA, bytes
+  int route;       // 0: staged; 1: global (h, q and V in device memory)
 };
+
+// Floats of the global route's V scratch: segs rows of D per CTA of N clusters.
+K2_HD inline size_t v_scratch(const Plan& p, int n, int d) {
+  return p.route ? (size_t)n * p.cluster * p.segs * d : 0;
+}
 
 // The plan for N examples of S x T rows on a card with `sms` SMs, clusters of
 // at most `cmax` CTAs and `smem_max` bytes of shared memory per CTA. The
@@ -118,9 +132,13 @@ struct Plan {
 // C / S chunks. Staging: a CTA's rows at once where they fit RESIDENT_ROWS,
 // else blocks of STREAM_ROWS in two buffers, else one pass at a time; q whole,
 // else in tiles. Where nothing fits, the cluster doubles (fewer segments per
-// CTA) up to cmax. smem > smem_max means the shape cannot run.
-K2_HD inline Plan plan(int n, int s, int t, int j, int d, int sms, size_t smem_max, int cmax) {
+// CTA) up to cmax, and past that the plan takes the global route at the last
+// cluster (force_global: at the first, at any width). smem > smem_max means
+// the shape cannot run even there.
+K2_HD inline Plan plan(int n, int s, int t, int j, int d, int sms, size_t smem_max, int cmax,
+                       bool force_global = false) {
   Plan p;
+  p.route = 0;
   int c = 1;
   while (c < cmax && (long long)n * c < sms) c *= 2;
   if (c > cmax) c = cmax;
@@ -142,7 +160,7 @@ K2_HD inline Plan plan(int n, int s, int t, int j, int d, int sms, size_t smem_m
                                 span <= RESIDENT_ROWS ? ceil_div(span, SUB) * SUB : STREAM_ROWS},
                                {2, STREAM_ROWS},
                                {1, SUB}};
-    for (int qtile = 0; qtile <= 1; ++qtile) {
+    for (int qtile = 0; qtile <= 1 && !force_global; ++qtile) {
       for (int k = 0; k < 3; ++k) {
         p.bufs = staging[k][0];
         p.rows = staging[k][1];
@@ -151,7 +169,14 @@ K2_HD inline Plan plan(int n, int s, int t, int j, int d, int sms, size_t smem_m
         if (p.smem <= smem_max) return p;
       }
     }
-    if (c >= cmax) return p;
+    if (c >= cmax || force_global) {
+      p.route = 1;
+      p.bufs = 1;
+      p.rows = STREAM_ROWS;
+      p.qtile = 1;
+      p.smem = layout(j, d, p.cluster, p.segs, p.rows, p.bufs, p.qtile, true).total;
+      return p;
+    }
     c *= 2;
   }
 }

@@ -191,7 +191,10 @@ stats_combine_kernel(const float* __restrict__ m_p, const float* __restrict__ de
 }
 
 // K4's pass: one CTA per (run of chunks, sequence, example) of run_geometry;
-// writes e and the CTA's partial (m, den, v, eq) into its slot.
+// writes e and the CTA's partial (m, den, v, eq) into its slot. G: the global
+// route (walk_run_global; v carried in the CTA's own slot of v_p instead of
+// shared memory, each column by one thread in the same order).
+template <bool G>
 __global__ void __launch_bounds__(THREADS, 1)
 stats_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                  const float* __restrict__ q, const float* __restrict__ qm,
@@ -202,13 +205,14 @@ stats_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                  int nbuf, int vec) {
   extern __shared__ __align__(16) float smem_r[];
   float* smem = smem_r;
-  const RunLayout l = run_layout(J, D, rows_max, nbuf);
+  const RunLayout l = run_layout(J, D, rows_max, nbuf, G);
   const float* qmv = smem + l.qmv;
-  float *erow = smem + l.erow, *prow = smem + l.prow, *wq = smem + l.wq, *vacc = smem + l.vacc;
+  float *erow = smem + l.erow, *prow = smem + l.prow, *wq = smem + l.wq;
   const int p = blockIdx.x, s = blockIdx.y, n = blockIdx.z, per = gridDim.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, jq = tid % 16;
-  const int jp = round_j(J), ds = vec_stride(D), ntiles = jp / QT, chunks = (T + TCH - 1) / TCH;
+  const int jp = round_j(J), ntiles = jp / QT, chunks = (T + TCH - 1) / TCH;
   const size_t seq = (size_t)n * S + s, slot = seq * per + p;
+  float* vacc = G ? v_p + slot * D : smem + l.vacc;
   for (int i = tid; i < WARPS * jp; i += THREADS) wq[i] = -INFINITY;
   float* e_seq = e_out + seq * T;
   float rmax[4];             // this thread's rows' max of the q-masked C over the words so far
@@ -216,10 +220,8 @@ stats_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
   const RunArgs a{h + seq * T * D, cm + seq * T, q + (size_t)n * J * D, qm + (size_t)n * J,
                   nullptr, wx, wy, wxy, T, J, D, p * cpc, min(p * cpc + cpc, chunks),
                   rows_max, nbuf, vec};
-  walk_run(
-      a, smem,
-      [&](int jt, int t0, int rows, const float* cmv, const int (&row)[4],
-          const float (&c)[4][2]) {
+  auto tile = [&](int jt, int t0, int rows, const float* cmv, const int (&row)[4],
+                  const float (&c)[4][2]) {
         float col[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -255,8 +257,8 @@ stats_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
                 e_seq[t0 + row[r]] = e;
               }
         }
-      },
-      [&](int k, int, int rows, const float* hs) {
+      };
+  auto pass = [&](int k, int, int rows, const float* hs, int ld) {
         __syncthreads();   // erow complete
         if (warp == 0) {   // rows lane and lane + 32
           const float e0 = lane < rows ? erow[lane] : -INFINITY;
@@ -276,15 +278,20 @@ stats_run_kernel(const float* __restrict__ h, const float* __restrict__ cm,
         const float scale = prow[rows_max];
         for (int d = tid; d < D; d += THREADS) {
           float acc = k == 0 ? 0.0f : vacc[d] * scale;
-          for (int r = 0; r < rows; ++r) acc = fmaf(prow[r], hs[r * ds + d], acc);
+          for (int r = 0; r < rows; ++r) acc = fmaf(prow[r], hs[r * ld + d], acc);
           vacc[d] = acc;
         }
-      });
+      };
+  if constexpr (G)
+    walk_run_global(a, smem, tile, pass);
+  else
+    walk_run(a, smem, tile, pass);
   if (tid == 0) {
     m_p[slot] = m;
     den_p[slot] = den;
   }
-  for (int d = tid; d < D; d += THREADS) v_p[slot * D + d] = vacc[d];
+  if constexpr (!G)
+    for (int d = tid; d < D; d += THREADS) v_p[slot * D + d] = vacc[d];
   for (int j = tid; j < J; j += THREADS) {
     float v = -INFINITY;
     for (int w = 0; w < WARPS; ++w) v = fmaxf(v, wq[w * jp + j]);
@@ -366,45 +373,58 @@ int fvta_stats_chunked(const float* h, const float* cm, const float* q, const fl
   return (int)cudaGetLastError();
 }
 
-// K4's and K5's geometry (fvta_corr.cuh run_geometry) on the current device:
-// out = {CTAs per sequence, chunks per CTA, rows per pass, h buffers, shared
-// memory per CTA in bytes, K4's scratch floats}. Returns the cudaError_t
-// (cudaErrorInvalidConfiguration: the shape needs more shared memory than a
-// block has; out is filled all the same).
-int fvta_stats_geometry(int n, int s, int t, int j, int d, long long* out) {
+static int run_geometry_here(int n, int s, int t, int j, int d, bool force_global,
+                             long long* out) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const RunGeometry g = run_geometry(n, s, t, j, d, sms, (size_t)smem_max);
-  const long long v[6] = {g.per, g.cpc, g.rows, g.nbuf, (long long)g.smem,
-                          (long long)g.scratch};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  const RunGeometry g = run_geometry(n, s, t, j, d, sms, (size_t)smem_max, force_global);
+  const long long v[7] = {g.per, g.cpc, g.rows, g.nbuf, (long long)g.smem,
+                          (long long)g.scratch, g.route};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
   return g.smem > (size_t)smem_max ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// K4's and K5's geometry (fvta_corr.cuh run_geometry) on the current device:
+// out = {CTAs per sequence, chunks per CTA, rows per pass, h buffers, shared
+// memory per CTA in bytes, K4's scratch floats, route (0 staged, 1 global)}.
+// Returns the cudaError_t (cudaErrorInvalidConfiguration: the shape needs more
+// shared memory than a block has even on the global route; out is filled all
+// the same).
+int fvta_stats_geometry(int n, int s, int t, int j, int d, long long* out) {
+  return run_geometry_here(n, s, t, j, d, false, out);
+}
+
+// fvta_stats_geometry with the global route forced at any width: no package
+// path asks for it; the card tests hold the two routes against each other.
+int fvta_stats_geometry_global(int n, int s, int t, int j, int d, long long* out) {
+  return run_geometry_here(n, s, t, j, d, true, out);
 }
 
 // K4. Outputs m, den [N,S], v [N,S,D], eq [N,J], e [N,S,T]; scratch: the floats
 // fvta_stats_geometry gives (each CTA's partials, written before read). per,
-// cpc, rows, nbuf and smem are that geometry, read once by the caller for this shape
-// on the current device and passed back unchanged, so a launch queries
-// nothing; the kernel's shared-memory limit is raised once per device. Returns
-// the cudaError_t of the launches (0 = success).
+// cpc, rows, nbuf, smem and route are that geometry, read once by the caller
+// for this shape on the current device and passed back unchanged, so a launch
+// queries nothing; each route's shared-memory limit is raised once per device.
+// Returns the cudaError_t of the launches (0 = success).
 int fvta_stats(const float* h, const float* cm, const float* q, const float* qm,
                const float* wx, const float* wy, const float* wxy, float* m, float* den,
                float* v, float* eq, float* e, float* scratch, int n, int s, int t, int j,
-               int d, int per, int cpc, int rows, int nbuf, long long smem, void* stream) {
-  static long long smem_set[64] = {0};   // per device: the limit set so far (0: none)
+               int d, int per, int cpc, int rows, int nbuf, long long smem, int route,
+               void* stream) {
+  static long long smem_set[2][64] = {};   // per route and device: the limit set so far
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(stats_run_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  const auto kernel = route ? stats_run_kernel<true> : stats_run_kernel<false>;
+  if (smem > smem_set[route != 0][dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    smem_set[dev] = smem;
+    smem_set[route != 0][dev] = smem;
   }
   const size_t slots = (size_t)n * s * per;
   float* m_p = scratch;
@@ -413,7 +433,7 @@ int fvta_stats(const float* h, const float* cm, const float* q, const float* qm,
   float* eq_p = v_p + slots * d;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  stats_run_kernel<<<dim3(per, s, n), THREADS, (size_t)smem, st>>>(
+  kernel<<<dim3(per, s, n), THREADS, (size_t)smem, st>>>(
       h, cm, q, qm, wx, wy, wxy, e, m_p, den_p, v_p, eq_p, s, t, j, d, cpc, rows, nbuf, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -97,14 +97,40 @@ size_t rowtile_smem_bytes(int H) {
 
 }  // namespace
 
+// K7 with clusters of c CTAs, tiles of `rows` rows and `split` lanes per
+// unit, Wh resident or read from device memory (gscan::wh_global; force:
+// from device memory at any width).
+static int launch_scan(const float* x_proj, const int* lengths, long long len_stride,
+                       const float* wh, long long wh_stride, float* out, float* fin, int g,
+                       int n, int t, int h, int c, int rows, int split, float forget_bias,
+                       void* stream, bool force) {
+  const bool global = force || gscan::wh_global(h, c, rows, split);
+#define LSTM_GROUPED_CASE(R, S_)                                                                  \
+  if (rows == R && split == S_)                                                                   \
+    return global ? gscan::launch<R, S_, false, true>(x_proj, lengths, len_stride, wh,            \
+                                                       wh_stride, out, fin, g, n, t, h, c,        \
+                                                       forget_bias, stream)                       \
+                  : gscan::launch<R, S_, false, false>(x_proj, lengths, len_stride, wh,           \
+                                                        wh_stride, out, fin, g, n, t, h, c,       \
+                                                        forget_bias, stream);
+  LSTM_GROUPED_CASE(8, 4)
+  LSTM_GROUPED_CASE(8, 8)
+  LSTM_GROUPED_CASE(8, 16)
+  LSTM_GROUPED_CASE(16, 4)
+#undef LSTM_GROUPED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" {
 
 // The (cluster, rows per tile, lanes per unit) for g groups of n rows at hidden
-// width h (gscan::route; t does not change it): 0, or -1 when no cluster of at
-// most 8 CTAs holds the Wh slice.
-int lstm_grouped_route(int g, int n, int t, int h, int* cluster, int* rows, int* split) {
+// width h (gscan::route; t does not change it; past the largest cluster that
+// holds the Wh slices, Wh global), and in *wh_global whether the launch at that
+// route reads Wh from device memory: 0, or -1 when the shape cannot run.
+int lstm_grouped_route(int g, int n, int t, int h, int* cluster, int* rows, int* split,
+                       int* wh_global) {
   (void)t;
-  return gscan::route_c(g, n, h, cluster, rows, split);
+  return gscan::route_c(g, n, h, cluster, rows, split, wh_global);
 }
 
 long long lstm_grouped_smem_bytes(int h, int c, int rows, int split) {
@@ -114,22 +140,26 @@ long long lstm_grouped_smem_bytes(int h, int c, int rows, int split) {
 const char* lstm_grouped_error_string(int err) { return lrec::error_string(err); }
 
 // K7 on x_proj [G, N, T, 4H] (layout above) with clusters of c CTAs, tiles of
-// `rows` rows and `split` lanes per unit (lstm_grouped_route). Returns the
-// cudaError_t of the launch, -1 when the cluster cannot be scheduled, or 22
-// (cudaErrorInvalidValue) for a (rows, split) pair with no instantiation.
+// `rows` rows and `split` lanes per unit (lstm_grouped_route; Wh global where the
+// route's rule says so). Returns the cudaError_t of the launch, -1 when the
+// cluster cannot be scheduled, or 22 (cudaErrorInvalidValue) for a (rows,
+// split) pair with no instantiation.
 int lstm_grouped(const float* x_proj, const int* lengths, long long len_stride, const float* wh,
                  long long wh_stride, float* out, float* fin, int g, int n, int t, int h, int c,
                  int rows, int split, float forget_bias, void* stream) {
-#define LSTM_GROUPED_CASE(R, S_)                                                           \
-  if (rows == R && split == S_)                                                            \
-    return gscan::launch<R, S_, false>(x_proj, lengths, len_stride, wh, wh_stride, out, fin, \
-                                       g, n, t, h, c, forget_bias, stream);
-  LSTM_GROUPED_CASE(8, 4)
-  LSTM_GROUPED_CASE(8, 8)
-  LSTM_GROUPED_CASE(8, 16)
-  LSTM_GROUPED_CASE(16, 4)
-#undef LSTM_GROUPED_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_scan(x_proj, lengths, len_stride, wh, wh_stride, out, fin, g, n, t, h, c, rows,
+                     split, forget_bias, stream, false);
+}
+
+// lstm_grouped with Wh read from device memory at any width: no package path calls
+// it; the card tests hold it against the resident route at the same (c, rows,
+// split), bit for bit.
+int lstm_grouped_wh_global(const float* x_proj, const int* lengths, long long len_stride,
+                           const float* wh, long long wh_stride, float* out, float* fin, int g,
+                           int n, int t, int h, int c, int rows, int split, float forget_bias,
+                           void* stream) {
+  return launch_scan(x_proj, lengths, len_stride, wh, wh_stride, out, fin, g, n, t, h, c, rows,
+                     split, forget_bias, stream, true);
 }
 
 long long lstm_grouped_rowtile_smem_bytes(int h) { return (long long)rowtile_smem_bytes(h); }

@@ -32,6 +32,18 @@
 // S) by lstm_fused.lstm_route's rule generalised to G groups, with the grouped
 // kernels' own shared memory (K8's ring included, so that K7 and K8 always share
 // a route and give the same bits); ops/lstm_grouped.grouped_route mirrors it.
+//
+// Wh global (WH_GLOBAL; H past the largest cluster, H = 316 and up on the H100):
+// where no cluster of at most MAX_CLUSTER holds its Wh slices, the route takes
+// clusters of MAX_CLUSTER, 8-row tiles and 4 lanes per unit (a CTA within 1024
+// threads up to H = 2048), and each CTA reads its Wh columns from device
+// memory (they stay in L2) at every step instead of holding them resident; h
+// and K8's ring stay in shared memory. With 4 lanes a warp's load of one gate
+// takes 8 adjacent units of 4 rows of Wh, whole 32-byte sectors: at H = 316
+// and 512 on the H100 the scan took 0.69 and 1.92 ms against 1.59 and 4.89
+// with 16 lanes (G = 2, N = 256, T = 24). The choice is by shape (`wh_global`),
+// and the FMA order is the resident kernel's, so at the same (C, ROWS, S) both
+// give the same bits.
 
 #pragma once
 
@@ -49,14 +61,30 @@ constexpr size_t SMEM_LIMIT = 232448;    // shared memory bytes a CTA may use
 constexpr size_t HEADER_BYTES = 128;     // the ring's two mbarriers and the tile's lengths
 
 inline int max_threads(int rows) { return rows == 16 ? 416 : 512; }   // __launch_bounds__
+constexpr int MAX_THREADS_WH_GLOBAL = 1024;   // the Wh-global kernels' __launch_bounds__
 
 // Floats between the (row, gate) runs of K8's ring: Hc rounded up to 4.
 inline int ring_stride(int h, int c) { return ((h + c - 1) / c + 3) / 4 * 4; }
 
-// Dynamic shared memory of K7 (stream = false) or K8 (true) per CTA.
-inline size_t smem_bytes(int h, int c, int rows, int split, bool stream) {
-  return HEADER_BYTES + lrec::fwd_geometry(h, c, rows, split).smem +
+// Dynamic shared memory of K7 (stream = false) or K8 (true) per CTA, with Wh
+// resident (global = false) or read from device memory (h alone staged).
+inline size_t layout_bytes(int h, int c, int rows, int split, bool stream, bool global) {
+  return HEADER_BYTES +
+         (global ? sizeof(float) * 2 * (size_t)h * rows
+                 : lrec::fwd_geometry(h, c, rows, split).smem) +
          (stream ? sizeof(float) * 2 * 4 * (size_t)rows * ring_stride(h, c) : 0);
+}
+
+// Whether (c, rows, split) reads Wh from device memory: its resident K8 does
+// not fit the thread limit or the shared memory.
+inline bool wh_global(int h, int c, int rows, int split) {
+  return lrec::fwd_geometry(h, c, rows, split).threads > max_threads(rows) ||
+         layout_bytes(h, c, rows, split, true, false) > SMEM_LIMIT;
+}
+
+// Dynamic shared memory per CTA of the kernel (c, rows, split) launches.
+inline size_t smem_bytes(int h, int c, int rows, int split, bool stream) {
+  return layout_bytes(h, c, rows, split, stream, wh_global(h, c, rows, split));
 }
 
 // The most lanes per unit within the thread limit whose K8 fits; 0 if none does.
@@ -66,28 +94,39 @@ inline int pick_split(int h, int c, int rows) {
   const int* splits = rows == 16 ? by16 : by8;
   const int count = rows == 16 ? 1 : 3;
   for (int i = 0; i < count; ++i) {
-    if (lrec::fwd_geometry(h, c, rows, splits[i]).threads <= max_threads(rows) &&
-        smem_bytes(h, c, rows, splits[i], true) <= SMEM_LIMIT) {
-      return splits[i];
-    }
+    if (!wh_global(h, c, rows, splits[i])) return splits[i];
   }
   return 0;
 }
 
+// Wh global at clusters of MAX_CLUSTER and 8-row tiles: 4 lanes per unit where
+// the CTA stays within 1024 threads and K8 fits; 0 otherwise (more lanes only
+// add threads).
+inline int pick_split_wh_global(int h) {
+  return lrec::fwd_geometry(h, MAX_CLUSTER, 8, 4).threads <= MAX_THREADS_WH_GLOBAL &&
+                 layout_bytes(h, MAX_CLUSTER, 8, 4, true, true) <= SMEM_LIMIT
+             ? 4
+             : 0;
+}
+
 struct Route {
-  int cluster, rows, split;   // split 0: no cluster of at most MAX_CLUSTER holds Wh
+  int cluster, rows, split;   // split 0: the shape cannot run (h does not fit)
 };
 
 // With blocks = G . ceil(n / 8): up to 2 . SM_COUNT blocks the cluster is at
 // least 2 and doubles while blocks . cluster stays within SM_COUNT and each CTA
 // keeps MIN_UNITS_PER_CTA units; past that, one-CTA clusters with tiles of 16
-// rows where they fit and fill the card. T does not change the choice.
+// rows where they fit and fill the card. Where no cluster holds Wh, Wh global
+// (clusters of MAX_CLUSTER, 8 rows). T does not change the choice.
 inline Route route(int g, int n, int h) {
   int fit = 0;
   for (int c = 1; c <= MAX_CLUSTER && fit == 0; c *= 2) {
     if (pick_split(h, c, 8) != 0) fit = c;
   }
-  if (fit == 0) return {0, 0, 0};
+  if (fit == 0) {
+    const int s = pick_split_wh_global(h);
+    return {s ? MAX_CLUSTER : 0, s ? 8 : 0, s};
+  }
   const long long blocks = (long long)g * ((n + 7) / 8);
   if (blocks > 2 * SM_COUNT) {
     if (fit == 1 && (long long)g * ((n + 15) / 16) >= SM_COUNT && pick_split(h, 1, 16) != 0) {
@@ -156,9 +195,10 @@ __device__ __forceinline__ void copies_arrive(uint64_t* bar) {
 // Group g's Wh [H, 4H] starts at wh + g . wh_stride floats and its lengths at
 // lengths + g . len_stride (0: every group shares one row of lengths). hc,
 // units and stride are lrec::fwd_geometry's; hcs = ring_stride; bulk selects
-// K8's bulk copies (else 4-byte cp.async).
-template <int ROWS, int S, bool STREAM>
-__global__ void __launch_bounds__(ROWS == 16 ? 416 : 512)
+// K8's bulk copies (else 4-byte cp.async). WH_GLOBAL: each lane reads its
+// unit's four Wh columns from device memory at every step.
+template <int ROWS, int S, bool STREAM, bool WH_GLOBAL>
+__global__ void __launch_bounds__(WH_GLOBAL ? MAX_THREADS_WH_GLOBAL : (ROWS == 16 ? 416 : 512))
 gscan_kernel(const float* __restrict__ x_proj, const int* __restrict__ lengths,
              long long len_stride, const float* __restrict__ wh, long long wh_stride,
              float* __restrict__ out, float* __restrict__ fin, int n, int T, int H, int hc,
@@ -169,8 +209,8 @@ gscan_kernel(const float* __restrict__ x_proj, const int* __restrict__ lengths,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // [2]: K8's ring slots
   int* len_s = reinterpret_cast<int*>(smem) + 4;         // [ROWS]
   float* whs = smem + HEADER_BYTES / sizeof(float);      // [H][stride]: Wh[k][g.H + u] at
-                                                         // k.stride + 4.v + g
-  float* hs = whs + H * stride;                          // [2][H][ROWS]: h, double-buffered
+                                                         // k.stride + 4.v + g (resident)
+  float* hs = whs + (WH_GLOBAL ? 0 : H * stride);        // [2][H][ROWS]: h, double-buffered
   float* ring = hs + 2 * H * ROWS;                       // K8: [2][ROWS][4][hcs]
 
   lrec::cg::cluster_group cluster = lrec::cg::this_cluster();
@@ -193,13 +233,14 @@ gscan_kernel(const float* __restrict__ x_proj, const int* __restrict__ lengths,
   const int rlo = LN::row_lo(s);
 
   // rows (k . 4 + g) of the slice, columns the CTA's units
-  lrec::load_resident(
-      4 * H, units, tid, nt,
-      [&](int r, int w) -> const float* {
-        return (w < hc && u0 + w < H) ? Wh + (size_t)(r / 4) * G4 + (r % 4) * H + u0 + w
-                                      : nullptr;
-      },
-      [&](int r, int w) { return whs + (r / 4) * stride + 4 * w + r % 4; });
+  if constexpr (!WH_GLOBAL)
+    lrec::load_resident(
+        4 * H, units, tid, nt,
+        [&](int r, int w) -> const float* {
+          return (w < hc && u0 + w < H) ? Wh + (size_t)(r / 4) * G4 + (r % 4) * H + u0 + w
+                                        : nullptr;
+        },
+        [&](int r, int w) { return whs + (r / 4) * stride + 4 * w + r % 4; });
   if (STREAM && tid == 0) {
     mbar_init(&full[0], bulk ? 1 : nt);
     mbar_init(&full[1], bulk ? 1 : nt);
@@ -309,7 +350,15 @@ gscan_kernel(const float* __restrict__ x_proj, const int* __restrict__ lengths,
       // was 7% slower unrolled 2. Each accumulator's FMA order is the same.
 #pragma unroll(ROWS == 16 && !STREAM ? 2 : 4)
       for (int k = s; k < H; k += S) {
-        const float4 w = *reinterpret_cast<const float4*>(whs + k * stride + 4 * v);
+        float4 w;
+        if constexpr (WH_GLOBAL) {   // a padding unit's columns are zero, as resident
+          const float* wk = Wh + (size_t)k * G4 + u;
+          w = unit_ok ? make_float4(__ldg(wk), __ldg(wk + H), __ldg(wk + 2 * H),
+                                    __ldg(wk + 3 * H))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          w = *reinterpret_cast<const float4*>(whs + k * stride + 4 * v);
+        }
 #pragma unroll
         for (int r = 0; r < ROWS; r += 4) {
           const float4 hv = *reinterpret_cast<const float4*>(hcur + k * ROWS + r);
@@ -392,26 +441,30 @@ gscan_kernel(const float* __restrict__ x_proj, const int* __restrict__ lengths,
 
 // Launch the kernel for (ROWS, S) with clusters of c CTAs over g groups.
 // Returns the cudaError_t of the launch, or lrec::CLUSTER_UNSCHEDULABLE.
-template <int ROWS, int S, bool STREAM>
+template <int ROWS, int S, bool STREAM, bool WH_GLOBAL>
 int launch(const float* x_proj, const int* lengths, long long len_stride, const float* wh,
            long long wh_stride, float* out, float* fin, int g, int n, int t, int h, int c,
            float forget_bias, void* stream) {
   lrec::Geometry geo = lrec::fwd_geometry(h, c, ROWS, S);
-  geo.smem = smem_bytes(h, c, ROWS, S, STREAM);
+  geo.smem = layout_bytes(h, c, ROWS, S, STREAM, WH_GLOBAL);
   const int bulk = STREAM && h % 4 == 0 && geo.hc % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(x_proj) % 16 == 0;
   const int tiles = (n + ROWS - 1) / ROWS;
-  return lrec::launch_groups(gscan_kernel<ROWS, S, STREAM>, tiles, g, c, geo, stream, x_proj,
-                             lengths, len_stride, wh, wh_stride, out, fin, n, t, h, geo.hc,
-                             geo.units, geo.stride, ring_stride(h, c), bulk, forget_bias);
+  return lrec::launch_groups(gscan_kernel<ROWS, S, STREAM, WH_GLOBAL>, tiles, g, c, geo, stream,
+                             x_proj, lengths, len_stride, wh, wh_stride, out, fin, n, t, h,
+                             geo.hc, geo.units, geo.stride, ring_stride(h, c), bulk,
+                             forget_bias);
 }
 
-// The route for the C interface: 0, or -1 when no cluster holds Wh.
-inline int route_c(int g, int n, int h, int* cluster, int* rows, int* split) {
+// The route for the C interface, with whether its launch reads Wh from device
+// memory (the launch decides it by `wh_global` on the same (c, rows, split)):
+// 0, or -1 when the shape cannot run.
+inline int route_c(int g, int n, int h, int* cluster, int* rows, int* split, int* global) {
   const Route r = route(g, n, h);
   *cluster = r.cluster;
   *rows = r.rows;
   *split = r.split;
+  *global = r.split != 0 && wh_global(h, r.cluster, r.rows, r.split);
   return r.split == 0 ? -1 : 0;
 }
 

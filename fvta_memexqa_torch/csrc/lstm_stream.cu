@@ -142,12 +142,37 @@ size_t rowtile_smem_bytes(int H) {
 
 }  // namespace
 
+// K8 with clusters of c CTAs, tiles of `rows` rows and `split` lanes per
+// unit, Wh resident or read from device memory (gscan::wh_global; force:
+// from device memory at any width).
+static int launch_scan(const float* x_proj, const int* lengths, long long len_stride,
+                       const float* wh, long long wh_stride, float* out, float* fin, int g,
+                       int n, int t, int h, int c, int rows, int split, float forget_bias,
+                       void* stream, bool force) {
+  const bool global = force || gscan::wh_global(h, c, rows, split);
+#define LSTM_STREAM_CASE(R, S_)                                                                   \
+  if (rows == R && split == S_)                                                                   \
+    return global ? gscan::launch<R, S_, true, true>(x_proj, lengths, len_stride, wh,             \
+                                                       wh_stride, out, fin, g, n, t, h, c,        \
+                                                       forget_bias, stream)                       \
+                  : gscan::launch<R, S_, true, false>(x_proj, lengths, len_stride, wh,            \
+                                                        wh_stride, out, fin, g, n, t, h, c,       \
+                                                        forget_bias, stream);
+  LSTM_STREAM_CASE(8, 4)
+  LSTM_STREAM_CASE(8, 8)
+  LSTM_STREAM_CASE(8, 16)
+  LSTM_STREAM_CASE(16, 4)
+#undef LSTM_STREAM_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" {
 
 // As lstm_grouped_route (the same route: it already sizes K8's ring).
-int lstm_stream_route(int g, int n, int t, int h, int* cluster, int* rows, int* split) {
+int lstm_stream_route(int g, int n, int t, int h, int* cluster, int* rows, int* split,
+                      int* wh_global) {
   (void)t;
-  return gscan::route_c(g, n, h, cluster, rows, split);
+  return gscan::route_c(g, n, h, cluster, rows, split, wh_global);
 }
 
 long long lstm_stream_smem_bytes(int h, int c, int rows, int split) {
@@ -156,22 +181,27 @@ long long lstm_stream_smem_bytes(int h, int c, int rows, int split) {
 
 const char* lstm_stream_error_string(int err) { return lrec::error_string(err); }
 
-// K8, arguments as lstm_grouped's. Returns the cudaError_t of the launch, -1
-// when the cluster cannot be scheduled, or 22 (cudaErrorInvalidValue) for a
-// (rows, split) pair with no instantiation.
+// K8, arguments as lstm_grouped's with clusters of c CTAs, tiles of
+// `rows` rows and `split` lanes per unit (lstm_stream_route; Wh global where the
+// route's rule says so). Returns the cudaError_t of the launch, -1 when the
+// cluster cannot be scheduled, or 22 (cudaErrorInvalidValue) for a (rows,
+// split) pair with no instantiation.
 int lstm_stream(const float* x_proj, const int* lengths, long long len_stride, const float* wh,
                 long long wh_stride, float* out, float* fin, int g, int n, int t, int h, int c,
                 int rows, int split, float forget_bias, void* stream) {
-#define LSTM_STREAM_CASE(R, S_)                                                           \
-  if (rows == R && split == S_)                                                           \
-    return gscan::launch<R, S_, true>(x_proj, lengths, len_stride, wh, wh_stride, out, fin, \
-                                      g, n, t, h, c, forget_bias, stream);
-  LSTM_STREAM_CASE(8, 4)
-  LSTM_STREAM_CASE(8, 8)
-  LSTM_STREAM_CASE(8, 16)
-  LSTM_STREAM_CASE(16, 4)
-#undef LSTM_STREAM_CASE
-  return (int)cudaErrorInvalidValue;
+  return launch_scan(x_proj, lengths, len_stride, wh, wh_stride, out, fin, g, n, t, h, c, rows,
+                     split, forget_bias, stream, false);
+}
+
+// lstm_stream with Wh read from device memory at any width: no package path calls
+// it; the card tests hold it against the resident route at the same (c, rows,
+// split), bit for bit.
+int lstm_stream_wh_global(const float* x_proj, const int* lengths, long long len_stride,
+                          const float* wh, long long wh_stride, float* out, float* fin, int g,
+                          int n, int t, int h, int c, int rows, int split, float forget_bias,
+                          void* stream) {
+  return launch_scan(x_proj, lengths, len_stride, wh, wh_stride, out, fin, g, n, t, h, c, rows,
+                     split, forget_bias, stream, true);
 }
 
 long long lstm_stream_rowtile_smem_bytes(int h) { return (long long)rowtile_smem_bytes(h); }

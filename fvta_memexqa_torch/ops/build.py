@@ -93,11 +93,14 @@ def library(stem: str) -> ctypes.CDLL:
         return _libs[stem]
 
 
-def count_launch(wrapper) -> None:
-    """`wrapper.launches += 1` under a lock: kernels launch from several threads
+def count_launch(wrapper, global_route: bool = False) -> None:
+    """`wrapper.launches += 1`, and `wrapper.global_launches += 1` for a launch on
+    the kernel's global route, under a lock: kernels launch from several threads
     (the serving engine's worker and the ingesting caller)."""
     with _count_lock:
         wrapper.launches += 1
+        if global_route:
+            wrapper.global_launches += 1
 
 
 def check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:

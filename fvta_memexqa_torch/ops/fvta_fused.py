@@ -11,10 +11,13 @@ one thread-block cluster per example, whose CTAs split the example's S x T
 rows and combine their partial softmax statistics through distributed shared
 memory in a fixed order; its geometry comes from the library
 (`fvta_fwd_geometry`), read once per device and shape by `geometry` and
-passed back at each launch. The earlier one-block-per-example kernel stays as
-`fvta_fwd_serial`, which no path calls. Under grad on the card, `_FVTAFn`
-runs K2 forward and takes the gradient by recomputing the plain version under
-autograd (the JAX package's `_core_bwd`, fvta_pallas.py:581-591: at T = 24
+passed back at each launch. Past the last staging that fits a CTA's shared
+memory the geometry takes the "global" route (h, q and each segment's V in
+device memory; launches also counted in `fvta_fwd.global_launches`);
+`fvta_fwd_global` forces it at any width and no path calls it. The earlier
+one-block-per-example kernel stays as `fvta_fwd_serial`, which no path calls.
+Under grad on the card, `_FVTAFn` runs K2 forward and takes the gradient by
+recomputing the plain version under autograd (the JAX package's `_core_bwd`, fvta_pallas.py:581-591: at T = 24
 there is no backward kernel there either).
 
 From STREAM_MIN_T time steps on (the repo's video lengths, T = 1024 and 4096),
@@ -44,10 +47,11 @@ STREAM_MIN_T = 1024   # time steps from which the attention takes the streaming 
 def _lib():
     lib = build.library("fvta_fwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fvta_fwd.argtypes = [p] * 11 + [i] * 12 + [ll, p]
+    lib.fvta_fwd.argtypes = [p] * 12 + [i] * 12 + [ll, i, p]
     lib.fvta_fwd.restype = i
-    lib.fvta_fwd_geometry.argtypes = [i] * 5 + [p]
-    lib.fvta_fwd_geometry.restype = i
+    for name in ("fvta_fwd_geometry", "fvta_fwd_geometry_global"):
+        getattr(lib, name).argtypes = [i] * 5 + [p]
+        getattr(lib, name).restype = i
     lib.fvta_fwd_serial.argtypes = [p] * 11 + [i] * 5 + [p]
     lib.fvta_fwd_serial.restype = i
     lib.fvta_fwd_serial_smem_bytes.argtypes = [i, i, i]
@@ -62,31 +66,33 @@ def _error(kernel: str, err: int) -> RuntimeError:
 
 
 GEOMETRY_KEYS = ("cluster", "chunks", "chunk_len", "segs", "rows", "bufs", "qtile", "smem",
-                 "active_clusters", "sms", "cluster_cap")
+                 "active_clusters", "sms", "cluster_cap", "route", "scratch")
+ROUTES = ("staged", "global")   # a geometry's route, by the library's number
 
 
 @functools.cache
-def _geometry_on(device: int, n, s, t, j, d) -> dict:
+def _geometry_on(device: int, n, s, t, j, d, force_global: bool = False) -> dict:
+    name = "fvta_fwd_geometry_global" if force_global else "fvta_fwd_geometry"
     out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
     with torch.cuda.device(device):
-        err = _lib().fvta_fwd_geometry(n, s, t, j, d, out)
-    geo = dict(zip(GEOMETRY_KEYS, out))
+        err = getattr(_lib(), name)(n, s, t, j, d, out)
     if err != 0:
-        if geo["smem"] > build.SMEM_LIMIT:
-            raise ValueError(f"fvta_fwd needs {geo['smem']} B of shared memory per CTA at "
-                             f"{(n, s, t, j, d)}; a block has {build.SMEM_LIMIT}")
-        raise _error("fvta_fwd_geometry", err)
+        raise _error(f"{name} at (N, S, T, J, D) = {(n, s, t, j, d)}", err)
+    geo = dict(zip(GEOMETRY_KEYS, out))
+    geo["route"] = ROUTES[geo["route"]]
     return geo
 
 
-def geometry(n, s, t, j, d) -> dict:
+def geometry(n, s, t, j, d, force_global: bool = False) -> dict:
     """K2's launch geometry on the current CUDA device, as the library plans it
     (csrc/fvta_fwd.cuh) and finds schedulable: CTAs per example (the cluster),
     chunks per sequence and their length, segments per CTA, rows per staged
-    block, buffers, q staged in tiles, shared memory per CTA (bytes), and what
-    it was planned from. Read once per device and shape; `fvta_fwd` passes it
-    to the launch unchanged."""
-    return _geometry_on(torch.cuda.current_device(), n, s, t, j, d)
+    block, buffers, q staged in tiles, shared memory per CTA (bytes), what it
+    was planned from, the route ("staged" wherever a staging fits, else
+    "global"; force_global: "global" at any width) and the global route's V
+    scratch (floats). Read once per device and shape; `fvta_fwd` passes it to
+    the launch unchanged."""
+    return _geometry_on(torch.cuda.current_device(), n, s, t, j, d, force_global)
 
 
 def _checked(kernel: str, h, cm, q, qm, wx, wy, wxy):
@@ -111,28 +117,47 @@ def _ptrs(args, out) -> list[int]:
     return [a.data_ptr() for a in (*args, *out)]
 
 
-def fvta_fwd(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
-             wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
-    """Launch K2. h [N, S, T, D], cm [N, S, T], q [N, J, D], qm [N, J] (masks as
-    float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
-    Counts its launches in `fvta_fwd.launches`."""
-    shape, out = _checked("fvta_fwd", h, cm, q, qm, wx, wy, wxy)
+def _fvta_fwd(wrapper, force_global: bool, h, cm, q, qm, wx, wy, wxy) -> AttentionOutput:
+    shape, out = _checked(wrapper.__name__, h, cm, q, qm, wx, wy, wxy)
     if shape[0] == 0:
         return out
     dev = h.device
     with torch.cuda.device(dev):
-        g = geometry(*shape)
-        err = _lib().fvta_fwd(*_ptrs((h, cm, q, qm, wx, wy, wxy), out), *shape,
-                              g["cluster"], g["chunks"], g["chunk_len"], g["segs"], g["rows"],
-                              g["bufs"], g["qtile"], g["smem"],
+        g = geometry(*shape, force_global)
+        # the global route's V scratch; the staged route takes none (a null pointer)
+        vscr = (torch.empty(g["scratch"], dtype=torch.float32, device=dev)
+                if g["route"] == "global" else None)
+        err = _lib().fvta_fwd(*_ptrs((h, cm, q, qm, wx, wy, wxy), out),
+                              None if vscr is None else vscr.data_ptr(),
+                              *shape, g["cluster"], g["chunks"], g["chunk_len"], g["segs"],
+                              g["rows"], g["bufs"], g["qtile"], g["smem"],
+                              ROUTES.index(g["route"]),
                               torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise _error("fvta_fwd launch", err)
-    build.count_launch(fvta_fwd)
+        raise _error(f"{wrapper.__name__} launch", err)
+    build.count_launch(wrapper, g["route"] == "global")
     return out
 
 
-fvta_fwd.launches = 0
+def fvta_fwd(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
+             wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
+    """Launch K2. h [N, S, T, D], cm [N, S, T], q [N, J, D], qm [N, J] (masks as
+    float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
+    Counts its launches in `fvta_fwd.launches`, those on the global route also
+    in `fvta_fwd.global_launches`."""
+    return _fvta_fwd(fvta_fwd, False, h, cm, q, qm, wx, wy, wxy)
+
+
+def fvta_fwd_global(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
+                    wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
+    """K2 on the global route at any width (`fvta_fwd`'s arguments and
+    results; no path calls it). Counts its launches in
+    `fvta_fwd_global.launches`."""
+    return _fvta_fwd(fvta_fwd_global, True, h, cm, q, qm, wx, wy, wxy)
+
+
+fvta_fwd.launches = fvta_fwd.global_launches = 0
+fvta_fwd_global.launches = fvta_fwd_global.global_launches = 0
 
 
 def fvta_fwd_serial(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,

@@ -26,6 +26,12 @@ runs focal_local_stats under autograd.
 K4 replaces fvta_memexqa_tpu/ops/fvta_pallas.py:_stats_kernel, K5 :_qcnt_kernel
 and K6 :_bwd_kernel. K4 and K5 walk the time axis in runs of chunks, one CTA
 per run, with the geometry `run_geometry` reads once per device and shape.
+Each geometry names its route: "staged" (h and q in shared memory) wherever
+that fits, else "global" (h and q read from device memory), so every width
+runs; the kernels count the global route's launches in `.global_launches`
+beside `.launches`. `stats_fwd_global`, `qcnt_global` and `stats_bwd_global`
+force the global route at any width: no path calls them; they hold the two
+routes against each other, bit for bit, on the card.
 Earlier kernels that no path calls are kept to be timed and checked beside
 the ones the paths launch: `stats_fwd_chunked` and `qcnt_chunked` (one block
 per chunk of 32 steps) and `stats_bwd_twopass` (dC through device memory).
@@ -98,10 +104,11 @@ def stats_bwd_ref(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt, e, m, gv):
 def _stats_lib():
     lib = build.library("fvta_stats")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fvta_stats.argtypes = [p] * 13 + [i] * 9 + [ll, p]
+    lib.fvta_stats.argtypes = [p] * 13 + [i] * 9 + [ll, i, p]
     lib.fvta_stats.restype = i
-    lib.fvta_stats_geometry.argtypes = [i] * 5 + [p]
-    lib.fvta_stats_geometry.restype = i
+    for name in ("fvta_stats_geometry", "fvta_stats_geometry_global"):
+        getattr(lib, name).argtypes = [i] * 5 + [p]
+        getattr(lib, name).restype = i
     lib.fvta_stats_chunked.argtypes = [p] * 16 + [i] * 5 + [p]
     lib.fvta_stats_chunked.restype = i
     lib.fvta_stats_chunked_smem_bytes.argtypes = [i]
@@ -115,14 +122,15 @@ def _stats_lib():
 def _bwd_lib():
     lib = build.library("fvta_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fvta_qcnt.argtypes = [p] * 8 + [i] * 9 + [ll, p]
+    lib.fvta_qcnt.argtypes = [p] * 8 + [i] * 9 + [ll, i, p]
     lib.fvta_qcnt.restype = i
     lib.fvta_qcnt_chunked.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.fvta_qcnt_chunked.restype = i
-    lib.fvta_stats_bwd.argtypes = [p] * 20 + [i] * 9 + [ll, p]
+    lib.fvta_stats_bwd.argtypes = [p] * 20 + [i] * 9 + [ll, i, p]
     lib.fvta_stats_bwd.restype = i
-    lib.fvta_stats_bwd_geometry.argtypes = [i] * 5 + [p]
-    lib.fvta_stats_bwd_geometry.restype = i
+    for name in ("fvta_stats_bwd_geometry", "fvta_stats_bwd_geometry_global"):
+        getattr(lib, name).argtypes = [i] * 5 + [p]
+        getattr(lib, name).restype = i
     lib.fvta_stats_bwd_twopass.argtypes = [p] * 22 + [i] * 5 + [p]
     lib.fvta_stats_bwd_twopass.restype = i
     lib.fvta_qcnt_chunked_smem_bytes.argtypes = [i]
@@ -152,6 +160,7 @@ def _check(kernel: str, h, cm_f, q, wx, wy, wxy, qm_f=None):
 
 
 def _smem_ok(kernel: str, smem: int, shape) -> None:
+    """The kept old kernels' guard: they stage h in shared memory at every width."""
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"{kernel} needs {smem} B of shared memory at {shape}; a block "
                          f"has {build.SMEM_LIMIT}")
@@ -161,62 +170,83 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-@functools.cache
-def _run_geometry_on(device: int, n, s, t, j, d) -> dict:
-    out = (ctypes.c_longlong * 6)()
-    lib = _stats_lib()
+ROUTES = ("staged", "global")   # a geometry's route, by the library's number
+
+
+def _geometry(name: str, lib, error_string, keys, device: int, shape) -> dict:
+    """Read the library's geometry `name` for `shape` on `device`; raises where
+    the library reports a shape it cannot run."""
+    out = (ctypes.c_longlong * len(keys))()
     with torch.cuda.device(device):
-        err = lib.fvta_stats_geometry(n, s, t, j, d, out)
-    geo = dict(zip(("per_seq", "chunks_per_cta", "rows", "h_buffers", "smem", "scratch"),
-                   out))
-    if err != 0 and geo["smem"] <= build.SMEM_LIMIT:
-        raise RuntimeError(f"fvta_stats_geometry failed: "
-                           f"{lib.fvta_stats_error_string(err).decode()}")
+        err = getattr(lib, name)(*shape, out)
+    if err != 0:
+        raise RuntimeError(f"{name} at (N, S, T, J, D) = {shape}: "
+                           f"{error_string(err).decode()}")
+    geo = dict(zip(keys, out))
+    geo["route"] = ROUTES[geo["route"]]
     return geo
 
 
-def run_geometry(n, s, t, j, d) -> dict:
+RUN_KEYS = ("per_seq", "chunks_per_cta", "rows", "h_buffers", "smem", "scratch", "route")
+
+
+@functools.cache
+def _run_geometry_on(device: int, n, s, t, j, d, force_global: bool = False) -> dict:
+    name = "fvta_stats_geometry_global" if force_global else "fvta_stats_geometry"
+    lib = _stats_lib()
+    return _geometry(name, lib, lib.fvta_stats_error_string, RUN_KEYS, device, (n, s, t, j, d))
+
+
+def run_geometry(n, s, t, j, d, force_global: bool = False) -> dict:
     """K4's and K5's launch geometry on the current CUDA device, as the library
     computes it (csrc/fvta_corr.cuh run_geometry): CTAs per sequence, chunks per
     CTA, rows per pass, h buffers, shared memory per CTA (bytes), K4's scratch
-    (floats). Read
-    once per device and shape; `stats_fwd` and `qcnt` pass it to the launch
-    unchanged."""
-    return _run_geometry_on(torch.cuda.current_device(), n, s, t, j, d)
+    (floats), route ("staged" wherever it fits, else "global"; force_global:
+    "global" at any width). Read once per device and shape; `stats_fwd` and
+    `qcnt` pass it to the launch unchanged."""
+    return _run_geometry_on(torch.cuda.current_device(), n, s, t, j, d, force_global)
 
 
-def _run_launch(kernel: str, shape) -> dict:
-    geo = run_geometry(*shape)
-    _smem_ok(kernel, geo["smem"], f"J={shape[3]}, D={shape[4]}")
-    return geo
-
-
-def stats_fwd(h, cm_f, q, qm_f, wx, wy, wxy):
-    """Launch K4. h [N,S,T,D], cm_f [N,S,T], q [N,J,D], qm_f [N,J] (masks as
-    float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
-    Returns (m [N,S], den [N,S], v [N,S,D], eq [N,J], e [N,S,T]). Counts its
-    launches in `stats_fwd.launches`."""
-    shape = _check("stats_fwd", h, cm_f, q, wx, wy, wxy, qm_f)
+def _stats_fwd(wrapper, force_global, h, cm_f, q, qm_f, wx, wy, wxy):
+    shape = _check(wrapper.__name__, h, cm_f, q, wx, wy, wxy, qm_f)
     n, s, t, j, d = shape
     dev = h.device
     empty = lambda *sh: torch.empty(sh, dtype=torch.float32, device=dev)
     m, den, v, eq, e = empty(n, s), empty(n, s), empty(n, s, d), empty(n, j), empty(n, s, t)
     lib = _stats_lib()
     with torch.cuda.device(dev):
-        geo = _run_launch("stats_fwd", shape)
+        geo = run_geometry(*shape, force_global)
         scratch = empty(geo["scratch"])
         ptrs = [a.data_ptr() for a in (h, cm_f, q, qm_f, wx, wy, wxy, m, den, v, eq, e,
                                        scratch)]
         err = lib.fvta_stats(*ptrs, *shape, geo["per_seq"], geo["chunks_per_cta"],
-                             geo["rows"], geo["h_buffers"], geo["smem"], _stream(dev))
+                             geo["rows"], geo["h_buffers"], geo["smem"],
+                             ROUTES.index(geo["route"]), _stream(dev))
     if err != 0:
-        raise RuntimeError(f"stats_fwd launch failed: "
+        raise RuntimeError(f"{wrapper.__name__} launch failed: "
                            f"{lib.fvta_stats_error_string(err).decode()}")
-    build.count_launch(stats_fwd)
+    build.count_launch(wrapper, geo["route"] == "global")
     return m, den, v, eq, e
 
 
-stats_fwd.launches = 0
+def stats_fwd(h, cm_f, q, qm_f, wx, wy, wxy):
+    """Launch K4. h [N,S,T,D], cm_f [N,S,T], q [N,J,D], qm_f [N,J] (masks as
+    float32 0/1), wx/wy/wxy [D]; all f32, contiguous, on one CUDA device.
+    Returns (m [N,S], den [N,S], v [N,S,D], eq [N,J], e [N,S,T]). Counts its
+    launches in `stats_fwd.launches`, those on the global route also in
+    `stats_fwd.global_launches`."""
+    return _stats_fwd(stats_fwd, False, h, cm_f, q, qm_f, wx, wy, wxy)
+
+
+def stats_fwd_global(h, cm_f, q, qm_f, wx, wy, wxy):
+    """K4 on the global route at any width (`stats_fwd`'s arguments and
+    results; no path calls it). Counts its launches in
+    `stats_fwd_global.launches`."""
+    return _stats_fwd(stats_fwd_global, True, h, cm_f, q, qm_f, wx, wy, wxy)
+
+
+stats_fwd.launches = stats_fwd.global_launches = 0
+stats_fwd_global.launches = stats_fwd_global.global_launches = 0
 
 
 def stats_fwd_chunked(h, cm_f, q, qm_f, wx, wy, wxy):
@@ -247,25 +277,37 @@ def stats_fwd_chunked(h, cm_f, q, qm_f, wx, wy, wxy):
 stats_fwd_chunked.launches = 0
 
 
-def qcnt(h, cm_f, q, wx, wy, wxy, eq):
-    """Launch K5: qcnt [N, J] f32 from K4's eq [N, J]. Inputs as for
-    `stats_fwd`. Counts its launches in `qcnt.launches`."""
-    shape = _check("qcnt", h, cm_f, q, wx, wy, wxy)
+def _qcnt(wrapper, force_global, h, cm_f, q, wx, wy, wxy, eq):
+    shape = _check(wrapper.__name__, h, cm_f, q, wx, wy, wxy)
     n, j = shape[0], shape[3]
     build.check_f32("eq", eq, (n, j), h.device)
     dev = h.device
     cnt = torch.zeros((n, j), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        geo = _run_launch("qcnt", shape)
+        geo = run_geometry(*shape, force_global)
         err = _bwd_lib().fvta_qcnt(
             *(a.data_ptr() for a in (h, cm_f, q, wx, wy, wxy, eq, cnt)), *shape,
             geo["per_seq"], geo["chunks_per_cta"], geo["rows"], geo["h_buffers"], geo["smem"],
-            _stream(dev))
-    _launched("qcnt", qcnt, err)
+            ROUTES.index(geo["route"]), _stream(dev))
+    _launched(wrapper.__name__, wrapper, err, geo)
     return cnt.to(torch.float32)
 
 
-qcnt.launches = 0
+def qcnt(h, cm_f, q, wx, wy, wxy, eq):
+    """Launch K5: qcnt [N, J] f32 from K4's eq [N, J]. Inputs as for
+    `stats_fwd`. Counts its launches in `qcnt.launches`, those on the global
+    route also in `qcnt.global_launches`."""
+    return _qcnt(qcnt, False, h, cm_f, q, wx, wy, wxy, eq)
+
+
+def qcnt_global(h, cm_f, q, wx, wy, wxy, eq):
+    """K5 on the global route at any width (no path calls it). Counts its
+    launches in `qcnt_global.launches`."""
+    return _qcnt(qcnt_global, True, h, cm_f, q, wx, wy, wxy, eq)
+
+
+qcnt.launches = qcnt.global_launches = 0
+qcnt_global.launches = qcnt_global.global_launches = 0
 
 
 def qcnt_chunked(h, cm_f, q, wx, wy, wxy, eq):
@@ -300,53 +342,66 @@ def _bwd_args(kernel, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, g
     return (n, s, t, j, d), [a.data_ptr() for a in ins + outs], outs, empty
 
 
-def _launched(kernel: str, wrapper, err: int) -> None:
+def _launched(kernel: str, wrapper, err: int, geo: dict | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{_bwd_lib().fvta_bwd_error_string(err).decode()}")
-    build.count_launch(wrapper)
+    build.count_launch(wrapper, geo is not None and geo["route"] == "global")
+
+
+BWD_KEYS = ("per_seq", "chunks_per_cta", "smem", "scratch", "h_buffers", "acc_smem", "route")
 
 
 @functools.cache
-def _bwd_geometry_on(device: int, n, s, t, j, d) -> dict:
-    out = (ctypes.c_longlong * 6)()
-    with torch.cuda.device(device):
-        err = _bwd_lib().fvta_stats_bwd_geometry(n, s, t, j, d, out)
-    geo = dict(zip(("per_seq", "chunks_per_cta", "smem", "scratch", "h_buffers",
-                    "acc_smem"), out))
-    if err != 0 and geo["smem"] <= build.SMEM_LIMIT:
-        raise RuntimeError(f"fvta_stats_bwd_geometry failed: "
-                           f"{_bwd_lib().fvta_bwd_error_string(err).decode()}")
-    return geo
+def _bwd_geometry_on(device: int, n, s, t, j, d, force_global: bool = False) -> dict:
+    name = "fvta_stats_bwd_geometry_global" if force_global else "fvta_stats_bwd_geometry"
+    lib = _bwd_lib()
+    return _geometry(name, lib, lib.fvta_bwd_error_string, BWD_KEYS, device, (n, s, t, j, d))
 
 
-def bwd_geometry(n, s, t, j, d) -> dict:
+def bwd_geometry(n, s, t, j, d, force_global: bool = False) -> dict:
     """K6's launch geometry on the current CUDA device, as the library computes
     it: CTAs per sequence, chunks per CTA, shared memory per CTA (bytes), scratch
-    (floats), h buffers, dC^T h kept in shared memory. Read once per device and
-    shape; `stats_bwd` passes it to the launch unchanged."""
-    return _bwd_geometry_on(torch.cuda.current_device(), n, s, t, j, d)
+    (floats), h buffers, dC^T h kept in shared memory, route ("staged" wherever
+    it fits, else "global"; force_global: "global" at any width). Read once per
+    device and shape; `stats_bwd` passes it to the launch unchanged."""
+    return _bwd_geometry_on(torch.cuda.current_device(), n, s, t, j, d, force_global)
+
+
+def _stats_bwd(wrapper, force_global, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e,
+               m, gv):
+    shape, ptrs, outs, empty = _bwd_args(wrapper.__name__, h, cm_f, q, qm_f, wx, wy, wxy, de,
+                                         geq, eq, qcnt_, e, m, gv)
+    dev = h.device
+    with torch.cuda.device(dev):
+        geo = bwd_geometry(*shape, force_global)
+        scratch = empty(geo["scratch"])
+        err = _bwd_lib().fvta_stats_bwd(
+            *ptrs, scratch.data_ptr(), *shape, geo["per_seq"], geo["chunks_per_cta"],
+            geo["h_buffers"], geo["acc_smem"], geo["smem"], ROUTES.index(geo["route"]),
+            _stream(dev))
+    _launched(wrapper.__name__, wrapper, err, geo)
+    return outs
 
 
 def stats_bwd(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
     """Launch K6 (arguments as `stats_bwd_ref`, all f32 contiguous on one CUDA
     device; qcnt_ from K5, eq, e and m from K4). Returns (dh, dq, dwx, dwy, dwxy)
-    with dw* per example [N, D]. Counts its launches in `stats_bwd.launches`."""
-    shape, ptrs, outs, empty = _bwd_args("stats_bwd", h, cm_f, q, qm_f, wx, wy, wxy, de, geq,
-                                         eq, qcnt_, e, m, gv)
-    dev = h.device
-    with torch.cuda.device(dev):
-        geo = bwd_geometry(*shape)
-        _smem_ok("stats_bwd", geo["smem"], f"J={shape[3]}, D={shape[4]}")
-        scratch = empty(geo["scratch"])
-        err = _bwd_lib().fvta_stats_bwd(
-            *ptrs, scratch.data_ptr(), *shape, geo["per_seq"], geo["chunks_per_cta"],
-            geo["h_buffers"], geo["acc_smem"], geo["smem"], _stream(dev))
-    _launched("stats_bwd", stats_bwd, err)
-    return outs
+    with dw* per example [N, D]. Counts its launches in `stats_bwd.launches`,
+    those on the global route also in `stats_bwd.global_launches`."""
+    return _stats_bwd(stats_bwd, False, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_,
+                      e, m, gv)
 
 
-stats_bwd.launches = 0
+def stats_bwd_global(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
+    """K6 on the global route at any width (no path calls it). Counts its
+    launches in `stats_bwd_global.launches`."""
+    return _stats_bwd(stats_bwd_global, True, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq,
+                      qcnt_, e, m, gv)
+
+
+stats_bwd.launches = stats_bwd.global_launches = 0
+stats_bwd_global.launches = stats_bwd_global.global_launches = 0
 
 
 def stats_bwd_twopass(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):

@@ -15,7 +15,12 @@ row's length, fin the last carried h.
 - Both kernels run K1's Hopper recurrence (csrc/lstm_gscan.cuh over
   csrc/lstm_rec.cuh) over G groups: thread-block clusters split the hidden
   units, `grouped_route` picks (cluster, rows per tile, lanes per unit) and the
-  library's own route is read once per device and shape. They differ only in
+  library's own route is read once per device and shape. Past the largest
+  cluster that holds the Wh slices (H = 316 and up), the route reads Wh from
+  device memory at every step (the library says so with its route,
+  `takes_wh_global`; those launches also counted in `.global_launches`);
+  `scan_grouped_wh_global` / `scan_stream_wh_global` force that at any width,
+  and no path calls them. They differ only in
   how x_proj arrives: K7 loads step t + 1 into registers during step t, K8
   streams it into a shared-memory ring by bulk async copies. The sums run in
   the same order, so K7 and K8 give the same bits, and a G = 2 call fed K1's
@@ -32,10 +37,9 @@ row's length, fin the last carried h.
   returns its gradients; that is the reference's own design, not a fallback.
 
 On a CUDA tensor the forward launches K7 or K8 (a kernel that fails to build or
-launch raises, and so does a width past the largest cluster; there is no
-fallback); on a CPU tensor it runs the plain `grouped_scan_ref` through the
-same routing. Masks must be contiguous prefixes: the kernels see only lengths =
-mask.sum(1).
+launch raises; there is no fallback); on a CPU tensor it runs the plain
+`grouped_scan_ref` through the same routing. Masks must be contiguous
+prefixes: the kernels see only lengths = mask.sum(1).
 
 K7 replaces fvta_memexqa_tpu/ops/lstm_pallas.py:_grouped_kernel, K8
 :_stream_kernel. Nothing on the model's paths calls them (the model runs
@@ -94,6 +98,7 @@ def grouped_scan_ref(x_proj: torch.Tensor, lengths: torch.Tensor,
 # ---- the route: cluster, rows per tile, lanes per unit ----------------------------
 
 HEADER_BYTES = 128   # shared memory of the ring's mbarriers and the tile's lengths
+MAX_THREADS_WH_GLOBAL = 1024   # the Wh-global kernels' __launch_bounds__
 
 
 class GroupedRoute(NamedTuple):
@@ -110,18 +115,22 @@ def ring_stride(h: int, cluster: int) -> int:
     return -(-(-(-h // cluster)) // 4) * 4
 
 
-def grouped_smem(h: int, cluster: int, rows: int, split: int, stream: bool) -> int:
+def grouped_smem(h: int, cluster: int, rows: int, split: int, stream: bool,
+                 wh_global: bool = False) -> int:
     """Dynamic shared memory per CTA of K7 (stream=False) or K8: the header,
-    lstm_rec's forward geometry (Wh slice, h double-buffered) and K8's ring
-    (gscan::smem_bytes)."""
-    _, fwd, _ = lstm_fused.rec_geometry(h, cluster, rows, split)
+    lstm_rec's forward geometry (Wh slice, h double-buffered; with Wh global h
+    alone) and K8's ring (gscan::layout_bytes)."""
+    if wh_global:
+        staged = 4 * 2 * h * rows
+    else:
+        staged = lstm_fused.rec_geometry(h, cluster, rows, split)[1]
     ring = 4 * 2 * 4 * rows * ring_stride(h, cluster) if stream else 0
-    return HEADER_BYTES + fwd + ring
+    return HEADER_BYTES + staged + ring
 
 
 def _split(h: int, cluster: int, rows: int) -> int | None:
-    """The most lanes per unit within the thread limit whose K8 fits; None if
-    none does (gscan::pick_split)."""
+    """The most lanes per unit within the thread limit whose K8 fits with Wh
+    resident; None if none does (gscan::pick_split)."""
     for split in lstm_fused._SPLITS[rows]:
         threads = lstm_fused.rec_geometry(h, cluster, rows, split)[0]
         if (threads <= lstm_fused._MAX_THREADS[rows]
@@ -134,14 +143,18 @@ def _split(h: int, cluster: int, rows: int) -> int | None:
 def grouped_route(g: int, n: int, t: int, h: int) -> GroupedRoute | None:
     """The Python mirror of csrc/lstm_gscan.cuh's `route`: lstm_fused.lstm_route's
     rule with blocks = g x ceil(n / 8) for g groups and the grouped kernels' own
-    shared memory (K8's ring included, so that K7 and K8 share a route); None
-    past the largest cluster. At g = 2 it picks lstm_route's (cluster, rows,
+    shared memory (K8's ring included, so that K7 and K8 share a route); past
+    the largest cluster, Wh global at clusters of 8 (None only where even h
+    does not fit, H > 1024). At g = 2 it picks lstm_route's (cluster, rows,
     split) wherever K8's ring fits beside K1's choice (every width up to 100,
     the repo's). t does not change the choice."""
     del t
     fit = next((c for c in (1, 2, 4, 8) if _split(h, c, 8) is not None), None)
-    if fit is None:
-        return None
+    if fit is None:   # 4 lanes per unit: a warp's Wh loads take whole 32-byte sectors
+        c = lstm_fused.MAX_CLUSTER
+        fits = (lstm_fused.rec_geometry(h, c, 8, 4)[0] <= MAX_THREADS_WH_GLOBAL
+                and grouped_smem(h, c, 8, 4, True, True) <= build.SMEM_LIMIT)
+        return GroupedRoute(c, 8, 4) if fits else None
     sms = lstm_fused.SM_COUNT
     blocks = g * -(-n // 8)
     if blocks > 2 * sms:
@@ -160,7 +173,8 @@ def grouped_route(g: int, n: int, t: int, h: int) -> GroupedRoute | None:
 
 @functools.cache
 def _lib(stem: str) -> ctypes.CDLL:
-    """csrc/<stem>.cu's library: <stem> (the Hopper kernel), <stem>_route,
+    """csrc/<stem>.cu's library: <stem> (the Hopper kernel), <stem>_wh_global
+    (forced to read Wh from device memory), <stem>_route,
     <stem>_smem_bytes, <stem>_rowtile (the row-tile kernel), <stem>_rowtile_smem_bytes
     and <stem>_error_string."""
     lib = build.library(stem)
@@ -168,7 +182,8 @@ def _lib(stem: str) -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     for name, args, res in (
             (stem, [p, p, ll, p, ll, p, p] + [i] * 7 + [f, p], i),
-            (f"{stem}_route", [i] * 4 + [pi] * 3, i),
+            (f"{stem}_wh_global", [p, p, ll, p, ll, p, p] + [i] * 7 + [f, p], i),
+            (f"{stem}_route", [i] * 4 + [pi] * 4, i),
             (f"{stem}_smem_bytes", [i] * 4, ll),
             (f"{stem}_rowtile", [p] * 5 + [i] * 4 + [f, p], i),
             (f"{stem}_rowtile_smem_bytes", [i], ll),
@@ -179,15 +194,24 @@ def _lib(stem: str) -> ctypes.CDLL:
 
 
 @functools.cache
-def _route(stem: str, device: int, g: int, n: int, t: int, h: int) -> GroupedRoute:
-    """The library's route for a call (read once per device and shape)."""
+def _route(stem: str, device: int, g: int, n: int, t: int, h: int
+           ) -> tuple[GroupedRoute, bool]:
+    """The library's route for a call and whether its launch reads Wh from
+    device memory (read once per device and shape)."""
     del device   # one route for every H100; the key keeps a second card's read apart
-    c, rows, split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if getattr(_lib(stem), f"{stem}_route")(g, n, t, h, ctypes.byref(c), ctypes.byref(rows),
-                                             ctypes.byref(split)) != 0:
-        raise ValueError(f"{stem} keeps Wh resident in shared memory and takes no H={h}: "
-                         "past the largest cluster no CTA holds its slice")
-    return GroupedRoute(c.value, rows.value, split.value)
+    c, rows, split, glob = (ctypes.c_int() for _ in range(4))
+    if getattr(_lib(stem), f"{stem}_route")(g, n, t, h, *map(ctypes.byref,
+                                                              (c, rows, split, glob))) != 0:
+        raise RuntimeError(f"{stem}_route: no launch shape holds h at H={h} in a CTA's "
+                           "shared memory")
+    return GroupedRoute(c.value, rows.value, split.value), bool(glob.value)
+
+
+def takes_wh_global(g: int, n: int, t: int, h: int) -> bool:
+    """Whether K7 and K8 read Wh from device memory for a call of g groups of n
+    rows, t steps at width h on the current CUDA device, as the library's route
+    says."""
+    return _route("lstm_grouped", torch.cuda.current_device(), g, n, t, h)[1]
 
 
 def _wh_layout(wh, g: int, h: int, dev) -> tuple[int, int]:
@@ -230,24 +254,32 @@ def _check(stem: str, x_proj: torch.Tensor, lengths: torch.Tensor) -> tuple[int,
 
 
 def _launch(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor, wh,
-            forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
+            forget_bias: float, route: GroupedRoute | None = None,
+            entry: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch `entry` (default the kernel itself under the library's route, Wh
+    global where the library says so) of csrc/<stem>.cu; the forced entries
+    take `route` (default the library's) and always read Wh globally."""
     g, n, t, h = _check(stem, x_proj, lengths)
     dev = x_proj.device
     wh_ptr, wh_stride = _wh_layout(wh, g, h, dev)
     out, fin = _outputs(g, n, t, h, dev)
     if g * n * t == 0:
         return out, fin
-    route = _route(stem, dev.index, g, n, t, h)
+    if entry is None:
+        entry = stem
+        route, glob = _route(stem, dev.index, g, n, t, h)
+    else:
+        route, glob = route or _route(stem, dev.index, g, n, t, h)[0], True
     lib = _lib(stem)
     with torch.cuda.device(dev):
-        err = getattr(lib, stem)(x_proj.data_ptr(), lengths.data_ptr(), lengths.stride(0),
-                                 wh_ptr, wh_stride, out.data_ptr(), fin.data_ptr(), g, n, t, h,
-                                 route.cluster, route.rows, route.split, float(forget_bias),
-                                 torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(lib, entry)(x_proj.data_ptr(), lengths.data_ptr(), lengths.stride(0),
+                                  wh_ptr, wh_stride, out.data_ptr(), fin.data_ptr(), g, n, t, h,
+                                  route.cluster, route.rows, route.split, float(forget_bias),
+                                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = getattr(lib, f"{stem}_error_string")(err).decode()
-        raise RuntimeError(f"{stem} launch failed: {msg}")
-    build.count_launch(wrapper)
+        raise RuntimeError(f"{entry} launch failed: {msg}")
+    build.count_launch(wrapper, glob)
     return out, fin
 
 
@@ -258,22 +290,43 @@ def scan_grouped(x_proj: torch.Tensor, lengths: torch.Tensor,
     contiguous, on one CUDA device; lengths int32, contiguous along N, its
     group stride may be 0; wh a [G, H, 4H] tensor or G [H, 4H] tensors at one
     stride, read where they lie). Counts its launches in
-    `scan_grouped.launches`."""
+    `scan_grouped.launches`, those reading Wh from device memory also in
+    `scan_grouped.global_launches`."""
     return _launch(scan_grouped, "lstm_grouped", x_proj, lengths, wh, forget_bias)
-
-
-scan_grouped.launches = 0
 
 
 def scan_stream(x_proj: torch.Tensor, lengths: torch.Tensor,
                 wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K8 (as `scan_grouped`). Counts its launches in
-    `scan_stream.launches`."""
+    `scan_stream.launches` and `scan_stream.global_launches`."""
     return _launch(scan_stream, "lstm_stream", x_proj, lengths, wh, forget_bias)
 
 
-scan_stream.launches = 0
+def scan_grouped_wh_global(x_proj: torch.Tensor, lengths: torch.Tensor,
+                           wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float,
+                           route: GroupedRoute | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 reading Wh from device memory at any width, under `route` (default
+    the library's route; any instantiated (rows, split)). No path calls it; at
+    the same route it gives `scan_grouped`'s bits. Counts its launches in
+    `scan_grouped_wh_global.launches` and `.global_launches`."""
+    return _launch(scan_grouped_wh_global, "lstm_grouped", x_proj, lengths, wh, forget_bias,
+                   route, "lstm_grouped_wh_global")
+
+
+def scan_stream_wh_global(x_proj: torch.Tensor, lengths: torch.Tensor,
+                          wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float,
+                          route: GroupedRoute | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8 reading Wh from device memory (as `scan_grouped_wh_global`). Counts
+    its launches in `scan_stream_wh_global.launches` and `.global_launches`."""
+    return _launch(scan_stream_wh_global, "lstm_stream", x_proj, lengths, wh, forget_bias,
+                   route, "lstm_stream_wh_global")
+
+
+for _w in (scan_grouped, scan_stream, scan_grouped_wh_global, scan_stream_wh_global):
+    _w.launches = _w.global_launches = 0
 
 
 def _launch_rowtile(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor, wh,

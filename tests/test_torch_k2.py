@@ -137,9 +137,9 @@ int main() {
           for (size_t sm : smem)
             for (int c = 16; c >= 1; c /= 2) {
               const k2::Plan p = k2::plan(n, a[0], a[1], b[0], b[1], m, sm, c);
-              std::printf("%d %d %d %d %d %d %zu %d %d %d %d %d %d %d %d %zu\n", n, a[0],
-                          a[1], b[0], b[1], m, sm, c, p.cluster, p.chunks, p.chunk_len, p.segs,
-                          p.rows, p.bufs, p.qtile, p.smem);
+              std::printf("%d %d %d %d %d %d %zu %d %d %d %d %d %d %d %d %zu %d\n", n,
+                          a[0], a[1], b[0], b[1], m, sm, c, p.cluster, p.chunks, p.chunk_len,
+                          p.segs, p.rows, p.bufs, p.qtile, p.smem, p.route);
             }
   return 0;
 }

@@ -191,8 +191,9 @@ int main() {
         for (int m : sms)
           for (size_t sm : smem) {
             const fvta::RunGeometry g = fvta::run_geometry(n, a[0], a[1], b[0], b[1], m, sm);
-            std::printf("%d %d %d %d %d %d %zu %d %d %d %d %zu %zu\n", n, a[0], a[1], b[0],
-                        b[1], m, sm, g.per, g.cpc, g.rows, g.nbuf, g.smem, g.scratch);
+            std::printf("%d %d %d %d %d %d %zu %d %d %d %d %zu %zu %d\n", n, a[0], a[1],
+                        b[0], b[1], m, sm, g.per, g.cpc, g.rows, g.nbuf, g.smem, g.scratch,
+                        g.route);
           }
   return 0;
 }

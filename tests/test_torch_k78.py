@@ -34,7 +34,7 @@ from fvta_memexqa_tpu.ops.lstm_pallas import (_pallas_scan, _pallas_scan_stream,
 
 from fvta_memexqa_torch.ops import build, lstm_fused, lstm_grouped
 from test_torch_grouped import make_case, torch_params
-from test_torch_kernels import ROUTES
+from test_torch_kernels import ROUTES, grouped_wh_global
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -88,8 +88,9 @@ def test_grouped_route_matches_the_cuda_header(tmp_path):
             continue
         routed += 1
         assert route == (c, r, s), (g, n, h)
-        assert (lstm_grouped.grouped_smem(h, c, r, s, False),
-                lstm_grouped.grouped_smem(h, c, r, s, True)) == (k7, k8), (g, n, h)
+        glob = grouped_wh_global(h, c, r, s)
+        assert (lstm_grouped.grouped_smem(h, c, r, s, False, glob),
+                lstm_grouped.grouped_smem(h, c, r, s, True, glob)) == (k7, k8), (g, n, h)
         assert k7 < k8 <= build.SMEM_LIMIT
     assert routed > len(rows) // 2
 
@@ -98,14 +99,19 @@ def test_grouped_route_matches_the_cuda_header(tmp_path):
                                           ("lstm_stream.cu", "LSTM_STREAM_CASE")])
 def test_instantiated_pairs_are_the_route_splits(source, macro):
     """Every (rows, lanes) pair the route can pick is instantiated in each
-    source, and the kernel's thread limit is the route's."""
+    source (with Wh resident and with Wh global), and the kernel's thread limits
+    are the route's: per tile height with Wh resident, 1024 with Wh global."""
     text = (build.CSRC_DIR / source).read_text()
     pairs = {(int(r), int(s)) for r, s in re.findall(rf"^\s*{macro}\((\d+), (\d+)\)", text, re.M)}
     assert pairs == {(r, s) for r, splits in lstm_fused._SPLITS.items() for s in splits}
+    assert re.search(r"return global \? gscan::launch<R, S_, \w+, true>", text)
     header = (build.CSRC_DIR / "lstm_gscan.cuh").read_text()
-    bounds = re.findall(r"__launch_bounds__\(ROWS == 16 \? (\d+) : (\d+)\)", header)
+    bounds = re.findall(r"__launch_bounds__\(WH_GLOBAL \? MAX_THREADS_WH_GLOBAL : "
+                        r"\(ROWS == 16 \? (\d+) : (\d+)\)\)", header)
     assert len(bounds) == 1
     assert {16: int(bounds[0][0]), 8: int(bounds[0][1])} == lstm_fused._MAX_THREADS
+    wh_global = re.findall(r"constexpr int MAX_THREADS_WH_GLOBAL = (\d+);", header)
+    assert [int(v) for v in wh_global] == [lstm_grouped.MAX_THREADS_WH_GLOBAL]
 
 
 @pytest.mark.parametrize("shape", [s for s, (kernels, *_) in ROUTES

@@ -577,7 +577,8 @@ def test_stats_wrappers_refuse_cpu_tensors():
 # given plan, so the CPU checks the split, the merges and the combine that only
 # the card runs.
 
-K2Plan = namedtuple("K2Plan", "cluster chunks chunk_len segs rows bufs qtile smem")
+K2Plan = namedtuple("K2Plan", "cluster chunks chunk_len segs rows bufs qtile smem route",
+                    defaults=(0,))
 K2_WARPS, K2_SUB, K2_JT = 8, 32, 32
 K2_RESIDENT_ROWS, K2_STREAM_ROWS, K2_MAX_CLUSTER = 96, 32, 16
 
@@ -595,18 +596,19 @@ def k2_vec_stride(d):
     return s if (s // 4) % 2 else s + 4
 
 
-def k2_smem(j, d, cluster, segs, rows, bufs, qtile):
-    """Bytes of fvta_fwd.cuh's layout()."""
-    ds, jc, g = k2_vec_stride(d), _cdiv(j + 1, K2_JT) * K2_JT, _round4(segs)
+def k2_smem(j, d, cluster, segs, rows, bufs, qtile, global_=False):
+    """Bytes of fvta_fwd.cuh's layout() (global_: the global route's)."""
+    ds, jc, g = 0 if global_ else k2_vec_stride(d), _cdiv(j + 1, K2_JT) * K2_JT, _round4(segs)
+    qsl = 0 if qtile or global_ else _round4(j * _cdiv(d, cluster))
     floats = (bufs * rows * ds + _round4(bufs * rows) + (K2_JT if qtile else jc) * ds + 2 * ds
-              + (0 if qtile else _round4(j * _cdiv(d, cluster))) + _round4(K2_SUB * (K2_JT + 1))
+              + qsl + _round4(K2_SUB * (K2_JT + 1))
               + 2 * K2_SUB + _round4(rows) + (4 + K2_WARPS) * jc + segs * ds
               + _round4(cluster * _cdiv(d, cluster)) + 8 * g + 4)
     return 4 * floats
 
 
-def k2_plan(n, s, t, j, d, sms, smem_max, cmax):
-    """fvta_fwd.cuh's plan(): the cluster, the segments, the staging."""
+def k2_plan(n, s, t, j, d, sms, smem_max, cmax, force_global=False):
+    """fvta_fwd.cuh's plan(): the cluster, the segments, the staging, the route."""
     c = 1
     while c < cmax and n * c < sms:
         c *= 2
@@ -622,13 +624,14 @@ def k2_plan(n, s, t, j, d, sms, smem_max, cmax):
         span = segs * chunk_len
         natural = ((1, _cdiv(span, K2_SUB) * K2_SUB) if span <= K2_RESIDENT_ROWS
                    else (2, K2_STREAM_ROWS))
-        for qtile in (0, 1):
+        for qtile in () if force_global else (0, 1):
             for bufs, rows in (natural, (2, K2_STREAM_ROWS), (1, K2_SUB)):
                 smem = k2_smem(j, d, cluster, segs, rows, bufs, qtile)
                 if smem <= smem_max:
                     return K2Plan(cluster, chunks, chunk_len, segs, rows, bufs, qtile, smem)
-        if c >= cmax:
-            return K2Plan(cluster, chunks, chunk_len, segs, rows, bufs, qtile, smem)
+        if c >= cmax or force_global:
+            smem = k2_smem(j, d, cluster, segs, K2_STREAM_ROWS, 1, 1, True)
+            return K2Plan(cluster, chunks, chunk_len, segs, K2_STREAM_ROWS, 1, 1, smem, 1)
         c *= 2
 
 
@@ -708,21 +711,23 @@ def k2_emulated(h, cm_f, q, qm_f, wx, wy, wxy, plan):
 # for a given geometry, with C from the plain version, so the CPU checks the
 # split, the online merges and the combine that only the card runs.
 
-RunGeometry = namedtuple("RunGeometry", "per cpc rows nbuf smem scratch")
+RunGeometry = namedtuple("RunGeometry", "per cpc rows nbuf smem scratch route",
+                         defaults=(0,))
 RUN_WARPS = 8
 RUN_STAGING = ((64, 2), (32, 2), (64, 1), (32, 1))   # (rows per pass, h buffers)
 
 
-def run_smem(j, d, rows, nbuf):
-    """Bytes of fvta_corr.cuh's run_layout()."""
-    ds, jp = k2_vec_stride(d), _cdiv(j, 32) * 32
+def run_smem(j, d, rows, nbuf, global_=False):
+    """Bytes of fvta_corr.cuh's run_layout() (global_: the global route's)."""
+    ds, jp = 0 if global_ else k2_vec_stride(d), _cdiv(j, 32) * 32
     return 4 * ((nbuf * rows * ds + nbuf * rows) + rows * ds + 32 * ds + 3 * ds + 3 * jp
                 + rows + rows + (rows + 4) + RUN_WARPS * jp + ds)
 
 
-def k45_geometry(n, s, t, j, d, sms, smem_max):
+def k45_geometry(n, s, t, j, d, sms, smem_max, force_global=False):
     """fvta_corr.cuh's run_geometry(): CTAs per sequence, chunks per CTA, rows
-    per pass, h buffers, shared memory per CTA, K4's scratch floats."""
+    per pass, h buffers, shared memory per CTA, K4's scratch floats, route (1:
+    global, where no staging fits or forced)."""
     chunks, ns = _cdiv(t, 32), n * s
     per = sms // ns if sms // ns > 1 else 1
     cpc = _cdiv(chunks, per)
@@ -731,7 +736,43 @@ def k45_geometry(n, s, t, j, d, sms, smem_max):
         smem = run_smem(j, d, rows, nbuf)
         if smem <= smem_max:
             break
-    return RunGeometry(per, cpc, rows, nbuf, smem, ns * per * (2 + d + j))
+    route = int(force_global or smem > smem_max)
+    if route:
+        rows, nbuf, smem = 64, 1, run_smem(j, d, 64, 1, True)
+    return RunGeometry(per, cpc, rows, nbuf, smem, ns * per * (2 + d + j), route)
+
+
+K6Geometry = namedtuple("K6Geometry", "per cpc nbuf acc_smem smem scratch route")
+
+
+def k6_smem(j, d, nbuf, acc_smem, global_=False):
+    """Bytes of fvta_bwd.cu's fused_layout() (global_: the global route's)."""
+    ds, jp = 0 if global_ else k2_vec_stride(d), _cdiv(j, 32) * 32
+    return 4 * (nbuf * 32 * ds + 32 * ds + 32 * ds + (32 * ds if acc_smem else 0) + 32 * jp
+                + 5 * ds + 5 * jp + 5 * 32)
+
+
+def k6_geometry(n, s, t, j, d, sms, smem_max, force_global=False):
+    """fvta_bwd.cu's fused_geometry(): CTAs per sequence, chunks per CTA, h
+    buffers, dC^T h in shared memory, shared memory per CTA, scratch floats,
+    route (1: global, where no staging fits or forced)."""
+    chunks, ns = _cdiv(t, 32), n * s
+    per = sms // ns if sms // ns > 1 else 1
+    cpc = _cdiv(chunks, per)
+    per = _cdiv(chunks, cpc)
+    jp = _cdiv(j, 32) * 32
+    nbuf, acc = 1, False
+    for b in (2, 1):
+        a = jp == 32 and k6_smem(j, d, b, True) <= smem_max
+        if k6_smem(j, d, b, a) <= smem_max:
+            nbuf, acc = b, a
+            break
+    smem = k6_smem(j, d, nbuf, acc)
+    route = int(force_global or smem > smem_max)
+    if route:
+        nbuf, acc, smem = 1, False, k6_smem(j, d, 1, False, True)
+    scratch = ns * per * (jp * k2_vec_stride(d) + jp + k2_vec_stride(d))
+    return K6Geometry(per, cpc, nbuf, acc, smem, scratch, route)
 
 
 def run_chunks(t, geo):
@@ -880,6 +921,15 @@ def grouped_case(g, n, t, h, seed, device="cpu"):
     lim = np.sqrt(6.0 / (5 * h))
     wh = rng.uniform(-lim, lim, (g, h, 4 * h)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (xp, lens, wh))
+
+
+def grouped_wh_global(h, cluster, rows, split):
+    """csrc/lstm_gscan.cuh's wh_global restated: whether K7 and K8 at (cluster,
+    rows, split) read Wh from device memory at width h, because the resident
+    K8 exceeds its thread limit or the shared memory."""
+    threads = lstm_fused.rec_geometry(h, cluster, rows, split)[0]
+    return (threads > lstm_fused._MAX_THREADS[rows]
+            or lstm_grouped.grouped_smem(h, cluster, rows, split, True) > build.SMEM_LIMIT)
 
 
 def test_grouped_wrappers_refuse_cpu_tensors():
@@ -1275,7 +1325,8 @@ def test_k2_geometry_is_the_plan_and_schedulable_on_card(cuda, shape):
     geo = fvta_fused.geometry(*shape)
     assert fvta_fused.geometry(*shape) is geo          # read once per device and shape
     plan = k2_plan(*shape, geo["sms"], build.SMEM_LIMIT, geo["cluster_cap"])
-    assert tuple(geo[k] for k in K2Plan._fields) == tuple(plan)
+    assert tuple(geo[k] for k in K2Plan._fields[:-1]) == tuple(plan)[:-1]
+    assert geo["route"] == fvta_fused.ROUTES[plan.route]
     assert geo["active_clusters"] >= 1 and 1 <= geo["cluster"] <= K2_MAX_CLUSTER
     assert geo["smem"] <= build.SMEM_LIMIT
 
@@ -1697,7 +1748,8 @@ def test_k45_geometry_is_the_mirror_on_card(cuda, shape):
     with torch.cuda.device(cuda):
         geo = fvta_stats.run_geometry(*shape)
     mirror = k45_geometry(*shape, sms=props.multi_processor_count, smem_max=smem_max)
-    assert tuple(geo.values()) == tuple(mirror)
+    assert tuple(geo.values())[:-1] == tuple(mirror)[:-1]
+    assert geo["route"] == fvta_stats.ROUTES[mirror.route]
     assert geo["smem"] <= smem_max
 
 
@@ -1823,14 +1875,24 @@ def test_rowtile_kernels_match_plain_and_the_new_kernels_on_card(cuda, kernel, g
 
 @pytest.mark.gpu
 def test_grouped_wrappers_raise_past_the_largest_cluster_on_card(cuda):
-    assert lstm_grouped.grouped_route(2, 64, 4, 400) is None
+    """Past the largest cluster (H = 400) only the row-tile kernels, which keep
+    Wh resident whole, still raise; K7 and K8 read Wh from device memory there
+    and match plain."""
+    route = lstm_grouped.grouped_route(2, 64, 4, 400)
+    assert route.cluster == lstm_fused.MAX_CLUSTER
+    assert lstm_grouped.takes_wh_global(2, 64, 4, 400)
     xp, lens, wh = grouped_case(2, 64, 4, 400, seed=27, device=cuda)
     before = _grouped_launches()
-    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream,
-                    lstm_grouped.scan_grouped_rowtile, lstm_grouped.scan_stream_rowtile):
+    for wrapper in (lstm_grouped.scan_grouped_rowtile, lstm_grouped.scan_stream_rowtile):
         with pytest.raises(ValueError, match="H=400"):
             wrapper(xp, lens, wh, 1.0)
     assert _grouped_launches() == before
+    ref = lstm_grouped.grouped_scan_ref(xp, lens, wh, 1.0)
+    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream):
+        g0 = wrapper.global_launches
+        for a, b in zip(wrapper(xp, lens, wh, 1.0), ref):
+            torch.testing.assert_close(a, b, **LSTM_TOL)
+        assert wrapper.global_launches == g0 + 1
 
 
 @pytest.mark.gpu
@@ -1838,10 +1900,11 @@ def test_grouped_wrappers_raise_past_the_largest_cluster_on_card(cuda):
 def test_grouped_route_is_the_mirror_on_card(cuda, g, n, t, h):
     """The libraries' route and shared memory equal the Python mirror's."""
     route = lstm_grouped.grouped_route(g, n, t, h)
+    glob = grouped_wh_global(h, *route)
     for stem, stream in (("lstm_grouped", False), ("lstm_stream", True)):
-        assert lstm_grouped._route(stem, cuda.index or 0, g, n, t, h) == route
+        assert lstm_grouped._route(stem, cuda.index or 0, g, n, t, h) == (route, glob)
         assert (getattr(lstm_grouped._lib(stem), f"{stem}_smem_bytes")(h, *route)
-                == lstm_grouped.grouped_smem(h, *route, stream))
+                == lstm_grouped.grouped_smem(h, *route, stream, glob))
 
 
 @pytest.mark.gpu
@@ -1872,3 +1935,223 @@ def test_grouped_grads_on_card_match_plain_autograd(cuda, n, t):
     for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"),
                           got, ref):
         torch.testing.assert_close(a, b, **GRAD_TOL, msg=name)
+
+
+# ---- card: every width the JAX package takes (the global routes) ----------------
+# Each attention and scan kernel past its shared-memory limit reads the operands
+# that grow with D (or H) from device memory. The old limits on the H100 (the
+# mirrors give them): K4/K5 stage up to D = 572 at J = 30 and 516 at J = 512,
+# K6 up to 556 and 380, K2 up to ~812 at S = T = 24, K7/K8 hold Wh up to H =
+# 315. Each kernel is held against plain at both sides of its limit and at D =
+# 2048 (H = 512 for the scans), the forced global route against the staged one
+# bit for bit at D = 200 (H = 100 and 315), and the global routes repeat
+# bitwise.
+
+def _smem_max(cuda) -> int:
+    props = torch.cuda.get_device_properties(cuda)
+    return getattr(props, "shared_memory_per_block_optin", build.SMEM_LIMIT)
+
+
+def last_staged(geometry, lo: int, hi: int) -> int:
+    """The largest D in [lo, hi) whose `geometry(d)` takes the staged route."""
+    return max(d for d in range(lo, hi) if not geometry(d).route)
+
+
+def stats_limits(j: int, sms: int, smem_max: int) -> tuple[int, int]:
+    """(K4/K5's, K6's) last staged D at J = j on a card with these limits."""
+    k45 = last_staged(lambda d: k45_geometry(1, 1, 100, j, d, sms, smem_max), 100, 2049)
+    k6 = last_staged(lambda d: k6_geometry(1, 1, 100, j, d, sms, smem_max), 100, 2049)
+    return k45, k6
+
+
+def _widths_stats_shapes(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shapes = []
+    for j, t in ((30, 100), (512, 70)):
+        k45, k6 = stats_limits(j, sms, _smem_max(cuda))
+        shapes += [(1, 1, t, j, d) for d in (k45, k45 + 1, k6, k6 + 1)]
+    return shapes + [(1, 1, 100, 30, 2048)]
+
+
+def _k456_route_case(args, force_global):
+    """K4, K5 (from K4's eq) and K6 (unit cotangents), on the routes the shape
+    takes or forced global; returns the outputs and the geometries' routes."""
+    h, cm, q, qm, wx, wy, wxy = args
+    n, s, t, d = h.shape
+    k4, k5, k6 = ((fvta_stats.stats_fwd_global, fvta_stats.qcnt_global,
+                   fvta_stats.stats_bwd_global) if force_global else
+                  (fvta_stats.stats_fwd, fvta_stats.qcnt, fvta_stats.stats_bwd))
+    rng = np.random.default_rng(61)
+    de, geq, gv = (torch.from_numpy(rng.normal(0, 1, sh).astype(np.float32)).to(h.device)
+                   for sh in ((n, s, t), tuple(qm.shape), (n, s, d)))
+    with torch.no_grad():
+        st = k4(*args)
+        cnt = k5(h, cm, q, wx, wy, wxy, st[3])
+        dk = k6(*args, de, geq, st[3], cnt, st[4], st[0], gv)
+        torch.cuda.synchronize()
+    shape = (n, s, t, q.shape[1], d)
+    routes = (fvta_stats.run_geometry(*shape, force_global)["route"],
+              fvta_stats.bwd_geometry(*shape, force_global)["route"])
+    return st, cnt, dk, routes, (de, geq, gv)
+
+
+@pytest.mark.gpu
+def test_stats_kernels_match_plain_at_both_sides_of_each_limit_on_card(cuda):
+    """K4, K5 and K6 at the last staged D and the first global D of each (J =
+    30 and 512), and at D = 2048: the route the geometry reports, the fields
+    against plain (float64 witness for K4's long sums), the counts exactly."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape in _widths_stats_shapes(cuda):
+        args = _k45_args(shape, 60, cuda, True)
+        st, cnt, dk, routes, (de, geq, gv) = _k456_route_case(args, False)
+        want = (k45_geometry(*shape, sms, _smem_max(cuda)).route,
+                k6_geometry(*shape, sms, _smem_max(cuda)).route)
+        assert routes == tuple(fvta_stats.ROUTES[r] for r in want), shape
+        h, cm, q, qm, wx, wy, wxy = args
+        with torch.no_grad():
+            ref = fvta_stats.stats_fwd_ref(*args)
+            cnt_r = fvta_stats.qcnt_ref(h, cm, q, wx, wy, wxy, ref[3])
+            exact = fvta_stats.stats_fwd_ref(*(a.double() for a in args))
+            dr = fvta_stats.stats_bwd_ref(*args, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
+        _assert_stats_close(st, ref, exact)
+        assert torch.equal(cnt, cnt_r) and (cnt >= 1).all(), shape
+        exact6 = _k6_f64((*args, de, geq, ref[3], cnt_r, ref[4], ref[0], gv))
+        _assert_k6_close(dk, dr, exact6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 1, 4096, 30, 200), (2, 3, 33, 40, 16),
+                                   (1, 2, 300, 512, 200)])
+def test_stats_global_route_equals_the_staged_route_bitwise_on_card(cuda, shape):
+    """At widths that stage, the forced global route gives K4's fields, K5's
+    counts and K6's outputs bit for bit; K6 fed either route's K4/K5 agrees
+    bitwise; two launches of the global route are bitwise equal."""
+    args = _k45_args(shape, 62, cuda, True)
+    st_s, cnt_s, dk_s, routes_s, cot = _k456_route_case(args, False)
+    st_g, cnt_g, dk_g, routes_g, _ = _k456_route_case(args, True)
+    assert routes_s == ("staged", "staged") and routes_g == ("global", "global")
+    for field, a, b in zip(("m", "den", "v", "eq", "e"), st_s, st_g):
+        assert torch.equal(a, b), field
+    assert torch.equal(cnt_s, cnt_g)
+    for field, a, b in zip(K6_FIELDS, dk_s, dk_g):
+        assert torch.equal(a, b), field
+    with torch.no_grad():
+        again = fvta_stats.stats_fwd_global(*args)
+        k6_on_global = fvta_stats.stats_bwd(*args, cot[0], cot[1], st_g[3], cnt_g, st_g[4],
+                                            st_g[0], cot[2])
+        torch.cuda.synchronize()
+    for a, b in zip(again, st_g):
+        assert torch.equal(a, b)
+    for a, b in zip(k6_on_global, dk_s):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_k6_geq_only_where_k45_stage_and_k6_does_not_on_card(cuda):
+    """J = 30, D = 560: K4 and K5 stage, K6 takes the global route, and the ties
+    K6 finds by exact equality are K4's (every share of geq reaches dq)."""
+    shape = (2, 1, 1024, 30, 560)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k45_geometry(*shape, sms, _smem_max(cuda)).route == 0
+    assert k6_geometry(*shape, sms, _smem_max(cuda)).route == 1
+    args, args_r = _k6_args(shape, 63, cuda, geq_only=True)
+    with torch.no_grad():
+        got = fvta_stats.stats_bwd(*args)
+        ref = fvta_stats.stats_bwd_ref(*args_r)
+        torch.cuda.synchronize()
+    assert float(ref[1].abs().max()) > 1e-3
+    _assert_k6_close(got, ref)
+
+
+def k2_limit(n, s, t, j, sms, smem_max) -> int:
+    """K2's last staged D at (N, S, T, J) on a card with these limits (the plan
+    at the largest cluster cap)."""
+    return last_staged(lambda d: k2_plan(n, s, t, j, d, sms, smem_max, K2_MAX_CLUSTER),
+                       200, 2049)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,s,t,j", [(2, 24, 24, 30), (2, 1, 512, 30), (2, 8, 64, 512)])
+def test_k2_matches_plain_at_both_sides_of_its_limit_on_card(cuda, n, s, t, j):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    d_last = k2_limit(n, s, t, j, sms, _smem_max(cuda))
+    for d, route in ((d_last, "staged"), (d_last + 1, "global"), (2048, "global")):
+        h, cm, q, qm, p = fvta_case(n, s, t, j, d, seed=64, device=cuda, dead=True)
+        args = k2_args_of(h, cm, q, qm, p)
+        assert fvta_fused.geometry(n, s, t, j, d)["route"] == route, d
+        before = fvta_fused.fvta_fwd.global_launches
+        with torch.no_grad():
+            out = fvta_fused.fvta_fwd(*args)
+            ref = fvta_ref.fvta_attention(h, cm, q, qm, fvta_ref.similarity_tensor(
+                h, q, "trilinear", {k: 0.1 * v for k, v in p.items()}))
+            torch.cuda.synchronize()
+        assert fvta_fused.fvta_fwd.global_launches == before + (route == "global")
+        for x, y, field in zip(out, ref, FIELDS):
+            assert torch.isfinite(x).all(), (d, field)
+            torch.testing.assert_close(x, y, **FVTA_TOL, msg=f"D={d} {field}")
+
+
+def k2_args_of(h, cm, q, qm, p):
+    """K2's arguments from fvta_case's outputs, weights at the models' 0.1 scale."""
+    return (h, cm.float(), q, qm.float(), *(0.1 * p[k] for k in ("w_x", "w_y", "w_xy")))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 24, 24, 30, 200), (8, 24, 24, 30, 200),
+                                   (2, 1, 1024, 30, 200), (3, 1, 7, 40, 16)])
+def test_k2_global_route_matches_plain_and_repeats_on_card(cuda, shape):
+    """K2 forced to the global route at widths that stage: plain's function,
+    the staged route's within tolerance, two launches bitwise equal."""
+    h, cm, q, qm, p = fvta_case(*shape, seed=65, device=cuda, dead=True)
+    args = k2_args_of(h, cm, q, qm, p)
+    with torch.no_grad():
+        a = fvta_fused.fvta_fwd_global(*args)
+        b = fvta_fused.fvta_fwd_global(*args)
+        staged = fvta_fused.fvta_fwd(*args)
+        torch.cuda.synchronize()
+    assert fvta_fused.geometry(*shape, True)["route"] == "global"
+    for x, y, z, field in zip(a, b, staged, FIELDS):
+        assert torch.equal(x, y), field
+        torch.testing.assert_close(x, z, **FVTA_TOL, msg=field)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", [(2, 64, 6, 315), (2, 64, 6, 316), (2, 40, 5, 512),
+                                     (1, 17, 3, 1024), (2, 3072, 3, 400)])
+def test_grouped_kernels_match_plain_past_the_largest_cluster_on_card(cuda, g, n, t, h):
+    """K7 and K8 at H = 315 (the last width whose Wh a cluster holds), 316 (Wh
+    global), 512 and 1024: plain's function, K7 == K8 bitwise, repeats
+    bitwise, the global launches counted."""
+    xp, lens, wh = grouped_case(g, n, t, h, seed=66, device=cuda)
+    glob = lstm_grouped.takes_wh_global(g, n, t, h)
+    assert glob == grouped_wh_global(h, *lstm_grouped.grouped_route(g, n, t, h)) == (h > 315)
+    ref = lstm_grouped.grouped_scan_ref(xp, lens, wh, 1.0)
+    outs = []
+    for wrapper in (lstm_grouped.scan_grouped, lstm_grouped.scan_stream):
+        g0 = wrapper.global_launches
+        outs.append(wrapper(xp, lens, wh, 1.0))
+        again = wrapper(xp, lens, wh, 1.0)
+        torch.cuda.synchronize()
+        assert wrapper.global_launches == g0 + 2 * glob
+        for a, b, c in zip(outs[-1], ref, again):
+            torch.testing.assert_close(a, b, **LSTM_TOL)
+            assert torch.equal(a, c)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,n,t,h", [(2, 256, 12, 100), (2, 3072, 4, 100), (2, 64, 30, 100),
+                                     (2, 64, 6, 315)])
+def test_grouped_wh_global_equals_the_resident_route_bitwise_on_card(cuda, g, n, t, h):
+    """At the resident route's (cluster, rows, split), K7 and K8 reading Wh
+    from device memory give the resident kernels' bits."""
+    xp, lens, wh = grouped_case(g, n, t, h, seed=67, device=cuda)
+    route = lstm_grouped.grouped_route(g, n, t, h)
+    assert not lstm_grouped.takes_wh_global(g, n, t, h)
+    for resident, forced in ((lstm_grouped.scan_grouped, lstm_grouped.scan_grouped_wh_global),
+                             (lstm_grouped.scan_stream, lstm_grouped.scan_stream_wh_global)):
+        before = forced.launches
+        for a, b in zip(resident(xp, lens, wh, 1.0), forced(xp, lens, wh, 1.0, route)):
+            assert torch.equal(a, b)
+        assert forced.launches == before + 1
