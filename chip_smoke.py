@@ -197,7 +197,28 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    256, video at T = 1024 and 4096, step costs with each layer's FLOP and byte
    share, and a profile of one train step;
 20. capacity_probe.probe_largest_t at batch 8, J = 512, D = 200, S = 8,
-   forward and with grad, T from 16384 up to 1048576 (the `capacity` line).
+   forward and with grad, T from 16384 up to 1048576 (the `capacity` line);
+21. the serving front end (run inside the block of phases 4-16, whose pack,
+   trained run directory and raw files it reads): `python -m
+   fvta_memexqa_torch.cli serve` in subprocesses on the card (SERVER_BOOT:
+   the CLI's entry point plus signal handlers that write each process's
+   kernel counters, which start at 0, and its answer steps' CUDA-event span);
+   K1 and K2 must launch in every process, the serial K2, the L2-streaming
+   bi-LSTM kernels and every global route never. An f32 server with
+   --auth-token, --max-pending, --max-rps-per-client, --cache-dir and the raw
+   albums: 32 concurrent /ask calls within 1e-5 of the in-process card engine
+   (answers equal), POST /albums of a new album and the wall time to its first
+   answer, 401 / 429 / 404, /stats; --max-cache-mb 1 (evictions, re-encodes,
+   answers within 1e-5 of the f32 server's, lstm_rec's launches equal to the
+   answer steps' and re-encodes' own counts); --cache-dtype bfloat16 and int8
+   (exact cache bytes, top-1 equal to f32 but for near-ties, probabilities
+   within 0.05; _quant_h on the card bitwise its CPU result); a restart on the
+   saved cache (restored N, answers within 1e-5); `--dp 2` and
+   `--shard-cache` exiting non-zero naming ROADMAP.md item 5; TLS with a
+   self-signed cert where openssl exists; open-loop Poisson load at 50-800
+   asks/s (p50, p99, errors, shed, achieved rate, the answer steps' span
+   share) and the highest rate whose p99 stays under 100 ms (the
+   `serving_http` line).
 
 Prints a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3913,6 +3934,558 @@ def capacity_phase() -> dict:
     return out
 
 
+# ---- phase 21: the serving front end over HTTP (`cli serve` in subprocesses) -----
+
+# Each `cli serve` process runs this boot: the CLI's own entry point (runpy, as
+# `python -m fvta_memexqa_torch.cli`), with signal handlers that write the
+# process's kernel launch counters and the summed CUDA-event span of its answer
+# steps to $SMOKE_COUNTS (SIGUSR1: on request; SIGTERM: at the end, then exit).
+SERVER_BOOT = r"""
+import json, os, runpy, signal, threading
+import torch
+from fvta_memexqa_torch import serve
+from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_fused, lstm_grouped
+
+span = {"answer_steps": 0, "answer_span_ms": 0.0}
+lock = threading.Lock()
+run_batch = serve.QAEngine._run_batch
+
+
+def timed(self, pending):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run_batch(self, pending)
+    end.record()
+    end.synchronize()
+    with lock:
+        span["answer_steps"] += 1
+        span["answer_span_ms"] += start.elapsed_time(end)
+
+
+serve.QAEngine._run_batch = timed
+GLOBAL = {"fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
+          "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd,
+          "scan_grouped": lstm_grouped.scan_grouped, "scan_stream": lstm_grouped.scan_stream}
+
+
+def dump(*_):
+    out = {k: getattr(lstm_fused, k).launches
+           for k in ("lstm_proj", "lstm_rec", "lstm_rec_bwd", "lstm_fwd", "lstm_bwd")}
+    out.update({k: getattr(fvta_fused, k).launches
+                for k in ("fvta_fwd", "fvta_fwd_serial", "fvta_fwd_global")})
+    out["global_launches"] = {k: f.global_launches for k, f in GLOBAL.items()}
+    with lock:
+        out.update(span)
+    path = os.environ["SMOKE_COUNTS"]
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+def stop(*_):
+    dump()
+    os._exit(0)
+
+
+signal.signal(signal.SIGUSR1, dump)
+signal.signal(signal.SIGTERM, stop)
+runpy.run_module("fvta_memexqa_torch.cli", run_name="__main__", alter_sys=True)
+"""
+SERVE_TOL = 1e-5         # a server's probabilities vs the in-process engine's (same
+                         # card, same weights; micro-batches change K2's plan)
+DTYPE_PROB_ATOL = 0.05   # a bf16 / int8 cache vs float32: the JAX suite's bound
+                         # (tests/test_serve.py TestCacheDtype, TestCacheDtypeInt8)
+DTYPE_NEAR_TIE = 1e-2    # a bf16 / int8 answer may differ from float32's only where
+                         # float32's top two probabilities lie closer than this
+OPEN_LOOP_RATES = (50, 100, 200, 400, 800)   # asks per second, Poisson arrivals
+OPEN_LOOP_S = 4.0
+OPEN_LOOP_GIVE_UP_S = 10.0   # a request not sent this long after its arrival is an error
+P99_LIMIT_MS = 100.0         # provisional: the highest rate whose p99 stays under it
+STATS_KEYS = {"albums", "cache_bytes", "cache_bytes_per_device", "evictions",
+              "evictions_unrecoverable", "reencodes", "shed", "questions", "batches",
+              "p50_ms", "p95_ms"}
+FRONT_END_KERNELS = ("lstm_proj", "lstm_rec", "fvta_fwd")
+FRONT_END_NEVER = ("lstm_rec_bwd", "lstm_fwd", "lstm_bwd", "fvta_fwd_serial", "fvta_fwd_global")
+
+
+class ServeProc:
+    """One `cli serve <args> --port P` process on the card (SERVER_BOOT), its
+    output collected line by line."""
+
+    def __init__(self, workdir: str, name: str, args: list, scheme: str = "http"):
+        import socket
+
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        self.port = s.getsockname()[1]
+        s.close()
+        self.name, self.lines, self.ready_s = name, [], None
+        self.counts_path = os.path.join(workdir, f"serve_{name}.counts.json")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SERVER_BOOT, "serve", *args, "--port", str(self.port)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env={**os.environ,
+                                                       "SMOKE_COUNTS": self.counts_path})
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        self.base = f"{scheme}://127.0.0.1:{self.port}"
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.startswith("serving on"):
+                self.ready_s = time.perf_counter() - self.t0
+            self.lines.append(line.rstrip())
+
+    def ready(self, timeout: float = 240.0) -> "ServeProc":
+        """Wait for the "serving on" line; `ready_s`: the seconds from the start."""
+        while self.ready_s is None:
+            if self.proc.poll() is not None or time.perf_counter() - self.t0 > timeout:
+                fail(f"serving_http: `cli serve` ({self.name}) did not start "
+                     f"(exit {self.proc.poll()}): {self.lines[-20:]}")
+            time.sleep(0.05)
+        return self
+
+    def counts(self) -> dict:
+        import signal
+
+        if os.path.exists(self.counts_path):
+            os.remove(self.counts_path)
+        self.proc.send_signal(signal.SIGUSR1)
+        for _ in range(200):
+            if os.path.exists(self.counts_path):
+                with open(self.counts_path) as f:
+                    return json.load(f)
+            time.sleep(0.05)
+        fail(f"serving_http: {self.name} wrote no counters")
+
+    def stop(self) -> dict | None:
+        """SIGTERM (the boot writes its counters, then exits); the counters."""
+        if self.proc.poll() is None:
+            if os.path.exists(self.counts_path):
+                os.remove(self.counts_path)
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.reader.join(timeout=5)
+        if not os.path.exists(self.counts_path):
+            return None
+        with open(self.counts_path) as f:
+            return json.load(f)
+
+
+def http_call(base: str, method: str, path: str, body=None, token=None, ctx=None,
+              timeout: float = 60.0) -> tuple[int, dict]:
+    """(status, JSON body) of one request on a fresh connection."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(base)
+    conn = (http.client.HTTPSConnection(u.hostname, u.port, timeout=timeout, context=ctx)
+            if u.scheme == "https" else
+            http.client.HTTPConnection(u.hostname, u.port, timeout=timeout))
+    try:
+        headers = {"Content-Type": "application/json"}
+        if token:
+            headers["Authorization"] = f"Bearer {token}"
+        conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                     headers=headers)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read() or b"{}")
+    finally:
+        conn.close()
+
+
+def ask_body(a) -> dict:
+    return {"question": a[0], "choices": a[1], "album_ids": a[2]}
+
+
+def concurrent_asks(base: str, asks: list, tokens=(None,)) -> list:
+    """Every ask at once, one thread each (tokens in turn); the JSON answers."""
+    out, errors = [None] * len(asks), []
+    barrier = threading.Barrier(len(asks))
+
+    def worker(i):
+        barrier.wait()
+        try:
+            code, res = http_call(base, "POST", "/ask", ask_body(asks[i]),
+                                  tokens[i % len(tokens)])
+            if code != 200 or "error" in res:
+                errors.append(f"{code} {res}")
+            out[i] = res
+        except OSError as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(asks))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"serving_http: concurrent /ask failed on {base}: {errors[:3]}")
+    return out
+
+
+def compare_answers(what: str, got: list, ref: list, tol: float, near_tie: float) -> dict:
+    """max |d probs|; an answer may differ only where ref's top two probabilities
+    lie within near_tie."""
+    import numpy as np
+
+    d = max(float(np.abs(np.subtract(g["probs"], r["probs"])).max()) for g, r in zip(got, ref))
+    flips = 0
+    for g, r in zip(got, ref):
+        if g["answer_index"] != r["answer_index"]:
+            top2 = np.sort(r["probs"])[-2:]
+            if top2[1] - top2[0] > near_tie:
+                fail(f"serving_http: {what}: answer {g} differs from {r}")
+            flips += 1
+        if g["albums_found"] != r["albums_found"]:
+            fail(f"serving_http: {what}: albums_found {g} vs {r}")
+    if d > tol:
+        fail(f"serving_http: {what}: max|d probs| {d:.3e} beyond {tol}")
+    return {"max_abs_d_probs": d, "answers_equal": len(got) - flips, "near_tie_flips": flips}
+
+
+def serving_asks(pack: str) -> list:
+    """The 32 questions of phase 4's serving run (the corpus's first test
+    questions, each with its own album and extra pack albums, at most 4)."""
+    import numpy as np
+
+    from fvta_memexqa_torch.data import load_pack, make_synthetic
+
+    qas, _, _, test_ids, _ = make_synthetic(**SLICE_CORPUS)
+    ids = load_pack(pack).meta["album_ids"]
+    rng = np.random.default_rng(0)
+    asks = []
+    for qa in [q for q in qas if q.question_id in test_ids][:32]:
+        extra = [ids[int(k)] for k in rng.choice(len(ids), 3, replace=False)]
+        asks.append((qa.question, list(qa.choices), (list(qa.album_ids) + extra)[:4]))
+    return asks
+
+
+def new_album_request():
+    """A 12-photo album outside the pack (as phase 4's raw album), as the body
+    of POST /albums with its photo features, and a question about it."""
+    import numpy as np
+
+    from fvta_memexqa_torch.data import make_synthetic
+
+    _, albums, feats, _, _ = make_synthetic(num_albums=3, photos_per_album=12,
+                                            num_questions=3, feat_dim=2537, seed=7)
+    a = next(iter(albums.values()))
+    body = {"album": {"album_id": "http_album", "album_title": a.title,
+                      "album_description": a.description, "album_where": a.where,
+                      "album_when": a.when, "photo_ids": list(a.photo_ids),
+                      "photo_titles": list(a.photo_titles)},
+            "photo_feats": {p: np.asarray(feats[p], np.float32).tolist() for p in a.photo_ids}}
+    ask = (f"where did we go on {a.title} ?", [a.where, "tokyo", "space", "atlantis"],
+           ["http_album"])
+    return body, ask, a, feats
+
+
+def open_loop(base: str, asks: list, srv: ServeProc, seed: int = 21) -> list:
+    """Poisson arrivals at each of OPEN_LOOP_RATES for OPEN_LOOP_S: latency from
+    the scheduled arrival to the answer (so a client-side wait counts), p50 and
+    p99 over answered requests, errors, shed (from /stats), achieved rate, and
+    the answer steps' summed CUDA-event span over the window."""
+    import concurrent.futures
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    with concurrent.futures.ThreadPoolExecutor(max_workers=256) as pool:
+        for rate in OPEN_LOOP_RATES:
+            gaps = rng.exponential(1.0 / rate, int(rate * OPEN_LOOP_S * 1.5) + 16)
+            arrivals = np.cumsum(gaps)
+            arrivals = arrivals[arrivals < OPEN_LOOP_S]
+            _, s0 = http_call(base, "GET", "/stats")
+            c0 = srv.counts()
+
+            def one(i, due):
+                if time.perf_counter() - due > OPEN_LOOP_GIVE_UP_S:
+                    return None, "gave up"
+                try:
+                    code, res = http_call(base, "POST", "/ask", ask_body(asks[i % len(asks)]),
+                                          timeout=30.0)
+                except OSError as e:
+                    return None, repr(e)
+                done = time.perf_counter()
+                if code != 200 or "error" in res:
+                    return None, f"{code} {res}"
+                return (done - due) * 1e3, done
+
+            t0 = time.perf_counter() + 0.05
+            futs = []
+            for i, a in enumerate(arrivals):
+                wait = t0 + a - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                futs.append(pool.submit(one, i, t0 + a))
+            results = [f.result() for f in futs]
+            lat = np.array([ms for ms, _ in results if ms is not None])
+            errs = [why for ms, why in results if ms is None]
+            last = max((d for ms, d in results if ms is not None), default=t0)
+            window = max(last - t0, OPEN_LOOP_S)
+            c1 = srv.counts()
+            _, s1 = http_call(base, "GET", "/stats")
+            steps = c1["answer_steps"] - c0["answer_steps"]
+            span = c1["answer_span_ms"] - c0["answer_span_ms"]
+            rows.append({
+                "rate_per_s": rate, "sent": len(arrivals), "answered": int(lat.size),
+                "errors": len(errs), "error_kinds": sorted(set(errs))[:3],
+                "shed": s1["shed"] - s0["shed"],
+                "achieved_per_s": lat.size / window, "window_s": window,
+                "p50_ms": float(np.percentile(lat, 50)) if lat.size else None,
+                "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
+                "max_ms": float(lat.max()) if lat.size else None,
+                "answer_steps": steps, "mean_batch": (s1["questions"] - s0["questions"])
+                / max(s1["batches"] - s0["batches"], 1),
+                "answer_span_ms_per_step": span / max(steps, 1),
+                "answer_span_share": span / (window * 1e3)})
+            log(f"serving_http open loop {rate}/s: {json.dumps(rows[-1])}")
+            time.sleep(0.5)
+    return rows
+
+
+def launch_checks(name: str, counts: dict) -> None:
+    if (min(counts[k] for k in FRONT_END_KERNELS) == 0 or any(counts[k] for k in FRONT_END_NEVER)
+            or any(counts["global_launches"].values())):
+        fail(f"serving_http: {name}: K1 and K2 must launch, never the serial K2, the "
+             f"L2-streaming bi-LSTM kernels or a global route: {counts}")
+
+
+def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str) -> dict:
+    """Phase 21: `cli serve` on the card as users start it, in subprocesses (each
+    one's kernel counters start at 0 and are read at its end): an f32 server
+    with auth, limits and a cache dir; a 1 MiB byte budget; bfloat16 and int8
+    caches; a restart on the saved cache; the refusals of --dp 2 and
+    --shard-cache; TLS; open-loop Poisson load."""
+    import http.client
+    import shutil
+    import ssl
+
+    import numpy as np
+    import torch
+
+    from fvta_memexqa_torch.config import MODALITIES
+    from fvta_memexqa_torch.data import parse_album_info
+    from fvta_memexqa_torch.ops import lstm_fused
+    from fvta_memexqa_torch.serve import _quant_h, build_engine
+
+    t_phase = time.perf_counter()
+    album_info, photo_npz = (os.path.join(raw, f) for f in ("album_info.json",
+                                                            "photo_feats.npz"))
+    cache = os.path.join(workdir, "serve_cache")
+    raw_flags = ["--raw-albums", album_info, "--raw-photo-npz", photo_npz]
+    base = [pack, rundir, "--batch-size", "8"]
+    tls = shutil.which("openssl") is not None
+    if tls:
+        cert, key = (os.path.join(workdir, f) for f in ("serve_cert.pem", "serve_key.pem"))
+        subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout",
+                        key, "-out", cert, "-days", "1", "-subj", "/CN=127.0.0.1"],
+                       check=True, capture_output=True, timeout=60)
+    procs = {}
+    refusals = {}
+    try:
+        procs["f32"] = ServeProc(workdir, "f32", [
+            *base, "--auth-token", "alice,bob", "--max-pending", "64",
+            "--max-rps-per-client", "40", "--cache-dir", cache, *raw_flags])
+        procs["budget"] = ServeProc(workdir, "budget", [*base, "--max-cache-mb", "1",
+                                                        *raw_flags])
+        for mode in ("bfloat16", "int8"):
+            procs[mode] = ServeProc(workdir, mode, [*base, "--cache-dtype", mode])
+        if tls:
+            procs["tls"] = ServeProc(workdir, "tls", [*base, "--no-preingest", "--tls-cert",
+                                                      cert, "--tls-key", key], scheme="https")
+        for flag in (["--dp", "2"], ["--shard-cache"]):
+            refusals[flag[0]] = subprocess.Popen(
+                [sys.executable, "-m", "fvta_memexqa_torch.cli", "serve", *base, *flag],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+
+        # the in-process reference: the same engine on the card, same raw albums
+        asks = serving_asks(pack)
+        album_body, new_ask, new_album, new_feats = new_album_request()
+        engine, store, _ = build_engine(pack, rundir, device="cuda", batch_size=8)
+        try:
+            albums, _ = parse_album_info(album_info)
+            feats = dict(np.load(photo_npz))
+            for a in albums.values():
+                store.ingest(a, feats)
+            ref = [r for i in range(0, len(asks), 8) for r in engine.answer_batch(asks[i:i + 8])]
+            before = lstm_fused.lstm_rec.launches
+            engine.answer_batch(asks[:3])
+            k1_per_answer_step = lstm_fused.lstm_rec.launches - before
+            before = lstm_fused.lstm_rec.launches
+            store.ingest(next(iter(albums.values())), feats)
+            k1_per_album_encode = lstm_fused.lstm_rec.launches - before
+            store.ingest(dataclasses.replace(new_album, album_id="http_album"), new_feats)
+            ref_new = engine.answer_batch([new_ask])[0]
+            h = torch.stack([store._store[a][0] for a in list(albums)[:8]])
+            quant_bitwise = {}
+            for mode in ("int8", "bfloat16"):
+                got, want = _quant_h(h, mode), _quant_h(h.cpu(), mode)
+                pairs = ([(got["q"], want["q"]), (got["s"], want["s"])] if mode == "int8"
+                         else [(got, want)])
+                quant_bitwise[mode] = all(torch.equal(g.cpu(), w) for g, w in pairs)
+            entry_f32 = store._entry_bytes(*store._store[asks[0][2][0]])
+        finally:
+            engine.close()
+        if not all(quant_bitwise.values()):
+            fail(f"serving_http: _quant_h on the card differs from the CPU's: {quant_bitwise}")
+        n_pack = len(store._pack_rows)
+        d = store.cfg.data
+        t, h2 = d.max_context_time, 2 * store.cfg.model.hidden_dim
+        n_mod = len(MODALITIES)
+        if entry_f32 != n_mod * t * (h2 * 4 + 1):
+            fail(f"serving_http: an f32 entry is {entry_f32} bytes, not 6 x T x (2H x 4 + 1)")
+        for p in procs.values():
+            p.ready()
+        out = {"card": smi, "ready_s": {k: p.ready_s for k, p in procs.items()},
+               "k1_per_answer_step": k1_per_answer_step,
+               "k1_per_album_encode": k1_per_album_encode, "quant_bitwise_card_vs_cpu":
+               quant_bitwise, "f32_entry_bytes": entry_f32}
+
+        # 1. the f32 server: auth, limits, a cache, POST /albums
+        s1 = procs["f32"]
+        got1 = concurrent_asks(s1.base, asks, tokens=("alice", "bob"))
+        step1 = compare_answers("f32 server vs the in-process engine", got1, ref, SERVE_TOL,
+                                2 * SERVE_TOL)
+        t0 = time.perf_counter()
+        code, res = http_call(s1.base, "POST", "/albums", album_body, "alice")
+        t_post = time.perf_counter()
+        code_ask, res_new = http_call(s1.base, "POST", "/ask", ask_body(new_ask), "alice")
+        t_first = time.perf_counter()
+        if code != 200 or res.get("ingested") != "http_album" or code_ask != 200 \
+                or res_new.get("albums_found") != 1:
+            fail(f"serving_http: POST /albums then /ask: {code} {res}, {code_ask} {res_new}")
+        step1["new_album"] = compare_answers("the POSTed album vs the in-process engine",
+                                             [res_new], [ref_new], SERVE_TOL, 2 * SERVE_TOL)
+        step1["post_album_ms"] = (t_post - t0) * 1e3
+        step1["post_album_to_first_answer_ms"] = (t_first - t0) * 1e3
+        codes = {"no_token": http_call(s1.base, "GET", "/stats")[0],
+                 "wrong_token": http_call(s1.base, "GET", "/stats", token="eve")[0],
+                 "unknown_path": http_call(s1.base, "GET", "/nope", token="alice")[0],
+                 "healthz": http_call(s1.base, "GET", "/healthz")[0]}
+        burst = [http_call(s1.base, "GET", "/stats", token="bob")[0] for _ in range(45)]
+        codes["bob_45_stats"] = {c: burst.count(c) for c in sorted(set(burst))}
+        step1["codes"] = codes
+        if (codes["no_token"], codes["wrong_token"], codes["unknown_path"],
+                codes["healthz"]) != (401, 401, 404, 200) or burst.count(429) < 5 \
+                or burst.count(200) > 40:
+            fail(f"serving_http: status codes {codes}")
+        _, stats1 = http_call(s1.base, "GET", "/stats", token="alice")
+        if set(stats1) != STATS_KEYS or stats1["cache_bytes_per_device"] is not None \
+                or stats1["albums"] != len(albums) + 1 \
+                or stats1["cache_bytes"] != stats1["albums"] * entry_f32:
+            fail(f"serving_http: /stats {stats1}")
+        step1["stats"] = stats1
+        counts = {"f32": s1.stop()}
+        if not any(line.startswith("saved album cache to") for line in s1.lines):
+            fail(f"serving_http: the f32 server saved no cache: {s1.lines}")
+        procs["restart"] = ServeProc(workdir, "restart", [*base, "--cache-dir", cache,
+                                                          "--no-preingest"])
+        out["f32"] = step1
+
+        # 2. a 1 MiB byte budget: evictions, re-encodes, K1's launches
+        s2 = procs["budget"]
+        _, sb = http_call(s2.base, "GET", "/stats")
+        cb = s2.counts()
+        got2 = concurrent_asks(s2.base, asks)
+        _, sa = http_call(s2.base, "GET", "/stats")
+        ca = s2.counts()
+        step2 = compare_answers("1 MiB budget vs the f32 server", got2, got1, SERVE_TOL,
+                                2 * SERVE_TOL)
+        grew = ca["lstm_rec"] - cb["lstm_rec"]
+        want = (k1_per_answer_step * (sa["batches"] - sb["batches"])
+                + k1_per_album_encode * (sa["reencodes"] - sb["reencodes"]))
+        step2.update(stats_before=sb, stats_after=sa, lstm_rec_launches_in_asks=grew,
+                     lstm_rec_launches_expected=want)
+        if sb["evictions"] == 0 or sa["reencodes"] == sb["reencodes"] or grew != want:
+            fail(f"serving_http: budget: {json.dumps(step2)}")
+        out["budget"] = step2
+
+        # 3. bfloat16 and int8 caches
+        out["dtypes"] = {"float32": {"cache_bytes": n_pack * entry_f32, "ratio": 1.0}}
+        for mode, per in (("bfloat16", n_mod * t * (h2 * 2 + 1)),
+                          ("int8", n_mod * t * (h2 + 4 + 1))):
+            s = procs[mode]
+            _, st = http_call(s.base, "GET", "/stats")
+            got = concurrent_asks(s.base, asks)
+            row = compare_answers(f"{mode} cache vs the f32 server", got, got1,
+                                  DTYPE_PROB_ATOL, DTYPE_NEAR_TIE)
+            row.update(cache_bytes=st["cache_bytes"],
+                       ratio=st["cache_bytes"] / (n_pack * entry_f32))
+            if st["albums"] != n_pack or st["cache_bytes"] != n_pack * per:
+                fail(f"serving_http: {mode} cache: {st}, expected {n_pack * per} bytes")
+            out["dtypes"][mode] = row
+
+        # 5. TLS, and the refusals
+        if tls:
+            ctx = ssl.create_default_context()
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE   # the self-signed cert made above
+            code, res = http_call(procs["tls"].base, "GET", "/healthz", ctx=ctx)
+            try:
+                http_call(procs["tls"].base.replace("https", "http"), "GET", "/healthz",
+                          timeout=10)
+                plain_refused = False
+            except (OSError, http.client.HTTPException):
+                plain_refused = True
+            out["tls"] = {"ran": True, "https_healthz": [code, res],
+                          "plain_http_refused": plain_refused}
+            if (code, res) != (200, {"ok": True}) or not plain_refused:
+                fail(f"serving_http: TLS {out['tls']}")
+        else:
+            out["tls"] = {"ran": False, "why": "no openssl on PATH"}
+        out["refusals"] = {}
+        for flag, p in refusals.items():
+            text, _ = p.communicate(timeout=120)
+            out["refusals"][flag] = {"exit": p.returncode, "names_item_5": "item 5" in text}
+            if p.returncode == 0 or "item 5" not in text:
+                fail(f"serving_http: `cli serve {flag}` exit {p.returncode}: {text[-500:]}")
+        for k in ("budget", "bfloat16", "int8", "tls"):
+            if k in procs:
+                counts[k] = procs[k].stop()
+
+        # 4. the restart on the saved cache, then 6. open-loop load on it
+        s5 = procs["restart"].ready()
+        want_line = f"restored {len(albums)} cached album encodings from {cache}"
+        if want_line not in s5.lines:
+            fail(f"serving_http: the restart did not restore the cache: {s5.lines}")
+        got5 = concurrent_asks(s5.base, asks)
+        out["restart"] = {"line": want_line, "ready_s": s5.ready_s, **compare_answers(
+            "the restart vs the f32 server", got5, got1, SERVE_TOL, 2 * SERVE_TOL)}
+        rows = open_loop(s5.base, asks, s5)
+        if rows[0]["errors"]:
+            fail(f"serving_http: errors at {rows[0]['rate_per_s']}/s: {rows[0]}")
+        out["open_loop"] = rows
+        under = [r["rate_per_s"] for r in rows
+                 if r["p99_ms"] is not None and r["p99_ms"] < P99_LIMIT_MS and not r["errors"]]
+        out["highest_rate_p99_under_100ms"] = max(under) if under else None
+        counts["restart"] = s5.stop()
+    finally:
+        for p in procs.values():
+            p.stop()
+        for p in refusals.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, c in counts.items():
+        if c is None:
+            fail(f"serving_http: {name} left no counters")
+        launch_checks(name, c)
+    total = {k: sum(c[k] for c in counts.values()) for k in (*FRONT_END_KERNELS,
+                                                             *FRONT_END_NEVER)}
+    out["launches"] = {"total": total, **counts}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3977,6 +4550,9 @@ def main() -> None:
             from_cli = {k: v + evaluation["grouped_launches"][k] for k, v in from_cli.items()}
             k2_paths = k2_path_checks(device)
             log("k2_paths " + json.dumps(k2_paths))
+            serving_http = serving_http_phase(   # phase 21, on phases 4's, 7's and 16's files
+                os.path.join(workdir, "pack"), os.path.join(workdir, "train_plain"),
+                os.path.join(workdir, "raw"), workdir, smi)
             log(f"K7/K8 launches over every command run (serving, training, video, "
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
@@ -3994,7 +4570,8 @@ def main() -> None:
     k1, k1_rows = k1_times(device, served["launches"], k1_err, past_limit)
     by_path = {"serving": served["launches"], "train": trained["plain_run"]["launches"],
                "train_dedup": trained["dedup_run"]["launches"],
-               "video": video["cli_run"]["launches"], "evaluation": evaluation["launches"]}
+               "video": video["cli_run"]["launches"], "evaluation": evaluation["launches"],
+               "serving_http": serving_http["launches"]["total"]}
     bd = served["breakdown"]
     answer = {f"{k}_request{'s' if k > 1 else ''}": {
         "k2": bd[f"answer_{k}_request{'s' if k > 1 else ''}"]["device_busy_ms"],
@@ -4016,6 +4593,9 @@ def main() -> None:
     capacity = capacity_phase()
     entries = [*k1, *k2, *k1b, *stats_entries, *grouped_entries]
     add_global_routes(entries, widths)
+    for e in entries:   # the front end's launches (phase 21's `cli serve` processes)
+        if e["name"] in serving_http["launches"]["total"]:
+            e["launches_serving_http"] = serving_http["launches"]["total"][e["name"]]
     widths["staged_graph_ms_vs_perf_md"] = staged_vs_perf_md(entries)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
@@ -4023,6 +4603,7 @@ def main() -> None:
     log("grouped_api_host_traces " + json.dumps(grouped_traces))
     log("route_sweep " + json.dumps(sweep))
     log("widths " + json.dumps(widths))
+    log("serving_http " + json.dumps(serving_http))
     log(f"phases 18-20 wall time: widths {t_widths:.1f} s, bench {bench['wall_s']:.1f} s, "
         f"capacity {capacity['wall_s']:.1f} s")
     log(json.dumps({"kernels": entries}))

@@ -1,5 +1,5 @@
 """Command line of the port: the paper's three stages `prepro → train → test`,
-plus ablate, predict, synth and the video commands.
+plus ablate, predict, serve, synth and the video commands.
 
     python -m fvta_memexqa_torch.cli synth <rawdir> [--num-albums 6 --photos-per-album 4 \
         --num-questions 24 --feat-dim 64 --seed 0]
@@ -17,6 +17,11 @@ plus ablate, predict, synth and the video commands.
     python -m fvta_memexqa_torch.cli predict <packdir> <rundir> \
         --question "what year was the sunrise trip ?" --choices "2007|2009|2011|2013" \
         --album-ids album0 [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli serve <packdir> <rundir> [--port 8777 --batch-size 8 \
+        --max-cache-mb N --cache-dir DIR --cache-dtype float32|bfloat16|int8 \
+        --max-pending N --auth-token T1[,T2...] --max-rps R --max-rps-per-client R \
+        --tls-cert PEM --tls-key PEM --raw-albums album_info.json --raw-photo-npz F \
+        --no-preingest --load-latest] [--device cuda|cpu]
 
     python -m fvta_memexqa_torch.cli synth-video <rawdir> [--num-videos 48 --num-frames 32 \
         --feat-dim 64 --task mc|count|frameqa]
@@ -45,7 +50,11 @@ checkpoints under <rundir>, resuming from the latest one there) and prints
 `--use-pallas` is read and selects nothing, and `--dedup-albums` keeps the
 config default (False) unless given. `predict` answers one question through
 the serving engine (serve.build_engine) and prints the result as one JSON
-line. The run directory is the port's (config.json + params.pt, see convert.py).
+line (an answer step that fails gives {"error": ...}, as in the JAX CLI). The
+run directory is the port's (config.json + params.pt, see convert.py). `serve`
+(serve.main) serves the run directory over HTTP on 127.0.0.1 (GET /healthz,
+GET /stats, POST /ask, POST /albums) with the JAX CLI's flags; `--dp` > 1 and
+`--shard-cache` raise NotImplementedError (the data-parallel slice).
 
 The video commands are the JAX package's: `synth-video` writes a synthetic raw
 corpus, `video-prepro` packs one into streaming shards, `video` trains — the
@@ -309,6 +318,12 @@ def cmd_predict(argv):
         engine.close()
 
 
+def cmd_serve(argv):
+    from fvta_memexqa_torch.serve import main as serve_main
+
+    return serve_main(argv)
+
+
 def cmd_synth_video(argv):
     p = argparse.ArgumentParser(prog="fvta-torch synth-video")
     p.add_argument("outdir")
@@ -560,7 +575,8 @@ def cmd_video_test(argv):
 
 
 COMMANDS = {"synth": cmd_synth, "prepro": cmd_prepro, "train": cmd_train, "test": cmd_test,
-            "ablate": cmd_ablate, "predict": cmd_predict, "synth-video": cmd_synth_video,
+            "ablate": cmd_ablate, "serve": cmd_serve, "predict": cmd_predict,
+            "synth-video": cmd_synth_video,
             "video-prepro": cmd_video_prepro, "video": cmd_video, "video-test": cmd_video_test}
 
 

@@ -2155,3 +2155,86 @@ def test_grouped_wh_global_equals_the_resident_route_bitwise_on_card(cuda, g, n,
         for a, b in zip(resident(xp, lens, wh, 1.0), forced(xp, lens, wh, 1.0, route)):
             assert torch.equal(a, b)
         assert forced.launches == before + 1
+
+
+# ---- the serving front end's album cache on the card --------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["int8", "bfloat16", "float32"])
+def test_cache_quantizer_on_card_equals_cpu_bitwise(cuda, mode):
+    """serve._quant_h / _dequant_h on the card give the CPU's bits (the int8
+    scale divides, never multiplies by a reciprocal, on both)."""
+    from fvta_memexqa_torch.serve import _dequant_h, _quant_h
+
+    rng = np.random.default_rng(21)
+    h = np.tanh(rng.normal(0, 1, (6, 24, 200))).astype(np.float32)
+    h[0, 3] = 0.0
+    h[1, 0, :3] = [0.5, 1.5 / 127, -2.5 / 127]
+    cpu = torch.from_numpy(h)
+    got, want = _quant_h(cpu.to(cuda), mode), _quant_h(cpu, mode)
+    if mode == "int8":
+        assert torch.equal(got["q"].cpu(), want["q"])
+        assert torch.equal(got["s"].cpu().view(torch.int32), want["s"].view(torch.int32))
+    else:
+        assert torch.equal(got.cpu().view(torch.int16 if mode == "bfloat16" else torch.int32),
+                           want.view(torch.int16 if mode == "bfloat16" else torch.int32))
+    assert torch.equal(_dequant_h(got).cpu().view(torch.int32),
+                       _dequant_h(want).view(torch.int32))
+
+
+def _card_store_parts(root):
+    """A tiny pack, a seeded model on the card and the synthetic albums."""
+    from fvta_memexqa_torch.config import Config, DataConfig
+    from fvta_memexqa_torch.data import SharedTables, load_pack, make_synthetic, pack
+    from fvta_memexqa_torch.models import FVTAModel
+    from fvta_memexqa_torch.serve import vocab_view
+
+    qas, albums, feats, test_ids, glove = make_synthetic(seed=0)
+    d = DataConfig(max_albums=2, max_photos=4, max_question_len=10, max_answer_len=4,
+                   max_sent_len=6, max_album_text_len=8, max_word_len=8, image_feat_dim=64)
+    pack(qas, albums, feats, test_ids, glove, str(root), d, seed=0)
+    packed = load_pack(str(root))
+    cfg = Config(data=packed.cfg)
+    cfg = cfg.replace(model=cfg.model.__class__(hidden_dim=16, char_emb_dim=8,
+                                                char_cnn_filters=16))
+    model = FVTAModel(cfg, generator=torch.Generator().manual_seed(0))
+    return cfg, model, packed, vocab_view(packed.meta), albums, feats, SharedTables
+
+
+@pytest.mark.gpu
+def test_budgeted_store_reencodes_bitwise_on_card(cuda, tmp_path):
+    """A budgeted AlbumStore on the card: an evicted album re-encodes (K1
+    launches again) to its first encode bit for bit; its saved cache loads
+    onto the CPU and a CPU-saved one onto the card, entry for entry."""
+    from fvta_memexqa_torch.serve import AlbumStore
+
+    cfg, model, packed, vocab, albums, feats, Shared = _card_store_parts(tmp_path / "pack")
+    store = AlbumStore(cfg, model.to(cuda).eval(), Shared.from_packed(packed.shared, cuda),
+                       vocab)
+    order = sorted(albums)
+    store.ingest(albums[order[0]], feats)
+    first = store._store[order[0]][0].clone()
+    store.max_bytes = int(2.5 * store.cache_bytes)
+    for aid in order[1:3]:
+        store.ingest(albums[aid], feats)
+    assert order[0] not in store._store and store.evictions == 1
+    before = lstm_fused.lstm_rec.launches
+    h, _, found = store.get_stacked([order[0]])
+    assert found == 1 and store.reencodes == 1
+    assert lstm_fused.lstm_rec.launches > before
+    assert torch.equal(store._store[order[0]][0], first)
+    assert torch.equal(h[:6], first)
+
+    store.save(str(tmp_path / "card"))
+    cpu_store = AlbumStore(cfg, model.cpu(), Shared.from_packed(packed.shared, "cpu"), vocab)
+    assert cpu_store.load(str(tmp_path / "card")) == store.num_albums
+    for aid, (eh, em) in store._store.items():
+        assert cpu_store._store[aid][0].device.type == "cpu"
+        assert torch.equal(cpu_store._store[aid][0], eh.cpu())
+        assert torch.equal(cpu_store._store[aid][1], em.cpu())
+    cpu_store.save(str(tmp_path / "cpu"))
+    back = AlbumStore(cfg, model.to(cuda), Shared.from_packed(packed.shared, cuda), vocab,
+                      cache_dtype="int8")
+    assert back.load(str(tmp_path / "cpu")) == cpu_store.num_albums
+    aid = next(iter(cpu_store._store))
+    assert back._store[aid][0]["q"].device.type == cuda.type
