@@ -218,10 +218,28 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    self-signed cert where openssl exists; open-loop Poisson load at 50-800
    asks/s (p50, p99, errors, shed, achieved rate, the answer steps' span
    share) and the highest rate whose p99 stays under 100 ms (the
-   `serving_http` line).
+   `serving_http` line);
+22. the loader and the focality workflow (run inside the same block, on copies
+   of phase 4's pack), K1, K1b and K2's counters zeroed before each part and
+   read after (all three must launch; the serial K2, the L2-streaming bi-LSTM
+   kernels, K4-K8, the kept old kernels and every global route never, read as
+   deltas): phase 7's `cli train` again with --prefetch 2, its final
+   parameters, optimizer state and dropout generator torch.equal to phase 7's
+   (qa/s of both from metrics.jsonl); `cli train --stream-shard-size 64
+   --prefetch 2 --profile` (the shard index exists and a second
+   ensure_split_shards rewrites nothing, finite losses, the profile event at
+   step 15, a chrome trace holding lstm_rec, lstm_rec_bwd and K2's cluster
+   kernel: the window's device busy share, each one's share of device time,
+   launch calls per step; the `train_loader` line); then `cli synth --focal`
+   (32 albums x 8 photos, 320 questions, F = 2537), `prepro --val-ids`,
+   `train` (48 steps at the flagship's widths), `test --dump-attention`,
+   `attention-report --json` and `report --json`, every command exiting 0,
+   report's steps and best val equal to metrics.jsonl's, the attention
+   records within the pack's albums and modalities, and test accuracy overall
+   and per question kind (the `focal` line).
 
-Prints a {"kernels": [...]} line, then the card line, then as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Prints the `train_loader` and `focal` lines, a {"kernels": [...]} line, then the
+card line, then as the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -231,6 +249,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import os
 import subprocess
 import sys
@@ -1838,6 +1857,20 @@ def step_parity(packdir: str) -> dict:
             "dedup_vs_plain_grad_rel_err": worst_dd}
 
 
+def checkpoint_leaves(ck: dict) -> dict:
+    """A checkpoint's parameter and optimizer tensors by dotted name."""
+    import torch
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{prefix}{k}.")
+        elif isinstance(tree, torch.Tensor):
+            yield prefix[:-1], tree
+
+    return dict(leaves({"params": ck["params"], "opt": ck["opt_state"]}))
+
+
 def resume_check(packdir: str, workdir: str) -> dict:
     """6 steps straight vs 3 steps + resume to 6 (dropout on): every parameter
     and optimizer tensor of step 6 torch.equal."""
@@ -1858,15 +1891,7 @@ def resume_check(packdir: str, workdir: str) -> dict:
     a = CheckpointManager(straight).load(step=6)
     b = CheckpointManager(resumed).load(step=6)
 
-    def leaves(tree, prefix=""):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                yield from leaves(v, f"{prefix}{k}.")
-        elif isinstance(tree, torch.Tensor):
-            yield prefix[:-1], tree
-
-    la = dict(leaves({"params": a["params"], "opt": a["opt_state"]}))
-    lb = dict(leaves({"params": b["params"], "opt": b["opt_state"]}))
+    la, lb = checkpoint_leaves(a), checkpoint_leaves(b)
     differ = [k for k in la if not torch.equal(la[k], lb[k])]
     log(f"resume on the card: 6 steps straight vs 3 + resume to 6: {len(la)} tensors, "
         f"{len(differ)} differ; rng state equal {torch.equal(a['rng'], b['rng'])}")
@@ -3200,19 +3225,25 @@ EVAL_TOL = 1e-5          # cached vs uncached `cli test` loss (relative)
 GLOVE_TEXT_ATOL = 5.5e-6  # glove.txt keeps 5 decimals of each GloVe value
 
 
-def cli_json(argv) -> tuple[dict, float]:
-    """(the last stdout line of `cli.main(argv)` as JSON, host seconds)."""
+def cli_text(argv) -> tuple[int, str]:
+    """(return code, stdout) of an in-process `cli.main(argv)`."""
     import contextlib
     import io
 
     from fvta_memexqa_torch import cli
 
     buf = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        cli.main(argv)
+        rc = cli.main(argv)
+    return rc or 0, buf.getvalue()
+
+
+def cli_json(argv) -> tuple[dict, float]:
+    """(the last stdout line of `cli.main(argv)` as JSON, host seconds)."""
+    t0 = time.perf_counter()
+    _, text = cli_text(argv)
     wall = time.perf_counter() - t0
-    return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
+    return json.loads(text.strip().splitlines()[-1]), wall
 
 
 def prepro_check(workdir: str) -> dict:
@@ -4486,6 +4517,278 @@ def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str)
     return out
 
 
+# ---- phase 22: the loader and the focal workflow (`cli train` flags, reports) -------
+
+# every kernel counter phase 22 reads: K1, K1b and K2 must launch, the rest never
+LOADER_KERNELS = ("lstm_proj", "lstm_rec", "lstm_rec_bwd", "fvta_fwd")
+LOADER_NEVER = ("lstm_fwd", "lstm_bwd", "fvta_fwd_serial", "stats_fwd", "qcnt", "stats_bwd",
+                *OLD_STATS, "lstm_grouped", "lstm_stream", *ROWTILE)
+# the kernels phase 22's trace must hold (csrc/lstm_rec.cu, lstm_rec_bwd.cu, fvta_fwd.cu)
+TRACE_KERNELS = ("lstm_rec_kernel", "lstm_rec_bwd_kernel", "k2_cluster_kernel")
+FOCAL_CORPUS = ["--num-albums", "32", "--photos-per-album", "8", "--num-questions", "320",
+                "--feat-dim", "2537"]
+FOCAL_STEPS = 48
+FOCAL_KINDS = {0: "focal_what", 1: "focal_what", 2: "album_say", 3: "where", 4: "year"}
+
+
+def loader_counts() -> dict:
+    """Every counter of LOADER_KERNELS and LOADER_NEVER, and each routed
+    kernel's global-route launches (summed)."""
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_grouped
+
+    out = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
+           "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches,
+           **{k: getattr(fvta_stats, k).launches for k in ("stats_fwd", "qcnt", "stats_bwd",
+                                                            *OLD_STATS)},
+           **grouped_counters(),
+           **{k: getattr(lstm_grouped, k).launches for k in ROWTILE}}
+    out["global_routes"] = sum(global_counters().values())
+    return out
+
+
+def zero_loader_counts() -> dict:
+    """Zeroes the counters of the kernels the phase must launch (K1, K1b, K2)
+    and returns every counter's value, so that the others are read as deltas
+    (later checks read their totals)."""
+    from fvta_memexqa_torch.ops import fvta_fused
+
+    zero_lstm_counters()
+    fvta_fused.fvta_fwd.launches = 0
+    return loader_counts()
+
+
+def loader_launches(part: str, before: dict) -> dict:
+    got = {k: v - before[k] for k, v in loader_counts().items()}
+    if min(got[k] for k in LOADER_KERNELS) == 0 or any(
+            got[k] for k in (*LOADER_NEVER, "global_routes")):
+        fail(f"{part}: K1, K1b and K2 must launch, and never the serial K2, the "
+             f"L2-streaming bi-LSTM kernels, K4-K8, a kept old kernel or a global route: {got}")
+    return got
+
+
+def checkpoint_tensors(rundir: str, step: int) -> dict:
+    """checkpoint_leaves of a run's checkpoint `step`, and its dropout generator."""
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+
+    ck = CheckpointManager(rundir).load(step=step)
+    return {**checkpoint_leaves(ck), "rng": ck["rng"]}
+
+
+def qa_per_s(rundir: str) -> dict:
+    """The median, min and max of the train rows' qa_pairs_per_sec after the
+    first (warm-up) step, and the steps they cover."""
+    import numpy as np
+
+    rows = [r["qa_pairs_per_sec"] for r in read_metrics(os.path.join(rundir, "metrics.jsonl"))
+            if r["event"] == "train" and r["step"] > 1]
+    return {"median": float(np.median(rows)), "min": min(rows), "max": max(rows),
+            "rows": len(rows)}
+
+
+def trace_readings(path: str, steps: int) -> dict:
+    """From torch.profiler's chrome trace of the profile window: the device's
+    busy share of the window (the union of its kernel, copy and set intervals
+    over the span of every event), each TRACE_KERNELS kernel's share of the
+    device time, and the host's launch calls per step."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e.get("dur", 0) for e in events)
+    busy, end = 0.0, lo
+    for e in sorted(device, key=lambda e: e["ts"]):
+        start, stop = max(e["ts"], end), e["ts"] + e.get("dur", 0)
+        if stop > start:
+            busy += stop - start
+            end = stop
+    dev_total = sum(e.get("dur", 0) for e in device)
+    shares, counts = {}, {}
+    for k in TRACE_KERNELS:
+        mine = [e for e in device if e.get("cat") == "kernel"
+                and re.search(rf"\b{k}\b", e["name"])]
+        counts[k] = len(mine)
+        shares[k] = sum(e.get("dur", 0) for e in mine) / max(dev_total, 1e-9)
+    launches = sum(1 for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and e["name"].startswith(LAUNCH_CALLS))
+    return {"window_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / max(hi - lo, 1e-9), "device_events": len(device),
+            "kernel_share_of_device_time": shares, "kernel_events": counts,
+            "launch_calls_per_step": launches / steps}
+
+
+def train_loader_phase(workdir: str, smi: str) -> dict:
+    """Phase 22, parts 1 and 2, on a copy of phase 4's pack (the shard files
+    land in the pack directory). 1: phase 7's `cli train` again with
+    --prefetch 2: its final checkpoint (parameters, optimizer state, dropout
+    generator) torch.equal to phase 7's run's. 2: `cli train --stream-shard-size
+    64 --prefetch 2 --profile` (a second ensure_split_shards rewrites nothing;
+    finite losses; the profile event at step 15; a trace holding lstm_rec,
+    lstm_rec_bwd and K2's cluster kernel)."""
+    import shutil
+
+    import torch
+
+    from fvta_memexqa_torch import cli
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.stream import ensure_split_shards
+
+    t_phase = time.perf_counter()
+    pack = os.path.join(workdir, "pack_loader")
+    shutil.copytree(os.path.join(workdir, "pack"), pack, copy_function=shutil.copy2)
+    phase7 = os.path.join(workdir, "train_plain")
+    flags = ["--num-steps", str(TRAIN_STEPS), "--val-period", "12", "--log-period", "1",
+             "--save-period", "1000", "--device", "cuda"]
+    out = {"card": smi}
+
+    before = zero_loader_counts()
+    run = os.path.join(workdir, "train_prefetch")
+    t0 = time.perf_counter()
+    if cli.main(["train", pack, run, *flags, "--dedup-albums", "false", "--prefetch", "2"]):
+        fail("cli train --prefetch 2 exited non-zero")
+    wall = time.perf_counter() - t0
+    launches = loader_launches("train --prefetch 2", before)
+    a, b = checkpoint_tensors(phase7, TRAIN_STEPS), checkpoint_tensors(run, TRAIN_STEPS)
+    differ = sorted(k for k in a if k not in b or not torch.equal(a[k], b[k]))
+    out["prefetch"] = {"wall_s": wall, "tensors": len(a), "differ": len(differ),
+                       "launches": launches, "qa_pairs_per_sec_prefetch_2": qa_per_s(run),
+                       "qa_pairs_per_sec_inline_phase_7": qa_per_s(phase7)}
+    log(f"train --prefetch 2 vs phase 7's inline run: {len(a)} tensors, {len(differ)} "
+        f"differ; qa/s {json.dumps(out['prefetch']['qa_pairs_per_sec_prefetch_2'])} vs "
+        f"{json.dumps(out['prefetch']['qa_pairs_per_sec_inline_phase_7'])} ({smi})")
+    if differ or set(a) != set(b):
+        fail(f"--prefetch 2 changed the run: {differ[:5]}")
+
+    before = zero_loader_counts()
+    run = os.path.join(workdir, "train_stream")
+    t0 = time.perf_counter()
+    if cli.main(["train", pack, run, *flags, "--stream-shard-size", "64", "--prefetch", "2",
+                 "--profile"]):
+        fail("cli train --stream-shard-size 64 --prefetch 2 --profile exited non-zero")
+    wall = time.perf_counter() - t0
+    launches = loader_launches("train --stream-shard-size 64 --prefetch 2 --profile", before)
+    splits = [s for s in ("train", "val") if load_pack(pack, load_splits=False)
+              .meta["split_sizes"].get(s, 0) > 0]
+    shard_files = sorted(f for f in os.listdir(pack) if ".shard" in f)
+    stamps = {f: os.stat(os.path.join(pack, f)).st_mtime_ns for f in shard_files}
+    for s in splits:
+        if not os.path.exists(os.path.join(pack, f"data_{s}.shards.json")):
+            fail(f"no shard index for the {s} split")
+        ensure_split_shards(pack, s, 64)
+    rewritten = [f for f in shard_files
+                 if os.stat(os.path.join(pack, f)).st_mtime_ns != stamps[f]]
+    recs = read_metrics(os.path.join(run, "metrics.jsonl"))
+    losses = [r["loss"] for r in recs if r["event"] == "train"]
+    profiled = [r for r in recs if r["event"] == "profile"]
+    trace = os.path.join(run, "profile", "trace.json")
+    if not os.path.exists(trace):
+        fail(f"--profile left no trace under {run}/profile")
+    readings = trace_readings(trace, steps=5)
+    out["stream"] = {"wall_s": wall, "splits": splits, "shard_files": len(shard_files),
+                     "rewritten_by_a_second_ensure": rewritten, "launches": launches,
+                     "qa_pairs_per_sec": qa_per_s(run),
+                     "profile_events": [(r["step"], r["dir"]) for r in profiled],
+                     "trace": readings}
+    log(f"train --stream-shard-size 64 --prefetch 2 --profile ({wall:.1f} s): "
+        f"{len(shard_files)} shard files, rewritten by a second ensure {rewritten}; profile "
+        f"window {json.dumps(readings)} ({smi})")
+    problems = []
+    if rewritten:
+        problems.append(f"a second ensure_split_shards rewrote {rewritten}")
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        problems.append(f"losses {losses}")
+    if [r["step"] for r in profiled] != [15]:
+        problems.append(f"profile events {profiled}")
+    if min(readings["kernel_events"].values()) == 0:
+        problems.append(f"the trace lacks a kernel: {readings['kernel_events']}")
+    if problems:
+        fail("train_loader: " + "; ".join(problems))
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def focal_phase(workdir: str, smi: str) -> dict:
+    """Phase 22, part 3: the focality workflow at the flagship's widths: `cli
+    synth --focal` (32 albums x 8 photos, 320 questions, F = 2537), `prepro
+    --val-ids`, `train` (FOCAL_STEPS steps, batch 64, H = 100), `test
+    --dump-attention`, `attention-report --json` and `report --json`; every
+    command exits 0, report's steps and best_val_acc agree with metrics.jsonl,
+    attention-report prints min(--limit, count) records of --top cells within
+    the pack's albums and MODALITIES. Test accuracy overall and per kind."""
+    import numpy as np
+
+    from fvta_memexqa_torch.config import MODALITIES
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.synthetic import focal_kind
+
+    t_phase = time.perf_counter()
+    raw, pack, run = (os.path.join(workdir, d) for d in ("focal_raw", "focal_pack",
+                                                          "focal_run"))
+    attn = os.path.join(workdir, "focal_attention.npz")
+    raw_files = [os.path.join(raw, f) for f in ("qas.json", "album_info.json",
+                                                "test_question.ids", "glove.txt",
+                                                "photo_feats.npz")]
+    steps = [
+        ("synth", ["synth", raw, "--focal", *FOCAL_CORPUS]),
+        ("prepro", ["prepro", *raw_files, pack, "--val-ids",
+                    os.path.join(raw, "val_question.ids")]),
+        ("train", ["train", pack, run, "--num-steps", str(FOCAL_STEPS), "--val-period", "24",
+                   "--log-period", "8", "--device", "cuda"]),
+        ("test", ["test", pack, run, "--dump-attention", attn, "--device", "cuda"]),
+        ("attention_report", ["attention-report", attn, "--json", "--top", "3",
+                              "--limit", "10"]),
+        ("report", ["report", run, "--json"]),
+    ]
+    out, walls, printed = {"card": smi}, {}, {}
+    before = zero_loader_counts()
+    for name, argv in steps:
+        t0 = time.perf_counter()
+        rc, text = cli_text(argv)
+        walls[name] = time.perf_counter() - t0
+        if rc:
+            fail(f"focal: cli {name} exited {rc}")
+        printed[name] = text
+        log(f"focal: cli {name} ({walls[name]:.1f} s): {text.strip().splitlines()[-1][:200]}")
+    launches = loader_launches("focal", before)
+    packed = load_pack(pack, load_splits=False)
+    n_albums, n_mod = packed.cfg.max_albums, len(MODALITIES)
+    recs = read_metrics(os.path.join(run, "metrics.jsonl"))
+    trains = [r for r in recs if r["event"] == "train"]
+    vals = [r["acc"] for r in recs if r["event"] == "val"]
+    report = json.loads(printed["report"].strip().splitlines()[-1])
+    cells = [json.loads(line) for line in printed["attention_report"].splitlines() if line]
+    z = np.load(attn)
+    count = len(z["qid"])
+    problems = []
+    if report["steps"] != trains[-1]["step"] or report["best_val_acc"] != max(vals):
+        problems.append(f"report {report} vs metrics.jsonl (steps {trains[-1]['step']}, "
+                        f"best val {max(vals)})")
+    if len(cells) != min(10, count) or any(
+            len(c["focus"]) != min(3, z["time_attn"][0].size)
+            or not all(0 <= f["album"] < n_albums and f["modality"] in MODALITIES
+                       for f in c["focus"]) for c in cells):
+        problems.append(f"attention-report records {cells[:2]}")
+    if not all(math.isfinite(r["loss"]) for r in trains):
+        problems.append("non-finite training loss")
+    n_focal = int(json.loads(printed["synth"])["albums"])
+    kinds = np.array([focal_kind(int(str(q)[1:]), n_focal) for q in z["qid"]])
+    correct = z["pred"] == z["label"]
+    by_kind = {}
+    for k in sorted(set(FOCAL_KINDS.values())):
+        sel = np.isin(kinds, [i for i, v in FOCAL_KINDS.items() if v == k])
+        by_kind[k] = {"acc": float(correct[sel].mean()) if sel.any() else None,
+                      "count": int(sel.sum())}
+    out.update(wall_s=walls, launches=launches, steps=report["steps"],
+               best_val_acc=report["best_val_acc"], test_count=count,
+               test_acc=float(correct.mean()), test_acc_by_kind=by_kind,
+               train_qa_pairs_per_sec=report["train_qa_pairs_per_sec"],
+               attention_records=len(cells), albums=n_albums, modalities=n_mod,
+               prepro=json.loads(printed["prepro"].strip().splitlines()[-1]))
+    if problems:
+        fail("focal: " + "; ".join(problems))
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -4553,6 +4856,10 @@ def main() -> None:
             serving_http = serving_http_phase(   # phase 21, on phases 4's, 7's and 16's files
                 os.path.join(workdir, "pack"), os.path.join(workdir, "train_plain"),
                 os.path.join(workdir, "raw"), workdir, smi)
+            t0 = time.perf_counter()
+            train_loader = train_loader_phase(workdir, smi)   # phase 22, on 4's and 7's files
+            focal = focal_phase(workdir, smi)
+            t_22 = time.perf_counter() - t0
             log(f"K7/K8 launches over every command run (serving, training, video, "
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
@@ -4596,6 +4903,10 @@ def main() -> None:
     for e in entries:   # the front end's launches (phase 21's `cli serve` processes)
         if e["name"] in serving_http["launches"]["total"]:
             e["launches_serving_http"] = serving_http["launches"]["total"][e["name"]]
+        if e["name"] in LOADER_KERNELS:   # phase 22's paths
+            e["launches_train_prefetch"] = train_loader["prefetch"]["launches"][e["name"]]
+            e["launches_train_stream"] = train_loader["stream"]["launches"][e["name"]]
+            e["launches_focal"] = focal["launches"][e["name"]]
     widths["staged_graph_ms_vs_perf_md"] = staged_vs_perf_md(entries)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
@@ -4605,7 +4916,9 @@ def main() -> None:
     log("widths " + json.dumps(widths))
     log("serving_http " + json.dumps(serving_http))
     log(f"phases 18-20 wall time: widths {t_widths:.1f} s, bench {bench['wall_s']:.1f} s, "
-        f"capacity {capacity['wall_s']:.1f} s")
+        f"capacity {capacity['wall_s']:.1f} s; phase 22 {t_22:.1f} s")
+    log("train_loader " + json.dumps(train_loader))
+    log("focal " + json.dumps(focal))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

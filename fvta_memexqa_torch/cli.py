@@ -1,14 +1,14 @@
 """Command line of the port: the paper's three stages `prepro → train → test`,
-plus ablate, predict, serve, synth and the video commands.
+plus ablate, predict, serve, synth, the two reports and the video commands.
 
     python -m fvta_memexqa_torch.cli synth <rawdir> [--num-albums 6 --photos-per-album 4 \
-        --num-questions 24 --feat-dim 64 --seed 0]
+        --num-questions 24 --feat-dim 64 --seed 0 --focal]
     python -m fvta_memexqa_torch.cli prepro <qas.json> <album_info.json> <test_question.ids> \
         <glove.txt|none> <photo_feats.npz> <packdir> [--val-fraction 0.1 --val-ids F \
         --seed 0 (DataConfig fields as --flags, e.g. --image-feat-dim 64)]
-    python -m fvta_memexqa_torch.cli train <packdir> <rundir> [--num-steps N] \
-        [--batch-size 64 --hidden-dim 100 ... (ModelConfig/TrainConfig/MeshConfig
-        fields as --flags)] [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli train <packdir> <rundir> [--num-steps N --profile \
+        --stream-shard-size N --prefetch N] [--batch-size 64 --hidden-dim 100 ...
+        (ModelConfig/TrainConfig/MeshConfig fields as --flags)] [--device cuda|cpu]
     python -m fvta_memexqa_torch.cli test <packdir> <rundir> [--load-latest --split test \
         --no-album-cache --dump-attention PATH --by-category --ensemble RUNDIR[,RUNDIR...]] \
         [--device cuda|cpu]
@@ -22,6 +22,9 @@ plus ablate, predict, serve, synth and the video commands.
         --max-pending N --auth-token T1[,T2...] --max-rps R --max-rps-per-client R \
         --tls-cert PEM --tls-key PEM --raw-albums album_info.json --raw-photo-npz F \
         --no-preingest --load-latest] [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli report <rundir> [--json]
+    python -m fvta_memexqa_torch.cli attention-report <attention.npz> [--qid Q --top 3 \
+        --limit 10 --json --wrong-only]
 
     python -m fvta_memexqa_torch.cli synth-video <rawdir> [--num-videos 48 --num-frames 32 \
         --feat-dim 64 --task mc|count|frameqa]
@@ -33,7 +36,8 @@ plus ablate, predict, serve, synth and the video commands.
         --dump-attention PATH] [--device cuda|cpu]
 
 `synth` writes a synthetic raw corpus (data/synthetic.write_raw_files; `--focal`
-is not ported yet and raises), `prepro` packs raw files (data/pack.pack) and
+the focality corpus of make_focal_synthetic, with its album-holdout
+val_question.ids for `prepro --val-ids`), `prepro` packs raw files (data/pack.pack) and
 prints {"splits", "num_albums", "num_photos", "vocab"}. `test` evaluates a run
 directory (train.test: through the album cache unless --no-album-cache) and
 prints {"split", "accuracy", "loss", "count"[, "by_category"]}; with --ensemble
@@ -47,6 +51,11 @@ belong to the data-parallel slice.
 `train` runs train.train on the pack (metrics to <rundir>/metrics.jsonl,
 checkpoints under <rundir>, resuming from the latest one there) and prints
 {"best_val_acc", "steps"}; the run directory then serves through `predict`.
+`--stream-shard-size N` streams the train and val splits from shard files of N
+rows written into the pack directory (data/stream.ensure_split_shards; reused
+while the split files are unchanged), `--prefetch N` prepares batches N ahead
+in a background thread, and `--profile` writes a torch.profiler chrome trace
+of steps 11-15 into <rundir>/profile.
 `--use-pallas` is read and selects nothing, and `--dedup-albums` keeps the
 config default (False) unless given. `predict` answers one question through
 the serving engine (serve.build_engine) and prints the result as one JSON
@@ -54,7 +63,9 @@ line (an answer step that fails gives {"error": ...}, as in the JAX CLI). The
 run directory is the port's (config.json + params.pt, see convert.py). `serve`
 (serve.main) serves the run directory over HTTP on 127.0.0.1 (GET /healthz,
 GET /stats, POST /ask, POST /albums) with the JAX CLI's flags; `--dp` > 1 and
-`--shard-cache` raise NotImplementedError (the data-parallel slice).
+`--shard-cache` raise NotImplementedError (the data-parallel slice). `report`
+summarizes a run directory's metrics.jsonl and `attention-report` renders a
+`--dump-attention` npz, as the JAX CLI's do (text, or JSON with --json).
 
 The video commands are the JAX package's: `synth-video` writes a synthetic raw
 corpus, `video-prepro` packs one into streaming shards, `video` trains — the
@@ -119,17 +130,41 @@ def cmd_train(argv):
     p = _run_parser("fvta-torch train")
     p.add_argument("--num-steps", type=int, default=None,
                    help="stop after N optimizer steps (overrides epochs)")
+    p.add_argument("--profile", action="store_true",
+                   help="trace steps 11-15 with torch.profiler (CPU and CUDA activity) into "
+                        "rundir/profile as a chrome trace (torch's format, not jax.profiler's)")
+    p.add_argument("--stream-shard-size", type=int, default=0,
+                   help="stream splits from shard files of this many rows "
+                        "(memory-bounded loading; 0 = in-memory Dataset)")
+    p.add_argument("--prefetch", type=int, default=0,
+                   help="prefetch depth: prepare and move batches to the device in a "
+                        "background thread this many ahead (0 = inline)")
     args = p.parse_args(argv)
 
     from fvta_memexqa_torch.data.pack import load_pack
     from fvta_memexqa_torch.train import train
 
-    packed = load_pack(args.packdir)
+    datasets = None
+    if args.stream_shard_size > 0:
+        from fvta_memexqa_torch.data.stream import StreamingDataset, ensure_split_shards
+
+        # the split arrays stay on disk; the shard conversion is skipped when a
+        # matching index exists
+        packed = load_pack(args.packdir, load_splits=False)
+        ensure_split_shards(args.packdir, "train", args.stream_shard_size)
+        val_ds = None
+        if packed.meta["split_sizes"].get("val", 0) > 0:
+            ensure_split_shards(args.packdir, "val", args.stream_shard_size)
+            val_ds = StreamingDataset(args.packdir, "val")
+        datasets = (StreamingDataset(args.packdir, "train"), val_ds)
+    else:
+        packed = load_pack(args.packdir)
     cfg = _model_config(args, Config(), packed)
     os.makedirs(args.rundir, exist_ok=True)
     res = train(cfg, packed, args.rundir, num_steps=args.num_steps,
                 metrics_path=os.path.join(args.rundir, "metrics.jsonl"),
-                device=args.device)
+                profile_dir=os.path.join(args.rundir, "profile") if args.profile else None,
+                datasets=datasets, prefetch=args.prefetch, device=args.device)
     print(json.dumps({"best_val_acc": res["best_val_acc"], "steps": res["steps"]}))
 
 
@@ -142,14 +177,15 @@ def cmd_synth(argv):
     p.add_argument("--feat-dim", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--focal", action="store_true",
-                   help="the focality corpus (not ported yet: raises)")
+                   help="emit the focality-discriminating corpus (answers hidden at single "
+                        "photo positions behind decoy-saturated album text; whole albums "
+                        "held out for test and val) instead of the derivable one")
     args = p.parse_args(argv)
-    if args.focal:
-        raise NotImplementedError("synth --focal (data/synthetic.make_focal_synthetic) is "
-                                  "not ported yet")
-    from fvta_memexqa_torch.data.synthetic import make_synthetic, write_raw_files
+    from fvta_memexqa_torch.data.synthetic import (make_focal_synthetic, make_synthetic,
+                                                   write_raw_files)
 
-    write_raw_files(args.outdir, *make_synthetic(
+    gen = make_focal_synthetic if args.focal else make_synthetic
+    write_raw_files(args.outdir, *gen(
         num_albums=args.num_albums, photos_per_album=args.photos_per_album,
         num_questions=args.num_questions, feat_dim=args.feat_dim, seed=args.seed))
     print(json.dumps({"outdir": args.outdir, "questions": args.num_questions,
@@ -574,10 +610,173 @@ def cmd_video_test(argv):
     print(json.dumps({"split": args.split, **{k: v for k, v in m.items() if k != "score"}}))
 
 
+def cmd_attention_report(argv):
+    """A readable report over a `test --dump-attention` (or `video-test
+    --dump-attention`) npz: per question, the across-sequence focus (seq_attn)
+    and the top (sequence, time) cells of the joint weight seq_attn[s] *
+    time_attn[s, t], named by (album, modality) or by the dump's seq_names.
+    Prints what the JAX CLI prints; 2 for an unknown --qid."""
+    p = argparse.ArgumentParser(prog="fvta-torch attention-report")
+    p.add_argument("npz", help="output of `cli test --dump-attention PATH`")
+    p.add_argument("--qid", default=None, help="report only this question id")
+    p.add_argument("--top", type=int, default=3,
+                   help="top-K (sequence, time) cells per question")
+    p.add_argument("--limit", type=int, default=10,
+                   help="max questions in the report (0 = all)")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="machine-readable JSONL instead of the text table")
+    p.add_argument("--wrong-only", action="store_true",
+                   help="only questions the model got wrong")
+    args = p.parse_args(argv)
+
+    from fvta_memexqa_torch.config import MODALITIES
+
+    z = np.load(args.npz, allow_pickle=True)
+    qids = [str(q) for q in z["qid"]]
+    ta, sa = z["time_attn"], z["seq_attn"]          # [N,S,T], [N,S]
+    pred, label, probs = z["pred"], z["label"], z["probs"]
+    n_mod = len(MODALITIES)
+    # video dumps name their sequences (seq_names=["frames"]); the (album,
+    # modality) decomposition is MemexQA's
+    seq_names = ([str(x) for x in z["seq_names"]]
+                 if "seq_names" in getattr(z, "files", []) else None)
+    rows = range(len(qids))
+    if args.qid is not None:
+        if args.qid not in qids:
+            print(f"error: qid {args.qid!r} not in {args.npz}", file=sys.stderr)
+            return 2
+        rows = [qids.index(args.qid)]
+    reported = 0
+    for i in rows:
+        if args.wrong_only and int(pred[i]) == int(label[i]):
+            continue
+        if args.limit and reported >= args.limit:
+            break
+        reported += 1
+        joint = sa[i][:, None] * ta[i]
+        flat = joint.reshape(-1)
+        top = np.argsort(flat)[::-1][: args.top]
+        cells = []
+        for k in top:
+            s, t = divmod(int(k), ta.shape[2])
+            cell = {"t": t, "weight": float(flat[k]), "seq_weight": float(sa[i][s])}
+            if seq_names is not None:
+                cell["seq"] = seq_names[s % len(seq_names)]
+            else:
+                cell["album"] = s // n_mod
+                cell["modality"] = MODALITIES[s % n_mod]
+            cells.append(cell)
+        rec = {
+            "qid": qids[i], "pred": int(pred[i]), "label": int(label[i]),
+            "correct": bool(pred[i] == label[i]),
+            # count dumps carry the regression value in probs[:, 0], no class p
+            "p_pred": (float(probs[i][int(pred[i])])
+                       if int(pred[i]) < probs.shape[1] else None),
+            "focus": cells,
+        }
+        if args.as_json:
+            print(json.dumps(rec))
+        else:
+            mark = "✓" if rec["correct"] else f"✗ (gold {rec['label']})"
+            p_str = f"p={rec['p_pred']:.2f} " if rec["p_pred"] is not None else ""
+            print(f"{rec['qid']}: pred choice {rec['pred']} {p_str}{mark}")
+            for c in cells:
+                name = (c["seq"] if "seq" in c
+                        else f"album {c['album']} · {c['modality']:<12s}")
+                print(f"    {name} t={c['t']:<3d} "
+                      f"joint={c['weight']:.3f} (seq {c['seq_weight']:.3f})")
+    if not args.as_json:
+        print(f"[{reported} question(s) reported from {args.npz}]", file=sys.stderr)
+    return 0
+
+
+def cmd_report(argv):
+    """A summary of a run directory's metrics.jsonl: training progress, the best
+    validation (accuracy, or mse for a video count run), every test,
+    by-category and ensemble record; rows of a foreign or partial schema render
+    too. Prints what the JAX CLI prints; 1 when there is no metrics.jsonl."""
+    p = argparse.ArgumentParser(prog="fvta-torch report")
+    p.add_argument("rundir")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable summary instead of the table")
+    args = p.parse_args(argv)
+    path = os.path.join(args.rundir, "metrics.jsonl")
+    if not os.path.exists(path):
+        print(f"no metrics.jsonl under {args.rundir}", file=sys.stderr)
+        return 1
+    with open(path) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    by = lambda ev: [e for e in events if e.get("event") == ev]  # noqa: E731
+    trains, vals, tests = by("train"), by("val"), by("test")
+    bycat, ens = by("test_by_category"), by("test_ensemble")
+    strip = lambda e, drop=("event", "time"): {  # noqa: E731
+        k: v for k, v in e.items() if k not in drop}
+    accs = [v for v in vals if "acc" in v]
+    mses = [v for v in vals if "acc" not in v and "mse" in v]
+    best_val = (max(accs, key=lambda v: v["acc"]) if accs
+                else min(mses, key=lambda v: v["mse"]) if mses else None)
+    summary = {
+        "steps": trains[-1].get("step", 0) if trains else 0,
+        "final_train_loss": trains[-1].get("loss") if trains else None,
+        "train_qa_pairs_per_sec": (trains[-1].get("qa_pairs_per_sec")
+                                   if trains else None),
+        "best_val_acc": best_val.get("acc") if best_val else None,
+        "best_val_mse": best_val.get("mse") if best_val else None,
+        "best_val_step": best_val.get("step") if best_val else None,
+        "val_evals": len(vals),
+        "tests": [strip(t) for t in tests],
+        "by_category": strip(bycat[-1], ("event", "time", "split")) if bycat else None,
+        "ensembles": [strip(e) for e in ens],
+    }
+    if args.json:
+        print(json.dumps(summary))
+        return 0
+    print(f"run: {args.rundir}")
+    cfg_path = os.path.join(args.rundir, "config.json")
+    if os.path.exists(cfg_path):
+        from fvta_memexqa_torch.config import load_config
+
+        try:
+            c = load_config(cfg_path)
+        except (ValueError, TypeError, AttributeError):
+            c = None   # a config.json of another schema: no model line
+        if c is not None:
+            print(f"model: attention={c.model.attention} "
+                  f"hidden={c.model.hidden_dim}"
+                  f" | train: bs={c.train.batch_size} "
+                  f"lr={c.train.learning_rate} opt={c.train.optimizer}")
+    if trains:
+        loss = summary["final_train_loss"]
+        print(f"train: {summary['steps']} steps"
+              + (f", final loss {loss:.4f}" if loss is not None else "")
+              + (f", {summary['train_qa_pairs_per_sec']:.0f} qa/s"
+                 if summary["train_qa_pairs_per_sec"] else ""))
+    if best_val:
+        metric = ("best acc " + format(best_val["acc"], ".4f") if "acc" in best_val
+                  else "best mse " + format(best_val["mse"], ".4f"))
+        print(f"val:   {metric} @ step {best_val.get('step', '?')} "
+              f"({len(vals)} evals)")
+    for t in summary["tests"]:
+        score = (f"acc {t['acc']:.4f}" if "acc" in t
+                 else f"mse {t['mse']:.4f}" if "mse" in t else "?")
+        print(f"test:  {t.get('split', '?')}: {score} "
+              f"({t.get('count', '?')} questions)")
+    if summary["by_category"]:
+        print("by category: " + "  ".join(
+            f"{k}={v:.4f}" for k, v in summary["by_category"].items()))
+    for e in summary["ensembles"]:
+        acc = e.get("acc")
+        print(f"ensemble: {e.get('split', '?')}: "
+              + (f"acc {acc:.4f} " if acc is not None else "acc ? ")
+              + f"(members {e.get('member_accs')})")
+    return 0
+
+
 COMMANDS = {"synth": cmd_synth, "prepro": cmd_prepro, "train": cmd_train, "test": cmd_test,
             "ablate": cmd_ablate, "serve": cmd_serve, "predict": cmd_predict,
             "synth-video": cmd_synth_video,
-            "video-prepro": cmd_video_prepro, "video": cmd_video, "video-test": cmd_video_test}
+            "video-prepro": cmd_video_prepro, "video": cmd_video, "video-test": cmd_video_test,
+            "attention-report": cmd_attention_report, "report": cmd_report}
 
 
 def main(argv=None):

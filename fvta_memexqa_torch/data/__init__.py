@@ -4,7 +4,9 @@ from fvta_memexqa_torch.data.vocab import Vocab, load_glove
 from fvta_memexqa_torch.data.pack import PackedDataset, PackedShared, load_pack, pack
 from fvta_memexqa_torch.data.device_prepro import (Batch, ModelInputs, SharedTables,
                                                    assemble, assemble_albums)
-from fvta_memexqa_torch.data.synthetic import make_synthetic, write_raw_files
+from fvta_memexqa_torch.data.synthetic import (focal_kind, make_evidence_only_synthetic,
+                                               make_focal_synthetic, make_synthetic,
+                                               write_raw_files)
 
 __all__ = [
     "Album",
@@ -24,6 +26,9 @@ __all__ = [
     "SharedTables",
     "assemble",
     "assemble_albums",
+    "focal_kind",
+    "make_evidence_only_synthetic",
+    "make_focal_synthetic",
     "make_synthetic",
     "write_raw_files",
 ]

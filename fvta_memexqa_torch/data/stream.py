@@ -2,7 +2,11 @@
 (the JAX package's data/stream.py, for the splits the port streams).
 
 - write_shards(): write a split's arrays as fixed-row-count shard files (npz,
-  the JAX package's layout) plus a JSON index;
+  the JAX package's layout) plus a JSON index; write_split_shards() re-shards
+  a pack's data_{split}.npz that way, and ensure_split_shards() skips that
+  when the index matches both the shard size and the split file's (size,
+  mtime_ns) — the files and the index are the JAX package's, so a pack
+  sharded by either package streams in the other;
 - StreamingDataset: a pipeline.Dataset-like loader holding at most
   `cache_shards` shards in memory, with a deterministic WINDOWED shuffle —
   shard order and intra-shard order are both drawn from (seed, epoch), the
@@ -53,6 +57,43 @@ def write_shards(pack_dir: str, base: str, arrays: dict[str, np.ndarray],
     with open(_index_path(pack_dir, base), "w") as f:
         json.dump({"shard_size": shard_size, "sizes": sizes, "total": n}, f)
     return len(sizes)
+
+
+def _source_fingerprint(path: str) -> list:
+    st = os.stat(path)
+    return [int(st.st_size), int(st.st_mtime_ns)]
+
+
+def write_split_shards(pack_dir: str, split: str, shard_size: int) -> int:
+    """Re-shard a pack's split file (data_{split}.npz) for streaming; the index
+    also records the split file's fingerprint. Needs one split array at a time
+    in memory (npz offers no row slicing). Returns the number of shards."""
+    src = os.path.join(pack_dir, f"data_{split}.npz")
+    with np.load(src) as z:
+        arrays = {k: z[k] for k in z.files}
+    n = write_shards(pack_dir, f"data_{split}", arrays, shard_size)
+    idx = _index_path(pack_dir, f"data_{split}")
+    with open(idx) as f:
+        index = json.load(f)
+    index["source"] = _source_fingerprint(src)   # guards against stale reuse
+    with open(idx, "w") as f:
+        json.dump(index, f)
+    return n
+
+
+def ensure_split_shards(pack_dir: str, split: str, shard_size: int) -> int:
+    """write_split_shards, skipped only when the index matches both shard_size
+    and the split file's current fingerprint: a resume skips the re-shard, and a
+    re-run of prepro into the same pack directory invalidates the shards."""
+    idx = _index_path(pack_dir, f"data_{split}")
+    src = os.path.join(pack_dir, f"data_{split}.npz")
+    if os.path.exists(idx):
+        with open(idx) as f:
+            existing = json.load(f)
+        if (existing.get("shard_size") == shard_size
+                and existing.get("source") == _source_fingerprint(src)):
+            return len(existing["sizes"])
+    return write_split_shards(pack_dir, split, shard_size)
 
 
 class StreamingDataset:

@@ -16,6 +16,11 @@ of a batch once and gathers per-question context rows from the unique encodes
 (eval_cache.gather_cached_context); at keep_prob = 1 it is the same function
 of the parameters as the plain step.
 
+The loader: the train and val splits come from the pack in memory or from any
+Dataset-like pair (`datasets=`, e.g. data.stream.StreamingDataset over shard
+files); `prefetch=` moves batch preparation, dedup and the move to the device
+into a background thread; `profile_dir=` traces steps 11-15 with torch.profiler.
+
 Evaluation of a run directory (`cli test`): `test` restores the best or the
 latest checkpoint and evaluates a split, through the album cache
 (eval_cache.py) or with a full re-encode per question, optionally with the
@@ -43,6 +48,7 @@ from fvta_memexqa_torch.config import Config, load_config
 from fvta_memexqa_torch.convert import save_rundir
 from fvta_memexqa_torch.data.device_prepro import Batch, SharedTables, assemble, assemble_albums
 from fvta_memexqa_torch.data.pipeline import Dataset
+from fvta_memexqa_torch.data.stream import Prefetcher
 from fvta_memexqa_torch.data.categories import accuracy_by_category, question_categories
 from fvta_memexqa_torch.eval_cache import (SHARD_CACHE_NOT_PORTED, evaluate_cached,
                                            gather_cached_context, precompute_album_cache,
@@ -198,15 +204,30 @@ def make_eval_step(model: FVTAModel):
     return eval_step
 
 
-def evaluate(eval_step, shared: SharedTables, dataset: Dataset, batch_size: int,
-             vocab_table=None, photo_table=None) -> dict:
+@contextlib.contextmanager
+def on_device(batches, transfer, prefetch: int):
+    """An iterator of transfer(batch) over `batches`: inline, or `prefetch`
+    batches ahead in a background thread (data.stream.Prefetcher, whose worker
+    exception is re-raised here), stopped when the block is left."""
+    if prefetch <= 0:
+        yield map(transfer, batches)
+        return
+    with Prefetcher(batches, depth=prefetch, transfer=transfer) as it:
+        yield it
+
+
+def evaluate(eval_step, shared: SharedTables, dataset, batch_size: int,
+             vocab_table=None, photo_table=None, prefetch: int = 0) -> dict:
     """Full-split evaluation → {"acc", "loss", "count"}. Sums stay on the
-    device and are fetched once at the end."""
+    device and are fetched once at the end. prefetch > 0: batches are prepared
+    and moved to the device `prefetch` ahead in a background thread."""
     device = shared.word_emb.device
     totals = None
-    for batch in dataset.get_batches(batch_size, shuffle=False):
-        m = eval_step(shared, batch.to(device), vocab_table, photo_table)
-        totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
+    with on_device(dataset.get_batches(batch_size, shuffle=False),
+                   lambda b: b.to(device), prefetch) as batches:
+        for batch in batches:
+            m = eval_step(shared, batch, vocab_table, photo_table)
+            totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
     totals = ({k: float(v) for k, v in totals.items()} if totals is not None
               else {"correct": 0.0, "count": 0.0, "loss_sum": 0.0})
     return {"acc": totals["correct"] / max(totals["count"], 1.0),
@@ -231,13 +252,26 @@ def deterministic_algorithms(device: torch.device):
         torch.use_deterministic_algorithms(prev)
 
 
+PROFILE_STEPS = (10, 15)   # the profiled window: from after step 10 to step 15
+
+
 def train(cfg: Config, packed, out_dir: str, num_steps: int | None = None,
           metrics_path: str | None = None, echo: bool = True,
+          profile_dir: str | None = None, datasets=None, prefetch: int = 0,
           device="cuda") -> dict:
     """Full training: epochs over the train split, periodic val, keep-best
     checkpoints, exact resume from out_dir's latest checkpoint. At the end the
     run directory gets the port's params.pt (best-on-val, else latest), so
     `cli predict <pack> <out_dir>` serves the trained model.
+
+    datasets: optional (train_ds, val_ds | None) in place of the pack's
+    in-memory splits — any objects with Dataset's num_batches / get_batches,
+    e.g. data.stream.StreamingDataset (then `packed` need hold only meta and
+    the shared tables). prefetch > 0: batch preparation, the dedup of its album
+    ids and the move to the device run in a background thread, `prefetch`
+    batches ahead (data.stream.Prefetcher), for validation too. profile_dir:
+    a torch.profiler window over steps 11-15 (CPU and CUDA activity on the
+    card), written there as a chrome trace and logged as a `profile` event.
 
     Returns {"best_val_acc", "steps", "state", "model", "shared"}."""
     if cfg.mesh.num_devices > 1:
@@ -246,15 +280,51 @@ def train(cfg: Config, packed, out_dir: str, num_steps: int | None = None,
     dev = resolve_device(device)
     with deterministic_algorithms(dev), torch.autograd.set_detect_anomaly(
             debug_nans_enabled()):
-        return _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev)
+        return _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev,
+                      profile_dir, datasets, prefetch)
 
 
-def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev) -> dict:
+class _ProfileWindow:
+    """torch.profiler over one window of steps, opened once: `open` before the
+    step after PROFILE_STEPS[0], `close` after PROFILE_STEPS[1] (or where the
+    run ends inside the window). It synchronizes the card before it stops,
+    writes a chrome trace (torch's format) into the directory and logs the
+    `profile` event with the JAX package's keys."""
+
+    def __init__(self, profile_dir: str | None, dev: torch.device, log: MetricsLogger):
+        self.dir, self.dev, self.log = profile_dir, dev, log
+        self.prof = None
+
+    def open(self, steps_done: int) -> None:
+        if self.dir and steps_done == PROFILE_STEPS[0]:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def close(self, step: int) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        self.prof = None
+        self.log.log("profile", step=step, dir=self.dir)
+
+
+def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir,
+           datasets, prefetch) -> dict:
     t = cfg.train
     shared = SharedTables.from_packed(packed.shared, dev)
-    train_ds = Dataset(packed, "train")
-    val_ds = (Dataset(packed, "val") if packed.splits.get("val") is not None
-              and len(packed.splits["val"]["label"]) else None)
+    if datasets is not None:
+        train_ds, val_ds = datasets
+    else:
+        train_ds = Dataset(packed, "train")
+        val_ds = (Dataset(packed, "val") if packed.splits.get("val") is not None
+                  and len(packed.splits["val"]["label"]) else None)
     state = init_state(cfg, dev)
     opt = Optimizer(t)
     ckpt = CheckpointManager(out_dir, cfg, max_to_keep=t.keep_checkpoints)
@@ -268,7 +338,17 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev) -> dict:
     use_dedup = t.dedup_albums
     u_cap = dedup_u_cap(cfg) if use_dedup else 0
 
+    def xfer_train(batch):
+        """(device batch, device (uniq, inv) | None): the dedup runs on the host
+        batch, before the move. In the prefetch worker the move runs on the
+        same (default) stream as the steps, so it is ordered before the kernels
+        that read it and the numbers are those of the inline loop."""
+        dd = dedup_album_batch(batch.album_idx.numpy(), u_cap) if use_dedup else None
+        return batch.to(dev), (None if dd is None
+                               else tuple(torch.from_numpy(a).to(dev) for a in dd))
+
     log = MetricsLogger(metrics_path, echo=echo)
+    window = _ProfileWindow(profile_dir, dev, log)
     timer = Timer()
     best_val = -1.0
     done = False
@@ -279,7 +359,7 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev) -> dict:
     def validate(step: int) -> None:
         nonlocal best_val
         vm = evaluate(eval_step, shared, val_ds, t.eval_batch_size,
-                      *make_eval_tables(model, shared))
+                      *make_eval_tables(model, shared), prefetch=prefetch)
         log.log("val", step=step, acc=vm["acc"], loss=vm["loss"])
         best_val = max(best_val, vm["acc"])
         ckpt.save(step, state, val_acc=vm["acc"])
@@ -291,40 +371,44 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev) -> dict:
             batch_it = train_ds.get_batches(t.batch_size, shuffle=True, seed=t.seed,
                                             epoch=epoch)
             if epoch == start_epoch and skip_batches:
+                # dropped before the prefetcher: the skip costs host slicing only
                 batch_it = itertools.islice(batch_it, skip_batches, None)
-            for batch in batch_it:
-                dd = dedup_album_batch(batch.album_idx.numpy(), u_cap) if use_dedup else None
-                batch = batch.to(dev)
-                if not timer.samples and not timer.running:
-                    timer.start()   # the window opens on the first step after a log
-                if dd is not None:
-                    m = dedup_train_step(state, opt, shared, batch,
-                                         *(torch.from_numpy(a).to(dev) for a in dd))
-                else:
-                    m = train_step(state, opt, shared, batch)
-                window_steps += 1
-                step = state.step
-                if step % t.log_period == 0:
-                    loss = float(m["loss"])   # the only host sync between logs
-                    check_finite_loss(loss, step)
-                    timer.stop()
-                    window = timer.samples[-1]
-                    n_steps = max(window_steps, 1)
-                    log.log("train", step=step, epoch=epoch, loss=loss, acc=float(m["acc"]),
-                            qa_pairs_per_sec=t.batch_size * n_steps / max(window, 1e-9),
-                            p50_step_ms=window / n_steps * 1e3)
-                    timer.reset()
-                    window_steps = 0
-                if val_ds is not None and step % t.val_period == 0:
-                    validate(step)
-                    # val wall time is not training throughput
-                    timer.reset()
-                    window_steps = 0
-                elif step % t.save_period == 0:
-                    ckpt.save(step, state)
-                if num_steps is not None and step >= num_steps:
-                    done = True
-                    break
+            with on_device(batch_it, xfer_train, prefetch) as batches:
+                for batch, dd in batches:
+                    window.open(state.step)
+                    if not timer.samples and not timer.running:
+                        timer.start()   # the window opens on the first step after a log
+                    if dd is not None:
+                        m = dedup_train_step(state, opt, shared, batch, *dd)
+                    else:
+                        m = train_step(state, opt, shared, batch)
+                    window_steps += 1
+                    step = state.step
+                    if step == PROFILE_STEPS[1]:
+                        window.close(step)
+                    if step % t.log_period == 0:
+                        loss = float(m["loss"])   # the only host sync between logs
+                        check_finite_loss(loss, step)
+                        timer.stop()
+                        elapsed = timer.samples[-1]
+                        n_steps = max(window_steps, 1)
+                        log.log("train", step=step, epoch=epoch, loss=loss,
+                                acc=float(m["acc"]),
+                                qa_pairs_per_sec=t.batch_size * n_steps / max(elapsed, 1e-9),
+                                p50_step_ms=elapsed / n_steps * 1e3)
+                        timer.reset()
+                        window_steps = 0
+                    if val_ds is not None and step % t.val_period == 0:
+                        validate(step)
+                        # val wall time is not training throughput
+                        timer.reset()
+                        window_steps = 0
+                    elif step % t.save_period == 0:
+                        ckpt.save(step, state)
+                    if num_steps is not None and step >= num_steps:
+                        done = True
+                        break
+        window.close(state.step)   # the run ended inside the window
 
         step = state.step
         if val_ds is not None:

@@ -230,8 +230,20 @@ def test_cli_synth_writes_the_jax_raw_files(cli_runs, tmp_path):
             assert a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
         else:
             assert filecmp.cmp(f, tmp_path / os.path.basename(f), shallow=False), f
-    with pytest.raises(NotImplementedError, match="focal"):
-        cli.main(["synth", str(tmp_path / "focal"), "--focal"])
+    # --focal: the focality corpus, with its val ids, as the JAX package writes it
+    assert cli.main(["synth", str(tmp_path / "focal"), "--focal"]) == 0
+    j_synthetic.write_raw_files(str(tmp_path / "focal_jax"),
+                                *j_synthetic.make_focal_synthetic(
+                                    num_albums=6, photos_per_album=4, num_questions=24,
+                                    feat_dim=64))
+    for f in sorted(os.listdir(tmp_path / "focal_jax")):
+        mine, ref = tmp_path / "focal" / f, tmp_path / "focal_jax" / f
+        if f.endswith(".npz"):
+            a, b = np.load(mine), np.load(ref)
+            assert a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+        else:
+            assert filecmp.cmp(mine, ref, shallow=False), f
+    assert os.path.exists(tmp_path / "focal" / "val_question.ids")
 
 
 def test_cli_prepro_pack_equals_jax_cli_prepro(cli_runs, tmp_path, capsys):

@@ -2238,3 +2238,40 @@ def test_budgeted_store_reencodes_bitwise_on_card(cuda, tmp_path):
     assert back.load(str(tmp_path / "cpu")) == cpu_store.num_albums
     aid = next(iter(cpu_store._store))
     assert back._store[aid][0]["q"].device.type == cuda.type
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dedup", [False, True])
+def test_prefetch_train_on_card_equals_inline_bitwise(cuda, tmp_path, dedup):
+    """Six train steps on the card (K1, K1b and K2; dropout on; val every 3) with
+    the batches moved by the prefetch worker (prefetch=2) and inline: every
+    parameter, optimizer tensor and the dropout generator's state torch.equal."""
+    import dataclasses
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+
+    cfg, _, packed, *_ = _card_store_parts(tmp_path / "pack")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, hidden_dim=100),
+                      train=dataclasses.replace(cfg.train, batch_size=4, eval_batch_size=4,
+                                                val_period=3, dedup_albums=dedup))
+    before = (lstm_fused.lstm_rec.launches, lstm_fused.lstm_rec_bwd.launches,
+              fvta_fused.fvta_fwd.launches)
+    cks = []
+    for depth in (0, 2):
+        run = str(tmp_path / f"run{depth}")
+        tr.train(cfg, packed, run, num_steps=6, echo=False, prefetch=depth, device="cuda")
+        cks.append(CheckpointManager(run).load(step=6))
+    after = (lstm_fused.lstm_rec.launches, lstm_fused.lstm_rec_bwd.launches,
+             fvta_fused.fvta_fwd.launches)
+    assert all(a > b for a, b in zip(after, before))
+    a, b = cks
+    assert a["params"].keys() == b["params"].keys()
+    assert all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    for field, v in a["opt_state"].items():
+        w = b["opt_state"][field]
+        if isinstance(v, dict):
+            assert all(torch.equal(v[k], w[k]) for k in v), field
+        else:
+            assert torch.equal(v, w), field
+    assert torch.equal(a["rng"], b["rng"])
