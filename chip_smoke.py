@@ -236,10 +236,28 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    `attention-report --json` and `report --json`, every command exiting 0,
    report's steps and best val equal to metrics.jsonl's, the attention
    records within the pack's albums and modalities, and test accuracy overall
-   and per question kind (the `focal` line).
+   and per question kind (the `focal` line);
+23. data and context parallelism (run inside the same block, on phase 4's
+   pack and phase 7's and 16's results), the ranks sharing the one card
+   (parallel/mesh.run_ranks over make_mesh(devices=["cuda:0"] * n), gloo;
+   every kernel counter zeroed in each rank and read per rank): DP-2 — the
+   batch-64 step's gradient at keep_prob 1 vs the single-rank step on the
+   card (rtol 1e-4 / atol 1e-6) and vs the CPU (STEP_TOL), two 24-step DP-2
+   `train` runs with val bitwise equal (parameters and dropout generator),
+   `test` at DP-2 with and without --shard-cache equal to phase 16's
+   accuracy, predict_cached's probabilities vs one rank's (ENGINE_TOL) and
+   sharded vs replicated bitwise; K1, K1b and K2 launched on each rank, the
+   serial K2 and the L2-streaming kernels never. CP-2 and CP-4 — the
+   full-width T=4096 video step (batch 8, D = 200, J = 30, keep_prob 1) vs
+   cp = 1 on the card at the JAX package's flagship-CP tolerances (logits
+   2e-5, loss 1e-5, gradients rtol 5e-4 / atol 1e-5); K4, K5 and K6 launched
+   on every rank and K2 on none. Per-rank step ms and the collectives' share
+   of it (CUDA events around mesh.all_gather), DP-2 qa/s beside phase 7's
+   one-rank qa/s (the `parallel` line, labelled as ranks sharing one card).
 
-Prints the `train_loader` and `focal` lines, a {"kernels": [...]} line, then the
-card line, then as the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Prints the `train_loader`, `focal` and `parallel` lines, a {"kernels": [...]}
+line, then the card line, then as the last line {"ok": true, "device":
+{"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -1379,8 +1397,8 @@ def cotangent_probe(packdir: str) -> dict:
     with Recorder(lstm_fused, "lstm_rec_bwd") as rec:
         loss, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator)
         torch.autograd.grad(loss, params)
-        loss, _ = tr.dedup_loss_and_metrics(state.model, shared, b, uniq, inv, True,
-                                            state.generator)
+        loss, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator,
+                                      dd=(uniq, inv))
         torch.autograd.grad(loss, params)
     seen: dict[str, dict] = {}
     for pre, lengths, _, _, _, g_out, g_fin, _ in rec.calls:
@@ -1838,8 +1856,8 @@ def step_parity(packdir: str) -> dict:
     params = list(state.params.values())
     lp, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator)
     gp = torch.autograd.grad(lp, params)
-    ld, _ = tr.dedup_loss_and_metrics(state.model, shared, b, uniq, inv, True,
-                                      state.generator)
+    ld, _ = tr.loss_and_metrics(state.model, shared, b, True, state.generator,
+                                dd=(uniq, inv))
     gd = torch.autograd.grad(ld, params)
     names = list(state.params)
     worst_dd = max(float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
@@ -1927,8 +1945,8 @@ def profile_train(packdir: str) -> dict:
         dd = tr.dedup_album_batch(b.album_idx.numpy(), u_cap)
         if dd is None:
             return plain(b)
-        return tr.dedup_train_step(state, opt, shared, b.to("cuda"),
-                                   *(torch.from_numpy(a).cuda() for a in dd))
+        return tr.train_step(state, opt, shared, b.to("cuda"),
+                             tuple(torch.from_numpy(a).cuda() for a in dd))
 
     times = {}
     with tr.deterministic_algorithms(torch.device("cuda")):
@@ -3646,7 +3664,7 @@ def width_video_runs() -> dict:
     import io
 
     from fvta_memexqa_torch import cli
-    from fvta_memexqa_torch.models import video as video_mod
+    from fvta_memexqa_torch import train_video as video_mod   # the plain loop's module
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
     out = {}
@@ -4789,6 +4807,377 @@ def focal_phase(workdir: str, smi: str) -> dict:
     return out
 
 
+# ---- phase 23: data and context parallelism (ranks sharing the card) ------------------
+
+SHARED_CARD = ["cuda:0"]      # repeated per rank: the ranks share the one card (gloo)
+DP_TOL = dict(rtol=1e-4, atol=1e-6)        # DP-2 vs the single-rank step on the card
+CP_LOGITS_TOL = dict(rtol=2e-5, atol=2e-5)   # JAX's flagship-CP tolerances
+CP_GRAD_TOL = dict(rtol=5e-4, atol=1e-5)
+CP_LOSS_RTOL = 1e-5
+NEAR_TIE = 1e-4      # a DP prediction may differ from one rank's only at such a top-2 gap
+PARALLEL_STEPS = 24
+PARALLEL_REPS = 5
+DP_KERNELS = ("lstm_proj", "lstm_rec", "lstm_rec_bwd", "fvta_fwd")
+CP_KERNELS = ("stats_fwd", "qcnt", "stats_bwd")
+
+
+def parallel_counts() -> dict:
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_fused
+
+    return {**{k: getattr(lstm_fused, k).launches for k in NEW_KERNELS + OLD_KERNELS},
+            "fvta_fwd": fvta_fused.fvta_fwd.launches,
+            "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches,
+            **{k: getattr(fvta_stats, k).launches for k in CP_KERNELS}}
+
+
+def zero_parallel_counts() -> None:
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_fused
+
+    for k in NEW_KERNELS + OLD_KERNELS:
+        getattr(lstm_fused, k).launches = 0
+    fvta_fused.fvta_fwd.launches = fvta_fused.fvta_fwd_serial.launches = 0
+    for k in CP_KERNELS:
+        getattr(fvta_stats, k).launches = 0
+
+
+class CommTimer:
+    """Wraps mesh.all_gather (every collective of the parallel paths goes
+    through it) with CUDA events; `ms()` sums the recorded spans, `sent` the
+    bytes this rank contributed to them."""
+
+    def __init__(self):
+        from fvta_memexqa_torch.parallel import mesh
+
+        self.mesh, self.real, self.spans, self.on, self.sent = (
+            mesh, mesh.all_gather, [], False, 0)
+
+        def timed(x, group=None):
+            import torch
+
+            if not self.on:
+                return self.real(x, group)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.real(x, group)
+            b.record()
+            self.spans.append((a, b))
+            self.sent += x.numel() * x.element_size()
+            return out
+
+        mesh.all_gather = timed
+
+    def ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.spans)
+
+
+def timed_steps(fn, comm: CommTimer, reps: int = PARALLEL_REPS) -> dict:
+    """fn() after one warm-up call, `reps` times under CUDA events: the mean
+    step ms and the share of it inside the collectives."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    comm.spans, comm.on, comm.sent = [], True, 0
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    comm.on = False
+    step = a.elapsed_time(b) / reps
+    return {"step_ms": step, "collectives_ms": comm.ms() / reps,
+            "collectives_share": comm.ms() / reps / step,
+            "collectives_calls": len(comm.spans) // reps, "bytes_sent": comm.sent // reps}
+
+
+def dp_rank(packdir: str, rundir: str, workdir: str) -> dict:
+    """Phase 23's data-parallel part on one of 2 ranks sharing the card: the
+    batch-64 step's DP gradient at keep_prob 1, plain and through the DP
+    dedup encode (mesh.GatherShards), its timing, two PARALLEL_STEPS DP-2
+    `train` runs, and `test` with and without the row-sharded cache plus
+    predict_cached's probabilities; every rank's kernel counts."""
+    import torch
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.config import (Config, MeshConfig, ModelConfig, TrainConfig,
+                                           load_config)
+    from fvta_memexqa_torch.data.device_prepro import SharedTables
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.pipeline import Dataset
+    from fvta_memexqa_torch.eval_cache import (_sharded_cache_setup, precompute_album_cache,
+                                               predict_cached)
+    from fvta_memexqa_torch.optim import Optimizer
+    from fvta_memexqa_torch.parallel import mesh
+
+    dp2 = MeshConfig(data_parallel=2)
+    devices = SHARED_CARD * 2
+    packed = load_pack(packdir)
+    cfg = Config(data=packed.cfg, model=ModelConfig(keep_prob=1.0), mesh=dp2)
+    rank = mesh.current_rank(dp2, devices)
+    comm = CommTimer()
+    zero_parallel_counts()
+    state = tr.init_state(cfg, "cuda")
+    shared = SharedTables.from_packed(packed.shared, "cuda")
+    batch = next(iter(Dataset(packed, "train").get_batches(64, shuffle=True, seed=0,
+                                                          epoch=0))).to("cuda")
+    grads, _ = tr.step_grads(state.model, shared, batch, None, rank, train=False)
+    grads = {k: v.cpu() for k, v in grads.items()}
+    dd = tr.dedup_album_batch(batch.album_idx.cpu().numpy(), tr.dp_u_cap(cfg))
+    if dd is None:
+        raise RuntimeError("the batch-64 batch has more unique albums than dp_u_cap")
+    dd = tuple(torch.from_numpy(a) for a in dd)
+    dedup_grads, _ = tr.step_grads(state.model, shared, batch, tuple(a.cuda() for a in dd),
+                                   rank, train=False)
+    dedup_grads = {k: v.cpu() for k, v in dedup_grads.items()}
+    step_counts = parallel_counts()
+    opt = Optimizer(cfg.train)
+    timing = timed_steps(lambda: tr.train_step(state, opt, shared, batch, None, rank), comm)
+
+    runs = []
+    for i in range(2):
+        run_cfg = cfg.replace(model=ModelConfig(), train=TrainConfig(
+            val_period=12, log_period=1, save_period=1000))
+        out = os.path.join(workdir, f"dp2_run{i}")
+        res = tr.train(run_cfg, packed, out, num_steps=PARALLEL_STEPS, echo=False,
+                       metrics_path=os.path.join(out, "metrics.jsonl") if i == 0 else None,
+                       devices=devices)
+        runs.append({k: v.detach().cpu().clone() for k, v in res["state"].params.items()})
+        runs.append(res["state"].generator.get_state().cpu())
+    test_cfg = load_config(os.path.join(rundir, "config.json")).replace(
+        data=packed.cfg, mesh=dp2)
+    tests = {name: tr.test(test_cfg, packed, rundir, echo=False, shard_cache=sc,
+                           devices=devices)
+             for name, sc in (("dp2", False), ("dp2_shard_cache", True))}
+    model = tr.restore_model(test_cfg, rundir, True, "cuda")
+    ds = Dataset(packed, "test")
+    bs = test_cfg.train.eval_batch_size
+    tables = tr.make_eval_tables(model, shared)
+    probs = predict_cached(test_cfg, model, shared, ds, bs, tables=tables, rank=rank)
+    sharded = _sharded_cache_setup(rank, precompute_album_cache(
+        test_cfg, model, shared, vocab_table=tables[0], photo_table=tables[1]), bs)
+    probs_sharded = predict_cached(test_cfg, model, shared, ds, bs, tables=tables,
+                                   rank=rank, sharded=sharded)
+    comm.mesh.all_gather = comm.real
+    return {"grads": grads, "dedup_grads": dedup_grads, "dd": dd,
+            "timing": mesh.gather_objects(timing),
+            "step_counts": mesh.gather_objects(step_counts),
+            "counts": mesh.gather_objects(parallel_counts()),
+            "runs": runs, "tests": tests, "probs": probs["probs"],
+            "probs_sharded": probs_sharded["probs"], "label": probs["label"]}
+
+
+def cp_rank(cp: int) -> dict:
+    """Phase 23's context-parallel part on one of cp ranks sharing the card:
+    the full-width T=VIDEO_T video step (batch VIDEO_N, keep_prob 1) with its
+    attention's frame axis split over the ranks: logits, loss, every
+    gradient, the timing of forward + backward, every rank's kernel counts."""
+    import torch
+
+    from fvta_memexqa_torch import train_video as tv
+    from fvta_memexqa_torch.models.video import video_metrics
+    from fvta_memexqa_torch.parallel import mesh
+    from fvta_memexqa_torch.parallel.cp import make_cp_attention
+
+    cfg, run, shared, vi = video_setup(VIDEO_T, keep_prob=1.0)
+    shared, vi = video_shared_to(shared), vi.to("cuda")
+    comm = CommTimer()
+    zero_parallel_counts()
+    state = tv.init_video_state(cfg, run, "cuda")
+    attn = make_cp_attention(cfg.model.similarity)
+    params = list(state.model.parameters())
+
+    def step():
+        out = state.model(shared, vi, train=True, generator=state.generator,
+                          cp_attention=attn)
+        s = video_metrics("mc", out.logits, vi)
+        loss = s["loss_sum"] / torch.clamp(s["count"], min=1.0)
+        return out.logits, loss, torch.autograd.grad(loss, params, allow_unused=True)
+
+    with tv.exact_float32():
+        logits, loss, grads = step()
+        counts = parallel_counts()
+        timing = timed_steps(step, comm)
+    comm.mesh.all_gather = comm.real
+    names = [n for n, _ in state.model.named_parameters()]
+    return {"logits": logits.detach().cpu(), "loss": float(loss.detach()),
+            "grads": {n: g.cpu() for n, g in zip(names, grads) if g is not None},
+            "counts": mesh.gather_objects(counts),
+            "timing": mesh.gather_objects(timing)}
+
+
+def parallel_phase(workdir: str, evaluation: dict, smi: str) -> dict:
+    """Phase 23: data and context parallelism with the ranks sharing the one
+    card (make_mesh(devices=["cuda:0"] * n), gloo; no multi-card figure).
+    DP-2 at the flagship widths on phase 4's pack: the batch-64 step's gradient
+    vs the single-rank step on the card (DP_TOL) and vs the CPU's (STEP_TOL),
+    the DP dedup step's vs the single-rank dedup step's (DP_TOL), K1, K1b and
+    K2 launched on each rank; two PARALLEL_STEPS-step DP-2 runs bitwise
+    equal; `test` at DP-2 with and without the sharded cache, each with phase
+    16's count and its correct count within the near-tie predictions of
+    phase 16's, the two equal (predict_cached: a prediction may differ only
+    at a NEAR_TIE, probabilities within ENGINE_TOL). CP-2 and CP-4 at T=VIDEO_T,
+    batch VIDEO_N, D = 200, J = 30 vs cp = 1 on the card at the JAX package's
+    flagship-CP tolerances, K4, K5 and K6 launched on every rank and K2 on
+    none. Readings: per-rank step ms, the collectives' share (CUDA events),
+    DP-2 qa/s beside phase 7's single-rank qa/s (the `parallel` line)."""
+    import numpy as np
+    import torch
+
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch import train_video as tv
+    from fvta_memexqa_torch.config import Config, MeshConfig, ModelConfig, load_config
+    from fvta_memexqa_torch.data.device_prepro import SharedTables
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.data.pipeline import Dataset
+    from fvta_memexqa_torch.eval_cache import predict_cached
+    from fvta_memexqa_torch.models.video import video_metrics
+    from fvta_memexqa_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    pack, plain = os.path.join(workdir, "pack"), os.path.join(workdir, "train_plain")
+    problems = []
+
+    # data parallelism
+    dp = mesh.run_ranks(dp_rank, mesh.make_mesh(MeshConfig(data_parallel=2),
+                                                 SHARED_CARD * 2), pack, plain, workdir)
+    t_dp = time.perf_counter() - t0
+    packed = load_pack(pack)
+    cfg = Config(data=packed.cfg, model=ModelConfig(keep_prob=1.0))
+    batch = next(iter(Dataset(packed, "train").get_batches(64, shuffle=True, seed=0,
+                                                          epoch=0)))
+    single = {}
+    for dev, dd in (("cuda", None), ("cpu", None), ("dedup", dp["dd"])):
+        card = "cpu" if dev == "cpu" else "cuda"
+        state = tr.init_state(cfg, card)
+        shared = SharedTables.from_packed(packed.shared, card)
+        loss, _ = tr.loss_and_metrics(state.model, shared, batch.to(card), False, dd=(
+            None if dd is None else tuple(a.to(card) for a in dd)))
+        single[dev] = dict(zip(state.params, (g.cpu() for g in torch.autograd.grad(
+            loss, list(state.params.values())))))
+    dp_vs_card = {k: float((dp["grads"][k] - g).abs().max())
+                  for k, g in single["cuda"].items()}
+    bad = [k for k, g in single["cuda"].items()
+           if not torch.allclose(dp["grads"][k], g, **DP_TOL)]
+    rel_cpu = {k: float((dp["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+               for k, g in single["cpu"].items() if k not in EXACT_ZERO_GRADS}
+    worst_cpu = max(rel_cpu, key=rel_cpu.get)
+    log(f"parallel DP-2 (2 ranks sharing the card): batch-64 gradient vs one rank on the "
+        f"card max|dg| {max(dp_vs_card.values()):.2e}, tensors beyond rtol "
+        f"{DP_TOL['rtol']} / atol {DP_TOL['atol']}: {bad}; vs the CPU worst "
+        f"max|dg|/max|g| {rel_cpu[worst_cpu]:.2e} ({worst_cpu}); step launches per rank "
+        f"{json.dumps(dp['step_counts'])}")
+    if bad:
+        problems.append(f"DP-2 gradient vs the single-rank step beyond {DP_TOL}: {bad}")
+    dedup_vs_card = {k: float((dp["dedup_grads"][k] - g).abs().max())
+                     for k, g in single["dedup"].items()}
+    bad_dedup = [k for k, g in single["dedup"].items()
+                 if not torch.allclose(dp["dedup_grads"][k], g, **DP_TOL)]
+    log(f"parallel DP-2 dedup (U = {len(dp['dd'][0])}, each rank encoding half): gradient "
+        f"vs the single-rank dedup step on the card max|dg| "
+        f"{max(dedup_vs_card.values()):.2e}, tensors beyond {DP_TOL}: {bad_dedup}")
+    if bad_dedup:
+        problems.append(f"DP-2 dedup gradient vs the single-rank dedup step beyond "
+                        f"{DP_TOL}: {bad_dedup}")
+    if rel_cpu[worst_cpu] > STEP_TOL:
+        problems.append(f"DP-2 gradient vs the CPU beyond {STEP_TOL} ({worst_cpu})")
+    for r, c in enumerate(dp["counts"]):
+        if min(c[k] for k in DP_KERNELS) == 0 or c["fvta_fwd_serial"] or any(
+                c[k] for k in OLD_KERNELS):
+            problems.append(f"DP rank {r}: K1, K1b and K2 must launch, the serial K2 and "
+                            f"the L2-streaming kernels never: {c}")
+    p0, g0, p1, g1 = dp["runs"]
+    unequal = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    if unequal or not torch.equal(g0, g1):
+        problems.append(f"two identical DP-2 runs differ: {unequal[:5]}")
+    ref_acc, ref_count = (evaluation["test"]["cached"][k] for k in ("accuracy", "count"))
+    d_probs = float(np.abs(dp["probs"] - dp["probs_sharded"]).max())
+    pcfg = load_config(os.path.join(plain, "config.json")).replace(data=packed.cfg)
+    single_probs = predict_cached(pcfg, tr.restore_model(pcfg, plain, True, "cuda"),
+                                  SharedTables.from_packed(packed.shared, "cuda"),
+                                  Dataset(packed, "test"), pcfg.train.eval_batch_size)["probs"]
+    d_single = float(np.abs(dp["probs"] - single_probs).max())
+    top2 = np.sort(single_probs, -1)[:, -2:]
+    flips = np.argmax(dp["probs"], -1) != np.argmax(single_probs, -1)
+    far_flips = int((flips & (top2[:, 1] - top2[:, 0] > NEAR_TIE)).sum())
+    near_flips = int(flips.sum()) - far_flips
+    for name, m in dp["tests"].items():
+        log(f"parallel `test` {name}: {json.dumps(m)[:200]} (phase 16, one rank: accuracy "
+            f"{ref_acc}, count {ref_count})")
+        # each entry on its own: the same questions, and a correct count that
+        # differs from one rank's by no more than the near-tie predictions
+        d_correct = abs(round(m["acc"] * m["count"]) - round(ref_acc * ref_count))
+        if m["count"] != ref_count or d_correct > near_flips:
+            problems.append(f"test {name}: accuracy {m['acc']} over {m['count']} vs one "
+                            f"rank's {ref_acc} over {ref_count} ({near_flips} near-tie "
+                            "predictions)")
+    if dp["tests"]["dp2"]["acc"] != dp["tests"]["dp2_shard_cache"]["acc"]:
+        problems.append("test at DP-2: the sharded cache's accuracy differs from the "
+                        "replicated cache's (the sharded gather is bitwise)")
+    log(f"parallel predict_cached DP-2 vs one rank: max|d probs| {d_single:.2e}, "
+        f"{int(flips.sum())} different predictions ({far_flips} beyond a {NEAR_TIE} "
+        f"top-2 gap); sharded vs replicated cache max|d probs| {d_probs}")
+    if d_single > ENGINE_TOL or far_flips or d_probs != 0.0:
+        problems.append(f"DP-2 predict_cached: {d_single}, {far_flips}, {d_probs}")
+    recs = read_metrics(os.path.join(workdir, "dp2_run0", "metrics.jsonl"))
+    qa = {"dp2": [r["qa_pairs_per_sec"] for r in recs if r["event"] == "train"],
+          "one_rank": [r["qa_pairs_per_sec"] for r in read_metrics(
+              os.path.join(plain, "metrics.jsonl")) if r["event"] == "train"]}
+    qa = {k: float(np.median(v[1:])) for k, v in qa.items()}
+
+    # context parallelism
+    t1 = time.perf_counter()
+    cfg_v, run, shared_v, vi = video_setup(VIDEO_T, keep_prob=1.0)
+    with tv.exact_float32():
+        state = tv.init_video_state(cfg_v, run, "cuda")
+        out = state.model(video_shared_to(shared_v), vi.to("cuda"), train=True,
+                          generator=state.generator)
+        s = video_metrics("mc", out.logits, vi.to("cuda"))
+        loss1 = s["loss_sum"] / torch.clamp(s["count"], min=1.0)
+        names = [n for n, _ in state.model.named_parameters()]
+        g1 = dict(zip(names, torch.autograd.grad(loss1, list(state.model.parameters()),
+                                                 allow_unused=True)))
+    logits1, l1 = out.logits.detach().cpu(), float(loss1.detach())
+    cp_out = {}
+    for cp in (2, 4):
+        r = mesh.run_ranks(cp_rank, mesh.make_mesh(MeshConfig(context_parallel=cp),
+                                                   SHARED_CARD * cp), cp)
+        d_logits = float((r["logits"] - logits1).abs().max())
+        bad = [n for n, g in r["grads"].items()
+               if not torch.allclose(g, g1[n].cpu(), **CP_GRAD_TOL)]
+        d_loss = abs(r["loss"] - l1) / abs(l1)
+        log(f"parallel CP-{cp} at T={VIDEO_T} (ranks sharing the card): max|d logits| vs "
+            f"cp=1 {d_logits:.2e}, loss {r['loss']:.6f} vs {l1:.6f}, gradients "
+            f"beyond rtol {CP_GRAD_TOL['rtol']} / atol {CP_GRAD_TOL['atol']}: {bad}; "
+            f"launches per rank {json.dumps(r['counts'])}")
+        if not torch.allclose(r["logits"], logits1, **CP_LOGITS_TOL) or bad or \
+                d_loss > CP_LOSS_RTOL:
+            problems.append(f"CP-{cp} vs cp=1: logits {d_logits}, loss {d_loss}, {bad}")
+        for rk, c in enumerate(r["counts"]):
+            if min(c[k] for k in CP_KERNELS) == 0 or c["fvta_fwd"] or c["fvta_fwd_serial"]:
+                problems.append(f"CP-{cp} rank {rk}: K4, K5 and K6 must launch and K2 "
+                                f"never: {c}")
+        cp_out[cp] = {"max_abs_d_logits": d_logits, "loss_rel_err": d_loss,
+                      "timing": r["timing"], "counts": r["counts"]}
+    t_cp = time.perf_counter() - t1
+    if problems:
+        fail("parallel: " + "; ".join(problems))
+    return {"label": f"ranks sharing one card ({smi}), gloo; not a multi-card figure",
+            "dp2": {"timing": dp["timing"], "counts": dp["counts"],
+                    "qa_pairs_per_sec": qa["dp2"],
+                    "one_rank_qa_pairs_per_sec_phase7": qa["one_rank"],
+                    "grad_max_abs_err_vs_one_rank": max(dp_vs_card.values()),
+                    "dedup_grad_max_abs_err_vs_one_rank": max(dedup_vs_card.values()),
+                    "grad_rel_err_vs_cpu": rel_cpu[worst_cpu],
+                    "test": dp["tests"], "one_rank_accuracy": ref_acc,
+                    "probs_max_abs_err_vs_one_rank": d_single},
+            "cp": cp_out, "wall_s": {"dp": t_dp, "cp": t_cp,
+                                     "total": time.perf_counter() - t0}}
+
+
 def main() -> None:
     import torch
 
@@ -4860,6 +5249,8 @@ def main() -> None:
             train_loader = train_loader_phase(workdir, smi)   # phase 22, on 4's and 7's files
             focal = focal_phase(workdir, smi)
             t_22 = time.perf_counter() - t0
+            parallel = parallel_phase(workdir, evaluation, smi)   # phase 23
+            log("parallel " + json.dumps(parallel))
             log(f"K7/K8 launches over every command run (serving, training, video, "
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
@@ -4907,6 +5298,11 @@ def main() -> None:
             e["launches_train_prefetch"] = train_loader["prefetch"]["launches"][e["name"]]
             e["launches_train_stream"] = train_loader["stream"]["launches"][e["name"]]
             e["launches_focal"] = focal["launches"][e["name"]]
+        if e["name"] in DP_KERNELS:   # phase 23's paths, per rank
+            e["launches_dp2_ranks"] = [c[e["name"]] for c in parallel["dp2"]["counts"]]
+        if e["name"] in CP_KERNELS:
+            for cp, r in parallel["cp"].items():
+                e[f"launches_cp{cp}_ranks"] = [c[e["name"]] for c in r["counts"]]
     widths["staged_graph_ms_vs_perf_md"] = staged_vs_perf_md(entries)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))

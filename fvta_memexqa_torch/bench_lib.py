@@ -381,13 +381,13 @@ def bench_train(cfg: Config, batch_size: int = 64, k_small: int = 10, k_large: i
 
 def bench_train_dedup(cfg: Config, batch_size: int = 64, k_small: int = 10,
                       k_large: int = 60, reps: int = 3, seed: int = 0, device="cuda"):
-    """Training-step throughput through the album-dedup step
-    (train.dedup_train_step): the context encode runs over the batch's unique
+    """Training-step throughput through the album-dedup step (train.train_step
+    with the batch's dedup): the context encode runs over the batch's unique
     albums, sized to this batch's unique count rounded up to 8. Returns
     (qa_pairs_per_sec, unique_frac)."""
     from fvta_memexqa_torch.optim import Optimizer
-    from fvta_memexqa_torch.train import (dedup_album_batch, dedup_train_step,
-                                          deterministic_algorithms, init_state)
+    from fvta_memexqa_torch.train import (dedup_album_batch, deterministic_algorithms,
+                                          init_state, train_step)
 
     dev = _device(device)
     shared = synth_shared(cfg, seed=seed, device=dev)
@@ -403,8 +403,8 @@ def bench_train_dedup(cfg: Config, batch_size: int = 64, k_small: int = 10,
     def run(k):
         fb = torch.zeros((), dtype=torch.int32, device=dev)
         for _ in range(k):
-            out = dedup_train_step(state, opt, shared, _perturbed(batch, fb, albums=False),
-                                   uniq + fb, inv)
+            out = train_step(state, opt, shared, _perturbed(batch, fb, albums=False),
+                             (uniq + fb, inv))
             fb = _feedback(out["loss"])
         _sync(dev)
 

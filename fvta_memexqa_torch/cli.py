@@ -8,10 +8,11 @@ plus ablate, predict, serve, synth, the two reports and the video commands.
         --seed 0 (DataConfig fields as --flags, e.g. --image-feat-dim 64)]
     python -m fvta_memexqa_torch.cli train <packdir> <rundir> [--num-steps N --profile \
         --stream-shard-size N --prefetch N] [--batch-size 64 --hidden-dim 100 ...
-        (ModelConfig/TrainConfig/MeshConfig fields as --flags)] [--device cuda|cpu]
-    python -m fvta_memexqa_torch.cli test <packdir> <rundir> [--load-latest --split test \
-        --no-album-cache --dump-attention PATH --by-category --ensemble RUNDIR[,RUNDIR...]] \
+        --data-parallel N (ModelConfig/TrainConfig/MeshConfig fields as --flags)] \
         [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli test <packdir> <rundir> [--load-latest --split test \
+        --no-album-cache --dump-attention PATH --by-category --ensemble RUNDIR[,RUNDIR...] \
+        --data-parallel N --shard-cache] [--device cuda|cpu]
     python -m fvta_memexqa_torch.cli ablate <packdir> <rundir> [--num-steps N \
         --variants fvta,flat,none --seeds S0[,S1...]] [--device cuda|cpu]
     python -m fvta_memexqa_torch.cli predict <packdir> <rundir> \
@@ -45,8 +46,12 @@ prints {"split", "accuracy", "loss", "count"[, "by_category"]}; with --ensemble
 `ablate` trains and tests each attention variant (per seed with --seeds) under
 <rundir>/<variant> and prints {variant: {"val_acc", "test_acc", "steps"
 [, "per_seed"]}}. These print the JAX CLI's JSON lines with the same keys.
-`--shard-cache` and `--data-parallel` > 1 raise NotImplementedError: they
-belong to the data-parallel slice.
+`--data-parallel N` (train, test, ablate) runs N data-parallel ranks, one
+process each (parallel/mesh.py): one per card by default, CPU processes with
+`--device cpu`; under torchrun each process is one rank of the group
+(`main` joins it) and rank 0 prints. `test --shard-cache` row-shards the
+album cache over those ranks. `--context-parallel` ranks are replicas here,
+as in the JAX package (its MemexQA batch shards over "data" only).
 
 `train` runs train.train on the pack (metrics to <rundir>/metrics.jsonl,
 checkpoints under <rundir>, resuming from the latest one there) and prints
@@ -63,7 +68,7 @@ line (an answer step that fails gives {"error": ...}, as in the JAX CLI). The
 run directory is the port's (config.json + params.pt, see convert.py). `serve`
 (serve.main) serves the run directory over HTTP on 127.0.0.1 (GET /healthz,
 GET /stats, POST /ask, POST /albums) with the JAX CLI's flags; `--dp` > 1 and
-`--shard-cache` raise NotImplementedError (the data-parallel slice). `report`
+`--shard-cache` raise NotImplementedError (multi-card serving). `report`
 summarizes a run directory's metrics.jsonl and `attention-report` renders a
 `--dump-attention` npz, as the JAX CLI's do (text, or JSON with --json).
 
@@ -72,8 +77,10 @@ corpus, `video-prepro` packs one into streaming shards, `video` trains — the
 synthetic demo without --data, a plain loop over a pack with --data, and the
 full driver (train_video.train_video: keep-best checkpoints, metrics, exact
 resume) with --data --out, then evaluates the best state on the test split —
-and `video-test` evaluates a video run directory. `--cp N > 1` raises
-NotImplementedError: context parallelism is a later slice.
+and `video-test` evaluates a video run directory. `--cp N` trains (and, in
+the synthetic demo and the plain loop, evaluates) with the attention's frame
+axis split over N ranks (parallel/cp.py), one process each, as `train
+--data-parallel` launches them.
 """
 
 from __future__ import annotations
@@ -114,6 +121,14 @@ def _model_config(args, base: Config, packed) -> Config:
     return Config(data=packed.cfg, model=_dc_from_args(args, ModelConfig, base.model),
                   train=_dc_from_args(args, TrainConfig, base.train),
                   mesh=_dc_from_args(args, MeshConfig, base.mesh))
+
+
+def _print_first(line: str) -> None:
+    """Print on rank 0 only when the command runs as one rank of a group."""
+    from fvta_memexqa_torch.parallel.mesh import is_first_rank
+
+    if is_first_rank():
+        print(line)
 
 
 def _run_parser(prog: str) -> argparse.ArgumentParser:
@@ -165,7 +180,7 @@ def cmd_train(argv):
                 metrics_path=os.path.join(args.rundir, "metrics.jsonl"),
                 profile_dir=os.path.join(args.rundir, "profile") if args.profile else None,
                 datasets=datasets, prefetch=args.prefetch, device=args.device)
-    print(json.dumps({"best_val_acc": res["best_val_acc"], "steps": res["steps"]}))
+    _print_first(json.dumps({"best_val_acc": res["best_val_acc"], "steps": res["steps"]}))
 
 
 def cmd_synth(argv):
@@ -235,7 +250,8 @@ def cmd_test(argv):
     p.add_argument("--no-album-cache", action="store_true",
                    help="re-encode every question's albums (the reference's evaluation)")
     p.add_argument("--shard-cache", action="store_true",
-                   help="row-shard the album cache over a mesh (not ported yet: raises)")
+                   help="row-shard the album cache over the --data-parallel ranks (each "
+                        "keeps 1/N of the rows); identical metrics")
     p.add_argument("--dump-attention", default=None, metavar="PATH",
                    help="write per-question attention maps and predictions to PATH (.npz)")
     p.add_argument("--by-category", action="store_true",
@@ -270,7 +286,7 @@ def cmd_test(argv):
                "count": m["count"]}
     if args.by_category:
         out["by_category"] = m["by_category"]
-    print(json.dumps(out))
+    _print_first(json.dumps(out))
 
 
 def cmd_ablate(argv):
@@ -283,6 +299,7 @@ def cmd_ablate(argv):
                         "and the mean; default: the configured seed")
     args = p.parse_args(argv)
     from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.parallel.mesh import is_first_rank
     from fvta_memexqa_torch.train import test as run_test, train as run_train
 
     packed = load_pack(args.packdir)
@@ -304,15 +321,16 @@ def cmd_ablate(argv):
             m = run_test(cfg, packed, rundir, load_best=True, echo=False, device=args.device)
             per_seed[str(seed)] = {"val_acc": res["best_val_acc"], "test_acc": m["acc"],
                                    "steps": res["steps"]}
-            print(f"[ablate] {variant} seed={seed}: val={res['best_val_acc']:.4f} "
-                  f"test={m['acc']:.4f}", file=sys.stderr)
+            if is_first_rank():
+                print(f"[ablate] {variant} seed={seed}: val={res['best_val_acc']:.4f} "
+                      f"test={m['acc']:.4f}", file=sys.stderr)
         n = len(per_seed)
         results[variant] = {"val_acc": sum(v["val_acc"] for v in per_seed.values()) / n,
                             "test_acc": sum(v["test_acc"] for v in per_seed.values()) / n,
                             "steps": per_seed[str(seeds[0])]["steps"]}
         if n > 1:
             results[variant]["per_seed"] = per_seed
-    print(json.dumps(results))
+    _print_first(json.dumps(results))
 
 
 def cmd_predict(argv):
@@ -436,7 +454,8 @@ def cmd_video(argv):
     p.add_argument("--hidden-dim", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cp", type=int, default=1,
-                   help="context-parallel degree (only 1: CP is not ported yet)")
+                   help="context-parallel degree: split the FVTA attention's frame axis "
+                        "over N ranks (the frame count must divide by N)")
     p.add_argument("--lr", type=float, default=2e-3)
     p.add_argument("--lr-schedule", default="constant", choices=["constant", "cosine", "linear"])
     p.add_argument("--warmup-steps", type=int, default=0)
@@ -448,10 +467,6 @@ def cmd_video(argv):
     p.add_argument("--prefetch", type=int, default=0)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.cp > 1:
-        from fvta_memexqa_torch.train_video import CP_NOT_PORTED
-
-        raise NotImplementedError(CP_NOT_PORTED)
     if args.out and not args.data:
         raise SystemExit("--out needs --data (the synthetic demo world is in-memory; "
                          "nothing to resume)")
@@ -475,7 +490,7 @@ def _video_driver(args):
                           save_period=args.save_period))
     os.makedirs(args.out, exist_ok=True)
     r = train_video(cfg, args.data, args.out, num_steps=args.steps, encoder=args.encoder,
-                    prefetch=args.prefetch, device=args.device,
+                    cp=args.cp, prefetch=args.prefetch, device=args.device,
                     metrics_path=os.path.join(args.out, "metrics.jsonl"))
     m = test_video(args.out, split="test", load_best=True, batch_size=args.batch_size,
                    echo=False, device=args.device)
@@ -489,104 +504,20 @@ def _video_driver(args):
 
 def _video_plain(args):
     """The synthetic demo (no --data) or a plain loop over a pack (--data): Adam
-    at --lr without dropout or clipping, then the held-out split."""
-    import torch
+    at --lr without dropout or clipping, then the held-out split. --cp N > 1:
+    in N context-parallel ranks (rank 0's line printed)."""
+    from fvta_memexqa_torch.train_video import video_plain_run
 
-    from fvta_memexqa_torch.data.video_pack import (VideoDataset, load_video_meta,
-                                                    video_shared_tables)
-    from fvta_memexqa_torch.models.video import (VideoFVTAModel, make_synthetic_video,
-                                                 video_loss, video_metrics)
-    from fvta_memexqa_torch.optim import Optimizer
-    from fvta_memexqa_torch.serve import resolve_device
-    from fvta_memexqa_torch.train_video import exact_float32
+    if args.cp > 1:
+        from fvta_memexqa_torch.data.video_pack import load_video_meta
 
-    dev = resolve_device(args.device)
-    model_cfg = dict(hidden_dim=args.hidden_dim, char_emb_dim=8, char_cnn_filters=16,
-                     keep_prob=1.0, vocab_embed=True, attention=args.attention)
-    if args.data:
-        dcfg, meta, shared_np = load_video_meta(args.data)
-        task, num_choices = meta.get("task", "mc"), meta["num_choices"]
-        num_answers = len(meta.get("answer_vocab", []))
-        shared = video_shared_tables(dcfg, shared_np, dev)
-        train_ds, test_ds = VideoDataset(args.data, "train"), VideoDataset(args.data, "test")
-        if train_ds.n == 0:
-            print("error: the pack's train split is empty (check --test-ids / "
-                  "--val-fraction)", file=sys.stderr)
-            return 2
-
-        def train_batches(epoch):
-            return train_ds.get_batches(args.batch_size, shuffle=True, seed=args.seed,
-                                        epoch=epoch)
-        test_batches = lambda: test_ds.get_batches(args.batch_size)
-    else:
-        dcfg = DataConfig(max_question_len=8, max_answer_len=3, max_word_len=6,
-                          image_feat_dim=2537, word_emb_dim=50, word_vocab_size=64,
-                          char_vocab_size=16, num_glove_words=0)
-        model_cfg.update(char_emb_dim=4, char_cnn_filters=8, vocab_embed=False)
-        task, num_choices = args.task, args.num_choices
-        num_answers = 8 if task == "frameqa" else 0
-        synth = lambda n, seed: make_synthetic_video(Config(data=dcfg), num_videos=n,
-                                                     num_frames=args.num_frames,
-                                                     num_choices=num_choices, seed=seed,
-                                                     task=task)[0]
-        vi_train, vi_test = synth(args.num_videos, args.seed), synth(
-            max(args.num_videos // 4, 8), args.seed + 1)
-        rng = np.random.default_rng(args.seed)
-        emb = rng.normal(0, 0.3, (dcfg.word_vocab_size, dcfg.word_emb_dim)).astype(np.float32)
-        shared = video_shared_tables(
-            dcfg, {"word_emb_init": emb,
-                   "vocab_chars": np.zeros((dcfg.word_vocab_size, dcfg.max_word_len),
-                                           np.int32)}, dev)
-        train_batches = lambda epoch: [vi_train]
-        test_batches = lambda: [vi_test]
-    cfg = Config(data=dcfg, model=ModelConfig(**model_cfg))
-    model = VideoFVTAModel(cfg, num_choices=num_choices, temporal_encoder=args.encoder,
-                           task=task, num_answers=num_answers,
-                           generator=torch.Generator().manual_seed(args.seed)).to(dev)
-    opt = Optimizer(TrainConfig(learning_rate=args.lr, grad_clip_norm=0.0))
-    params = dict(model.named_parameters())
-    opt_state = opt.init(params)
-    done, epoch, loss, acc = 0, 0, 0.0, 0.0
-    with exact_float32():
-        while done < args.steps:
-            for vi in train_batches(epoch):
-                loss_t, m = video_loss(model, shared, vi.to(dev), False)
-                grads = torch.autograd.grad(loss_t, list(params.values()), allow_unused=True)
-                opt.update(params, {n: torch.zeros_like(p) if g is None else g
-                                    for (n, p), g in zip(params.items(), grads)}, opt_state)
-                done += 1
-                if done % 50 == 0:
-                    loss, acc = float(loss_t.detach()), float(m["acc"].detach())
-                    print(f"[video] step={done} loss={loss:.4f} train_acc={acc:.4f}",
-                          file=sys.stderr)
-                if done >= args.steps:
-                    break
-            epoch += 1
-        loss, acc = float(loss_t.detach()), float(m["acc"].detach())
-        totals = {"correct": 0.0, "sq_err": 0.0, "count": 0.0}
-        with torch.no_grad():
-            for vi in test_batches():
-                vi = vi.to(dev)
-                s = video_metrics(task, model(shared, vi).logits, vi)
-                totals = {k: totals[k] + float(s[k]) for k in totals}
-    n = max(totals["count"], 1.0)
-    # the JAX CLI's keys: a pack's run reports its data, steps and test count,
-    # the synthetic demo its frame count and the --cp it was given
-    out = {"encoder": args.encoder, "task": task}
-    if args.data:
-        out.update(data=args.data, steps=done, train_acc=acc,
-                   heldout_acc=totals["correct"] / n, test_count=int(totals["count"]))
-    else:
-        out.update(num_frames=args.num_frames, train_acc=acc,
-                   heldout_acc=totals["correct"] / n, cp=args.cp)
-    if task == "count":
-        out["heldout_mse"] = totals["sq_err"] / n
-    elif task == "frameqa" and args.data:
-        out["answer_vocab_size"] = num_answers
-    elif task == "frameqa":
-        out["chance"] = 1.0 / max(num_answers, 1)
-    else:
-        out["chance"] = 1.0 / num_choices
+        frames = load_video_meta(args.data)[1]["max_frames"] if args.data else args.num_frames
+        if frames % args.cp:
+            raise SystemExit(f"--cp {args.cp} requires the frame count ({frames}) to be "
+                             "divisible by it")
+    out = video_plain_run(args, device=args.device)
+    if isinstance(out, int):
+        return out
     print(json.dumps(out))
 
 
@@ -781,6 +712,10 @@ COMMANDS = {"synth": cmd_synth, "prepro": cmd_prepro, "train": cmd_train, "test"
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] in ("train", "test", "ablate"):
+        from fvta_memexqa_torch.parallel.mesh import maybe_initialize_distributed
+
+        maybe_initialize_distributed()   # under torchrun: this process is one rank
     if not argv or argv[0] not in COMMANDS:
         print(f"usage: python -m fvta_memexqa_torch.cli {{{'|'.join(COMMANDS)}}} ...",
               file=sys.stderr)

@@ -22,13 +22,16 @@ Dropout (train=True) follows flax's nn.Dropout: each element is kept with
 probability keep_prob and scaled by 1/keep_prob, drawn from the explicit
 `torch.Generator` the caller passes (on the inputs' device), so a run that
 restores the generator's state resumes bit-identically. With train=False, or
-keep_prob = 1, nothing is drawn.
+keep_prob = 1, nothing is drawn. Under data parallelism (dropout_row_shard)
+each rank draws the whole batch's mask and keeps its rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -45,15 +48,41 @@ from fvta_memexqa_torch.ops.lstm_fused import bilstm_fused, bilstm_fused_final
 from fvta_memexqa_torch.ops.lstm_ref import LSTMParams
 
 
+_ROW_SHARD = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_row_shard(index: int, count: int):
+    """Inside the block every dropout draws the mask of the whole batch
+    (count x the rows it is given, whose leading axis is the batch) and keeps
+    rows [index * n, (index + 1) * n): data rank `index` of `count` then draws
+    what the single-rank step draws for its rows, and every rank's generator
+    advances alike."""
+    prev = getattr(_ROW_SHARD, "value", None)
+    _ROW_SHARD.value = (index, count)
+    try:
+        yield
+    finally:
+        _ROW_SHARD.value = prev
+
+
 def flax_dropout(x: torch.Tensor, keep_prob: float, train: bool,
                  generator: torch.Generator | None) -> torch.Tensor:
     """flax nn.Dropout(rate=1 - keep_prob): keep each element with probability
-    keep_prob, scale kept ones by 1/keep_prob; the noise comes from `generator`."""
+    keep_prob, scale kept ones by 1/keep_prob; the noise comes from `generator`
+    (the whole batch's under dropout_row_shard)."""
     if not train or keep_prob >= 1.0:
         return x
     if generator is None:
         raise ValueError("train=True needs a torch.Generator for dropout")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shard = getattr(_ROW_SHARD, "value", None)
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        index, count = shard
+        n = x.shape[0]
+        noise = torch.rand((n * count, *x.shape[1:]), generator=generator, device=x.device)
+        keep = noise[index * n:(index + 1) * n] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -216,11 +245,13 @@ class FVTAModel(nn.Module):
 
     def answer(self, shared: SharedTables, mi: ModelInputs, h_ctx: torch.Tensor,
                ctx_mask: torch.Tensor, vocab_table: torch.Tensor | None = None, *,
-               train: bool = False, generator: torch.Generator | None = None
-               ) -> ModelOutput:
+               train: bool = False, generator: torch.Generator | None = None,
+               cp_attention=None) -> ModelOutput:
         """Query side: question/choice encode + FVTA attention over (possibly
         cached) context states + 4-way scorer. Reads only the query fields of
-        `mi` (q_*, choice_*), so a data Batch serves as well as ModelInputs."""
+        `mi` (q_*, choice_*), so a data Batch serves as well as ModelInputs.
+        cp_attention: a context-parallel attention (parallel/cp.make_cp_attention)
+        over the context's time axis, in place of the local one."""
         m = self.cfg.model
         ft = shared.word_emb
         vt = self._tables(shared, vocab_table)
@@ -237,7 +268,9 @@ class FVTAModel(nn.Module):
             sim_params = {"w_x": self.sim_w_x, "w_y": self.sim_w_y, "w_xy": self.sim_w_xy}
         elif m.similarity == "bilinear":
             sim_params = {"w_bilinear": self.sim_w_bilinear}
-        if m.attention == "fvta":
+        if cp_attention is not None:
+            attn = cp_attention(h_ctx, ctx_mask, h_q, mi.q_mask, sim_params)
+        elif m.attention == "fvta":
             attn = fvta_attention_fused(h_ctx, ctx_mask, h_q, mi.q_mask, m.similarity,
                                         sim_params)
         else:
@@ -251,12 +284,13 @@ class FVTAModel(nn.Module):
 
     def forward(self, shared: SharedTables, mi: ModelInputs,
                 vocab_table: torch.Tensor | None = None, *, train: bool = False,
-                generator: torch.Generator | None = None) -> ModelOutput:
+                generator: torch.Generator | None = None, cp_attention=None
+                ) -> ModelOutput:
         vt = self._tables(shared, vocab_table)  # shared by both halves
         h_ctx, ctx_mask = self.encode_context(shared, mi, vt, train=train,
                                               generator=generator)
         return self.answer(shared, mi, h_ctx, ctx_mask, vt, train=train,
-                           generator=generator)
+                           generator=generator, cp_attention=cp_attention)
 
 
 def a1_config(cfg: Config) -> Config:

@@ -165,7 +165,11 @@ class VideoFVTAModel(nn.Module):
         return out[:, None], vi.frame_mask[:, None]
 
     def answer(self, shared: SharedTables, vi: VideoInputs, h_ctx, ctx_mask,
-               train: bool = False, generator=None, vocab_table=None) -> VideoOutput:
+               train: bool = False, generator=None, vocab_table=None,
+               cp_attention=None) -> VideoOutput:
+        """Question (and choice) encode, the attention over the frame states —
+        cp_attention (parallel/cp.make_cp_attention) shards its time axis over
+        ranks —, then the task head."""
         m = self.cfg.model
         vt = vocab_table
         if vt is None and m.vocab_embed:
@@ -185,7 +189,9 @@ class VideoFVTAModel(nn.Module):
             sim_params = {"w_x": self.sim_w_x, "w_y": self.sim_w_y, "w_xy": self.sim_w_xy}
         elif m.similarity == "bilinear":
             sim_params = {"w_bilinear": self.sim_w_bilinear}
-        if m.attention == "fvta":
+        if cp_attention is not None:
+            attn = cp_attention(h_ctx, ctx_mask, h_q, vi.q_mask, sim_params)
+        elif m.attention == "fvta":
             attn = fvta_attention_fused(h_ctx, ctx_mask, h_q, vi.q_mask, m.similarity,
                                         sim_params)
         else:
@@ -212,9 +218,11 @@ class VideoFVTAModel(nn.Module):
         return VideoOutput(self.frameqa_head(feats), attn)
 
     def forward(self, shared: SharedTables, vi: VideoInputs, train: bool = False,
-                generator: torch.Generator | None = None, vocab_table=None) -> VideoOutput:
+                generator: torch.Generator | None = None, vocab_table=None,
+                cp_attention=None) -> VideoOutput:
         h_ctx, ctx_mask = self.encode_frames(vi, train, generator)
-        return self.answer(shared, vi, h_ctx, ctx_mask, train, generator, vocab_table)
+        return self.answer(shared, vi, h_ctx, ctx_mask, train, generator, vocab_table,
+                           cp_attention)
 
 
 def video_metrics(task: str, logits: torch.Tensor, vi: VideoInputs) -> dict[str, torch.Tensor]:
@@ -241,10 +249,10 @@ def video_metrics(task: str, logits: torch.Tensor, vi: VideoInputs) -> dict[str,
 
 
 def video_loss(model: VideoFVTAModel, shared: SharedTables, vi: VideoInputs, train: bool,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, cp_attention=None):
     """(loss, {"acc"[, "mse"]}): masked softmax CE over choices (mc), over the
     answer vocabulary (frameqa), or masked L2 on the count (count)."""
-    out = model(shared, vi, train=train, generator=generator)
+    out = model(shared, vi, train=train, generator=generator, cp_attention=cp_attention)
     s = video_metrics(model.task, out.logits, vi)
     n = torch.clamp(s["count"], min=1.0)
     loss = s["loss_sum"] / torch.clamp(s.get("loss_count", s["count"]), min=1.0)

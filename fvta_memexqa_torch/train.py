@@ -27,7 +27,23 @@ latest checkpoint and evaluates a split, through the album cache
 per-category table and an attention dump (`dump_attention`); `test_ensemble`
 averages several runs' choice probabilities.
 
-Data parallelism (MeshConfig.num_devices > 1) is not ported yet and raises.
+Data parallelism (MeshConfig.data_parallel > 1) runs one process per rank
+(parallel/mesh.py): outside a process group `train`, `test` and
+`test_ensemble` launch the ranks on themselves (mesh.launches_ranks) and
+return rank 0's result; inside one (torchrun, or the launched ranks) each rank runs its
+part. Every rank reads the whole batch and computes on its rows
+(mesh.take_rows): dropout draws the whole batch's mask and keeps its rows
+(models/fvta.dropout_row_shard), each rank's loss is its rows' loss sum over
+the batch's example count, and the flat gradient and the metric sums are
+all-gathered and summed in rank order, so every rank holds the same bits and
+applies the same update. The dedup step keeps the batch-wide dedup: each rank
+encodes its U/dp unique albums and mesh.GatherShards rebuilds all U. Context
+ranks (MeshConfig.context_parallel) are replicas here, as in the JAX package,
+whose batch shards over "data" only. Rank 0 writes the checkpoints, the
+metrics and the run directory; the others wait at a barrier; every rank
+restores, and a checkpoint resumes at any world size. Evaluation shards each
+batch's rows the same way; `test(shard_cache=True)` row-shards the album
+cache (eval_cache.shard_album_cache).
 """
 
 from __future__ import annotations
@@ -44,18 +60,19 @@ import torch
 import torch.nn.functional as F
 
 from fvta_memexqa_torch.checkpoint import CheckpointManager
-from fvta_memexqa_torch.config import Config, load_config
+from fvta_memexqa_torch.config import Config, MeshConfig, load_config
 from fvta_memexqa_torch.convert import save_rundir
 from fvta_memexqa_torch.data.device_prepro import Batch, SharedTables, assemble, assemble_albums
 from fvta_memexqa_torch.data.pipeline import Dataset
 from fvta_memexqa_torch.data.stream import Prefetcher
 from fvta_memexqa_torch.data.categories import accuracy_by_category, question_categories
-from fvta_memexqa_torch.eval_cache import (SHARD_CACHE_NOT_PORTED, evaluate_cached,
+from fvta_memexqa_torch.eval_cache import (_sharded_cache_setup, evaluate_cached,
                                            gather_cached_context, precompute_album_cache,
                                            predict_cached)
-from fvta_memexqa_torch.models.fvta import (FVTAModel, a1_config, make_photo_table,
-                                            make_vocab_table)
+from fvta_memexqa_torch.models.fvta import (FVTAModel, a1_config, dropout_row_shard,
+                                            make_photo_table, make_vocab_table)
 from fvta_memexqa_torch.optim import Optimizer
+from fvta_memexqa_torch.parallel import mesh
 from fvta_memexqa_torch.serve import resolve_device
 from fvta_memexqa_torch.utils.metrics import MetricsLogger, Timer
 
@@ -108,19 +125,29 @@ def masked_choice_metrics(logits: torch.Tensor, label: torch.Tensor,
     return {"correct": correct, "count": w.sum(), "loss_sum": (nll * w).sum()}
 
 
-def _loss(m: dict[str, torch.Tensor]) -> torch.Tensor:
-    return m["loss_sum"] / torch.clamp(m["count"], min=1.0)
-
-
 def loss_and_metrics(model: FVTAModel, shared: SharedTables, batch: Batch, train: bool,
                      generator: torch.Generator | None = None, vocab_table=None,
-                     photo_table=None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Masked 4-way cross-entropy + accuracy counts. vocab_table / photo_table:
-    optional precomputed per-checkpoint tables (frozen-parameter evaluation)."""
-    mi = assemble(shared, batch, photo_table)
-    out = model(shared, mi, vocab_table, train=train, generator=generator)
-    m = masked_choice_metrics(out.logits, mi.label, mi.ex_mask)
-    return _loss(m), m
+                     photo_table=None, dd=None, rank: mesh.Rank | None = None
+                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Masked 4-way cross-entropy + accuracy counts of a device batch → (loss,
+    sums). vocab_table / photo_table: optional precomputed per-checkpoint
+    tables (frozen-parameter evaluation). dd: the batch's (uniq, inv) from
+    dedup_album_batch, the context encoded once per distinct album
+    (dedup_forward). rank: data parallelism (the module docstring): the sums
+    are this data rank's rows', dropout is drawn for the whole batch. The loss
+    is the rows' loss sum over the whole batch's example count."""
+    local = rank_batch(batch, rank)
+    count = torch.clamp(batch.ex_mask.sum().to(torch.float32), min=1.0)
+    with (contextlib.nullcontext() if rank is None
+          else dropout_row_shard(rank.data, rank.layout.data_parallel)):
+        if dd is None:
+            mi = assemble(shared, local, photo_table)
+            out = model(shared, mi, vocab_table, train=train, generator=generator)
+        else:
+            out = dedup_forward(model, shared, local, *dd, train, generator, vocab_table,
+                                rank)
+    m = masked_choice_metrics(out.logits, local.label, local.ex_mask)
+    return m["loss_sum"] / count, m
 
 
 def dedup_album_batch(album_idx: np.ndarray, u_cap: int):
@@ -146,47 +173,78 @@ def dedup_u_cap(cfg: Config) -> int:
     return max(8, min(cap, slots))
 
 
-def dedup_loss_and_metrics(model: FVTAModel, shared: SharedTables, batch: Batch,
-                           uniq: torch.Tensor, inv: torch.Tensor, train: bool,
-                           generator: torch.Generator | None = None):
-    """loss_and_metrics through the dedup context encode: each distinct album
-    encodes once ([U, 6, T, 2H]); per-question context rows come from
+def dp_u_cap(cfg: Config) -> int:
+    """dedup_u_cap rounded up to a multiple of lcm(8, data_parallel) (at most
+    N*A), so the unique albums split evenly over the data ranks."""
+    u_cap = dedup_u_cap(cfg)
+    dp = cfg.mesh.data_parallel
+    if dp <= 1:
+        return u_cap
+    mult = math.lcm(8, dp)
+    return min(-(-u_cap // mult) * mult, cfg.train.batch_size * cfg.data.max_albums)
+
+
+def dedup_forward(model: FVTAModel, shared: SharedTables, batch: Batch, uniq: torch.Tensor,
+                  inv: torch.Tensor, train: bool, generator: torch.Generator | None = None,
+                  vocab_table=None, rank: mesh.Rank | None = None):
+    """The model's output through the dedup context encode: each distinct
+    album encodes once ([U, 6, T, 2H]); per-question context rows come from
     gather_cached_context, whose backward sums duplicate slots' gradients onto
-    their shared encode. The query side reads only the batch's query fields."""
-    vt = model._tables(shared, None)   # once per step, shared by both halves
+    their shared encode. The query side reads only the batch's query fields.
+    rank: `batch` holds this data rank's rows; the rank encodes its U/dp of
+    the unique albums and mesh.GatherShards rebuilds all U (its backward
+    returns each album's summed cotangent to the rank that encoded it)."""
+    vt = model._tables(shared, vocab_table)   # once per step, shared by both halves
+    if rank is not None:
+        dp = rank.layout.data_parallel
+        uniq, inv = mesh.take_rows(uniq, rank.data, dp), mesh.take_rows(inv, rank.data, dp)
     mi_u = assemble_albums(a1_config(model.cfg).data, shared, uniq)
     h_u, m_u = model.encode_context(shared, mi_u, vt, train=train, generator=generator)
+    if rank is not None:
+        h_u = mesh.GatherShards.apply(h_u, rank.data_group())
+        m_u = torch.cat(mesh.all_gather(m_u, rank.data_group()))
     h_ctx, ctx_mask = gather_cached_context(h_u, m_u, inv, batch.album_mask)
-    out = model.answer(shared, batch, h_ctx, ctx_mask, vt, train=train,
-                       generator=generator)
-    m = masked_choice_metrics(out.logits, batch.label, batch.ex_mask)
-    return _loss(m), m
+    return model.answer(shared, batch, h_ctx, ctx_mask, vt, train=train, generator=generator)
 
 
-def _apply(state: TrainState, opt: Optimizer, loss: torch.Tensor, m: dict) -> dict:
-    params = state.params
+def data_sum(x: torch.Tensor, rank: mesh.Rank | None) -> torch.Tensor:
+    """x summed over the data ranks in rank order (identical on every rank);
+    x itself outside a process group."""
+    return x if rank is None else mesh.sum_across(x, rank.data_group())
+
+
+def step_grads(model: FVTAModel, shared: SharedTables, batch: Batch, dd=None,
+               rank: mesh.Rank | None = None, train: bool = True,
+               generator: torch.Generator | None = None
+               ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """The gradient of loss_and_metrics' loss and the batch's sums: ({name:
+    grad}, [loss_sum, correct, count]). rank: the flat gradient and the sums
+    are all-gathered over the data ranks and summed in rank order, so every
+    rank holds the same bits."""
+    loss, m = loss_and_metrics(model, shared, batch, train, generator, dd=dd, rank=rank)
+    params = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    opt.update(params, {n: torch.zeros_like(p) if g is None else g
-                        for (n, p), g in zip(params.items(), grads)}, state.opt_state)
-    state.step += 1
-    return {"loss": loss.detach(), "acc": m["correct"] / torch.clamp(m["count"], min=1.0)}
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
+    sums = torch.stack([m["loss_sum"], m["correct"], m["count"]]).detach()
+    if rank is not None:
+        total = data_sum(torch.cat([*(g.reshape(-1) for g in grads), sums]), rank)
+        sizes = [p.numel() for p in params.values()]
+        *flat, sums = total.split([*sizes, 3])
+        grads = [f.view_as(p) for f, p in zip(flat, params.values())]
+    return dict(zip(params, grads)), sums
 
 
-def train_step(state: TrainState, opt: Optimizer, shared: SharedTables,
-               batch: Batch) -> dict[str, torch.Tensor]:
-    """One optimizer step on a device batch; moves state in place. Returns
+def train_step(state: TrainState, opt: Optimizer, shared: SharedTables, batch: Batch,
+               dd=None, rank: mesh.Rank | None = None) -> dict[str, torch.Tensor]:
+    """One optimizer step on a device batch (dd, rank: as in loss_and_metrics;
+    every data rank applies the same update); moves state in place. Returns
     {"loss", "acc"} as device scalars (no host sync)."""
-    loss, m = loss_and_metrics(state.model, shared, batch, True, state.generator)
-    return _apply(state, opt, loss, m)
-
-
-def dedup_train_step(state: TrainState, opt: Optimizer, shared: SharedTables,
-                     batch: Batch, uniq: torch.Tensor, inv: torch.Tensor
-                     ) -> dict[str, torch.Tensor]:
-    """train_step through the dedup encode; uniq/inv from dedup_album_batch."""
-    loss, m = dedup_loss_and_metrics(state.model, shared, batch, uniq, inv, True,
-                                     state.generator)
-    return _apply(state, opt, loss, m)
+    grads, (loss_sum, correct, count) = step_grads(state.model, shared, batch, dd, rank,
+                                                   True, state.generator)
+    opt.update(state.params, grads, state.opt_state)
+    state.step += 1
+    count = torch.clamp(count, min=1.0)
+    return {"loss": loss_sum / count, "acc": correct / count}
 
 
 def make_eval_tables(model: FVTAModel, shared: SharedTables):
@@ -216,18 +274,31 @@ def on_device(batches, transfer, prefetch: int):
         yield it
 
 
+def rank_batch(batch, rank: mesh.Rank | None):
+    """This data rank's rows of a batch (the whole batch outside a group)."""
+    return batch if rank is None else mesh.take_rows(batch, rank.data,
+                                                     rank.layout.data_parallel)
+
+
 def evaluate(eval_step, shared: SharedTables, dataset, batch_size: int,
-             vocab_table=None, photo_table=None, prefetch: int = 0) -> dict:
+             vocab_table=None, photo_table=None, prefetch: int = 0,
+             rank: mesh.Rank | None = None) -> dict:
     """Full-split evaluation → {"acc", "loss", "count"}. Sums stay on the
     device and are fetched once at the end. prefetch > 0: batches are prepared
-    and moved to the device `prefetch` ahead in a background thread."""
+    and moved to the device `prefetch` ahead in a background thread. rank:
+    each data rank evaluates its rows of every batch and the sums are added
+    over the data ranks in rank order."""
     device = shared.word_emb.device
     totals = None
     with on_device(dataset.get_batches(batch_size, shuffle=False),
-                   lambda b: b.to(device), prefetch) as batches:
+                   lambda b: rank_batch(b, rank).to(device), prefetch) as batches:
         for batch in batches:
             m = eval_step(shared, batch, vocab_table, photo_table)
             totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
+    if totals is not None and rank is not None:
+        summed = data_sum(torch.stack([totals[k] for k in ("correct", "count",
+                                                           "loss_sum")]), rank)
+        totals = dict(zip(("correct", "count", "loss_sum"), summed))
     totals = ({k: float(v) for k, v in totals.items()} if totals is not None
               else {"correct": 0.0, "count": 0.0, "loss_sum": 0.0})
     return {"acc": totals["correct"] / max(totals["count"], 1.0),
@@ -255,10 +326,26 @@ def deterministic_algorithms(device: torch.device):
 PROFILE_STEPS = (10, 15)   # the profiled window: from after step 10 to step 15
 
 
+def _dp_mesh(*batch_size_fields: str):
+    """mesh_of for mesh.launches_ranks: cfg.mesh, after checking that each
+    named TrainConfig batch size splits over the data ranks."""
+    def mesh_of(kw) -> MeshConfig:
+        cfg = kw["cfg"]
+        dp = cfg.mesh.data_parallel
+        for name in batch_size_fields:
+            bs = getattr(cfg.train, name)
+            if bs % dp:
+                raise ValueError(f"batch size {bs} must be divisible by the data-parallel "
+                                 f"degree {dp}")
+        return cfg.mesh
+    return mesh_of
+
+
+@mesh.launches_ranks(_dp_mesh("batch_size", "eval_batch_size"))
 def train(cfg: Config, packed, out_dir: str, num_steps: int | None = None,
           metrics_path: str | None = None, echo: bool = True,
           profile_dir: str | None = None, datasets=None, prefetch: int = 0,
-          device="cuda") -> dict:
+          device="cuda", devices: list | None = None) -> dict:
     """Full training: epochs over the train split, periodic val, keep-best
     checkpoints, exact resume from out_dir's latest checkpoint. At the end the
     run directory gets the port's params.pt (best-on-val, else latest), so
@@ -273,15 +360,19 @@ def train(cfg: Config, packed, out_dir: str, num_steps: int | None = None,
     a torch.profiler window over steps 11-15 (CPU and CUDA activity on the
     card), written there as a chrome trace and logged as a `profile` event.
 
+    cfg.mesh.num_devices > 1: data-parallel training (the module docstring),
+    one process per rank: outside a process group the ranks are launched here
+    (mesh.launches_ranks over make_mesh(cfg.mesh, devices, device): by default
+    one rank per card, or CPU ranks for device="cpu") and rank 0's result is
+    returned, its tensors on the CPU.
+
     Returns {"best_val_acc", "steps", "state", "model", "shared"}."""
-    if cfg.mesh.num_devices > 1:
-        raise NotImplementedError("data/context parallel training is not ported yet; "
-                                  "use MeshConfig(data_parallel=1, context_parallel=1)")
-    dev = resolve_device(device)
+    rank = mesh.current_rank(cfg.mesh, devices, device)
+    dev = resolve_device(rank.device if rank else device)
     with deterministic_algorithms(dev), torch.autograd.set_detect_anomaly(
             debug_nans_enabled()):
         return _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev,
-                      profile_dir, datasets, prefetch)
+                      profile_dir, datasets, prefetch, rank)
 
 
 class _ProfileWindow:
@@ -315,9 +406,19 @@ class _ProfileWindow:
         self.log.log("profile", step=step, dir=self.dir)
 
 
+def rank_checkpoints(out_dir: str, cfg: Config, keep: int,
+                     first: bool) -> CheckpointManager:
+    """The run's CheckpointManager: rank 0 writes config.json, the others open
+    the directory after the barrier."""
+    ckpt = CheckpointManager(out_dir, cfg, max_to_keep=keep) if first else None
+    mesh.barrier()
+    return ckpt or CheckpointManager(out_dir, max_to_keep=keep)
+
+
 def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir,
-           datasets, prefetch) -> dict:
+           datasets, prefetch, rank=None) -> dict:
     t = cfg.train
+    first = rank is None or rank.is_first
     shared = SharedTables.from_packed(packed.shared, dev)
     if datasets is not None:
         train_ds, val_ds = datasets
@@ -327,16 +428,22 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir
                   and len(packed.splits["val"]["label"]) else None)
     state = init_state(cfg, dev)
     opt = Optimizer(t)
-    ckpt = CheckpointManager(out_dir, cfg, max_to_keep=t.keep_checkpoints)
+    ckpt = rank_checkpoints(out_dir, cfg, t.keep_checkpoints, first)
     nb = max(train_ds.num_batches(t.batch_size), 1)
     start_epoch = skip_batches = 0
     if ckpt.latest_step() is not None:
-        ckpt.restore(state)
+        ckpt.restore(state)   # every rank, from whatever world size wrote it
         # the data order is a function of (seed, epoch): step mod batches-per-
         # epoch is where the killed run stopped in the same stream
         start_epoch, skip_batches = divmod(state.step, nb)
     use_dedup = t.dedup_albums
-    u_cap = dedup_u_cap(cfg) if use_dedup else 0
+    u_cap = dp_u_cap(cfg) if use_dedup else 0
+
+    def save(step: int, val_acc: float | None = None) -> None:
+        """Rank 0 writes; every rank leaves after the write."""
+        if first:
+            ckpt.save(step, state, val_acc=val_acc)
+        mesh.barrier()
 
     def xfer_train(batch):
         """(device batch, device (uniq, inv) | None): the dedup runs on the host
@@ -347,8 +454,8 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir
         return batch.to(dev), (None if dd is None
                                else tuple(torch.from_numpy(a).to(dev) for a in dd))
 
-    log = MetricsLogger(metrics_path, echo=echo)
-    window = _ProfileWindow(profile_dir, dev, log)
+    log = MetricsLogger(metrics_path if first else None, echo=echo and first)
+    window = _ProfileWindow(profile_dir if first else None, dev, log)
     timer = Timer()
     best_val = -1.0
     done = False
@@ -359,10 +466,10 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir
     def validate(step: int) -> None:
         nonlocal best_val
         vm = evaluate(eval_step, shared, val_ds, t.eval_batch_size,
-                      *make_eval_tables(model, shared), prefetch=prefetch)
+                      *make_eval_tables(model, shared), prefetch=prefetch, rank=rank)
         log.log("val", step=step, acc=vm["acc"], loss=vm["loss"])
         best_val = max(best_val, vm["acc"])
-        ckpt.save(step, state, val_acc=vm["acc"])
+        save(step, vm["acc"])
 
     try:
         for epoch in range(start_epoch, t.num_epochs):
@@ -378,10 +485,7 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir
                     window.open(state.step)
                     if not timer.samples and not timer.running:
                         timer.start()   # the window opens on the first step after a log
-                    if dd is not None:
-                        m = dedup_train_step(state, opt, shared, batch, *dd)
-                    else:
-                        m = train_step(state, opt, shared, batch)
+                    m = train_step(state, opt, shared, batch, dd, rank)
                     window_steps += 1
                     step = state.step
                     if step == PROFILE_STEPS[1]:
@@ -404,7 +508,7 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir
                         timer.reset()
                         window_steps = 0
                     elif step % t.save_period == 0:
-                        ckpt.save(step, state)
+                        save(step)
                     if num_steps is not None and step >= num_steps:
                         done = True
                         break
@@ -414,10 +518,12 @@ def _train(cfg, packed, out_dir, num_steps, metrics_path, echo, dev, profile_dir
         if val_ds is not None:
             validate(step)
         else:
-            ckpt.save(step, state)
-        best = FVTAModel(cfg)
-        best.load_state_dict(ckpt.load(best=True)["params"])
-        save_rundir(out_dir, cfg, best)
+            save(step)
+        if first:
+            best = FVTAModel(cfg)
+            best.load_state_dict(ckpt.load(best=True)["params"])
+            save_rundir(out_dir, cfg, best)
+        mesh.barrier()
     finally:
         log.close()
     return {"best_val_acc": best_val, "steps": state.step, "state": state,
@@ -467,10 +573,18 @@ def _by_category(packed, split: str, correct: np.ndarray) -> dict:
     return accuracy_by_category(question_categories(packed, split), correct)
 
 
+def _test_mesh(kw) -> MeshConfig:
+    if kw["shard_cache"] and not kw["album_cache"]:
+        raise ValueError("--shard-cache shards the album cache; it has no effect with "
+                         "--no-album-cache")
+    return _dp_mesh("eval_batch_size")(kw)
+
+
+@mesh.launches_ranks(_test_mesh)
 def test(cfg: Config, packed, out_dir: str, load_best: bool = True, split: str = "test",
          metrics_path: str | None = None, echo: bool = True, album_cache: bool = True,
          attention_path: str | None = None, by_category: bool = False,
-         shard_cache: bool = False, device="cuda") -> dict:
+         shard_cache: bool = False, device="cuda", devices: list | None = None) -> dict:
     """The reference's `main.py --is_test`: restore the best (or the latest)
     checkpoint of out_dir and report {"acc", "loss", "count"} on a split.
 
@@ -482,11 +596,14 @@ def test(cfg: Config, packed, out_dir: str, load_best: bool = True, split: str =
     under m["by_category"], from predict_cached over an album cache — built
     here also when album_cache=False (the JAX package's train.test raises
     UnboundLocalError on that combination, train.py:699/731).
-    A data-parallel mesh (cfg.mesh.num_devices > 1) and shard_cache raise
-    NotImplementedError: they belong to the data-parallel slice."""
-    if shard_cache or cfg.mesh.num_devices > 1:
-        raise NotImplementedError(SHARD_CACHE_NOT_PORTED)
-    dev = resolve_device(device)
+    cfg.mesh.num_devices > 1: data-parallel evaluation, the ranks launched as
+    by `train` (rank 0's metrics returned); each data rank evaluates its rows
+    of every batch. shard_cache: the album cache row-sharded over the data
+    ranks (eval_cache.shard_album_cache), the same metrics; it needs a mesh
+    and the album cache (ValueError otherwise)."""
+    rank = mesh.current_rank(cfg.mesh, devices, device)
+    first = rank is None or rank.is_first
+    dev = resolve_device(rank.device if rank else device)
     model = restore_model(cfg, out_dir, load_best, dev)
     shared = SharedTables.from_packed(packed.shared, dev)
     ds = Dataset(packed, split)
@@ -494,42 +611,51 @@ def test(cfg: Config, packed, out_dir: str, load_best: bool = True, split: str =
     timer = Timer()
     timer.start()
     tables = make_eval_tables(model, shared)   # built once, for every pass below
-    cache = None                               # likewise (by_category builds it if None)
+    cache = sharded = None                     # likewise (by_category builds it if None)
     if album_cache:
         cache = precompute_album_cache(cfg, model, shared, vocab_table=tables[0],
                                        photo_table=tables[1])
-        m = evaluate_cached(cfg, model, shared, ds, bs, cache=cache, tables=tables)
+        if shard_cache:   # sharded once, for both passes; the full cache is dropped
+            sharded, cache = _sharded_cache_setup(rank, cache, bs), None
+        m = evaluate_cached(cfg, model, shared, ds, bs, cache=cache, tables=tables,
+                            rank=rank, sharded=sharded)
     else:
-        m = evaluate(make_eval_step(model), shared, ds, bs, *tables)
+        m = evaluate(make_eval_step(model), shared, ds, bs, *tables, rank=rank)
     timer.stop()
-    log = MetricsLogger(metrics_path, echo=echo)
+    log = MetricsLogger(metrics_path if first else None, echo=echo and first)
     try:
         log.log("test", split=split, acc=m["acc"], loss=m["loss"], count=m["count"],
                 wall_s=timer.samples[0])
         if by_category:
-            pr = predict_cached(cfg, model, shared, ds, bs, cache=cache, tables=tables)
+            pr = predict_cached(cfg, model, shared, ds, bs, cache=cache, tables=tables,
+                                rank=rank, sharded=sharded)
             m["by_category"] = _by_category(packed, split, pr["pred"] == pr["label"])
             log.log("test_by_category", split=split,
                     **{k: v["acc"] for k, v in m["by_category"].items()})
         if attention_path:
-            n = dump_attention(model, shared, ds, bs, attention_path)
-            log.log("attention_dump", split=split, path=attention_path, count=n)
+            if first:   # rank 0 writes the whole split's maps
+                n = dump_attention(model, shared, ds, bs, attention_path)
+                log.log("attention_dump", split=split, path=attention_path, count=n)
+            mesh.barrier()
     finally:
         log.close()
     return m
 
 
+@mesh.launches_ranks(_dp_mesh("eval_batch_size"))
 def test_ensemble(cfg: Config, packed, out_dirs: list[str], load_best: bool = True,
                   split: str = "test", metrics_path: str | None = None, echo: bool = True,
                   by_category: bool = False, shard_cache: bool = False,
-                  device="cuda") -> dict:
+                  device="cuda", devices: list | None = None) -> dict:
     """Checkpoint ensembling: average the per-question choice probabilities of
     several runs on one pack (each restored under its own saved config.json,
     with the caller's eval_batch_size) and take the argmax of the mean.
+    cfg.mesh.num_devices > 1: each member evaluates data-parallel, as in
+    `test` (shard_cache: its album cache row-sharded over the data ranks).
     Returns {"acc", "count", "members": [{"dir", "acc"}], ["by_category"]}."""
-    if shard_cache or cfg.mesh.num_devices > 1:
-        raise NotImplementedError(SHARD_CACHE_NOT_PORTED)
-    dev = resolve_device(device)
+    rank = mesh.current_rank(cfg.mesh, devices, device)
+    first = rank is None or rank.is_first
+    dev = resolve_device(rank.device if rank else device)
     shared = SharedTables.from_packed(packed.shared, dev)
     ds = Dataset(packed, split)
     probs_sum, labels, members = None, None, []
@@ -541,14 +667,20 @@ def test_ensemble(cfg: Config, packed, out_dirs: list[str], load_best: bool = Tr
         mcfg = mcfg.replace(train=dataclasses.replace(
             mcfg.train, eval_batch_size=cfg.train.eval_batch_size))
         model = restore_model(mcfg, d, load_best, dev)
-        pr = predict_cached(mcfg, model, shared, ds, mcfg.train.eval_batch_size)
+        bs = mcfg.train.eval_batch_size
+        sharded = None
+        if shard_cache:
+            tables = make_eval_tables(model, shared)
+            sharded = _sharded_cache_setup(rank, precompute_album_cache(
+                mcfg, model, shared, vocab_table=tables[0], photo_table=tables[1]), bs)
+        pr = predict_cached(mcfg, model, shared, ds, bs, rank=rank, sharded=sharded)
         if labels is None:
             labels = pr["label"]
         members.append({"dir": d, "acc": float((pr["pred"] == pr["label"]).mean())})
         probs_sum = pr["probs"] if probs_sum is None else probs_sum + pr["probs"]
     correct = np.argmax(probs_sum / len(out_dirs), -1) == labels
     m = {"acc": float(correct.mean()), "count": int(labels.shape[0]), "members": members}
-    log = MetricsLogger(metrics_path, echo=echo)
+    log = MetricsLogger(metrics_path if first else None, echo=echo and first)
     try:
         log.log("test_ensemble", split=split, acc=m["acc"], count=m["count"],
                 member_accs=[mm["acc"] for mm in members])

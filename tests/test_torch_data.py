@@ -101,7 +101,7 @@ def test_port_imports_no_jax():
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'fvta_memexqa_tpu'))\n"
         "assert not bad, bad\n"
         "need = {'fvta_memexqa_torch.ops.lstm_grouped', 'fvta_memexqa_torch.eval_cache',\n"
-        "        'fvta_memexqa_torch.data.categories'}\n"
+        "        'fvta_memexqa_torch.data.categories', 'fvta_memexqa_torch.parallel.cp'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print('ok', len([n for n in sys.modules if n.startswith('fvta_memexqa_torch')]))\n"
     )

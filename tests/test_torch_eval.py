@@ -168,16 +168,25 @@ def test_ensemble_of_one_run_twice_is_the_run(run, packed_synth):
     assert m["by_category"] == single["by_category"]
 
 
-def test_sharded_cache_and_mesh_raise(run, packed_synth, pack_dir):
+def test_sharded_cache_and_mesh_match_one_rank(run, pack_dir):
+    """test and test_ensemble on 2 data-parallel CPU ranks, through the
+    row-sharded cache, against the one-rank test of the same run."""
+    packed = load_pack(pack_dir)
+    single = tr.test(run["pcfg"], packed, run["pdir"], by_category=True, echo=False,
+                     device="cpu")
     meshed = run["pcfg"].replace(mesh=MeshConfig(data_parallel=2))
-    for cfg, kw in ((run["pcfg"], {"shard_cache": True}), (meshed, {})):
-        with pytest.raises(NotImplementedError, match="data-parallel"):
-            tr.test(cfg, packed_synth, run["pdir"], device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="data-parallel"):
-            tr.test_ensemble(cfg, packed_synth, [run["pdir"]], device="cpu", **kw)
-    for extra in (["--shard-cache"], ["--data-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="data-parallel"):
-            cli.main(["test", pack_dir, run["pdir"], *extra, "--device", "cpu"])
+    got = tr.test(meshed, packed, run["pdir"], by_category=True, shard_cache=True,
+                  echo=False, device="cpu")
+    assert got["count"] == single["count"] and got["by_category"] == single["by_category"]
+    assert got["acc"] == pytest.approx(single["acc"], abs=1e-6)
+    assert got["loss"] == pytest.approx(single["loss"], rel=1e-5)
+    ens = tr.test_ensemble(meshed, packed, [run["pdir"]], shard_cache=True, echo=False,
+                           device="cpu")
+    assert ens["count"] == single["count"]
+    assert ens["acc"] == pytest.approx(single["acc"], abs=1e-6)
+    with pytest.raises(ValueError, match="mesh"):
+        tr.test(run["pcfg"], packed, run["pdir"], shard_cache=True, echo=False,
+                device="cpu")
 
 
 def test_cli_test_on_cuda_needs_a_card(run, pack_dir):

@@ -2275,3 +2275,59 @@ def test_prefetch_train_on_card_equals_inline_bitwise(cuda, tmp_path, dedup):
         else:
             assert torch.equal(v, w), field
     assert torch.equal(a["rng"], b["rng"])
+
+
+# ---- context parallelism: the cross-rank combine on the card -------------------------
+
+def cp_card_case(seed, n=2, s=2, t=1024, j=12, d=64, dead=False, tie=False):
+    """A streaming-length attention case; dead: the second half of T masked
+    (a dead shard at cp = 2, two at cp = 4); tie: steps 1 and t/2 + 1 equal and
+    dominant, so the sequence max ties exactly across ranks."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(0, 1, (n, s, t, d)).astype(np.float32)
+    q = rng.normal(0, 1, (n, j, d)).astype(np.float32)
+    cm = np.arange(t)[None, None, :] < rng.integers(t // 4, t + 1, (n, s))[..., None]
+    qm = np.arange(j)[None, :] < rng.integers(1, j + 1, n)[:, None]
+    if dead:
+        cm[:, :, t // 2:] = False
+    if tie:
+        cm[:] = True
+        h[:, :, 1] *= 3.0
+        h[:, :, t // 2 + 1] = h[:, :, 1]
+    params = {k: rng.normal(0, 0.1, d).astype(np.float32) for k in ("w_x", "w_y", "w_xy")}
+    return h * cm[..., None], cm, q * qm[..., None], qm, params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cp", [2, 4])
+def test_cp_combine_on_card_matches_single_rank_k4(cuda, cp):
+    """parallel/cp.fvta_attention_cp on cp ranks sharing the card (gloo; K4 on
+    each rank's time shard, K5 + K6 in the backward, the rank-order combine)
+    against the single-rank K4 path on the whole context (fvta_stats_fused +
+    focal_finalize): outputs at FVTA_TOL, gradients of sum(context^2) +
+    sum(question^2) at 1e-4 / 1e-5."""
+    import _torch_rank_fns as rf
+
+    from fvta_memexqa_torch.config import MeshConfig
+    from fvta_memexqa_torch.parallel import mesh
+
+    cases = [cp_card_case(1), cp_card_case(2, dead=True), cp_card_case(3, tie=True)]
+    got = mesh.run_ranks(rf.cp_attention, mesh.make_mesh(MeshConfig(context_parallel=cp),
+                                                         ["cuda:0"] * cp),
+                         cases, "trilinear", "cuda", timeout=600.0)
+    for i, (case, g) in enumerate(zip(cases, got)):
+        h_np, cm_np, q_np, qm_np, p_np = case
+        h = torch.tensor(h_np, device=cuda, requires_grad=True)
+        p = {k: torch.tensor(v, device=cuda, requires_grad=True) for k, v in p_np.items()}
+        cm, q, qm = (torch.tensor(x, device=cuda) for x in (cm_np, q_np, qm_np))
+        stats = fvta_stats.fvta_stats_fused(h, cm, q, qm, "trilinear", p)
+        ref = fvta_ref.focal_finalize(*stats, q, qm, cm.any(-1))
+        loss = (ref.context ** 2).sum() + (ref.question ** 2).sum()
+        grads = torch.autograd.grad(loss, [h, *p.values()])
+        for f in FIELDS:
+            torch.testing.assert_close(g[f], getattr(ref, f).detach().cpu(), **FVTA_TOL,
+                                       msg=f"case {i} {f} at cp={cp}")
+        for name, a, b in zip(("h", "w_x", "w_y", "w_xy"), g["grads"], grads):
+            torch.testing.assert_close(a, b.cpu(), rtol=1e-4, atol=1e-5,
+                                       msg=f"case {i} d{name} at cp={cp}")
+        assert g["same"]

@@ -215,9 +215,9 @@ def test_streamed_run_consumes_the_jax_stream(pack_dir, small_config, tmp_path):
     seen = []
     real_step = tr.train_step
 
-    def recording_step(state, opt, shared, batch):
+    def recording_step(state, opt, shared, batch, *a):
         seen.append(batch.label.numpy().copy())
-        return real_step(state, opt, shared, batch)
+        return real_step(state, opt, shared, batch, *a)
 
     cfg = loader_cfg(small_config)
     with unittest.mock.patch.object(tr, "train_step", recording_step):

@@ -31,7 +31,7 @@ from fvta_memexqa_torch import train as tr
 from fvta_memexqa_torch.checkpoint import CheckpointManager
 from fvta_memexqa_torch.config import Config, MeshConfig, TrainConfig
 from fvta_memexqa_torch.convert import model_from_flax, state_dict_from_flax
-from fvta_memexqa_torch.data import SharedTables
+from fvta_memexqa_torch.data import SharedTables, load_pack
 from fvta_memexqa_torch.data.pipeline import Dataset
 from fvta_memexqa_torch.eval_cache import gather_cached_context
 
@@ -128,8 +128,8 @@ def test_dedup_step_matches_plain_step(packed_synth, exact_cfg, jax_pair):
     lp, mp = tr.loss_and_metrics(model, shared, batch, True, torch.Generator())
     gp = torch.autograd.grad(lp, params)
     uniq, inv = tr.dedup_album_batch(batch.album_idx.numpy(), tr.dedup_u_cap(model.cfg))
-    ld, md = tr.dedup_loss_and_metrics(model, shared, batch, torch.from_numpy(uniq),
-                                       torch.from_numpy(inv), True, torch.Generator())
+    ld, md = tr.loss_and_metrics(model, shared, batch, True, torch.Generator(),
+                                 dd=(torch.from_numpy(uniq), torch.from_numpy(inv)))
     gd = torch.autograd.grad(ld, params)
     assert float(ld.detach()) == pytest.approx(float(lp.detach()), rel=1e-6)
     assert float(md["correct"]) == float(mp["correct"])
@@ -226,10 +226,31 @@ def test_best_checkpoint_tracking_and_latest_fallback(small_config, tmp_path, ca
         CheckpointManager(str(tmp_path / "empty")).load()
 
 
-def test_train_refuses_a_mesh(packed_synth, small_config, tmp_path):
-    cfg = port_config(small_config).replace(mesh=MeshConfig(data_parallel=2))
-    with pytest.raises(NotImplementedError):
-        tr.train(cfg, packed_synth, str(tmp_path), device="cpu")
+def _train_events(path):
+    return [e for e in map(json.loads, open(path)) if e["event"] == "train"]
+
+
+def test_train_on_a_mesh_follows_the_single_rank_run(pack_dir, small_config, tmp_path):
+    """2 data-parallel CPU ranks with dropout on draw the single-rank run's
+    masks: the step-1 loss and accuracy equal the single-rank run's (up to the
+    reduction order) and the dropout generator ends in the same state."""
+    packed = load_pack(pack_dir)
+    cfg = port_config(small_config).replace(train=TrainConfig(
+        batch_size=4, eval_batch_size=4, log_period=1, val_period=100, save_period=100))
+    res, events = {}, {}
+    for dp in (1, 2):
+        out = str(tmp_path / f"dp{dp}")
+        os.makedirs(out)
+        res[dp] = tr.train(cfg.replace(mesh=MeshConfig(data_parallel=dp)), packed, out,
+                           num_steps=2, metrics_path=os.path.join(out, "metrics.jsonl"),
+                           echo=False, device="cpu")
+        events[dp] = _train_events(os.path.join(out, "metrics.jsonl"))
+    assert res[2]["steps"] == res[1]["steps"] == 2
+    assert torch.equal(res[2]["state"].generator.get_state(),
+                       res[1]["state"].generator.get_state())
+    assert events[2][0]["step"] == 1
+    assert events[2][0]["loss"] == pytest.approx(events[1][0]["loss"], rel=1e-5)
+    assert events[2][0]["acc"] == events[1][0]["acc"]
 
 
 def test_evaluate_matches_jax(packed_synth, exact_cfg, jax_pair):

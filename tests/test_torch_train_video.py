@@ -3,7 +3,8 @@ to the JAX package's array for array for each task, the streaming batch order
 equal to the JAX loader's, and the driver contract of train_video (the loss
 falls, keep-best and run-dir evaluation, bitwise resume of a killed run,
 video-test with the attention dump's schema, the count task's score), the
-four video CLI commands end to end, and `video --cp 2` refused."""
+four video CLI commands end to end, and `video --cp 2` on two CPU ranks
+against one."""
 
 import contextlib
 import io
@@ -232,12 +233,24 @@ def test_cli_synth_prepro_video_and_video_test(tmp_path):
     assert res["task"] == "count" and res["heldout_mse"] >= 0.0
 
 
-def test_cli_video_refuses_context_parallelism(video_pack, tmp_path):
-    with pytest.raises(NotImplementedError, match="context parallelism"):
-        cli.main(["video", "--data", video_pack, "--out", str(tmp_path / "r"), "--cp", "2",
-                  "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tv.train_video(small_cfg(), video_pack, str(tmp_path / "r2"), num_steps=1, cp=2,
+def test_cli_video_context_parallel_matches_one_rank(video_pack, tmp_path):
+    """`video --data --out --cp 2` (2 CPU ranks) against --cp 1: the same steps,
+    step-1 loss (up to the combine's order) and test count; the run records
+    its cp; a frame count that does not divide raises."""
+    res, losses = {}, {}
+    for cp in (1, 2):
+        out = str(tmp_path / f"cp{cp}")
+        res[cp] = run_cli(["video", "--data", video_pack, "--out", out, "--steps", "2",
+                           "--batch-size", "4", "--hidden-dim", "8", "--val-period", "2",
+                           "--log-period", "1", "--cp", str(cp), "--device", "cpu"])
+        losses[cp] = [e["loss"] for e in map(json.loads, open(os.path.join(out, "metrics.jsonl")))
+                      if e["event"] == "train"]
+        assert json.load(open(os.path.join(out, "video_run.json")))["cp"] == cp
+    assert res[2]["steps"] == res[1]["steps"] == 2
+    assert res[2]["test_count"] == res[1]["test_count"]
+    assert losses[2][0] == pytest.approx(losses[1][0], rel=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        tv.train_video(small_cfg(), video_pack, str(tmp_path / "r3"), num_steps=1, cp=3,
                        device="cpu")
 
 
