@@ -213,8 +213,9 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    answer steps' and re-encodes' own counts); --cache-dtype bfloat16 and int8
    (exact cache bytes, top-1 equal to f32 but for near-ties, probabilities
    within 0.05; _quant_h on the card bitwise its CPU result); a restart on the
-   saved cache (restored N, answers within 1e-5); `--dp 2` and
-   `--shard-cache` exiting non-zero naming ROADMAP.md item 5; TLS with a
+   saved cache (restored N, answers within 1e-5); `--dp` past the cards there
+   are exiting non-zero with make_mesh's ValueError (and `--shard-cache`
+   without `--dp` with the store's); TLS with a
    self-signed cert where openssl exists; open-loop Poisson load at 50-800
    asks/s (p50, p99, errors, shed, achieved rate, the answer steps' span
    share) and the highest rate whose p99 stays under 100 ms (the
@@ -254,8 +255,28 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    on every rank and K2 on none. Per-rank step ms and the collectives' share
    of it (CUDA events around mesh.all_gather), DP-2 qa/s beside phase 7's
    one-rank qa/s (the `parallel` line, labelled as ranks sharing one card).
+24. the grouped bi-LSTM, serving over a mesh and the CP memory table (run
+   inside the same block, on phase 4's pack and phase 7's run):
+   ops/lstm_fused.bilstm_fused_grouped at K = 6 over the flagship's six time
+   encoders (256 album slots, T = 12 / 24, D = 200) at H = 100 (lstm_proj +
+   lstm_rec forward, lstm_rec_bwd backward, G = 12 groups per launch) and at
+   H = 300 (lstm_fwd / lstm_bwd): forward vs the plain version (LSTM_TOL) and
+   every gradient vs autograd through it (GRAD_TOL), exactly one launch of
+   each kernel of the route per forward and per backward, each group vs a
+   lone bilstm_fused call (the maximum difference) and K = 1 bitwise equal to
+   bilstm_fused; the grouped call's time beside the six separate calls (CUDA
+   events and CUDA graphs) and its K1b alone beside six; serve.build_engine at
+   dp = 2 over ["cuda:0", "cuda:0"], replicated and with shard_cache, answering
+   phase 4's 32 questions as dp = 1 does (same answer_index, probs and
+   seq_attention within SERVE_TOL), K1 and K2 launched, the sharded cache's
+   slot bytes summing to cache_bytes and a save / load round trip on the same
+   hash homes, asks/s of the answer steps at dp = 1 and 2 in turns; and
+   capacity_probe.cp_memory_table at T = 65536 over one rank (the whole context)
+   and over 2 and 4 ranks sharing the card, forward and with grad, its counted
+   bytes equal to counted_mb's (the
+   `grouped_mesh` line; the two grouped launches join the kernels line).
 
-Prints the `train_loader`, `focal` and `parallel` lines, a {"kernels": [...]}
+Prints the `train_loader`, `focal`, `parallel` and `grouped_mesh` lines, a {"kernels": [...]}
 line, then the card line, then as the last line {"ok": true, "device":
 {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -845,7 +866,7 @@ def route_sweep(device) -> list:
             def fwd():
                 err = f_lib.lstm_rec(xg.data_ptr(), lens.data_ptr(), p_fw.wh.data_ptr(),
                                      p_bw.wh.data_ptr(), out.data_ptr(), None, fin.data_ptr(),
-                                     n, t, H, c, rows, split, 1.0, 0, stream)
+                                     n, t, H, c, rows, split, 1.0, 0, 1, 0, stream)
                 if err:
                     fail(f"forced lstm_rec (C={c}, rows={rows}): error {err}")
 
@@ -853,7 +874,7 @@ def route_sweep(device) -> list:
                 err = b_lib.lstm_rec_bwd(pre.data_ptr(), lens.data_ptr(), p_fw.wh.data_ptr(),
                                          p_bw.wh.data_ptr(), cell.data_ptr(), g_out.data_ptr(),
                                          g_fin.data_ptr(), dg.data_ptr(), n, t, H, c, rows,
-                                         split, 1.0, stream)
+                                         split, 1.0, 1, 0, stream)
                 if err:
                     fail(f"forced lstm_rec_bwd (C={c}, rows={rows}): error {err}")
 
@@ -4311,8 +4332,9 @@ def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str)
     """Phase 21: `cli serve` on the card as users start it, in subprocesses (each
     one's kernel counters start at 0 and are read at its end): an f32 server
     with auth, limits and a cache dir; a 1 MiB byte budget; bfloat16 and int8
-    caches; a restart on the saved cache; the refusals of --dp 2 and
-    --shard-cache; TLS; open-loop Poisson load."""
+    caches; a restart on the saved cache; the refusals of --dp past the
+    cards there are and of --shard-cache without --dp; TLS; open-loop
+    Poisson load."""
     import http.client
     import shutil
     import ssl
@@ -4350,7 +4372,10 @@ def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str)
         if tls:
             procs["tls"] = ServeProc(workdir, "tls", [*base, "--no-preingest", "--tls-cert",
                                                       cert, "--tls-key", key], scheme="https")
-        for flag in (["--dp", "2"], ["--shard-cache"]):
+        cards = torch.cuda.device_count()
+        refusal_text = {"--dp": f"mesh needs {cards + 1} devices, have {cards}",
+                        "--shard-cache": "shard_cache requires a device mesh"}
+        for flag in (["--dp", str(cards + 1)], ["--shard-cache"]):
             refusals[flag[0]] = subprocess.Popen(
                 [sys.executable, "-m", "fvta_memexqa_torch.cli", "serve", *base, *flag],
                 cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
@@ -4494,8 +4519,8 @@ def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str)
         out["refusals"] = {}
         for flag, p in refusals.items():
             text, _ = p.communicate(timeout=120)
-            out["refusals"][flag] = {"exit": p.returncode, "names_item_5": "item 5" in text}
-            if p.returncode == 0 or "item 5" not in text:
+            out["refusals"][flag] = {"exit": p.returncode, "names_why": refusal_text[flag] in text}
+            if p.returncode == 0 or refusal_text[flag] not in text:
                 fail(f"serving_http: `cli serve {flag}` exit {p.returncode}: {text[-500:]}")
         for k in ("budget", "bfloat16", "int8", "tls"):
             if k in procs:
@@ -5178,6 +5203,351 @@ def parallel_phase(workdir: str, evaluation: dict, smi: str) -> dict:
                                      "total": time.perf_counter() - t0}}
 
 
+# ---- phase 24: the grouped bi-LSTM, serving over a mesh, the CP memory table ----------
+
+# (name, T, D): the flagship model's six per-modality time encoders
+# (fvta_memexqa_tpu/models/fvta.py:223-234) over the N·A = 64 x 4 album slots
+# of a batch-64 train step at the default DataConfig: photo (max_photos),
+# photo titles (their 2H summaries), then album title, description, when and
+# where (max_album_text_len); D = word + char-CNN = 2H = 200, H = 100.
+GROUPED_ENCODERS = [("photo", 12, 200), ("photo_title", 12, 200), ("album_title", 24, 200),
+                    ("album_desc", 24, 200), ("when", 24, 200), ("where", 24, 200)]
+GROUPED_N = 64 * 4
+GROUPED_KERNELS = {H: {"forward": {"lstm_proj": 1, "lstm_rec": 1},
+                       "backward": {"lstm_rec_bwd": 1}},
+                   OLD_H: {"forward": {"lstm_fwd": 1}, "backward": {"lstm_bwd": 1}}}
+CP_TABLE_T = 65536
+MESH_REPS = 5
+
+
+def grouped_inputs(h: int, seed: int, device):
+    """The six encoders' (pairs, xs, masks) and N(0, 1) x COTANGENT_SCALE
+    cotangents (out, fin) per encoder."""
+    import torch
+
+    pairs, xs, masks, cots = [], [], [], []
+    g = torch.Generator().manual_seed(seed)
+    for k, (_, t, d) in enumerate(GROUPED_ENCODERS):
+        x, mask, p_fw, p_bw = lstm_case(GROUPED_N, t, d, h, seed + k, device)
+        pairs.append((p_fw, p_bw))
+        xs.append(x)
+        masks.append(mask)
+        cots.append(tuple((torch.randn(*shape, generator=g) * COTANGENT_SCALE).to(device)
+                          for shape in ((GROUPED_N, t, 2 * h), (GROUPED_N, 2 * h))))
+    return pairs, xs, masks, cots
+
+
+def grouped_grads(fn, pairs, xs, cots):
+    """Outputs of fn(pairs, xs) and the gradients of sum <out, g_out> + <fin,
+    g_fin> w.r.t. every weight, then every input."""
+    import torch
+
+    from fvta_memexqa_torch.ops.lstm_ref import LSTMParams
+
+    lw = [w.detach().clone().requires_grad_() for pair in pairs for p in pair for w in p]
+    lx = [x.detach().clone().requires_grad_() for x in xs]
+    ps = tuple((LSTMParams(*lw[6 * k:6 * k + 3]), LSTMParams(*lw[6 * k + 3:6 * k + 6]))
+               for k in range(len(xs)))
+    res = fn(ps, tuple(lx))
+    loss = sum((o * go).sum() + (f * gf).sum() for (o, f), (go, gf) in zip(res, cots))
+    return [t.detach() for r in res for t in r], torch.autograd.grad(loss, lw + lx)
+
+
+def grouped_bilstm_check(h: int, device) -> dict:
+    """bilstm_fused_grouped at K = 6 over the flagship's encoders at hidden
+    width h: forward vs the plain version (LSTM_TOL) with one launch of each
+    forward kernel of the route, under grad every gradient vs autograd through
+    the plain version (GRAD_TOL) with one more forward and one backward
+    launch, each group's outputs vs a lone bilstm_fused call (the maximum
+    difference; bitwise expected) and K = 1 vs bilstm_fused bitwise."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    pairs, xs, masks, cots = grouped_inputs(h, 2400 + h, device)
+    mm = tuple(masks)
+    grouped = lambda ps, xx: lstm_fused.bilstm_fused_grouped(ps, xx, mm)
+    plain = lambda ps, xx: lstm_fused.bilstm_fused_grouped_ref(ps, xx, mm)
+    zero_lstm_counters()
+    with torch.no_grad():
+        res = grouped(tuple(pairs), tuple(xs))
+        torch.cuda.synchronize()
+        fwd = {k: v for k, v in lstm_counters().items() if v}
+        ref = plain(pairs, xs)
+        lone = [lstm_fused.bilstm_fused(*pair, x, m) for pair, x, m in zip(pairs, xs, masks)]
+        one = lstm_fused.bilstm_fused_grouped((pairs[2],), (xs[2],), (masks[2],))[0]
+    out_err = max(max_err(a, b) for r, rr in zip(res, ref) for a, b in zip(r, rr))
+    fwd_ok = all(close(a, b, **LSTM_TOL) for r, rr in zip(res, ref) for a, b in zip(r, rr))
+    lone_err = max(max_err(a, b) for r, rr in zip(res, lone) for a, b in zip(r, rr))
+    lone_bitwise = all(torch.equal(a, b) for r, rr in zip(res, lone) for a, b in zip(r, rr))
+    one_bitwise = all(torch.equal(a, b) for a, b in zip(one, lone[2]))
+    ref_out, ref_g = grouped_grads(plain, pairs, xs, cots)
+    zero_lstm_counters()
+    got_out, got_g = grouped_grads(grouped, pairs, xs, cots)
+    torch.cuda.synchronize()
+    grad_launches = {k: v for k, v in lstm_counters().items() if v}
+    grad_err = max(max_err(a, b) for a, b in zip(got_g, ref_g))
+    bad_g = [i for i, (a, b) in enumerate(zip(got_g, ref_g)) if not close(a, b, **GRAD_TOL)]
+    fwd_grad_err = max(max_err(a, b) for a, b in zip(got_out, ref_out))
+    want = GROUPED_KERNELS[h]
+    want_grad = {**want["forward"], **want["backward"]}
+    row = {"H": h, "route": route_info(GROUPED_N, 24, 200, h), "launches_forward": fwd,
+           "launches_under_grad": grad_launches, "max_abs_err_out": out_err,
+           "max_abs_err_grads": grad_err, "max_abs_err_out_under_grad": fwd_grad_err,
+           "max_abs_diff_vs_lone_calls": lone_err, "lone_calls_bitwise": lone_bitwise,
+           "k1_bitwise_vs_bilstm_fused": one_bitwise}
+    log(f"grouped K=6 H={h}: {json.dumps(row)}")
+    if not fwd_ok or bad_g or fwd != want["forward"] or grad_launches != want_grad \
+            or not one_bitwise:
+        fail(f"bilstm_fused_grouped at H={h}: forward within {LSTM_TOL}: {fwd_ok}; gradients "
+             f"beyond {GRAD_TOL}: {bad_g}; launches {fwd} / {grad_launches} (want "
+             f"{want['forward']} / {want_grad}); K = 1 bitwise: {one_bitwise}")
+    return row
+
+
+def grouped_bilstm_times(device) -> dict:
+    """The grouped call at H and K = 6 (one lstm_proj + one lstm_rec launch)
+    beside the six separate bilstm_fused calls (12 launches), CUDA events and
+    CUDA-graph replays; the plain version; the bounds; and the backward's K1b
+    alone (one lstm_rec_bwd_grouped launch vs six lstm_rec_bwd), with the plain
+    backward (autograd through the plain version from a kept graph)."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    pairs, xs, masks, cots = grouped_inputs(H, 2500, device)
+    mm = tuple(masks)
+    with torch.no_grad():
+        grouped = lambda: lstm_fused.bilstm_fused_grouped(tuple(pairs), tuple(xs), mm)
+        separate = lambda: [lstm_fused.bilstm_fused(*pr, x, m) for pr, x, m in
+                            zip(pairs, xs, masks)]
+        plain = lambda: lstm_fused.bilstm_fused_grouped_ref(pairs, xs, mm)
+        x, lengths, wx, wh, b = lstm_fused._prep_group(pairs, xs, masks)
+        k1 = lambda: lstm_fused.lstm_k1_grouped(x, lengths, wx, wh, b, 1.0, True)
+        row = {"grouped_ms": cuda_ms(grouped), "separate_ms": cuda_ms(separate),
+               "grouped_graph_ms": graph_ms(grouped), "separate_graph_ms": graph_ms(separate),
+               "grouped_k1_only_ms": cuda_ms(k1), "grouped_k1_only_graph_ms": graph_ms(k1),
+               "plain_ms": cuda_ms(plain, iters=3, warmup=1)}
+        pre, out, fin, cell = lstm_fused.lstm_k1_grouped(x, lengths, wx, wh, b, 1.0, True, True,
+                                                         True)
+        g_out = torch.zeros_like(out)
+        for k, (go, _) in enumerate(cots):
+            g_out[k, :, :go.shape[1]] = go
+        g_fin = torch.stack([gf for _, gf in cots])
+        k1b = lambda: lstm_fused.lstm_rec_bwd_grouped(pre, lengths, wx, wh, cell, g_out, g_fin,
+                                                      1.0)
+        saved = []
+        for pr, xx, m in zip(pairs, xs, masks):
+            l32 = m.sum(1, dtype=torch.int32)
+            p_, _, _, c_ = lstm_fused.lstm_k1(xx, l32, *pr, 1.0, True, True, True)
+            saved.append((p_, l32, pr, c_))
+        k1b_sep = lambda: [lstm_fused.lstm_rec_bwd(p_, l32, *pr, c_, go, gf, 1.0)
+                           for (p_, l32, pr, c_), (go, gf) in zip(saved, cots)]
+        row.update(k1b_grouped_ms=cuda_ms(k1b), k1b_separate_ms=cuda_ms(k1b_sep),
+                   k1b_grouped_graph_ms=graph_ms(k1b), k1b_separate_graph_ms=graph_ms(k1b_sep))
+    lw = [w.detach().clone().requires_grad_() for pr in pairs for p in pr for w in p]
+    lx = [xx.detach().clone().requires_grad_() for xx in xs]
+    from fvta_memexqa_torch.ops.lstm_ref import LSTMParams
+
+    ps = [(LSTMParams(*lw[6 * k:6 * k + 3]), LSTMParams(*lw[6 * k + 3:6 * k + 6]))
+          for k in range(len(xs))]
+    res = lstm_fused.bilstm_fused_grouped_ref(ps, lx, mm)
+    loss = sum((o * go).sum() + (f * gf).sum() for (o, f), (go, gf) in zip(res, cots))
+    row["k1b_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(loss, lw + lx, retain_graph=True),
+                                  iters=3, warmup=1)
+    fb = [0.0, 0.0]
+    kb = [0.0, 0.0]
+    for (_, t, d), m in zip(GROUPED_ENCODERS, masks):
+        steps = int(m.sum())
+        for i, v in enumerate(k1_bounds(GROUPED_N, t, d, H, steps, True)["fn"]):
+            fb[i] += v
+        # K1b: pre-activations, cells, cotangents and wh in, dgates out (k1b_times' count)
+        kb[0] += 4 * (steps * 8 * H + GROUPED_N + 2 * H * 4 * H + 2 * steps * H
+                      + 2 * steps * H + GROUPED_N * 2 * H + GROUPED_N * t * 8 * H) \
+            / HBM_BYTES_PER_S * 1e3
+        kb[1] += 2 * steps * (2 * 4 * H * H + 30 * H) / FP32_FLOPS * 1e3
+    row.update(bound_ms=max(fb), bound_by="bytes" if fb[0] >= fb[1] else "operations",
+               k1b_bound_ms=max(kb), k1b_bound_by="bytes" if kb[0] >= kb[1] else "operations")
+    log(f"grouped K=6 times: {json.dumps(row)}")
+    return row
+
+
+def mesh_answers(engine, asks: list) -> list:
+    """The engine's answers to `asks`, 8 per answer step."""
+    return [r for i in range(0, len(asks), 8) for r in engine.answer_batch(asks[i:i + 8])]
+
+
+def same_mesh_answers(what: str, got: list, ref: list) -> dict:
+    import numpy as np
+
+    d_p = max(float(np.abs(np.subtract(g["probs"], r["probs"])).max()) for g, r in zip(got, ref))
+    d_s = max(float(np.abs(np.subtract(g["seq_attention"], r["seq_attention"])).max())
+              for g, r in zip(got, ref))
+    same = all(g["answer_index"] == r["answer_index"] and g["albums_found"] == r["albums_found"]
+               for g, r in zip(got, ref))
+    if not same or d_p > SERVE_TOL or d_s > SERVE_TOL:
+        fail(f"mesh serving {what}: answers equal {same}, max|d probs| {d_p:.3e}, max|d "
+             f"seq_attention| {d_s:.3e} vs dp = 1 (limit {SERVE_TOL})")
+    return {"max_abs_d_probs": d_p, "max_abs_d_seq_attention": d_s, "answers_equal": same}
+
+
+def mesh_serving(workdir: str) -> dict:
+    """build_engine at dp = 1, at dp = 2 over devices ["cuda:0", "cuda:0"], and
+    at dp = 2 with shard_cache, on phase 4's pack and phase 7's run: the 32
+    serving questions 8 per answer step, answers equal to dp = 1's (probs and
+    seq_attention within SERVE_TOL), K1 and K2 launched in the mesh's runs and
+    the serial K2 and L2-streaming kernels never; the sharded cache's slot
+    bytes summing to cache_bytes and a save / load round trip back on the same
+    homes (crc32 % 2); asks/s of the answer steps at dp = 1 and dp = 2 in
+    turns (one card: no multi-card figure)."""
+    import torch
+
+    from fvta_memexqa_torch.ops import fvta_fused
+    from fvta_memexqa_torch.serve import AlbumStore, build_engine
+
+    pack, run = os.path.join(workdir, "pack"), os.path.join(workdir, "train_plain")
+    asks = serving_asks(pack)
+    shared_card = SHARED_CARD * 2
+    e1, s1, _ = build_engine(pack, run, device="cuda", batch_size=8)
+    out = {}
+    try:
+        ref = mesh_answers(e1, asks)
+        zero_lstm_counters()
+        fvta_fused.fvta_fwd.launches = fvta_fused.fvta_fwd_serial.launches = 0
+        e2, s2, _ = build_engine(pack, run, batch_size=8, dp=2, devices=shared_card)
+        try:
+            out["replicated"] = same_mesh_answers("dp=2", mesh_answers(e2, asks), ref)
+            e3, s3, _ = build_engine(pack, run, batch_size=8, dp=2, devices=shared_card,
+                                     shard_cache=True)
+            try:
+                out["sharded"] = same_mesh_answers("dp=2 shard_cache",
+                                                   mesh_answers(e3, asks), ref)
+                torch.cuda.synchronize()
+                launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
+                            "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+                per = s3.cache_bytes_per_device
+                with tempfile.TemporaryDirectory() as cache:
+                    s3.save(cache)
+                    s4 = AlbumStore(s3.cfg, s3.model, s3.shared, s3.vocab, mesh=s3.mesh,
+                                    shard_cache=True)
+                    n_loaded = s4.load(cache)
+                homes_ok = s4._home == {a: zlib_home(a, 2) for a in s3._store} == s3._home
+                out["sharded"].update(cache_bytes_per_device=per, cache_bytes=s3.cache_bytes,
+                                      reloaded=n_loaded, reloaded_bytes_per_device=(
+                                          s4.cache_bytes_per_device), homes_by_hash=homes_ok)
+                if sum(per) != s3.cache_bytes or not homes_ok or n_loaded != s3.num_albums \
+                        or s4.cache_bytes_per_device != per:
+                    fail(f"mesh serving: the sharded cache's bytes {per} vs {s3.cache_bytes}, "
+                         f"homes by hash {homes_ok}, reloaded {n_loaded}")
+                rates = {"dp1": [], "dp2": []}
+                for name, eng in (("dp1", e1), ("dp2", e2), ("dp2", e2), ("dp1", e1)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(MESH_REPS):
+                        mesh_answers(eng, asks)
+                    torch.cuda.synchronize()
+                    rates[name].append(len(asks) * MESH_REPS / (time.perf_counter() - t0))
+            finally:
+                e3.close()
+        finally:
+            e2.close()
+    finally:
+        e1.close()
+    check_lstm_launches("mesh serving", launches, backward=False)
+    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
+        fail(f"mesh serving: K2 must launch and the serial K2 never: {launches}")
+    out.update(launches=launches, answer_step_asks_per_s=rates,
+               label="dp = 2 on one card (both shards on cuda:0): not a multi-card figure")
+    log(f"mesh serving: {json.dumps(out)}")
+    return out
+
+
+def zlib_home(album_id: str, dp: int) -> int:
+    import zlib
+
+    return zlib.crc32(album_id.encode()) % dp
+
+
+def cp_memory_phase() -> list:
+    """capacity_probe.cp_memory_table at T = CP_TABLE_T (batch 2, J = 30, D =
+    200) over 2 and 4 ranks sharing the card, forward and with grad; each
+    side's counted bytes must be counted_mb's. Whether temp_mb falls from one
+    rank to 2 and 4 is reported, not enforced."""
+    from fvta_memexqa_torch import capacity_probe as cp
+
+    tables = []
+    for grad in (False, True):
+        for n in (2, 4):
+            t0 = time.perf_counter()
+            tab = cp.cp_memory_table(t=CP_TABLE_T, devices=n, grad=grad)
+            tab["wall_s"] = time.perf_counter() - t0
+            counted = cp.counted_mb(CP_TABLE_T, 2, 30, 200, n, grad)
+            for side, key in (("local", "local_per_device"), ("cp", "cp_per_device"),
+                              ("local", "local_plain_per_device")):
+                if any(tab[key][k] != counted[side][k] for k in ("argument_mb", "output_mb")):
+                    fail(f"cp_memory_table {side} bytes {tab[key]} differ from the count "
+                         f"{counted[side]}")
+            log(f"cp_memory_table: {json.dumps(tab)}")
+            tables.append(tab)
+    for grad in (False, True):
+        rows = [t for t in tables if t["grad"] == grad]
+        temps = [rows[0]["local_per_device"]["temp_mb"]] + [
+            t["cp_per_device"]["temp_mb"] for t in rows]
+        falls = temps[2] < temps[1] < temps[0]
+        log(f"cp_memory_table grad={grad}: per-rank temp_mb at 1, 2 and 4 ranks {temps}: "
+            f"{'falls' if falls else 'does NOT fall'} with the ranks")
+    return tables
+
+
+def grouped_mesh_phase(workdir: str, device) -> dict:
+    """Phase 24: bilstm_fused_grouped on both routes and its times, serving over
+    a mesh of two shards on the one card, and the CP memory table."""
+    t0 = time.perf_counter()
+    checks = {h: grouped_bilstm_check(h, device) for h in (H, OLD_H)}
+    times = grouped_bilstm_times(device)
+    t1 = time.perf_counter()
+    mesh = mesh_serving(workdir)
+    t2 = time.perf_counter()
+    tables = cp_memory_phase()
+    return {"grouped": {"checks": checks, "times": times}, "mesh_serving": mesh,
+            "cp_memory": tables, "wall_s": {"grouped": t1 - t0, "mesh_serving": t2 - t1,
+                                            "cp_memory": time.perf_counter() - t2}}
+
+
+def grouped_bilstm_entries(phase: dict) -> list:
+    """The kernels-line entries of the grouped launches (phase 24's API run at
+    H: its forward without and with grad, and the backward)."""
+    c, tm = phase["grouped"]["checks"][H], phase["grouped"]["times"]
+    work = ("bilstm_fused_grouped at K = 6 (G = 12 groups): the flagship's six time "
+            f"encoders over {GROUPED_N} album slots, H = {H}")
+    return [
+        {"name": "lstm_proj+lstm_rec (grouped, G = 12)", "route": "cuda",
+         "source": "fvta_memexqa_torch/csrc/lstm_rec.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:268",
+         "launches": c["launches_under_grad"]["lstm_rec"] + c["launches_forward"]["lstm_rec"],
+         "max_abs_err": max(c["max_abs_err_out"], c["max_abs_err_out_under_grad"]),
+         "ms": tm["grouped_ms"], "graph_ms": tm["grouped_graph_ms"],
+         "k1_only_ms": tm["grouped_k1_only_ms"], "separate_ms": tm["separate_ms"],
+         "separate_graph_ms": tm["separate_graph_ms"], "plain_ms": tm["plain_ms"],
+         "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"], "library_ms": None,
+         "max_abs_diff_vs_lone_calls": c["max_abs_diff_vs_lone_calls"],
+         "timed_work": work + "; ms: the whole call (padding and stacking included); "
+                       "separate_*: the six bilstm_fused calls; library_ms: no one PyTorch "
+                       "call computes six bi-LSTMs of different weights"},
+        {"name": "lstm_rec_bwd (grouped, G = 12)", "route": "cuda",
+         "source": "fvta_memexqa_torch/csrc/lstm_rec_bwd.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:324",
+         "launches": c["launches_under_grad"]["lstm_rec_bwd"],
+         "max_abs_err": c["max_abs_err_grads"], "ms": tm["k1b_grouped_ms"],
+         "graph_ms": tm["k1b_grouped_graph_ms"], "separate_ms": tm["k1b_separate_ms"],
+         "separate_graph_ms": tm["k1b_separate_graph_ms"], "plain_ms": tm["k1b_plain_ms"],
+         "bound_ms": tm["k1b_bound_ms"], "bound_by": tm["k1b_bound_by"], "library_ms": None,
+         "timed_work": work + "; ms: the one K1b launch for all groups (separate: six "
+                       "lstm_rec_bwd); plain_ms and max_abs_err: the whole backward (dW "
+                       "products included)"},
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -5251,6 +5621,7 @@ def main() -> None:
             t_22 = time.perf_counter() - t0
             parallel = parallel_phase(workdir, evaluation, smi)   # phase 23
             log("parallel " + json.dumps(parallel))
+            grouped_mesh = grouped_mesh_phase(workdir, device)   # phase 24
             log(f"K7/K8 launches over every command run (serving, training, video, "
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
@@ -5303,6 +5674,7 @@ def main() -> None:
         if e["name"] in CP_KERNELS:
             for cp, r in parallel["cp"].items():
                 e[f"launches_cp{cp}_ranks"] = [c[e["name"]] for c in r["counts"]]
+    entries += grouped_bilstm_entries(grouped_mesh)
     widths["staged_graph_ms_vs_perf_md"] = staged_vs_perf_md(entries)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
@@ -5315,6 +5687,7 @@ def main() -> None:
         f"capacity {capacity['wall_s']:.1f} s; phase 22 {t_22:.1f} s")
     log("train_loader " + json.dumps(train_loader))
     log("focal " + json.dumps(focal))
+    log("grouped_mesh " + json.dumps(grouped_mesh))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -67,8 +67,10 @@ the serving engine (serve.build_engine) and prints the result as one JSON
 line (an answer step that fails gives {"error": ...}, as in the JAX CLI). The
 run directory is the port's (config.json + params.pt, see convert.py). `serve`
 (serve.main) serves the run directory over HTTP on 127.0.0.1 (GET /healthz,
-GET /stats, POST /ask, POST /albums) with the JAX CLI's flags; `--dp` > 1 and
-`--shard-cache` raise NotImplementedError (multi-card serving). `report`
+GET /stats, POST /ask, POST /albums) with the JAX CLI's flags; `--dp N`
+answers each micro-batch in N shards, one per card (N CPU slots with --device
+cpu; fewer cards than N is make_mesh's ValueError), and `--shard-cache` puts
+each album's cache entry on one device of that mesh. `report`
 summarizes a run directory's metrics.jsonl and `attention-report` renders a
 `--dump-attention` npz, as the JAX CLI's do (text, or JSON with --json).
 

@@ -24,6 +24,14 @@
 // c_{t-1} at p+1. Every position is written (zeros past a row's length), so a
 // row of length 0 gets zero dgates.
 //
+// Group axis (ops/lstm_fused.bilstm_fused_grouped, past the largest cluster):
+// as lstm_fwd.cu's, grid (tiles, 2K), block row y running direction y % 2 of
+// bi-LSTM y / 2; bi-LSTM m's x, lengths, out, cell, g_out, g_fin and dgates
+// follow m - 1's (rows m.N .. m.N + N - 1 of the stacks), its wx, wh (and
+// wh^T) and b lie wx_ms, wh_ms and b_ms elements past m - 1's in each
+// direction. K > 1 launches lstm_bwd_grouped_kernel (at most 64 registers);
+// K = 1 keeps the one-bi-LSTM kernel's code.
+//
 // Design. One block per (tile of ROWS rows, direction); the block walks t from
 // the tile's longest row down to 0. Per step: (1) the tile's [x_t; h_{t-1}] goes
 // to shared memory as z[k][r]; (2) one thread per gate column accumulates the
@@ -61,12 +69,18 @@ struct DirWeights {
   const float* b[2];    // [4H]
 };
 
-__global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-                                const DirWeights w, const float* __restrict__ hseq,
-                                const float* __restrict__ cseq,
-                                const float* __restrict__ g_out,
-                                const float* __restrict__ g_fin, float* __restrict__ dgates,
-                                int n, int T, int D, int H, float forget_bias) {
+// One block's work; GROUPED = false is the launch of one bi-LSTM, whose group
+// offsets fold away (the code and registers of the kernel before the group axis).
+template <bool GROUPED>
+__device__ __forceinline__ void bwd_block(const float* __restrict__ x,
+                                          const int* __restrict__ lengths, const DirWeights w,
+                                          const float* __restrict__ hseq,
+                                          const float* __restrict__ cseq,
+                                          const float* __restrict__ g_out,
+                                          const float* __restrict__ g_fin,
+                                          float* __restrict__ dgates, int n, int T, int D, int H,
+                                          float forget_bias, long long wx_ms, long long wh_ms,
+                                          long long b_ms) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   const int K = D + H;
@@ -76,18 +90,20 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
   float* dc_c = dh_c + ROWS * H;    // [ROWS][H]: carried dc
   __shared__ int len_s[ROWS];
 
-  const int dir = blockIdx.y;
+  const int dir = GROUPED ? blockIdx.y & 1 : blockIdx.y;
+  const int grp = GROUPED ? blockIdx.y >> 1 : 0;   // the bi-LSTM of this group
+  const int mrow = grp * n;          // its first row among the stacked rows
   const int row0 = blockIdx.x * ROWS;
-  const float* __restrict__ Wx = dir ? w.wx[1] : w.wx[0];
-  const float* __restrict__ Wh = dir ? w.wh[1] : w.wh[0];
-  const float* __restrict__ WhT = dir ? w.wht[1] : w.wht[0];
-  const float* __restrict__ B = dir ? w.b[1] : w.b[0];
+  const float* __restrict__ Wx = (dir ? w.wx[1] : w.wx[0]) + grp * wx_ms;
+  const float* __restrict__ Wh = (dir ? w.wh[1] : w.wh[0]) + grp * wh_ms;
+  const float* __restrict__ WhT = (dir ? w.wht[1] : w.wht[0]) + grp * wh_ms;
+  const float* __restrict__ B = (dir ? w.b[1] : w.b[0]) + grp * b_ms;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const size_t hstride = 2 * (size_t)H;   // row stride of out / cell / g_out / g_fin
   const size_t gstride = 2 * (size_t)G;   // row stride of dgates
 
-  if (tid < ROWS) len_s[tid] = (row0 + tid < n) ? lengths[row0 + tid] : 0;
+  if (tid < ROWS) len_s[tid] = (row0 + tid < n) ? lengths[mrow + row0 + tid] : 0;
   for (int i = tid; i < ROWS * H; i += nt) {
     dh_c[i] = 0.0f;
     dc_c[i] = 0.0f;
@@ -101,7 +117,9 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
       // no row of the tile is live at this step: zero dgates at position t
       for (int i = tid; i < ROWS * G; i += nt) {
         const int r = i / G, k = i % G;
-        if (row0 + r < n) dgates[((size_t)(row0 + r) * T + t) * gstride + dir * G + k] = 0.0f;
+        if (row0 + r < n) {
+          dgates[((size_t)(mrow + row0 + r) * T + t) * gstride + dir * G + k] = 0.0f;
+        }
       }
       continue;
     }
@@ -113,7 +131,7 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
       float v = 0.0f;
       if (t < L) {
         const int pos = dir == 0 ? t : L - 1 - t;
-        const size_t rowbase = (size_t)(row0 + r) * T;
+        const size_t rowbase = (size_t)(mrow + row0 + r) * T;
         if (k < D) {
           v = x[(rowbase + pos) * D + k];
         } else if (t > 0) {
@@ -151,7 +169,7 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
       const int r = i / H, k = i % H;
       const int row = row0 + r;
       const int L = len_s[r];   // 0 for the tile's rows past n
-      const size_t rowbase = (size_t)row * T;
+      const size_t rowbase = (size_t)(mrow + row) * T;
       float* g = gates + r * G;
       float* dg_out = dgates + rowbase * gstride + dir * G + k;
       if (t >= L) {
@@ -179,7 +197,9 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
       const float tanh_c = tanhf(c_t);
       float dh_in = dh_c[i];
       if (g_out != nullptr) dh_in += g_out[hix];
-      if (g_fin != nullptr && t == L - 1) dh_in += g_fin[(size_t)row * hstride + dir * H + k];
+      if (g_fin != nullptr && t == L - 1) {
+        dh_in += g_fin[(size_t)(mrow + row) * hstride + dir * H + k];
+      }
       const float dc_in = dc_c[i];
       // m = 1 here: dnh = dh_in, dc_total = dc_in + dnh * o * (1 - tanh(c)^2)
       const float dc_tot = dc_in + dh_in * o_s * (1.0f - tanh_c * tanh_c);
@@ -220,6 +240,30 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
   }
 }
 
+__global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                                const DirWeights w, const float* __restrict__ hseq,
+                                const float* __restrict__ cseq,
+                                const float* __restrict__ g_out,
+                                const float* __restrict__ g_fin, float* __restrict__ dgates,
+                                int n, int T, int D, int H, float forget_bias, long long wx_ms,
+                                long long wh_ms, long long b_ms) {
+  bwd_block<false>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H, forget_bias,
+                   wx_ms, wh_ms, b_ms);
+}
+
+// at most 64 registers a thread: the block has up to 1024 threads (4H columns),
+// and the group offsets would take the one-bi-LSTM kernel past 64
+__global__ void __launch_bounds__(1024)
+lstm_bwd_grouped_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                        const DirWeights w, const float* __restrict__ hseq,
+                        const float* __restrict__ cseq, const float* __restrict__ g_out,
+                        const float* __restrict__ g_fin, float* __restrict__ dgates, int n,
+                        int T, int D, int H, float forget_bias, long long wx_ms,
+                        long long wh_ms, long long b_ms) {
+  bwd_block<true>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H, forget_bias,
+                  wx_ms, wh_ms, b_ms);
+}
+
 size_t smem_bytes(int D, int H) {
   return sizeof(float) * ((size_t)(D + H) * ROWS + (size_t)ROWS * 4 * H + 2 * (size_t)ROWS * H);
 }
@@ -233,25 +277,29 @@ long long lstm_bwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h)
 const char* lstm_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Returns the cudaError_t of the launch (0 = success). g_out and g_fin may be null.
+// k bi-LSTMs over one batch in one launch (the group axis above; wh^T with wh's
+// stride); k = 1 is one bi-LSTM and the strides are then unread.
 int lstm_bwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
              const float* wh_fw, const float* wh_bw, const float* wht_fw, const float* wht_bw,
              const float* b_fw, const float* b_bw,
              const float* out, const float* cell, const float* g_out, const float* g_fin,
-             float* dgates, int n, int t, int d, int h, float forget_bias, void* stream) {
+             float* dgates, int n, int t, int d, int h, float forget_bias, int k,
+             long long wx_ms, long long wh_ms, long long b_ms, void* stream) {
   const DirWeights w{{wx_fw, wx_bw}, {wh_fw, wh_bw}, {wht_fw, wht_bw}, {b_fw, b_bw}};
+  const auto kernel = k > 1 ? lstm_bwd_grouped_kernel : lstm_bwd_kernel;
   const size_t smem = smem_bytes(d, h);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(lstm_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int threads = ((4 * h + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   if (threads < 64) threads = 64;
-  const dim3 grid((n + ROWS - 1) / ROWS, 2);
-  lstm_bwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, lengths, w, out, cell, g_out, g_fin, dgates, n, t, d, h, forget_bias);
+  const dim3 grid((n + ROWS - 1) / ROWS, 2 * k);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, lengths, w, out, cell, g_out, g_fin,
+                                                       dgates, n, t, d, h, forget_bias, wx_ms,
+                                                       wh_ms, b_ms);
   return (int)cudaGetLastError();
 }
 

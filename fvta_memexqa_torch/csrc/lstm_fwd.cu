@@ -17,6 +17,16 @@
 // the cells is made on the host. Past a row's length (t >= L) out is 0 and cell
 // holds the carried c at position t, in both directions.
 //
+// Group axis (ops/lstm_fused.bilstm_fused_grouped, past the largest cluster):
+// K bi-LSTMs over one shared batch in one launch, grid (tiles, 2K), block row y
+// running direction y % 2 of bi-LSTM m = y / 2. Bi-LSTM m's x [N, T, D],
+// lengths [N], out, cell [N, T, 2H] and fin [N, 2H] follow m - 1's (its rows
+// are rows m.N .. m.N + N - 1 of the stacks); its wx, wh and b lie wx_ms,
+// wh_ms and b_ms elements past m - 1's in each direction. Each group runs
+// exactly the K = 1 kernel's sums. K > 1 launches lstm_fwd_grouped_kernel,
+// capped at 64 registers for 1024-thread blocks; K = 1 keeps the one-bi-LSTM
+// kernel's code, which the offsets would slow by ~20% under that cap.
+//
 // Design. One block per (tile of ROWS rows, direction); the block loops over t.
 // The tile's [x_t; h] lives in shared memory as z[k][r] (k over D+H, r over the
 // ROWS rows, so one k is two float4 loads), c in shared memory, and one thread
@@ -49,11 +59,15 @@ struct DirWeights {
   const float* b[2];   // [4H]
 };
 
-__global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-                                const DirWeights w, float* __restrict__ out,
-                                float* __restrict__ cell, float* __restrict__ fin, int n,
-                                int T, int D, int H,
-                                float forget_bias) {
+// One block's work; GROUPED = false is the launch of one bi-LSTM, whose group
+// offsets fold away (the code and registers of the kernel before the group axis).
+template <bool GROUPED>
+__device__ __forceinline__ void fwd_block(const float* __restrict__ x,
+                                          const int* __restrict__ lengths, const DirWeights w,
+                                          float* __restrict__ out, float* __restrict__ cell,
+                                          float* __restrict__ fin, int n, int T, int D, int H,
+                                          float forget_bias, long long wx_ms, long long wh_ms,
+                                          long long b_ms) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   const int K = D + H;
@@ -62,16 +76,18 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
   float* cst = gates + ROWS * G;    // [ROWS][H]
   __shared__ int len_s[ROWS];
 
-  const int dir = blockIdx.y;
+  const int dir = GROUPED ? blockIdx.y & 1 : blockIdx.y;
+  const int grp = GROUPED ? blockIdx.y >> 1 : 0;   // the bi-LSTM of this group
+  const int mrow = grp * n;          // its first row among the stacked rows
   const int row0 = blockIdx.x * ROWS;
-  const float* __restrict__ Wx = dir ? w.wx[1] : w.wx[0];
-  const float* __restrict__ Wh = dir ? w.wh[1] : w.wh[0];
-  const float* __restrict__ B = dir ? w.b[1] : w.b[0];
+  const float* __restrict__ Wx = (dir ? w.wx[1] : w.wx[0]) + grp * wx_ms;
+  const float* __restrict__ Wh = (dir ? w.wh[1] : w.wh[0]) + grp * wh_ms;
+  const float* __restrict__ B = (dir ? w.b[1] : w.b[0]) + grp * b_ms;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const size_t out_stride = 2 * (size_t)H;
 
-  if (tid < ROWS) len_s[tid] = (row0 + tid < n) ? lengths[row0 + tid] : 0;
+  if (tid < ROWS) len_s[tid] = (row0 + tid < n) ? lengths[mrow + row0 + tid] : 0;
   for (int i = tid; i < ROWS * H; i += nt) {
     const int r = i / H, k = i % H;
     z[(D + k) * ROWS + r] = 0.0f;
@@ -89,7 +105,7 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
         for (int i = tid; i < ROWS * H; i += nt) {
           const int r = i / H, k = i % H;
           if (row0 + r >= n) continue;
-          const size_t o = ((size_t)(row0 + r) * T + t) * out_stride + dir * H + k;
+          const size_t o = ((size_t)(mrow + row0 + r) * T + t) * out_stride + dir * H + k;
           if (out != nullptr) out[o] = 0.0f;
           if (cell != nullptr) cell[o] = cst[i];
         }
@@ -103,7 +119,7 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
       float v = 0.0f;
       if (t < L) {
         const int pos = dir == 0 ? t : L - 1 - t;
-        v = x[((size_t)(row0 + r) * T + pos) * D + k];
+        v = x[((size_t)(mrow + row0 + r) * T + pos) * D + k];
       }
       z[k * ROWS + r] = v;
     }
@@ -151,11 +167,11 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
         cst[i] = c;
         z[(D + k) * ROWS + r] = hh;
         const int pos = dir == 0 ? t : L - 1 - t;
-        const size_t o = ((size_t)row * T + pos) * out_stride + dir * H + k;
+        const size_t o = ((size_t)(mrow + row) * T + pos) * out_stride + dir * H + k;
         if (out != nullptr) out[o] = hh;
         if (cell != nullptr) cell[o] = c;
       } else {
-        const size_t o = ((size_t)row * T + t) * out_stride + dir * H + k;
+        const size_t o = ((size_t)(mrow + row) * T + t) * out_stride + dir * H + k;
         if (out != nullptr) out[o] = 0.0f;
         if (cell != nullptr) cell[o] = cst[i];
       }
@@ -164,8 +180,28 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
   __syncthreads();
   for (int i = tid; i < ROWS * H; i += nt) {
     const int r = i / H, k = i % H;
-    if (row0 + r < n) fin[(size_t)(row0 + r) * out_stride + dir * H + k] = z[(D + k) * ROWS + r];
+    if (row0 + r < n) {
+      fin[(size_t)(mrow + row0 + r) * out_stride + dir * H + k] = z[(D + k) * ROWS + r];
+    }
   }
+}
+
+__global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                                const DirWeights w, float* __restrict__ out,
+                                float* __restrict__ cell, float* __restrict__ fin, int n,
+                                int T, int D, int H, float forget_bias, long long wx_ms,
+                                long long wh_ms, long long b_ms) {
+  fwd_block<false>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms, b_ms);
+}
+
+// at most 64 registers a thread: the block has up to 1024 threads (4H columns),
+// and the group offsets would take the one-bi-LSTM kernel past 64
+__global__ void __launch_bounds__(1024)
+lstm_fwd_grouped_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                        const DirWeights w, float* __restrict__ out, float* __restrict__ cell,
+                        float* __restrict__ fin, int n, int T, int D, int H, float forget_bias,
+                        long long wx_ms, long long wh_ms, long long b_ms) {
+  fwd_block<true>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms, b_ms);
 }
 
 size_t smem_bytes(int D, int H) {
@@ -181,24 +217,27 @@ long long lstm_fwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h)
 const char* lstm_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Returns the cudaError_t of the launch (0 = success). out and cell may be null.
+// k bi-LSTMs over one batch in one launch (the group axis above); k = 1 is one
+// bi-LSTM and the strides are then unread.
 int lstm_fwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
              const float* wh_fw, const float* wh_bw, const float* b_fw, const float* b_bw,
              float* out, float* cell, float* fin, int n, int t, int d, int h,
-             float forget_bias, void* stream) {
+             float forget_bias, int k, long long wx_ms, long long wh_ms, long long b_ms,
+             void* stream) {
   const DirWeights w{{wx_fw, wx_bw}, {wh_fw, wh_bw}, {b_fw, b_bw}};
+  const auto kernel = k > 1 ? lstm_fwd_grouped_kernel : lstm_fwd_kernel;
   const size_t smem = smem_bytes(d, h);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(lstm_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int threads = ((4 * h + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   if (threads < 64) threads = 64;
-  const dim3 grid((n + ROWS - 1) / ROWS, 2);
-  lstm_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, lengths, w, out, cell, fin, n, t, d, h, forget_bias);
+  const dim3 grid((n + ROWS - 1) / ROWS, 2 * k);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, lengths, w, out, cell, fin, n, t, d,
+                                                       h, forget_bias, wx_ms, wh_ms, b_ms);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,14 @@
 // lengths is skipped (the recurrences never read those positions). The tile
 // shapes and the rule between them: `launch` below.
 //
+// Group axis (ops/lstm_fused.bilstm_fused_grouped): blockIdx.z = m walks K
+// bi-LSTMs over one shared batch, each with its own x [N, T, D], lengths [N]
+// and xg [N, T, 8H], stacked one after another, and its weights wx_ms / b_ms
+// elements past the previous one's in both directions. A grouped launch is K
+// launches' work with the same per-output sums; K = 1 is the plain call, and
+// launches the instantiation without the offsets (GROUPED = false: the code
+// and registers of the kernel before the group axis).
+//
 // Bound on the H100: 2.D.8H FLOPs per valid position against 4.(D + 8H) bytes,
 // about 80 FLOP/B at D = 200, H = 100, so FP32 throughput (67 TFLOP/s) bounds it,
 // not HBM. What the design does about it: register tiles of up to 8 x 4 (three
@@ -37,12 +45,13 @@ namespace lproj {
 
 constexpr int THREADS = 256;
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 2)
 lstm_proj_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                  const float* __restrict__ wx_fw, const float* __restrict__ wx_bw,
                  const float* __restrict__ b_fw, const float* __restrict__ b_bw,
-                 float* __restrict__ xg, int M, int T, int D, int H) {
+                 float* __restrict__ xg, int M, int T, int D, int H, long long wx_ms,
+                 long long b_ms) {
   static_assert((BM / TM) * (BN / TN) == THREADS, "one sub-tile per thread");
   constexpr int A_PER = BM * BK / THREADS;   // slab elements each thread loads
   constexpr int B_PER = BK * BN / THREADS;
@@ -52,6 +61,16 @@ lstm_proj_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   const int G4 = 4 * H, G8 = 8 * H;
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if constexpr (GROUPED) {
+    const size_t g = blockIdx.z;   // the group's inputs and outputs
+    x += g * M * D;
+    lengths += g * (M / T);
+    xg += g * M * G8;
+    wx_fw += g * wx_ms;
+    wx_bw += g * wx_ms;
+    b_fw += g * b_ms;
+    b_bw += g * b_ms;
+  }
 
   // skip a tile of positions that are all past their rows' lengths
   int live = 0;
@@ -146,10 +165,13 @@ lstm_proj_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
 template <int BM, int BN, int BK, int TM, int TN>
 inline int launch_tiles(const float* x, const int* lengths, const float* wx_fw,
                         const float* wx_bw, const float* b_fw, const float* b_bw, float* xg,
-                        int M, int T, int D, int H, cudaStream_t stream) {
-  const dim3 grid((8 * H + BN - 1) / BN, (M + BM - 1) / BM);
-  lstm_proj_kernel<BM, BN, BK, TM, TN><<<grid, THREADS, 0, stream>>>(
-      x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, T, D, H);
+                        int M, int T, int D, int H, int k, long long wx_ms, long long b_ms,
+                        cudaStream_t stream) {
+  const dim3 grid((8 * H + BN - 1) / BN, (M + BM - 1) / BM, k);
+  const auto kernel = k > 1 ? lstm_proj_kernel<BM, BN, BK, TM, TN, true>
+                            : lstm_proj_kernel<BM, BN, BK, TM, TN, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, T, D, H,
+                                       wx_ms, b_ms);
   return (int)cudaGetLastError();
 }
 
@@ -158,19 +180,20 @@ inline int launch_tiles(const float* x, const int* lengths, const float* wx_fw,
 // eight tile shapes timed on the H100 at the repo's bi-LSTM shapes (128 x 128
 // with slabs of 8 or 16 and 1 or 2 blocks per SM, 128 x 64, 64 x 128, 64 x 64
 // with slabs of 16 or 32), these two were the fastest on their sides of the
-// threshold (PERF.md). Returns the cudaError_t of the launch.
+// threshold (PERF.md), the tiles of all k groups counted. Returns the
+// cudaError_t of the launch.
 inline int launch(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
                   const float* b_fw, const float* b_bw, float* xg, int n, int t, int d, int h,
-                  void* stream) {
+                  int k, long long wx_ms, long long b_ms, void* stream) {
   const int M = n * t;
-  const long long tall_tiles = (long long)((M + 127) / 128) * ((8 * h + 63) / 64);
+  const long long tall_tiles = (long long)k * ((M + 127) / 128) * ((8 * h + 63) / 64);
   cudaStream_t s = (cudaStream_t)stream;
   if (tall_tiles >= 66) {
     return launch_tiles<128, 64, 16, 8, 4>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, t, d,
-                                           h, s);
+                                           h, k, wx_ms, b_ms, s);
   }
   return launch_tiles<64, 64, 16, 4, 4>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, t, d, h,
-                                        s);
+                                        k, wx_ms, b_ms, s);
 }
 
 }  // namespace lproj

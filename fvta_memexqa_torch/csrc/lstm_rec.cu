@@ -33,6 +33,13 @@
 //   loads fly under step t's dot products (each value is read by the lane that
 //   loads it, so no shared-memory ring, no barrier and no wait are needed).
 // The cell state stays in the registers of the lanes that own each (row, unit).
+//
+// Group axis (ops/lstm_fused.bilstm_fused_grouped): the grid's y axis holds 2K
+// groups, group y running direction y % 2 of bi-LSTM m = y / 2 of K over one
+// shared batch. Bi-LSTM m's xg [N, T, 8H], lengths [N], out, cell [N, T, 2H]
+// and fin [N, 2H] follow m - 1's, and its Wh lies wh_ms elements past m - 1's
+// in each direction. Each group runs exactly the K = 1 kernel's sums; K = 1
+// launches the instantiation without the offsets (GROUPED = false).
 
 #include "lstm_proj.cuh"
 #include "lstm_rec.cuh"
@@ -41,12 +48,15 @@ namespace {
 
 using lrec::Lanes;
 
-template <int ROWS, int S>
+// GROUPED = false is the launch of one bi-LSTM (K = 1), whose group offsets
+// fold away: the code and registers of the kernel before the group axis.
+template <int ROWS, int S, bool GROUPED>
 __global__ void __launch_bounds__(ROWS == 16 ? 416 : 512)
 lstm_rec_kernel(float* xg, const int* __restrict__ lengths, const float* __restrict__ wh_fw,
                 const float* __restrict__ wh_bw, float* __restrict__ out,
                 float* __restrict__ cell, float* __restrict__ fin, int n, int T, int H,
-                int hc, int units, int stride, float forget_bias, int write_preact) {
+                int hc, int units, int stride, float forget_bias, int write_preact,
+                long long wh_ms) {
   using LN = Lanes<ROWS, S>;
   constexpr int RP = LN::RP;
   extern __shared__ __align__(16) float smem[];
@@ -57,10 +67,18 @@ lstm_rec_kernel(float* xg, const int* __restrict__ lengths, const float* __restr
   lrec::cg::cluster_group cluster = lrec::cg::this_cluster();
   const int C = (int)cluster.dim_blocks().x;
   const int rank = (int)cluster.block_rank();
-  const int dir = blockIdx.y;
+  const int dir = GROUPED ? blockIdx.y & 1 : blockIdx.y;
   const int u0 = rank * hc;
-  const float* __restrict__ Wh = dir ? wh_bw : wh_fw;
   const int G4 = 4 * H, G8 = 8 * H;
+  const size_t grp = GROUPED ? blockIdx.y >> 1 : 0;   // the bi-LSTM of this group
+  const float* __restrict__ Wh = (dir ? wh_bw : wh_fw) + grp * wh_ms;
+  if constexpr (GROUPED) {
+    xg += grp * n * T * G8;
+    lengths += grp * n;
+    if (out != nullptr) out += grp * n * T * 2 * H;
+    if (cell != nullptr) cell += grp * n * T * 2 * H;
+    fin += grp * n * 2 * H;
+  }
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid % 32;
   const int s = lane / LN::UPW;
@@ -206,12 +224,14 @@ lstm_rec_kernel(float* xg, const int* __restrict__ lengths, const float* __restr
 template <int ROWS, int S>
 int launch(float* xg, const int* lengths, const float* wh_fw, const float* wh_bw, float* out,
            float* cell, float* fin, int n, int t, int h, int c, float forget_bias,
-           int write_preact, void* stream) {
+           int write_preact, int k, long long wh_ms, void* stream) {
   const lrec::Geometry g = lrec::fwd_geometry(h, c, ROWS, S);
   const int tiles = (n + ROWS - 1) / ROWS;
-  return lrec::launch_clusters(lstm_rec_kernel<ROWS, S>, tiles, c, g, stream, xg, lengths,
-                                   wh_fw, wh_bw, out, cell, fin, n, t, h, g.hc, g.units,
-                                   g.stride, forget_bias, write_preact);
+  return lrec::launch_groups(k > 1 ? lstm_rec_kernel<ROWS, S, true>
+                                   : lstm_rec_kernel<ROWS, S, false>,
+                             tiles, 2 * k, c, g, stream, xg, lengths, wh_fw, wh_bw, out, cell,
+                             fin, n, t, h, g.hc, g.units, g.stride, forget_bias, write_preact,
+                             wh_ms);
 }
 
 }  // namespace
@@ -228,16 +248,18 @@ const char* lstm_rec_error_string(int err) { return lrec::error_string(err); }
 // the pre-activations when write_preact != 0), lengths [N] int32 and both
 // directions' wh [H, 4H], with clusters of c CTAs, tiles of `rows` rows and
 // `split` lanes per unit (ops/lstm_fused.lstm_route). out and cell may be
-// null. Returns the cudaError_t of the launch, or -1 when the cluster cannot
-// be scheduled; 22 (cudaErrorInvalidValue) for a (rows, split) pair with no
+// null. k bi-LSTMs over one batch of n rows run in one launch (2k groups; the
+// kernel's group axis above); k = 1 is one bi-LSTM and wh_ms is then unread.
+// Returns the cudaError_t of the launch, or -1 when the cluster cannot be
+// scheduled; 22 (cudaErrorInvalidValue) for a (rows, split) pair with no
 // instantiation.
 int lstm_rec(float* xg, const int* lengths, const float* wh_fw, const float* wh_bw, float* out,
              float* cell, float* fin, int n, int t, int h, int c, int rows, int split,
-             float forget_bias, int write_preact, void* stream) {
+             float forget_bias, int write_preact, int k, long long wh_ms, void* stream) {
 #define LSTM_REC_CASE(R, S_)                                                              \
   if (rows == R && split == S_)                                                           \
     return launch<R, S_>(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c,           \
-                         forget_bias, write_preact, stream);
+                         forget_bias, write_preact, k, wh_ms, stream);
   LSTM_REC_CASE(8, 4)
   LSTM_REC_CASE(8, 8)
   LSTM_REC_CASE(8, 16)
@@ -247,28 +269,35 @@ int lstm_rec(float* xg, const int* lengths, const float* wh_fw, const float* wh_
 }
 
 // The projection alone (lstm_proj.cuh): xg [N, T, 8H] (16-byte aligned) from
-// x [N, T, D], lengths [N] int32 and both directions' wx [D, 4H], b [4H].
-// Returns the cudaError_t of the launch.
+// x [N, T, D], lengths [N] int32 and both directions' wx [D, 4H], b [4H]; for
+// k bi-LSTMs (lstm_proj.cuh's group axis) x [k, N, T, D], lengths [k, N], xg
+// [k, N, T, 8H] and each bi-LSTM's weights wx_ms / b_ms past the previous
+// one's. Returns the cudaError_t of the launch.
 int lstm_proj(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
               const float* b_fw, const float* b_bw, float* xg, int n, int t, int d, int h,
-              void* stream) {
-  return lproj::launch(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, stream);
+              int k, long long wx_ms, long long b_ms, void* stream) {
+  return lproj::launch(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, k, wx_ms, b_ms,
+                       stream);
 }
 
 // K1 on the Hopper route from one host call: lstm_proj's kernel writes xg
 // [N, T, 8H] from x [N, T, D] and both directions' wx [D, 4H], b [4H]; then the
-// recurrence runs on it as `lstm_rec` does. Returns the first failing launch's
-// error (the projection's as is, the recurrence's as lstm_rec returns it).
+// recurrence runs on it as `lstm_rec` does; k bi-LSTMs over one batch as
+// lstm_proj and lstm_rec take them, one launch of each for all. Returns the
+// first failing launch's error (the projection's as is, the recurrence's as
+// lstm_rec returns it).
 int lstm_k1(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
             const float* b_fw, const float* b_bw, const float* wh_fw, const float* wh_bw,
             float* xg, float* out, float* cell, float* fin, int n, int t, int d, int h, int c,
-            int rows, int split, float forget_bias, int write_preact, void* stream) {
+            int rows, int split, float forget_bias, int write_preact, int k, long long wx_ms,
+            long long wh_ms, long long b_ms, void* stream) {
   if (n * t > 0) {
-    const int err = lproj::launch(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, stream);
+    const int err = lproj::launch(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, k, wx_ms,
+                                  b_ms, stream);
     if (err != 0) return err;
   }
   return lstm_rec(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c, rows, split,
-                  forget_bias, write_preact, stream);
+                  forget_bias, write_preact, k, wh_ms, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@
 // forward's recurrence over G groups with the same parts.
 //
 // Work split. A cluster of C CTAs owns one tile of ROWS rows of one direction at
-// a time (grid (C . clusters, 2); a cluster walks tiles with the grid's stride
+// a time (grid (C . clusters, 2 . K) for K bi-LSTMs over one batch, K = 1 but
+// in ops/lstm_fused.bilstm_fused_grouped; a cluster walks tiles with the grid's stride
 // when the card cannot hold them all at once); CTA rank q owns the hidden units [q.Hc, (q+1).Hc),
 // Hc = ceil(H / C). Inside a CTA, S lanes of one warp share each unit: lane
 // l = s . UPW + v (UPW = 32 / S units per warp, v the unit within the warp), and
@@ -213,7 +214,7 @@ inline cudaError_t active_clusters(const void* fn, const cudaLaunchConfig_t& cfg
 }
 
 // Launch `kernel` for `tiles` tiles in each of `groups` independent scans (the
-// two directions of a bi-LSTM, or the G groups of the grouped scans), clusters
+// two directions of each of K bi-LSTMs, or the G groups of the grouped scans), clusters
 // of c CTAs along x: a grid of (c . min(tiles, clusters the card runs at once /
 // groups), groups), each cluster walking tiles with a stride of the grid (so
 // that a full grid keeps its Wh slices resident over several tiles). Returns
@@ -242,13 +243,6 @@ int launch_groups(void (*kernel)(Params...), int tiles, int groups, int c, const
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// launch_groups over the two directions of a bi-LSTM (K1, K1b).
-template <typename... Params, typename... Args>
-int launch_clusters(void (*kernel)(Params...), int tiles, int c, const Geometry& g,
-                    void* stream, Args... args) {
-  return launch_groups(kernel, tiles, 2, c, g, stream, args...);
 }
 
 inline const char* error_string(int err) {

@@ -35,6 +35,11 @@
 //   a fixed order.
 // The carried dh and dc stay in the registers of the lanes that own each
 // (row, unit).
+//
+// Group axis (ops/lstm_fused.bilstm_fused_grouped): as lstm_rec.cu's, the grid's
+// y axis holds 2K groups, group y running direction y % 2 of bi-LSTM y / 2;
+// bi-LSTM m's pre, dgates [N, T, 8H], lengths [N], cell, g_out [N, T, 2H] and
+// g_fin [N, 2H] follow m - 1's, its Wh wh_ms elements past m - 1's.
 
 #include "lstm_rec.cuh"
 
@@ -42,13 +47,15 @@ namespace {
 
 using lrec::Lanes;
 
-template <int ROWS, int S>
+// GROUPED = false: one bi-LSTM (K = 1), the code of the kernel before the
+// group axis (lstm_rec.cu's rule).
+template <int ROWS, int S, bool GROUPED>
 __global__ void __launch_bounds__(ROWS == 16 ? 416 : 512)
 lstm_rec_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ lengths,
                     const float* __restrict__ wh_fw, const float* __restrict__ wh_bw,
                     const float* __restrict__ cseq, const float* __restrict__ g_out,
                     const float* __restrict__ g_fin, float* __restrict__ dgates, int n, int T,
-                    int H, int hc, int units, int stride, float forget_bias) {
+                    int H, int hc, int units, int stride, float forget_bias, long long wh_ms) {
   using LN = Lanes<ROWS, S>;
   constexpr int RP = LN::RP;
   extern __shared__ __align__(16) float smem[];
@@ -59,11 +66,20 @@ lstm_rec_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ lengt
   lrec::cg::cluster_group cluster = lrec::cg::this_cluster();
   const int C = (int)cluster.dim_blocks().x;
   const int rank = (int)cluster.block_rank();
-  const int dir = blockIdx.y;
+  const int dir = GROUPED ? blockIdx.y & 1 : blockIdx.y;
   const int u0 = rank * hc;
-  const float* __restrict__ Wh = dir ? wh_bw : wh_fw;
   const int G4 = 4 * H, G8 = 8 * H;
   const size_t hstride = 2 * (size_t)H;
+  const size_t grp = GROUPED ? blockIdx.y >> 1 : 0;   // the bi-LSTM of this group
+  const float* __restrict__ Wh = (dir ? wh_bw : wh_fw) + grp * wh_ms;
+  if constexpr (GROUPED) {
+    pre += grp * n * T * G8;
+    dgates += grp * n * T * G8;
+    lengths += grp * n;
+    cseq += grp * n * T * hstride;
+    if (g_out != nullptr) g_out += grp * n * T * hstride;
+    if (g_fin != nullptr) g_fin += grp * n * hstride;
+  }
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid % 32;
   const int s = lane / LN::UPW;
@@ -233,12 +249,13 @@ lstm_rec_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ lengt
 template <int ROWS, int S>
 int launch(const float* pre, const int* lengths, const float* wh_fw, const float* wh_bw,
            const float* cell, const float* g_out, const float* g_fin, float* dgates, int n,
-           int t, int h, int c, float forget_bias, void* stream) {
+           int t, int h, int c, float forget_bias, int k, long long wh_ms, void* stream) {
   const lrec::Geometry g = lrec::bwd_geometry(h, c, ROWS, S);
   const int tiles = (n + ROWS - 1) / ROWS;
-  return lrec::launch_clusters(lstm_rec_bwd_kernel<ROWS, S>, tiles, c, g, stream, pre,
-                                   lengths, wh_fw, wh_bw, cell, g_out, g_fin, dgates, n, t, h,
-                                   g.hc, g.units, g.stride, forget_bias);
+  return lrec::launch_groups(k > 1 ? lstm_rec_bwd_kernel<ROWS, S, true>
+                                   : lstm_rec_bwd_kernel<ROWS, S, false>,
+                             tiles, 2 * k, c, g, stream, pre, lengths, wh_fw, wh_bw, cell, g_out,
+                             g_fin, dgates, n, t, h, g.hc, g.units, g.stride, forget_bias, wh_ms);
 }
 
 }  // namespace
@@ -254,15 +271,16 @@ const char* lstm_rec_bwd_error_string(int err) { return lrec::error_string(err);
 // dgates [N, T, 8H] from the saved pre-activations pre [N, T, 8H], cell
 // [N, T, 2H], g_out [N, T, 2H] and g_fin [N, 2H] (either may be null), lengths
 // [N] int32 and both directions' wh [H, 4H], with the forward's (c, rows,
-// split). Returns as lstm_rec does.
+// split); k bi-LSTMs over one batch in one launch as lstm_rec takes them.
+// Returns as lstm_rec does.
 int lstm_rec_bwd(const float* pre, const int* lengths, const float* wh_fw, const float* wh_bw,
                  const float* cell, const float* g_out, const float* g_fin, float* dgates,
-                 int n, int t, int h, int c, int rows, int split, float forget_bias,
-                 void* stream) {
+                 int n, int t, int h, int c, int rows, int split, float forget_bias, int k,
+                 long long wh_ms, void* stream) {
 #define LSTM_REC_BWD_CASE(R, S_)                                                        \
   if (rows == R && split == S_)                                                         \
     return launch<R, S_>(pre, lengths, wh_fw, wh_bw, cell, g_out, g_fin, dgates, n, t,  \
-                         h, c, forget_bias, stream);
+                         h, c, forget_bias, k, wh_ms, stream);
   LSTM_REC_BWD_CASE(8, 4)
   LSTM_REC_BWD_CASE(8, 8)
   LSTM_REC_BWD_CASE(8, 16)

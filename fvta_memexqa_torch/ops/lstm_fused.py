@@ -29,6 +29,14 @@ and forms dX, dWx, dWh and db as four matrix products (`_assemble_bwd` in the
 JAX package). dgates, out and cell sit at the original time positions in both
 directions, so x and h_{t-1} line up with dgates without a flip.
 
+`bilstm_fused_grouped` runs K bi-LSTMs over one shared batch (the JAX package's
+bilstm_fused_grouped, e.g. the six per-modality time encoders) as G = 2K groups
+of ONE launch of each kernel of the route: the kernels take a group axis (the
+grid's y axis; the projection's z axis), and each group's sums are those of a
+lone `bilstm_fused` call on its bi-LSTM. `_GroupedBiLSTMFn` forms dX, dWx, dWh
+and db per bi-LSTM from the one K1b launch's dgates. The K7/K8 scan API is
+another module, ops/lstm_grouped.
+
 K1 replaces the TPU kernel fvta_memexqa_tpu/ops/lstm_fused.py:_fwd_step_kernel,
 K1b its backward :_bwd_step_kernel. Masks must be contiguous prefixes
 (pack-time invariant, data/pack.py _assert_prefix_masks): the kernels see only
@@ -49,11 +57,12 @@ from fvta_memexqa_torch.ops.lstm_ref import LSTMParams, bilstm_ref
 @functools.cache
 def _lib(stem: str, n_ptr: int) -> ctypes.CDLL:
     """csrc/<stem>.cu's library: <stem>(n_ptr pointers, n, t, d, h, forget_bias,
-    stream), <stem>_smem_bytes(d, h), <stem>_error_string(err)."""
+    k, wx_ms, wh_ms, b_ms, stream), <stem>_smem_bytes(d, h),
+    <stem>_error_string(err)."""
     lib = build.library(stem)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = getattr(lib, stem)
-    fn.argtypes = [p] * n_ptr + [i] * 4 + [ctypes.c_float, p]
+    fn.argtypes = [p] * n_ptr + [i] * 4 + [ctypes.c_float, i, ll, ll, ll, p]
     fn.restype = i
     getattr(lib, f"{stem}_smem_bytes").argtypes = [i, i]
     getattr(lib, f"{stem}_smem_bytes").restype = ctypes.c_longlong
@@ -79,8 +88,46 @@ def _check_common(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     return n, t, d, h
 
 
+def _check_grouped(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                   b: torch.Tensor, kernel: str) -> tuple[int, int, int, int, int]:
+    """(K, N, T, D, H) of K bi-LSTMs over one batch as the grouped launchers take
+    them: x [K, N, T, D], lengths [K, N] int32, and the weights as [2K, ...]
+    stacks (group 2m + dir: bi-LSTM m, direction dir) wx [2K, D, 4H], wh
+    [2K, H, 4H], b [2K, 4H], all contiguous on one CUDA device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} launches on a CUDA device, got {x.device}")
+    if x.dim() != 4 or wh.dim() != 3:
+        raise ValueError(f"{kernel} takes x [K, N, T, D] and wh [2K, H, 4H], got "
+                         f"{tuple(x.shape)} and {tuple(wh.shape)}")
+    k, n, t, d = x.shape
+    h = wh.shape[1]
+    dev = x.device
+    build.check_f32("x", x, (k, n, t, d), dev)
+    build.check_f32("wx", wx, (2 * k, d, 4 * h), dev)
+    build.check_f32("wh", wh, (2 * k, h, 4 * h), dev)
+    build.check_f32("b", b, (2 * k, 4 * h), dev)
+    if (lengths.device != dev or lengths.dtype != torch.int32
+            or tuple(lengths.shape) != (k, n) or not lengths.is_contiguous()):
+        raise ValueError("lengths must be contiguous int32 [K, N] on the device of x")
+    return k, n, t, d, h
+
+
 def _ptr(a: torch.Tensor | None):
     return a.data_ptr() if a is not None else None
+
+
+def _bases(w) -> tuple[int, int, int]:
+    """(forward base, backward base, elements from one bi-LSTM's weights to the
+    next's in a direction) of one weight: a (forward, backward) pair of tensors
+    where they lie (one bi-LSTM; the stride is unread) or a [2K, ...] stack."""
+    if isinstance(w, torch.Tensor):
+        return w[0].data_ptr(), w[1].data_ptr(), 2 * w[0].numel()
+    return w[0].data_ptr(), w[1].data_ptr(), 0
+
+
+def _pairs(params_fw: LSTMParams, params_bw: LSTMParams) -> tuple:
+    """One bi-LSTM's (wx, wh, b), each a (forward, backward) pair for _bases."""
+    return tuple((getattr(params_fw, f), getattr(params_bw, f)) for f in ("wx", "wh", "b"))
 
 
 def lstm_fwd(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
@@ -94,32 +141,57 @@ def lstm_fwd(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     at the original time positions, for the backward. Counts its launches in
     `lstm_fwd.launches`."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_fwd")
-    dev = x.device
-    seq = lambda: torch.empty((n, t, 2 * h), dtype=torch.float32, device=dev)
-    out = seq() if emit_out else None
-    cell = seq() if emit_cell else None
-    fin = torch.empty((n, 2 * h), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out, fin, cell
-    lib = _lib("lstm_fwd", 11)
-    smem = lib.lstm_fwd_smem_bytes(d, h)
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"lstm_fwd needs {smem} B of shared memory at D={d}, H={h}; "
-                         f"a block has {build.SMEM_LIMIT}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_fwd(x.data_ptr(), lengths.data_ptr(),
-                           *(getattr(p, f).data_ptr() for f in ("wx", "wh", "b")
-                             for p in (params_fw, params_bw)),
-                           _ptr(out), _ptr(cell), fin.data_ptr(), n, t, d, h,
-                           float(forget_bias), stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_fwd launch failed: {lib.lstm_fwd_error_string(err).decode()}")
-    build.count_launch(lstm_fwd)
-    return out, fin, cell
+    return _fwd_call(x, lengths, _pairs(params_fw, params_bw), (), 1, n, t, d, h, forget_bias,
+                     emit_out, emit_cell)
 
 
 lstm_fwd.launches = 0
+
+
+def _old_call(stem: str, dev, d: int, h: int, *args) -> None:
+    """Check csrc/<stem>.cu's shared memory at (d, h) (lstm_fwd or lstm_bwd),
+    call its launcher with args on the current stream of `dev`; count one
+    launch."""
+    lib = _lib(stem, {"lstm_fwd": 11, "lstm_bwd": 15}[stem])
+    smem = getattr(lib, f"{stem}_smem_bytes")(d, h)
+    if smem > build.SMEM_LIMIT:
+        raise ValueError(f"{stem} needs {smem} B of shared memory at D={d}, H={h}; "
+                         f"a block has {build.SMEM_LIMIT}")
+    with torch.cuda.device(dev):
+        err = getattr(lib, stem)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = getattr(lib, f"{stem}_error_string")(err).decode()
+        raise RuntimeError(f"{stem} launch failed: {msg}")
+    build.count_launch(globals()[stem])
+
+
+def _fwd_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, emit_cell):
+    """lstm_fwd's launch for k bi-LSTMs (weights: (wx, wh, b) as _bases takes
+    them); outputs shaped lead + [N, ...]."""
+    dev = x.device
+    seq = lambda: torch.empty((*lead, n, t, 2 * h), dtype=torch.float32, device=dev)
+    out = seq() if emit_out else None
+    cell = seq() if emit_cell else None
+    fin = torch.empty((*lead, n, 2 * h), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out, fin, cell
+    (wxf, wxb, wxs), (whf, whb, whs), (bf, bb, bs) = map(_bases, weights)
+    _old_call("lstm_fwd", dev, d, h, x.data_ptr(), lengths.data_ptr(), wxf, wxb, whf, whb, bf, bb,
+              _ptr(out), _ptr(cell), fin.data_ptr(), n, t, d, h, float(forget_bias), k, wxs,
+              whs, bs)
+    return out, fin, cell
+
+
+def lstm_fwd_grouped(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                     b: torch.Tensor, forget_bias: float, emit_out: bool,
+                     emit_cell: bool = False
+                     ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor | None]:
+    """`lstm_fwd` for K bi-LSTMs over one batch in one launch (inputs as
+    _check_grouped takes them): (out [K, N, T, 2H] or None, fin [K, N, 2H],
+    cell [K, N, T, 2H] or None). Counts one launch in `lstm_fwd.launches`."""
+    k, n, t, d, h = _check_grouped(x, lengths, wx, wh, b, "lstm_fwd")
+    return _fwd_call(x, lengths, (wx, wh, b), (k,), k, n, t, d, h, forget_bias, emit_out,
+                     emit_cell)
 
 
 def lstm_bwd(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
@@ -132,36 +204,44 @@ def lstm_bwd(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     g_fin [N, 2H] (None = zero). Inputs as for `lstm_fwd`. Counts its launches
     in `lstm_bwd.launches`."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_bwd")
+    wht = tuple(p.wh.t().contiguous() for p in (params_fw, params_bw))
+    return _bwd_call(x, lengths, _pairs(params_fw, params_bw), wht, (), 1, n, t, d, h, out,
+                     cell, g_out, g_fin, forget_bias)
+
+
+lstm_bwd.launches = 0
+
+
+def _bwd_call(x, lengths, weights, wht, lead, k, n, t, d, h, out, cell, g_out, g_fin,
+              forget_bias):
+    """lstm_bwd's launch for k bi-LSTMs (weights as _fwd_call's, wht the
+    transposed wh in wh's layout); dgates shaped lead + [N, T, 8H]."""
     dev = x.device
     for name, a, shape in (("out", out, (n, t, 2 * h)), ("cell", cell, (n, t, 2 * h)),
                            ("g_out", g_out, (n, t, 2 * h)), ("g_fin", g_fin, (n, 2 * h))):
         if a is not None:
-            build.check_f32(name, a, shape, dev)
-    dgates = torch.empty((n, t, 8 * h), dtype=torch.float32, device=dev)
+            build.check_f32(name, a, (*lead, *shape), dev)
+    dgates = torch.empty((*lead, n, t, 8 * h), dtype=torch.float32, device=dev)
     if n == 0:
         return dgates
-    lib = _lib("lstm_bwd", 15)
-    smem = lib.lstm_bwd_smem_bytes(d, h)
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"lstm_bwd needs {smem} B of shared memory at D={d}, H={h}; "
-                         f"a block has {build.SMEM_LIMIT}")
-    wht = [p.wh.t().contiguous() for p in (params_fw, params_bw)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lstm_bwd(x.data_ptr(), lengths.data_ptr(),
-                           params_fw.wx.data_ptr(), params_bw.wx.data_ptr(),
-                           params_fw.wh.data_ptr(), params_bw.wh.data_ptr(),
-                           wht[0].data_ptr(), wht[1].data_ptr(),
-                           params_fw.b.data_ptr(), params_bw.b.data_ptr(),
-                           out.data_ptr(), cell.data_ptr(), _ptr(g_out), _ptr(g_fin),
-                           dgates.data_ptr(), n, t, d, h, float(forget_bias), stream)
-    if err != 0:
-        raise RuntimeError(f"lstm_bwd launch failed: {lib.lstm_bwd_error_string(err).decode()}")
-    build.count_launch(lstm_bwd)
+    (wxf, wxb, wxs), (whf, whb, whs), (bf, bb, bs) = map(_bases, weights)
+    (wtf, wtb, _) = _bases(wht)
+    _old_call("lstm_bwd", dev, d, h, x.data_ptr(), lengths.data_ptr(), wxf, wxb, whf, whb,
+              wtf, wtb, bf, bb, out.data_ptr(), cell.data_ptr(), _ptr(g_out), _ptr(g_fin),
+              dgates.data_ptr(), n, t, d, h, float(forget_bias), k, wxs, whs, bs)
     return dgates
 
 
-lstm_bwd.launches = 0
+def lstm_bwd_grouped(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                     b: torch.Tensor, out: torch.Tensor, cell: torch.Tensor,
+                     g_out: torch.Tensor | None, g_fin: torch.Tensor | None,
+                     forget_bias: float) -> torch.Tensor:
+    """`lstm_bwd` for K bi-LSTMs over one batch in one launch (inputs as
+    `lstm_fwd_grouped` takes them; out, cell, g_out [K, N, T, 2H], g_fin
+    [K, N, 2H]): dgates [K, N, T, 8H]. Counts one launch in `lstm_bwd.launches`."""
+    k, n, t, d, h = _check_grouped(x, lengths, wx, wh, b, "lstm_bwd")
+    return _bwd_call(x, lengths, (wx, wh, b), wh.transpose(1, 2).contiguous(), (k,), k, n, t, d,
+                     h, out, cell, g_out, g_fin, forget_bias)
 
 
 # ---- the route: which kernels, cluster size, rows per tile -----------------------
@@ -256,15 +336,15 @@ def _rec_lib(stem: str) -> ctypes.CDLL:
     """csrc/<stem>.cu's library (lstm_rec or lstm_rec_bwd) with its argument
     types (see each source); lstm_rec's also exports lstm_proj and lstm_k1."""
     lib = build.library(stem)
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn = getattr(lib, stem)
-    fn.argtypes = {"lstm_rec": [p] * 7 + [i] * 6 + [f, i, p],
-                   "lstm_rec_bwd": [p] * 8 + [i] * 6 + [f, p]}[stem]
+    fn.argtypes = {"lstm_rec": [p] * 7 + [i] * 6 + [f, i, i, ll, p],
+                   "lstm_rec_bwd": [p] * 8 + [i] * 6 + [f, i, ll, p]}[stem]
     fn.restype = i
     if stem == "lstm_rec":
-        lib.lstm_proj.argtypes = [p] * 7 + [i] * 4 + [p]
+        lib.lstm_proj.argtypes = [p] * 7 + [i] * 5 + [ll, ll, p]
         lib.lstm_proj.restype = i
-        lib.lstm_k1.argtypes = [p] * 12 + [i] * 7 + [f, i, p]
+        lib.lstm_k1.argtypes = [p] * 12 + [i] * 7 + [f, i, i, ll, ll, ll, p]
         lib.lstm_k1.restype = i
     getattr(lib, f"{stem}_smem_bytes").argtypes = [i] * 4
     getattr(lib, f"{stem}_smem_bytes").restype = ctypes.c_longlong
@@ -314,7 +394,7 @@ def lstm_proj(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
         return xg
     _rec_call("lstm_rec", (lstm_proj,), x.device, x.data_ptr(), lengths.data_ptr(),
               params_fw.wx.data_ptr(), params_bw.wx.data_ptr(), params_fw.b.data_ptr(),
-              params_bw.b.data_ptr(), xg.data_ptr(), n, t, d, h, fn="lstm_proj")
+              params_bw.b.data_ptr(), xg.data_ptr(), n, t, d, h, 1, 0, 0, fn="lstm_proj")
     return xg
 
 
@@ -351,7 +431,7 @@ def lstm_rec(xg: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     _rec_call("lstm_rec", (lstm_rec,), dev, xg.data_ptr(), lengths.data_ptr(),
               params_fw.wh.data_ptr(), params_bw.wh.data_ptr(), _ptr(out), _ptr(cell),
               fin.data_ptr(), n, t, h, route.cluster, route.rows, route.split,
-              float(forget_bias), int(write_preact))
+              float(forget_bias), int(write_preact), 1, 0)
     return out, fin, cell
 
 
@@ -370,22 +450,47 @@ def lstm_k1(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     `lstm_proj.launches` (none at T = 0, where the C call skips the
     projection) and `lstm_rec.launches`."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_k1")
+    return _k1_call(x, lengths, _pairs(params_fw, params_bw), (), 1, n, t, d, h, forget_bias,
+                    emit_out, emit_cell, write_preact)
+
+
+def _k1_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, emit_cell,
+             write_preact):
+    """lstm_k1's launches for k bi-LSTMs (weights: (wx, wh, b) as _bases takes
+    them), on the route of one bi-LSTM of the shape; outputs shaped lead +
+    [N, ...]."""
     dev = x.device
-    seq = lambda: torch.empty((n, t, 2 * h), dtype=torch.float32, device=dev)
-    pre = torch.empty((n, t, 8 * h), dtype=torch.float32, device=dev)
+    seq = lambda: torch.empty((*lead, n, t, 2 * h), dtype=torch.float32, device=dev)
+    pre = torch.empty((*lead, n, t, 8 * h), dtype=torch.float32, device=dev)
     out = seq() if emit_out else None
     cell = seq() if emit_cell else None
-    fin = torch.empty((n, 2 * h), dtype=torch.float32, device=dev)
+    fin = torch.empty((*lead, n, 2 * h), dtype=torch.float32, device=dev)
     if n == 0:
         return pre, out, fin, cell
     route = _rec_route("lstm_rec", n, t, d, h)
     launched = (lstm_proj, lstm_rec) if t > 0 else (lstm_rec,)
-    _rec_call("lstm_rec", launched, dev, x.data_ptr(), lengths.data_ptr(),
-              params_fw.wx.data_ptr(), params_bw.wx.data_ptr(), params_fw.b.data_ptr(),
-              params_bw.b.data_ptr(), params_fw.wh.data_ptr(), params_bw.wh.data_ptr(),
-              pre.data_ptr(), _ptr(out), _ptr(cell), fin.data_ptr(), n, t, d, h, route.cluster,
-              route.rows, route.split, float(forget_bias), int(write_preact), fn="lstm_k1")
+    (wxf, wxb, wxs), (whf, whb, whs), (bf, bb, bs) = map(_bases, weights)
+    _rec_call("lstm_rec", launched, dev, x.data_ptr(), lengths.data_ptr(), wxf, wxb, bf, bb,
+              whf, whb, pre.data_ptr(), _ptr(out), _ptr(cell), fin.data_ptr(), n, t, d, h,
+              route.cluster, route.rows, route.split, float(forget_bias), int(write_preact),
+              k, wxs, whs, bs, fn="lstm_k1")
     return pre, out, fin, cell
+
+
+def lstm_k1_grouped(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                    b: torch.Tensor, forget_bias: float, emit_out: bool,
+                    emit_cell: bool = False, write_preact: bool = False
+                    ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor,
+                               torch.Tensor | None]:
+    """`lstm_k1` for K bi-LSTMs over one batch (inputs as _check_grouped takes
+    them): one launch of lstm_proj's kernel and one of lstm_rec's for all 2K
+    groups, each group on the route `lstm_route` gives one bi-LSTM of the shape
+    (so each group's sums are a lone call's). Returns (pre [K, N, T, 8H], out
+    [K, N, T, 2H] or None, fin [K, N, 2H], cell [K, N, T, 2H] or None). Counts
+    as `lstm_k1` does."""
+    k, n, t, d, h = _check_grouped(x, lengths, wx, wh, b, "lstm_k1")
+    return _k1_call(x, lengths, (wx, wh, b), (k,), k, n, t, d, h, forget_bias, emit_out,
+                    emit_cell, write_preact)
 
 
 def lstm_rec_bwd(pre: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
@@ -400,28 +505,52 @@ def lstm_rec_bwd(pre: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams
         raise ValueError(f"lstm_rec_bwd launches on a CUDA device, got {pre.device}")
     n, t = pre.shape[:2]
     d, h = params_fw.wx.shape[0], params_fw.wh.shape[0]
-    dev = pre.device
-    build.check_f32("pre", pre, (n, t, 8 * h), dev)
     for tag, p in (("fw", params_fw), ("bw", params_bw)):
-        build.check_f32(f"{tag}.wh", p.wh, (h, 4 * h), dev)
-    for name, a, shape in (("cell", cell, (n, t, 2 * h)), ("g_out", g_out, (n, t, 2 * h)),
-                           ("g_fin", g_fin, (n, 2 * h))):
-        if a is not None:
-            build.check_f32(name, a, shape, dev)
-    if lengths.device != dev or lengths.dtype != torch.int32 or tuple(lengths.shape) != (n,):
-        raise ValueError("lengths must be int32 [N] on the device of pre")
-    dgates = torch.empty((n, t, 8 * h), dtype=torch.float32, device=dev)
-    if n == 0:
-        return dgates
-    route = _rec_route("lstm_rec_bwd", n, t, d, h)
-    _rec_call("lstm_rec_bwd", (lstm_rec_bwd,), dev, pre.data_ptr(), lengths.data_ptr(),
-              params_fw.wh.data_ptr(), params_bw.wh.data_ptr(), cell.data_ptr(), _ptr(g_out),
-              _ptr(g_fin), dgates.data_ptr(), n, t, h, route.cluster, route.rows,
-              route.split, float(forget_bias))
-    return dgates
+        build.check_f32(f"{tag}.wh", p.wh, (h, 4 * h), pre.device)
+    return _rec_bwd_call(pre, lengths, (params_fw.wh, params_bw.wh), (), 1, n, t, d, h, cell,
+                         g_out, g_fin, forget_bias)
 
 
 lstm_rec_bwd.launches = 0
+
+
+def _rec_bwd_call(pre, lengths, wh, lead, k, n, t, d, h, cell, g_out, g_fin, forget_bias):
+    """lstm_rec_bwd's launch for k bi-LSTMs (wh as _bases takes it); dgates
+    shaped lead + [N, T, 8H]."""
+    dev = pre.device
+    build.check_f32("pre", pre, (*lead, n, t, 8 * h), dev)
+    for name, a, shape in (("cell", cell, (n, t, 2 * h)), ("g_out", g_out, (n, t, 2 * h)),
+                           ("g_fin", g_fin, (n, 2 * h))):
+        if a is not None:
+            build.check_f32(name, a, (*lead, *shape), dev)
+    if (lengths.device != dev or lengths.dtype != torch.int32
+            or tuple(lengths.shape) != (*lead, n) or not lengths.is_contiguous()):
+        raise ValueError(f"lengths must be contiguous int32 {[*lead, n]} on the device of pre")
+    dgates = torch.empty((*lead, n, t, 8 * h), dtype=torch.float32, device=dev)
+    if n == 0:
+        return dgates
+    route = _rec_route("lstm_rec_bwd", n, t, d, h)
+    whf, whb, whs = _bases(wh)
+    _rec_call("lstm_rec_bwd", (lstm_rec_bwd,), dev, pre.data_ptr(), lengths.data_ptr(), whf, whb,
+              cell.data_ptr(), _ptr(g_out), _ptr(g_fin), dgates.data_ptr(), n, t, h,
+              route.cluster, route.rows, route.split, float(forget_bias), k, whs)
+    return dgates
+
+
+def lstm_rec_bwd_grouped(pre: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor,
+                         wh: torch.Tensor, cell: torch.Tensor, g_out: torch.Tensor | None,
+                         g_fin: torch.Tensor | None, forget_bias: float) -> torch.Tensor:
+    """`lstm_rec_bwd` for K bi-LSTMs over one batch in one launch: dgates
+    [K, N, T, 8H] from `lstm_k1_grouped`'s pre and cell and the cotangents
+    g_out [K, N, T, 2H], g_fin [K, N, 2H] (None = zero); wx [2K, D, 4H] and wh
+    [2K, H, 4H] as lstm_k1_grouped took them (wx gives D for the route and is
+    not read). Counts one launch in `lstm_rec_bwd.launches`."""
+    if pre.device.type != "cuda":
+        raise ValueError(f"lstm_rec_bwd launches on a CUDA device, got {pre.device}")
+    k, n, t = pre.shape[:3]
+    d, h = wx.shape[1], wh.shape[1]
+    build.check_f32("wh", wh, (2 * k, h, 4 * h), pre.device)
+    return _rec_bwd_call(pre, lengths, wh, (k,), k, n, t, d, h, cell, g_out, g_fin, forget_bias)
 
 
 def _assemble_bwd(x, params_fw: LSTMParams, params_bw: LSTMParams, out, dgates,
@@ -523,3 +652,137 @@ def bilstm_fused_final(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Te
     if x.device.type == "cpu":
         return bilstm_ref(params_fw, params_bw, x, mask, forget_bias)[1]
     return _launch(params_fw, params_bw, x, mask, forget_bias, emit_out=False)[1]
+
+
+# ---- K bi-LSTMs over one batch in one launch of K1 and one of K1b ------------------
+
+def _prep_group(params_pairs, xs, masks):
+    """K bi-LSTMs over a shared batch as one stack of G = 2K groups (the JAX
+    package's _prep_group without its 128-lane gate padding): x [K, N, T_max,
+    D_max] with zero time and feature padding, lengths [K, N] int32, wx [2K,
+    D_max, 4H] with zero rows past each D_k (so the padding adds exact zeros to
+    every sum), wh [2K, H, 4H], b [2K, 4H]; group 2m + dir is bi-LSTM m's
+    direction dir. H must be shared; N too."""
+    if not params_pairs or not (len(params_pairs) == len(xs) == len(masks)):
+        raise ValueError(f"bilstm_fused_grouped takes as many (p_fw, p_bw) pairs, inputs and "
+                         f"masks, at least one: got {len(params_pairs)}, {len(xs)}, "
+                         f"{len(masks)}")
+    hs = {p.wh.shape[0] for pair in params_pairs for p in pair}
+    if len(hs) != 1:   # padding only equalizes T and D; H must match across the group
+        raise ValueError(f"grouped bi-LSTMs must share hidden_dim, got {sorted(hs)}")
+    if len({x.shape[0] for x in xs}) != 1:
+        raise ValueError(f"grouped bi-LSTMs run over one batch, got N = "
+                         f"{[x.shape[0] for x in xs]}")
+    t_max = max(x.shape[1] for x in xs)
+    d_max = max(x.shape[2] for x in xs)
+    x = torch.stack([torch.nn.functional.pad(x, (0, d_max - x.shape[2], 0, t_max - x.shape[1]))
+                     for x in xs])
+    lengths = torch.stack([m.sum(dim=1, dtype=torch.int32) for m in masks])
+    ps = [p for pair in params_pairs for p in pair]
+    wx = torch.stack([torch.nn.functional.pad(p.wx, (0, 0, 0, d_max - p.wx.shape[0]))
+                      for p in ps])
+    return (x.contiguous(), lengths, wx, torch.stack([p.wh for p in ps]),
+            torch.stack([p.b for p in ps]))
+
+
+def _grouped_k1(x, lengths, wx, wh, b, forget_bias, emit_cell: bool):
+    """(pre or None, out [K, N, T, 2H], fin [K, N, 2H], cell or None): one K1
+    launch for the stack on the route of one bi-LSTM of its shape."""
+    k, n, t, d = x.shape
+    if lstm_route(n, t, d, wh.shape[1]).kernels == REC_KERNELS:
+        return lstm_k1_grouped(x, lengths, wx, wh, b, forget_bias, emit_out=True,
+                               emit_cell=emit_cell, write_preact=emit_cell)
+    return (None, *lstm_fwd_grouped(x, lengths, wx, wh, b, forget_bias, emit_out=True,
+                                    emit_cell=emit_cell))
+
+
+def _unstack(out, fin, xs):
+    """Each bi-LSTM's (out [N, T_k, 2H], fin [N, 2H]) from the stack's outputs."""
+    return tuple(o for k, x in enumerate(xs) for o in (out[k, :, :x.shape[1]], fin[k]))
+
+
+class _GroupedBiLSTMFn(torch.autograd.Function):
+    """K bi-LSTMs over one batch: one K1 launch forward (cells and, on the Hopper
+    route, the pre-activations kept), one K1b launch backward, then dX, dWx,
+    dWh and db per bi-LSTM as _assemble_bwd's products (as the JAX package's
+    _grouped_bwd forms them outside Pallas). Inputs: forget_bias, K, then the K
+    masks, the K inputs and the 6K weights (wx, wh, b forward, then backward,
+    per bi-LSTM). Outputs: out_1, fin_1, ..., out_K, fin_K."""
+
+    @staticmethod
+    def forward(ctx, forget_bias, k, *tensors):
+        masks, xs, ws = tensors[:k], tensors[k:2 * k], tensors[2 * k:]
+        pairs = [(LSTMParams(*ws[6 * m:6 * m + 3]), LSTMParams(*ws[6 * m + 3:6 * m + 6]))
+                 for m in range(k)]
+        x, lengths, wx, wh, b = _prep_group(pairs, xs, masks)
+        pre, out, fin, cell = _grouped_k1(x, lengths, wx, wh, b, forget_bias, emit_cell=True)
+        ctx.save_for_backward(x, lengths, wx, wh, b, out, cell, pre)
+        ctx.forget_bias, ctx.shapes = forget_bias, [tuple(xx.shape) for xx in xs]
+        ctx.set_materialize_grads(False)
+        return _unstack(out, fin, xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, lengths, wx, wh, b, out, cell, pre = ctx.saved_tensors
+        k = len(ctx.shapes)
+        if all(g is None for g in grads):
+            return (None,) * (2 + 8 * k)
+        n, t_max = x.shape[1:3]
+        h = wh.shape[1]
+        g_out = x.new_zeros(k, n, t_max, 2 * h)
+        g_fin = x.new_zeros(k, n, 2 * h)
+        for m, (_, t_m, _) in enumerate(ctx.shapes):
+            if grads[2 * m] is not None:
+                g_out[m, :, :t_m] = grads[2 * m]
+            if grads[2 * m + 1] is not None:
+                g_fin[m] = grads[2 * m + 1]
+        if pre is not None:
+            dgates = lstm_rec_bwd_grouped(pre, lengths, wx, wh, cell, g_out, g_fin,
+                                          ctx.forget_bias)
+        else:
+            dgates = lstm_bwd_grouped(x, lengths, wx, wh, b, out, cell, g_out, g_fin,
+                                      ctx.forget_bias)
+        dxs, dws = [], []
+        for m, (_, t_m, d_m) in enumerate(ctx.shapes):
+            p_fw = LSTMParams(wx[2 * m], wh[2 * m], b[2 * m])
+            p_bw = LSTMParams(wx[2 * m + 1], wh[2 * m + 1], b[2 * m + 1])
+            dx, d_fw, d_bw = _assemble_bwd(x[m], p_fw, p_bw, out[m], dgates[m],
+                                           ctx.needs_input_grad[2 + k + m])
+            dxs.append(None if dx is None else dx[:, :t_m, :d_m])
+            dws += [d_fw.wx[:d_m], d_fw.wh, d_fw.b, d_bw.wx[:d_m], d_bw.wh, d_bw.b]
+        return (None, None, *(None,) * k, *dxs, *dws)
+
+
+def bilstm_fused_grouped_ref(params_pairs, xs, masks, forget_bias: float = 1.0
+                             ) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """bilstm_fused_grouped's plain version: `bilstm_ref` per pair."""
+    return tuple(bilstm_ref(p_fw, p_bw, x, mask, forget_bias)
+                 for (p_fw, p_bw), x, mask in zip(params_pairs, xs, masks))
+
+
+def bilstm_fused_grouped(params_pairs, xs, masks, forget_bias: float = 1.0
+                         ) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """K independent bi-LSTM encodes over one shared batch in ONE launch of K1
+    and (under grad) one of K1b, G = 2K groups each: the JAX package's
+    bilstm_fused_grouped (fvta_memexqa_tpu/ops/lstm_fused.py:495), e.g. the
+    flagship model's six per-modality time encoders. params_pairs: tuple of
+    (p_fw, p_bw) sharing H; xs: tuple of [N, T_k, D_k]; masks: tuple of
+    [N, T_k] prefix masks. Returns a tuple of (out [N, T_k, 2H], fin [N, 2H]),
+    each equal to `bilstm_fused` of its pair. The inputs are padded to the
+    longest T and the widest D; each group runs on the route `lstm_route` gives
+    one bi-LSTM of (N, T_max, D_max, H). Not ops/lstm_grouped.bilstm_grouped,
+    which is the K7/K8 scan API (lstm_pallas.py's counterpart). On a CPU tensor
+    it runs `bilstm_fused_grouped_ref`."""
+    if len({p.wh.shape[0] for pair in params_pairs for p in pair}) > 1:
+        _prep_group(params_pairs, xs, masks)   # raises the shared-H ValueError
+    if xs[0].device.type == "cpu":
+        return bilstm_fused_grouped_ref(params_pairs, xs, masks, forget_bias)
+    k = len(xs)
+    weights = [w for pair in params_pairs for p in pair for w in p]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (*xs, *weights)):
+        flat = _GroupedBiLSTMFn.apply(float(forget_bias), k, *masks, *xs, *weights)
+    else:
+        x, lengths, wx, wh, b = _prep_group(params_pairs, xs, masks)
+        _, out, fin, _ = _grouped_k1(x, lengths, wx, wh, b, forget_bias, emit_cell=False)
+        flat = _unstack(out, fin, xs)
+    return tuple(zip(flat[0::2], flat[1::2]))

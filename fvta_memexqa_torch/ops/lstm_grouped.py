@@ -3,7 +3,8 @@
 
 The counterpart of fvta_memexqa_tpu/ops/lstm_pallas.py, the round-1 fused scans
 that lstm_fused.py superseded: `lstm_scan_grouped` is `lstm_scan_pallas` and
-`bilstm_grouped` is `bilstm_pallas`, with the contract of lstm_ref.lstm_scan_ref
+`bilstm_grouped` is `bilstm_pallas` (not ops/lstm_fused.bilstm_fused_grouped,
+K bi-LSTMs over one batch in one launch of K1 and K1b), with the contract of lstm_ref.lstm_scan_ref
 and bilstm_ref — (out [N, T, H or 2H], fin [N, H or 2H]), outputs 0 past each
 row's length, fin the last carried h.
 
@@ -479,5 +480,7 @@ def bilstm_grouped(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional encode, the contract of bilstm_ref: (outputs [N, T, 2H],
     final [N, 2H]); both directions run as one G = 2 launch. `block_b` is read
-    and selects nothing."""
+    and selects nothing. The K7/K8 API (lstm_pallas.bilstm_pallas's
+    counterpart); K bi-LSTMs in one K1 launch are ops/lstm_fused's
+    bilstm_fused_grouped."""
     return _GroupedFn.apply(True, x, mask.bool(), float(forget_bias), *params_fw, *params_bw)

@@ -12,6 +12,14 @@
   micro-batches (a few ms, or until the batch is full) and answers each batch
   in one query-side call (FVTAModel.answer) over the cached album states.
   Beyond `max_pending` queued requests it sheds load (EngineOverloadedError).
+- Over a device mesh (`mesh=parallel.mesh.make_mesh(MeshConfig(data_parallel=
+  N))`, `cli serve --dp N`), one process and one engine worker: the store
+  keeps a copy of the model, the shared tables and the vocabulary table on
+  every distinct device of the layout, the padded micro-batch splits into N
+  contiguous shards and shard i runs the answer step on the layout's device i
+  (every shard launched before any result is read back). No collective is
+  needed: inference has no gradient to sum. `shard_cache` puts each album's
+  entry on one home device (crc32 of its id modulo N) instead of the first.
 - serve_http(): stdlib ThreadingHTTPServer with GET /healthz, GET /stats,
   POST /ask and POST /albums; bearer-token auth, global and per-client rate
   limits (RateLimiter), a periodic cache saver and optional TLS.
@@ -26,11 +34,14 @@ engine's worker, the caller of ingest, an HTTP handler or the saver.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import queue
 import threading
 import time
+import zlib
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
@@ -38,7 +49,7 @@ import numpy as np
 import torch
 
 from fvta_memexqa_torch.checkpoint import CheckpointManager, atomic_torch_save
-from fvta_memexqa_torch.config import MODALITIES, NUM_CHOICES, Config, load_config
+from fvta_memexqa_torch.config import MODALITIES, NUM_CHOICES, Config, MeshConfig, load_config
 from fvta_memexqa_torch.convert import load_rundir
 from fvta_memexqa_torch.data.device_prepro import (ModelInputs, SharedTables,
                                                    as_tensor, assemble_albums)
@@ -49,11 +60,10 @@ from fvta_memexqa_torch.data.tokenize import tokenize
 from fvta_memexqa_torch.data.vocab import Vocab
 from fvta_memexqa_torch.models.fvta import (FVTAModel, a1_config, make_photo_table,
                                             make_vocab_table)
+from fvta_memexqa_torch.parallel.mesh import RankLayout, make_mesh
 
 CACHE_DTYPES = ("float32", "bfloat16", "int8")
 CACHE_FILE = "album_cache.pt"    # the saved encodings; album_ids.json lists the ids
-MESH_NOT_PORTED = ("multi-card serving (--dp > 1, --shard-cache) is not ported yet: it "
-                   "belongs to the data-parallel slice, ROADMAP.md §1 item 5")
 
 
 def vocab_view(meta: dict) -> Vocab:
@@ -170,6 +180,23 @@ def _cpu_copy(x):
     return x.detach().cpu().clone()
 
 
+def _to(x, device):
+    """A cache entry's h (a tensor, or an int8 {"q", "s"} dict) or m on `device`."""
+    if isinstance(x, dict):
+        return {k: v.to(device) for k, v in x.items()}
+    return x.to(device)
+
+
+@dataclass(frozen=True)
+class Replica:
+    """What one device of a serving mesh answers with: the model, the shared
+    tables and the vocabulary table (None without vocab_embed) on that device."""
+
+    model: FVTAModel
+    shared: SharedTables
+    vocab_table: torch.Tensor | None
+
+
 class AlbumStore:
     """Thread-safe LRU cache: album_id → encoded context states ([6, T, 2H]
     h in `cache_dtype`, [6, T] bool mask) on the model's device.
@@ -180,8 +207,17 @@ class AlbumStore:
     max_retained_inputs: bound on the host-side inputs kept for re-encoding
     (outside the byte budget, LRU). cache_dtype: float32, bfloat16 (half the
     bytes) or int8 (per-row max-abs quantization, ~0.26x); the encode and the
-    answer stay float32, only the cached copy is rounded. A mesh and
-    shard_cache (multi-card serving) raise NotImplementedError."""
+    answer stay float32, only the cached copy is rounded.
+
+    mesh: a parallel.mesh.RankLayout to serve over (QAEngine answers shard i
+    of each micro-batch on mesh.devices[i]): the model, the shared tables and
+    the vocabulary table get one copy per distinct device of the layout (a
+    repeated device shares one). Albums encode on the model's device.
+    shard_cache (needs a mesh): each entry lives on its home device, slot
+    zlib.crc32(album_id) % data_parallel of the layout, and
+    `cache_bytes_per_device` reports each slot's bytes; without it entries
+    stay on the model's device and are copied to the answering device per
+    question."""
 
     def __init__(self, cfg: Config, model: FVTAModel, shared: SharedTables, vocab: Vocab,
                  max_bytes: int | None = None, mesh=None, max_retained_inputs: int = 4096,
@@ -189,8 +225,8 @@ class AlbumStore:
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"unknown cache_dtype {cache_dtype!r} "
                              "(expected float32 | bfloat16 | int8)")
-        if mesh is not None or shard_cache:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        if shard_cache and mesh is None:
+            raise ValueError("shard_cache requires a device mesh (--dp N)")
         self.cfg = cfg
         self.model = model
         self.shared = shared
@@ -215,6 +251,22 @@ class AlbumStore:
         # parameters are frozen while serving: the vocab embed table is computed
         # once here and reused by every ingest and every query batch
         self.vocab_table = make_vocab_table(model, shared)
+        self.mesh: RankLayout | None = mesh
+        self.shard_cache = shard_cache
+        self.replicas = {self.device: Replica(model, shared, self.vocab_table)}
+        if mesh is not None:
+            for d in map(torch.device, mesh.devices):
+                if d not in self.replicas:
+                    self.replicas[d] = Replica(
+                        copy.deepcopy(model).to(d),
+                        dataclasses.replace(shared, **{
+                            f.name: getattr(shared, f.name).to(d)
+                            for f in dataclasses.fields(shared)}),
+                        None if self.vocab_table is None else self.vocab_table.to(d))
+        if shard_cache:
+            self._cache_devices = [torch.device(d) for d in mesh.devices]
+            self._dev_bytes = [0] * len(self._cache_devices)
+            self._home: dict[str, int] = {}
 
     @torch.no_grad()
     def _encode(self, mi: ModelInputs):
@@ -227,18 +279,38 @@ class AlbumStore:
     def _entry_bytes(h, m) -> int:
         return sum(t.numel() * t.element_size() for t in _leaves(h, m))
 
+    def _home_device(self, album_id: str) -> int:
+        """The sharded cache's home slot of an album (the JAX package's hash)."""
+        return zlib.crc32(album_id.encode()) % len(self._cache_devices)
+
+    def _forget(self, album_id: str) -> None:
+        """Drop an entry and its bytes (under the lock)."""
+        nb = self._entry_bytes(*self._store.pop(album_id))
+        self._bytes -= nb
+        if self.shard_cache:
+            self._dev_bytes[self._home.pop(album_id)] -= nb
+
     def _put(self, album_id: str, h, m: torch.Tensor, mark_dirty: bool = True) -> None:
         """mark_dirty=False for values already reflected on disk (restores, pack
         entries and on-demand re-encodes), so budget churn does not make the
-        periodic saver rewrite the cache every period."""
+        periodic saver rewrite the cache every period. With shard_cache the
+        entry is committed to its home device first."""
         h = _quant_h(h, self._cache_mode)
+        di = None
+        if self.shard_cache:
+            di = self._home_device(album_id)
+            h, m = _to(h, self._cache_devices[di]), m.to(self._cache_devices[di])
         h = {k: _own(v) for k, v in h.items()} if isinstance(h, dict) else _own(h)
         m = _own(m)
         with self._lock:
             if album_id in self._store:
-                self._bytes -= self._entry_bytes(*self._store.pop(album_id))
+                self._forget(album_id)
             self._store[album_id] = (h, m)
-            self._bytes += self._entry_bytes(h, m)
+            nb = self._entry_bytes(h, m)
+            self._bytes += nb
+            if di is not None:
+                self._home[album_id] = di
+                self._dev_bytes[di] += nb
             if mark_dirty:
                 self._gen += 1
             while (self.max_bytes is not None and self._bytes > self.max_bytes
@@ -250,7 +322,7 @@ class AlbumStore:
                 if victim is None:
                     victim = next(iter(self._store))
                     self.evictions_unrecoverable += 1
-                self._bytes -= self._entry_bytes(*self._store.pop(victim))
+                self._forget(victim)
                 self.evictions += 1
                 if victim == album_id:
                     break  # the new entry itself was the only recoverable one
@@ -298,12 +370,14 @@ class AlbumStore:
                 self._put(a, h[i], m[i], mark_dirty=False)
         return len(missing)
 
-    def get_stacked(self, album_ids: list[str]):
+    def get_stacked(self, album_ids: list[str], device: torch.device | None = None):
         """Cached states for album_ids, padded to max_albums: (h [S, T, 2H] f32,
-        m [S, T], number found). Touches each hit (LRU recency, of its retained
-        inputs too); an evicted album, or a pack album not cached yet, is
-        re-encoded outside the lock (counted in `reencodes`) and served with
+        m [S, T], number found) on `device` (default: the model's), where the
+        referenced entries are brought. Touches each hit (LRU recency, of its
+        retained inputs too); an evicted album, or a pack album not cached yet,
+        is re-encoded outside the lock (counted in `reencodes`) and served with
         the cache_dtype rounding a hit would have. Unknown ids are skipped."""
+        device = self.device if device is None else torch.device(device)
         d = self.cfg.data
         n_mod = len(MODALITIES)
         entries = []
@@ -329,11 +403,13 @@ class AlbumStore:
                 self.reencodes += 1
             entries.append((_quant_h(h[0], self._cache_mode), m[0]))
         t, h2 = d.max_context_time, 2 * self.cfg.model.hidden_dim
-        h = torch.zeros((d.max_albums * n_mod, t, h2), device=self.device)
-        m = torch.zeros((d.max_albums * n_mod, t), dtype=torch.bool, device=self.device)
+        h = torch.zeros((d.max_albums * n_mod, t, h2), device=device)
+        m = torch.zeros((d.max_albums * n_mod, t), dtype=torch.bool, device=device)
+        # entries live on the model's device unless the cache is sharded
+        move = self.shard_cache or device != self.device
         for i, (eh, em) in enumerate(entries):
-            h[i * n_mod : (i + 1) * n_mod] = _dequant_h(eh)
-            m[i * n_mod : (i + 1) * n_mod] = em
+            h[i * n_mod : (i + 1) * n_mod] = _dequant_h(_to(eh, device) if move else eh)
+            m[i * n_mod : (i + 1) * n_mod] = em.to(device) if move else em
         return h, m, len(entries)
 
     # ---- persistence ---------------------------------------------------------
@@ -366,9 +442,10 @@ class AlbumStore:
 
     def load(self, path: str) -> int:
         """Restore a saved cache onto this store's device (whichever device saved
-        it); returns the number of albums loaded. An int8 cache loaded into a
-        float32 or bfloat16 store is dequantized, a float cache loaded into an
-        int8 store quantized. Leaves the dirty state as it was."""
+        it; with shard_cache each entry goes back to its home device); returns
+        the number of albums loaded. An int8 cache loaded into a float32 or
+        bfloat16 store is dequantized, a float cache loaded into an int8 store
+        quantized. Leaves the dirty state as it was."""
         tree = torch.load(os.path.join(path, CACHE_FILE), map_location="cpu",
                           weights_only=True)
         for a, h, m in zip(tree["album_ids"], tree["h"], tree["m"]):
@@ -393,9 +470,12 @@ class AlbumStore:
 
     @property
     def cache_bytes_per_device(self) -> list[int] | None:
-        """Per-device footprint of a sharded cache; None (the cache is not
-        sharded: shard_cache is not ported)."""
-        return None
+        """Per-device footprint of a sharded cache, one entry per slot of the
+        mesh (sums to cache_bytes); None when the cache is not sharded."""
+        if not self.shard_cache:
+            return None
+        with self._lock:
+            return list(self._dev_bytes)
 
 
 @dataclass
@@ -416,10 +496,15 @@ class QAEngine:
     """Micro-batching concurrent QA over an AlbumStore.
 
     max_pending: bound on queued requests; beyond it ask() sheds load at once
-    with EngineOverloadedError (counted in `shed`). None = unbounded."""
+    with EngineOverloadedError (counted in `shed`). None = unbounded. Over the
+    store's mesh the micro-batch is padded to batch_size (which must divide by
+    the mesh's data axis) and answered shard by shard on its devices."""
 
     def __init__(self, store: AlbumStore, batch_size: int = 8,
                  batch_window_ms: float = 3.0, max_pending: int | None = None):
+        if store.mesh is not None and batch_size % store.mesh.data_parallel:
+            raise ValueError(f"serving batch_size {batch_size} must be divisible by the "
+                             f"mesh's data axis ({store.mesh.data_parallel})")
         self.store = store
         self.cfg = store.cfg
         self.batch_size = batch_size
@@ -435,7 +520,8 @@ class QAEngine:
 
     def warmup(self) -> float:
         """Run the answer step once on a dummy request before taking traffic
-        (builds the kernels on the card). Returns the seconds it took."""
+        (builds the kernels on the card; over a mesh the padded batch reaches
+        every device). Returns the seconds it took."""
         t0 = time.perf_counter()
         self.answer_batch([("warmup ?", ["a", "b", "c", "d"], [])])
         self.stats["questions"] -= 1  # don't count the dummy
@@ -508,11 +594,11 @@ class QAEngine:
                     p.result = {"error": repr(e)}
                     p.event.set()
 
-    def _query_inputs(self, pending: list[_Pending]) -> ModelInputs:
-        """Question/choice ids of a micro-batch; the album-side fields (unread by
+    def _query_inputs(self, pending: list[_Pending], n: int, device) -> ModelInputs:
+        """Question/choice ids of a micro-batch on `device`, zero rows past the
+        requests up to n rows; the album-side fields (unread by
         FVTAModel.answer) are minimal zeros."""
         d = self.cfg.data
-        n = len(pending)
         W = d.max_word_len
         v = self.store.vocab
         qw = np.zeros((n, d.max_question_len), np.int32)
@@ -528,7 +614,7 @@ class QAEngine:
                                                                d.max_answer_len, W)
         z = np.zeros
         return ModelInputs(**_tensors(
-            self.store.device,
+            device,
             q_words=qw, q_chars=qc, q_mask=qm,
             choice_words=cw, choice_chars=cc, choice_mask=cm,
             photo_feats=z((n, 1, 1, 1), np.float32), photo_mask=z((n, 1, 1), bool),
@@ -541,16 +627,44 @@ class QAEngine:
             album_mask=np.ones((n, 1), bool),
             label=z(n, np.int32), ex_mask=np.ones(n, bool)))
 
+    def _shards(self, pending: list[_Pending]) -> list[tuple[list[_Pending], int, torch.device]]:
+        """(requests, rows, device) per answer step: the whole micro-batch on
+        the store's device, or over a mesh the batch padded to batch_size (a
+        multiple of the data axis past it) in contiguous shards, shard i on the
+        layout's device i."""
+        mesh = self.store.mesh
+        if mesh is None:
+            return [(pending, len(pending), self.store.device)]
+        dp = mesh.data_parallel
+        per = max(self.batch_size, -(-len(pending) // dp) * dp) // dp
+        return [(pending[i * per:(i + 1) * per], per, torch.device(mesh.devices[i]))
+                for i in range(dp)]
+
     @torch.no_grad()
-    def _run_batch(self, pending: list[_Pending]):
-        mi = self._query_inputs(pending)
-        stacked = [self.store.get_stacked(p.album_ids) for p in pending]
+    def _answer_shard(self, pending: list[_Pending], n: int, device):
+        """Launch one answer step over n rows on `device` (zero rows past the
+        requests): (logits, seq_attn) on the device, and the albums found."""
+        d = self.cfg.data
+        rep = self.store.replicas[device]
+        mi = self._query_inputs(pending, n, device)
+        stacked = [self.store.get_stacked(p.album_ids, device) for p in pending]
+        if n > len(pending):   # a mesh's padding rows
+            h = torch.zeros((d.max_albums * len(MODALITIES), d.max_context_time,
+                             2 * self.cfg.model.hidden_dim), device=device)
+            stacked += [(h, torch.zeros(h.shape[:2], dtype=torch.bool, device=device), 0)] * (
+                n - len(pending))
         h_ctx = torch.stack([s[0] for s in stacked])
         ctx_mask = torch.stack([s[1] for s in stacked])
-        out = self.store.model.answer(self.store.shared, mi, h_ctx, ctx_mask,
-                                      self.store.vocab_table)
-        logits = out.logits.cpu().numpy()
-        seq_attn = out.attention.seq_attn.cpu().numpy()
+        out = rep.model.answer(rep.shared, mi, h_ctx, ctx_mask, rep.vocab_table)
+        return out.logits, out.attention.seq_attn, [s[2] for s in stacked[:len(pending)]]
+
+    @torch.no_grad()
+    def _run_batch(self, pending: list[_Pending]):
+        # every shard is launched before any result is read back
+        shards = [self._answer_shard(*s) for s in self._shards(pending)]
+        logits = np.concatenate([lg.cpu().numpy() for lg, _, _ in shards])
+        seq_attn = np.concatenate([sa.cpu().numpy() for _, sa, _ in shards])
+        found = [k for _, _, f in shards for k in f]
         probs = np.exp(logits - logits.max(-1, keepdims=True))
         probs = probs / probs.sum(-1, keepdims=True)
         for i, p in enumerate(pending):
@@ -559,7 +673,7 @@ class QAEngine:
                 "answer": p.choices[best],
                 "answer_index": best,
                 "probs": [float(x) for x in probs[i]],
-                "albums_found": stacked[i][2],
+                "albums_found": found[i],
                 "seq_attention": [float(x) for x in seq_attn[i]],
             }
             p.event.set()
@@ -788,16 +902,23 @@ def build_engine(packdir: str, rundir: str, device: str | torch.device = "cuda",
                  load_best: bool = True, batch_size: int = 8,
                  max_cache_bytes: int | None = None, cache_dir: str | None = None,
                  dp: int = 1, max_pending: int | None = None, preingest: bool = True,
-                 shard_cache: bool = False, cache_dtype: str = "float32"):
+                 shard_cache: bool = False, cache_dtype: str = "float32",
+                 devices: list | None = None):
     """Load pack + port run directory onto `device`, restore a saved album cache
     from cache_dir (if it holds one), pre-ingest the pack's albums not already
     cached (preingest=False: they encode lazily on first use), warm up, and
     return (engine, store, packed). load_best=True serves the run's params.pt
     (the best-on-val weights `train` writes); False its latest checkpoint.
-    max_cache_bytes: the album cache's byte budget; cache_dtype as AlbumStore's;
-    max_pending as QAEngine's. dp > 1 and shard_cache raise NotImplementedError."""
-    if dp > 1 or shard_cache:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    max_cache_bytes: the album cache's byte budget; cache_dtype and shard_cache
+    as AlbumStore's; max_pending as QAEngine's. dp > 1 serves over the mesh
+    make_mesh(MeshConfig(data_parallel=dp), devices, device): by default one
+    card per shard (a ValueError when there are fewer cards than dp) or dp CPU
+    slots for a CPU `device`; an explicit `devices` list may repeat a card. The
+    model loads onto the mesh's first device."""
+    mesh = None
+    if dp > 1:
+        mesh = make_mesh(MeshConfig(data_parallel=dp), devices, device)
+        device = mesh.devices[0]
     dev = resolve_device(device)
     packed = load_pack(packdir)
     cfg = load_config(os.path.join(rundir, "config.json")).replace(data=packed.cfg)
@@ -809,7 +930,8 @@ def build_engine(packdir: str, rundir: str, device: str | torch.device = "cuda",
         model = model.to(dev).eval()
     shared = SharedTables.from_packed(packed.shared, dev)
     store = AlbumStore(cfg, model, shared, vocab_view(packed.meta),
-                       max_bytes=max_cache_bytes, cache_dtype=cache_dtype)
+                       max_bytes=max_cache_bytes, mesh=mesh, shard_cache=shard_cache,
+                       cache_dtype=cache_dtype)
     if cache_dir and os.path.exists(os.path.join(cache_dir, "album_ids.json")):
         n = store.load(cache_dir)
         print(f"restored {n} cached album encodings from {cache_dir}", flush=True)
@@ -839,10 +961,13 @@ def main(argv) -> int:
     p.add_argument("--cache-dir", default=None,
                    help="persist/restore the album-encoding cache here")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel devices for the query step (not ported: "
-                        "> 1 raises)")
+                   help="data-parallel devices for the query step: each micro-batch "
+                        "splits into dp shards, one per card (dp CPU slots with "
+                        "--device cpu); fewer cards than dp is an error")
     p.add_argument("--shard-cache", action="store_true",
-                   help="shard the album cache over the --dp mesh (not ported: raises)")
+                   help="shard the album-encoding cache over the --dp mesh (each "
+                        "album on one hash-chosen device; /stats reports "
+                        "cache_bytes_per_device); needs --dp > 1")
     p.add_argument("--auth-token", default=None,
                    help="require 'Authorization: Bearer <token>' on every "
                         "request; comma-separated values issue one credential "
@@ -868,16 +993,15 @@ def main(argv) -> int:
                         "(they encode lazily per query instead)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.dp > 1 or args.shard_cache:
-        raise NotImplementedError(MESH_NOT_PORTED)
     _check_tls(args.tls_cert, args.tls_key)   # before the engine loads
 
     engine, store, _ = build_engine(
         args.packdir, args.rundir, device=args.device, load_best=not args.load_latest,
         batch_size=args.batch_size,
         max_cache_bytes=args.max_cache_mb * 1 << 20 if args.max_cache_mb else None,
-        cache_dir=args.cache_dir, max_pending=args.max_pending,
-        preingest=not args.no_preingest, cache_dtype=args.cache_dtype)
+        cache_dir=args.cache_dir, dp=args.dp, max_pending=args.max_pending,
+        preingest=not args.no_preingest, shard_cache=args.shard_cache,
+        cache_dtype=args.cache_dtype)
     try:
         feats: dict[str, np.ndarray] = {}
         if args.raw_albums and args.raw_photo_npz:

@@ -10,7 +10,8 @@ directory (here a seeded full-width model, where chip_smoke uses phase 7's
 trained one) and phase 16's raw files (album_info.json, photo_feats.npz). Runs
 chip_smoke.serving_http_phase (f32 server with auth, limits and a cache dir;
 a 1 MiB byte budget; bfloat16 and int8 caches; a restart on the saved cache;
-the --dp 2 / --shard-cache refusals; TLS; open-loop Poisson load) and prints
+the refusals of --dp past the cards and of --shard-cache without --dp; TLS;
+open-loop Poisson load) and prints
 its `serving_http` line, the card line and {"ok": true, "device": {...}}.
 """
 

@@ -13,7 +13,9 @@ against the JAX package's (fvta_memexqa_tpu/bench_lib.py, capacity_probe.py):
 - tests/test_capacity_probe.py's cases for the port: both paths at T = 64 and
   at T = 1024 (where the kernel path streams), forward and with grad; t_list
   probes exactly the listed points; an OutOfMemoryError is recorded and any
-  other error re-raised; the minted inputs against the JAX probe's fill.
+  other error re-raised; the minted inputs against the JAX probe's fill;
+  `cp_memory_table`'s counted bytes against XLA's on that file's CP cases, and
+  the table refusing a CPU device.
 """
 
 import dataclasses
@@ -27,6 +29,7 @@ from jax import lax
 from torch.utils.flop_counter import FlopCounterMode
 
 from fvta_memexqa_tpu import bench_lib as jax_bench
+from fvta_memexqa_tpu import capacity_probe as jax_capacity
 
 from fvta_memexqa_torch import bench_lib, capacity_probe
 from fvta_memexqa_torch.data.device_prepro import assemble
@@ -270,6 +273,24 @@ def test_oom_is_recorded_and_any_other_error_reraised(monkeypatch):
     monkeypatch.setattr(capacity_probe, "_run_at_t", broken)
     with pytest.raises(ValueError, match="refused"):
         capacity_probe.probe_largest_t(batch=1, j=16, d=16, t_start=64, device="cpu")
+
+
+@pytest.mark.parametrize("devices,grad", [(8, False), (8, True), (2, True)])
+def test_cp_memory_counted_bytes_match_xla(devices, grad):
+    """cp_memory_table's counted argument and output bytes, unsharded and per
+    CP rank, on tests/test_capacity_probe.py's cases (T = 4096, batch 2, J =
+    30, D = 64): equal to XLA's memory analysis of the JAX table's compiled
+    programs, which counts the same tensors without padding (the forward's
+    output is the [2, 64] context, 0.00 MB at this rounding)."""
+    ref = jax_capacity.cp_memory_table(t=4096, batch=2, j=30, d=64, devices=devices, grad=grad)
+    got = capacity_probe.counted_mb(4096, 2, 30, 64, devices, grad)
+    for side, key in (("local", "local_per_device"), ("cp", "cp_per_device")):
+        assert got[side] == {k: ref[key][k] for k in ("argument_mb", "output_mb")}, side
+
+
+def test_cp_memory_table_runs_on_a_card_only():
+    with pytest.raises(ValueError, match="CUDA memory"):
+        capacity_probe.cp_memory_table(t=64, d=8, devices=2, device="cpu")
 
 
 def test_probe_main_prints_one_json_line(capsys):

@@ -413,6 +413,179 @@ def test_emulated_cells_match_plain_carried_cells():
                                rtol=1e-6, atol=1e-7)
 
 
+# ---- the grouped bi-LSTM (bilstm_fused_grouped): G = 2K groups per K1 / K1b launch
+# K bi-LSTMs over one batch (mixed T and D, rows of length 0 and T); the flagship
+# model's six time encoders at a train step's batch (256 album slots: photo and
+# photo titles at T = 12, the four album texts at T = 24, all D = 200, H = 100);
+# and H = 300, past the largest cluster (lstm_fwd / lstm_bwd).
+GROUPED_FUSED_CASES = {
+    "mixed": (10, [(6, 9), (3, 9), (6, 5)], 4),
+    "flagship": (256, [(12, 200), (12, 200), (24, 200), (24, 200), (24, 200), (24, 200)], 100),
+    "past_limit": (64, [(12, 200), (24, 116)], 300),
+}
+
+
+def grouped_fused_case(n, specs, h, seed, device="cpu"):
+    """K bi-LSTM inputs over one batch of n rows: (pairs, xs, masks)."""
+    pairs, xs, masks = [], [], []
+    for k, (t, d) in enumerate(specs):
+        x, mask, p_fw, p_bw = lstm_case(n, t, d, h, seed=seed + k, device=device)
+        pairs.append((p_fw, p_bw))
+        xs.append(x)
+        masks.append(mask)
+    return pairs, xs, masks
+
+
+def grouped_fused_grads(fn, pairs, xs, masks, seed=9, scale=1.0, fin_only=()):
+    """Outputs of fn(pairs, xs) and the gradients of sum_k <out_k, g_out_k> +
+    <fin_k, g_fin_k> (N(0, scale) cotangents; bi-LSTM k in fin_only gets only
+    g_fin) w.r.t. every x and weight."""
+    rng = np.random.default_rng(seed)
+    dev = xs[0].device
+    cot = [(torch.from_numpy((rng.normal(0, 1, (*x.shape[:2], 2 * p.wh.shape[0])) * scale)
+                             .astype(np.float32)).to(dev),
+            torch.from_numpy((rng.normal(0, 1, (x.shape[0], 2 * p.wh.shape[0])) * scale)
+                             .astype(np.float32)).to(dev)) for x, (p, _) in zip(xs, pairs)]
+    leaves = [a.clone().requires_grad_() for a in xs] + [
+        w.clone().requires_grad_() for pair in pairs for p in pair for w in p]
+    k = len(xs)
+    ps = [(lstm_ref.LSTMParams(*leaves[k + 6 * m:k + 6 * m + 3]),
+           lstm_ref.LSTMParams(*leaves[k + 6 * m + 3:k + 6 * m + 6])) for m in range(k)]
+    res = fn(ps, leaves[:k])
+    loss = sum((fin * gf).sum() + (0 if m in fin_only else (out * go).sum())
+               for m, ((out, fin), (go, gf)) in enumerate(zip(res, cot)))
+    return [t.detach() for r in res for t in r], list(torch.autograd.grad(loss, leaves))
+
+
+def grouped_fn(masks):
+    """bilstm_fused_grouped's autograd Function, called as the card calls it."""
+    def run(ps, xs):
+        flat = lstm_fused._GroupedBiLSTMFn.apply(1.0, len(xs), *masks, *xs,
+                                                 *(w for pair in ps for p in pair for w in p))
+        return list(zip(flat[0::2], flat[1::2]))
+    return run
+
+
+def _group_params(wx, wh, b, m):
+    return (lstm_ref.LSTMParams(wx[2 * m], wh[2 * m], None if b is None else b[2 * m]),
+            lstm_ref.LSTMParams(wx[2 * m + 1], wh[2 * m + 1], None if b is None else b[2 * m + 1]))
+
+
+def grouped_emulated(monkeypatch, route: str):
+    """Swap per-group loops over the emulations above in for the grouped
+    launchers of `route` ("hopper": lstm_k1_grouped + lstm_rec_bwd_grouped;
+    "old": lstm_fwd_grouped + lstm_bwd_grouped, every shape routed there) and
+    traps for the other route's."""
+    def trap(*a, **k):
+        raise AssertionError(f"only the {route} route's grouped launchers may run")
+
+    def k1g(x, lengths, wx, wh, b, fb, emit_out, emit_cell=False, write_preact=False):
+        res = []
+        for m in range(x.shape[0]):
+            pf, pb = _group_params(wx, wh, b, m)
+            pre = proj_emulated(x[m], lengths[m], pf, pb)
+            res.append((pre, *rec_emulated(pre, lengths[m], pf, pb, fb, True, True,
+                                           write_preact)))
+        st = lambda i: torch.stack([r[i] for r in res])
+        return st(0), st(1) if emit_out else None, st(2), st(3) if emit_cell else None
+
+    def rbg(pre, lengths, wx, wh, cell, g_out, g_fin, fb):
+        return torch.stack([rec_bwd_emulated(pre[m], lengths[m], *_group_params(wx, wh, None, m),
+                                             cell[m], g_out[m], g_fin[m], fb)
+                            for m in range(pre.shape[0])])
+
+    def fwdg(x, lengths, wx, wh, b, fb, emit_out, emit_cell=False):
+        res = [k1_emulated(x[m], lengths[m], *_group_params(wx, wh, b, m), fb, True, True)
+               for m in range(x.shape[0])]
+        st = lambda i: torch.stack([r[i] for r in res])
+        return st(0) if emit_out else None, st(1), st(2) if emit_cell else None
+
+    def bwdg(x, lengths, wx, wh, b, out, cell, g_out, g_fin, fb):
+        return torch.stack([k1b_emulated(x[m], lengths[m], *_group_params(wx, wh, b, m), out[m],
+                                         cell[m], g_out[m], g_fin[m], fb)
+                            for m in range(x.shape[0])])
+
+    swaps = {"hopper": {"lstm_k1_grouped": k1g, "lstm_rec_bwd_grouped": rbg},
+             "old": {"lstm_fwd_grouped": fwdg, "lstm_bwd_grouped": bwdg}}[route]
+    for name in ("lstm_k1_grouped", "lstm_rec_bwd_grouped", "lstm_fwd_grouped",
+                 "lstm_bwd_grouped"):
+        monkeypatch.setattr(lstm_fused, name, swaps.get(name, trap))
+    if route == "old":
+        monkeypatch.setattr(lstm_fused, "lstm_route",
+                            lambda *shape: lstm_fused.LSTMRoute(OLD, 1, 8, 0))
+
+
+@pytest.mark.parametrize("route", ["hopper", "old"])
+@pytest.mark.parametrize("case,fin_only", [("mixed", ()), ("mixed", (1,)), ("zero_lengths", ())])
+def test_grouped_fn_with_emulated_kernels_matches_plain_autograd(monkeypatch, route, case,
+                                                                 fin_only):
+    """_GroupedBiLSTMFn (stacking and padding, one K1 and one K1b call for all
+    groups, the per-bi-LSTM products, the unpacking) with the grouped launchers
+    emulated on the CPU, against autograd through bilstm_ref per pair."""
+    grouped_emulated(monkeypatch, route)
+    if case == "zero_lengths":   # TestGrouped's second case and a bi-LSTM with no live row
+        pairs, xs, masks = grouped_fused_case(6, [(5, 7), (4, 3), (3, 3)], 3, seed=20)
+        masks[2] = torch.zeros_like(masks[2])
+    else:
+        pairs, xs, masks = grouped_fused_case(*GROUPED_FUSED_CASES["mixed"], seed=30)
+    ref_out, ref = grouped_fused_grads(
+        lambda ps, xx: lstm_fused.bilstm_fused_grouped_ref(ps, xx, masks), pairs, xs, masks,
+        fin_only=fin_only)
+    got_out, got = grouped_fused_grads(grouped_fn(masks), pairs, xs, masks, fin_only=fin_only)
+    for a, b in zip(got_out, ref_out):
+        torch.testing.assert_close(a, b, **LSTM_TOL)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=f"grad {i}")
+    for x, m, g in zip(xs, masks, got):
+        assert not g[~m].any()                 # no gradient into padded steps
+
+
+def test_grouped_prep_stacks_with_zero_padding():
+    pairs, xs, masks = grouped_fused_case(*GROUPED_FUSED_CASES["mixed"], seed=31)
+    x, lengths, wx, wh, b = lstm_fused._prep_group(pairs, xs, masks)
+    assert x.shape == (3, 10, 6, 9) and lengths.shape == (3, 10) and lengths.dtype == torch.int32
+    assert wx.shape == (6, 9, 16) and wh.shape == (6, 4, 16) and b.shape == (6, 16)
+    assert not x[1, :, 3:].any() and not x[2, :, :, 5:].any() and not wx[4:, 5:].any()
+    for m, ((p_fw, p_bw), xx, mask) in enumerate(zip(pairs, xs, masks)):
+        assert torch.equal(x[m, :, :xx.shape[1], :xx.shape[2]], xx)
+        assert torch.equal(lengths[m], mask.sum(1, dtype=torch.int32))
+        for g, p in ((2 * m, p_fw), (2 * m + 1, p_bw)):
+            assert torch.equal(wx[g, :p.wx.shape[0]], p.wx) and torch.equal(wh[g], p.wh)
+            assert torch.equal(b[g], p.b)
+
+
+def test_grouped_rejects_mixed_hidden_widths_and_batches():
+    pairs, xs, masks = grouped_fused_case(4, [(3, 5)], 4, seed=32)
+    other, x2, m2 = grouped_fused_case(4, [(3, 5)], 6, seed=33)
+    with pytest.raises(ValueError, match="must share hidden_dim, got \\[4, 6\\]"):
+        lstm_fused.bilstm_fused_grouped(tuple(pairs + other), tuple(xs + x2), tuple(masks + m2))
+    _, x3, m3 = grouped_fused_case(5, [(3, 5)], 4, seed=34)
+    with pytest.raises(ValueError, match="one batch"):
+        lstm_fused._prep_group(pairs * 2, xs + x3, masks + m3)
+
+
+def test_grouped_bilstm_wrappers_refuse_cpu_tensors(monkeypatch):
+    def no_build(*a, **k):
+        raise AssertionError("a refused CPU tensor must not build kernels")
+
+    monkeypatch.setattr(build, "build_all", no_build)
+    pairs, xs, masks = grouped_fused_case(*GROUPED_FUSED_CASES["mixed"], seed=35)
+    x, lengths, wx, wh, b = lstm_fused._prep_group(pairs, xs, masks)
+    out = torch.zeros(3, 10, 6, 8)
+    pre = torch.zeros(3, 10, 6, 32)
+    before = lstm_launches()
+    for call in (lambda: lstm_fused.lstm_k1_grouped(x, lengths, wx, wh, b, 1.0, True),
+                 lambda: lstm_fused.lstm_rec_bwd_grouped(pre, lengths, wx, wh, out, out, None,
+                                                         1.0),
+                 lambda: lstm_fused.lstm_fwd_grouped(x, lengths, wx, wh, b, 1.0, True),
+                 lambda: lstm_fused.lstm_bwd_grouped(x, lengths, wx, wh, b, out, out, None,
+                                                     None, 1.0)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert lstm_launches() == before
+
+
 # ---- CPU emulations of K4, K5 and K6 -------------------------------------------
 # As the kernels decompose the work: time chunks of fvta_stats.TCH steps, each
 # chunk's local stats combined in chunk order (K4); per-chunk tie counts summed
@@ -1214,6 +1387,73 @@ def test_lstm_kernels_repeat_bitwise_on_card(cuda, n, t, d, h):
             out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
         runs.append([out, fin, *lstm_grads(fused(mask, False), x, p_fw, p_bw, g_out, g_fin)])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def grouped_launches(case: str, backward: bool) -> dict:
+    """One launch per grouped call of each kernel of the route of one bi-LSTM at
+    (N, T_max, D_max, H): lstm_proj + lstm_rec (+ lstm_rec_bwd), or lstm_fwd
+    (+ lstm_bwd) past the largest cluster."""
+    n, specs, h = GROUPED_FUSED_CASES[case]
+    return expected_launches(n, max(t for t, _ in specs), max(d for _, d in specs), h, backward)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GROUPED_FUSED_CASES))
+def test_grouped_bilstm_matches_plain_on_card(cuda, case):
+    """bilstm_fused_grouped vs bilstm_ref per pair: forward at LSTM_TOL, every
+    gradient at GRAD_TOL (cotangents N(0, 1) / 64), one launch of each kernel of
+    the route for all 2K groups forward and one backward."""
+    pairs, xs, masks = grouped_fused_case(*GROUPED_FUSED_CASES[case], seed=40, device=cuda)
+    with torch.no_grad():
+        before = lstm_launches()
+        res = lstm_fused.bilstm_fused_grouped(tuple(pairs), tuple(xs), tuple(masks))
+        torch.cuda.synchronize()
+        assert launched_since(before) == grouped_launches(case, backward=False)
+        ref = lstm_fused.bilstm_fused_grouped_ref(pairs, xs, masks)
+    for (out, fin), (out_r, fin_r), mask in zip(res, ref, masks):
+        torch.testing.assert_close(out, out_r, **LSTM_TOL)
+        torch.testing.assert_close(fin, fin_r, **LSTM_TOL)
+        assert not out[~mask].any() and not fin[~mask.any(1)].any()
+    ref_out, ref_g = grouped_fused_grads(
+        lambda ps, xx: lstm_fused.bilstm_fused_grouped_ref(ps, xx, masks), pairs, xs, masks,
+        scale=COTANGENT_SCALE)
+    before = lstm_launches()
+    got_out, got_g = grouped_fused_grads(
+        lambda ps, xx: lstm_fused.bilstm_fused_grouped(tuple(ps), tuple(xx), tuple(masks)),
+        pairs, xs, masks, scale=COTANGENT_SCALE)
+    torch.cuda.synchronize()
+    assert launched_since(before) == grouped_launches(case, backward=True)
+    for a, b in zip(got_out, ref_out):
+        torch.testing.assert_close(a, b, **LSTM_TOL)
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        torch.testing.assert_close(a, b, **GRAD_TOL, msg=f"grad {i}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GROUPED_FUSED_CASES))
+def test_grouped_bilstm_groups_equal_lone_calls_bitwise_on_card(cuda, case):
+    """Each group's outputs are a lone bilstm_fused call's bits on the same
+    bi-LSTM: one route for all (chosen at N, T_max, D_max, H, whose cluster and
+    lane split do not depend on T or D), the zero padding adds exact zeros."""
+    pairs, xs, masks = grouped_fused_case(*GROUPED_FUSED_CASES[case], seed=41, device=cuda)
+    with torch.no_grad():
+        res = lstm_fused.bilstm_fused_grouped(tuple(pairs), tuple(xs), tuple(masks))
+        for (out, fin), (p_fw, p_bw), x, mask in zip(res, pairs, xs, masks):
+            out_1, fin_1 = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
+            assert torch.equal(out, out_1) and torch.equal(fin, fin_1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [100, 300])
+def test_grouped_bilstm_at_one_pair_is_bilstm_fused_bitwise_on_card(cuda, h):
+    """K = 1: the grouped call is bilstm_fused bit for bit, forward and every
+    gradient (the same launches at the same shapes)."""
+    pairs, xs, masks = grouped_fused_case(64, [(24, 200)], h, seed=42, device=cuda)
+    lone = lambda ps, xx: [lstm_fused.bilstm_fused(*ps[0], xx[0], masks[0])]
+    grouped = lambda ps, xx: lstm_fused.bilstm_fused_grouped(tuple(ps), tuple(xx), tuple(masks))
+    for a, b in zip(grouped_fused_grads(grouped, pairs, xs, masks),
+                    grouped_fused_grads(lone, pairs, xs, masks)):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.gpu

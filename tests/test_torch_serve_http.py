@@ -2,8 +2,9 @@
 against the JAX package's serve_http on the same weights: the same status code
 and JSON for every endpoint, auth, rate-limit, overload, timeout, bad-request
 and unknown-path case (probabilities at 1e-5); TLS; the `cli serve` flags the
-port refuses (--dp, --shard-cache, half-given TLS); and `python -m
-fvta_memexqa_torch.cli serve` on the CPU, restarted on its saved cache."""
+port refuses (--dp past the cards there are, --shard-cache without --dp,
+half-given TLS); and `python -m fvta_memexqa_torch.cli serve` on the CPU,
+restarted on its saved cache, and over two CPU slots with a sharded cache."""
 
 import dataclasses
 import json
@@ -378,10 +379,16 @@ def served_files(sides, tmp_path_factory):
                 photo_npz=os.path.join(raw, "photo_feats.npz"))
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--shard-cache"]])
-def test_cli_serve_refuses_multi_card(flags, pack_dir, served_files):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["serve", pack_dir, served_files["rundir"], *flags, "--device", "cpu"])
+@pytest.mark.parametrize("flags,match", [
+    (["--dp", "2"], "mesh needs 2 devices, have 0"),
+    (["--shard-cache", "--device", "cpu"], "shard_cache requires a device mesh")],
+    ids=["flags0", "flags1"])
+def test_cli_serve_refuses_multi_card(flags, match, pack_dir, served_files):
+    """--dp past the cards there are (none here), with no device list, is
+    make_mesh's ValueError before anything runs on the CPU; --shard-cache
+    without --dp is the JAX store's ValueError."""
+    with pytest.raises(ValueError, match=match):
+        cli.main(["serve", pack_dir, served_files["rundir"], *flags])
 
 
 @pytest.mark.parametrize("flags", [["--tls-cert", "c.pem"], ["--tls-key", "k.pem"]])
@@ -391,9 +398,11 @@ def test_cli_serve_refuses_half_tls(flags, pack_dir, served_files):
 
 
 def test_build_engine_refuses_multi_card(pack_dir, served_files):
-    for kw in ({"dp": 2}, {"shard_cache": True}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            build_engine(pack_dir, served_files["rundir"], device="cpu", **kw)
+    for kw, match in (({"dp": 2}, "mesh needs 2 devices, have 0"),
+                      ({"dp": 2, "devices": ["cpu"]}, "mesh needs 2 devices, have 1"),
+                      ({"shard_cache": True, "device": "cpu"}, "requires a device mesh")):
+        with pytest.raises(ValueError, match=match):
+            build_engine(pack_dir, served_files["rundir"], **kw)
 
 
 class CliServer:
@@ -420,6 +429,33 @@ class CliServer:
     def close(self):
         self.proc.terminate()
         self.proc.wait(timeout=30)
+
+
+def test_cli_serve_over_a_mesh_with_a_sharded_cache(sides, pack_dir, served_files):
+    """`cli serve --dp 2 --shard-cache --device cpu` (two CPU slots, one
+    process): /ask answers as the in-process dp = 1 engine does, and /stats
+    reports the two slots' cache bytes, which sum to cache_bytes."""
+    f = served_files
+    ref_engine, _, _ = build_engine(pack_dir, f["rundir"], device="cpu")
+    bodies = [ask_body(sides["albums"], aid, [aid, other])
+              for aid, other in (("album0", "album1"), ("album2", "album0"))]
+    try:
+        want = [ref_engine.ask(b["question"], b["choices"], b["album_ids"]) for b in bodies]
+    finally:
+        ref_engine.close()
+    srv = CliServer([pack_dir, f["rundir"], "--dp", "2", "--shard-cache", "--batch-size", "4"])
+    try:
+        for body, ref in zip(bodies, want):
+            code, got = call(srv.base, "POST", "/ask", body)
+            assert code == 200 and got["answer_index"] == ref["answer_index"]
+            np.testing.assert_allclose(got["probs"], ref["probs"], **PROB_TOL)
+        code, stats = call(srv.base, "GET", "/stats")
+        per = stats["cache_bytes_per_device"]
+        assert code == 200 and len(per) == 2 and min(per) > 0
+        assert sum(per) == stats["cache_bytes"] > 0
+        assert stats["albums"] == len(sides["albums"])
+    finally:
+        srv.close()
 
 
 def test_cli_serve_answers_and_restores_its_cache(sides, pack_dir, served_files):

@@ -5,7 +5,7 @@ dirty state of save) over the same operations, probabilities at 1e-5 with a
 float32 cache and the same top-1 with bfloat16 and int8 caches; the answer
 step's error dict and the rounded latency_stats; and the cases of the JAX
 suite's tests/test_serve.py that need no mesh (cache dtypes, QAEngine,
-hardening, pack ingestion)."""
+hardening, pack ingestion); tests/test_torch_serve_mesh.py has those that do."""
 
 import os
 import threading
@@ -364,11 +364,15 @@ def test_float_cache_loads_into_int8(pair, tmp_path):
 
 
 def test_bad_dtype_and_mesh_rejected(pair):
+    """A bad cache dtype and shard_cache without a mesh are the JAX store's
+    ValueErrors; an unsharded cache has no per-device bytes."""
     with pytest.raises(ValueError, match="cache_dtype"):
         port_store(pair, cache_dtype="float16")
-    for kw in ({"shard_cache": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            port_store(pair, **kw)
+    with pytest.raises(ValueError, match="shard_cache requires a device mesh"):
+        port_store(pair, shard_cache=True)
+    with pytest.raises(ValueError, match="shard_cache requires a device mesh"):
+        jserve.AlbumStore(pair["j_cfg"], pair["j_model"], pair["params"], pair["j_shared"],
+                          pair["vocab"], shard_cache=True)
     assert pair["store"].cache_bytes_per_device is None
 
 
