@@ -275,10 +275,25 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    and over 2 and 4 ranks sharing the card, forward and with grad, its counted
    bytes equal to counted_mb's (the
    `grouped_mesh` line; the two grouped launches join the kernels line).
+25. TF checkpoints, the bf16 variant and the native tokenizer (run inside the
+   same block, on phase 4's pack, phase 7's run and phase 16's raw files):
+   phase 7's run exported through the port's TF writer (`cli
+   export-tf-checkpoint`), read back with every CRC32C checked, re-imported
+   with `cli import-tf-checkpoint` and evaluated with `cli test` on the card
+   (accuracy and loss bitwise the run's, K1 and K2 launched); `cli train
+   --dtype bfloat16` for 6 steps (the BF16 instantiations of lstm_proj,
+   lstm_rec and lstm_rec_bwd launch, the float32 ones and the L2-streaming
+   kernels do not); the BF16 K1 at the serving shapes and K1b + products at
+   the train step's vs the plain bf16 version (BF16_ATOL, BF16_GRAD_REL), each
+   timed beside the float32 instantiation on the same inputs (CUDA events and
+   graphs); the video model in bf16 vs float32 (dilated conv and bi-LSTM, T =
+   1024); `cli prepro` through the native tokenizer and under FVTA_NO_NATIVE=1
+   (every pack file byte-identical) with the encoder's texts/s both ways (the
+   `port_complete` line; the two BF16 launches join the kernels line).
 
-Prints the `train_loader`, `focal`, `parallel` and `grouped_mesh` lines, a {"kernels": [...]}
-line, then the card line, then as the last line {"ok": true, "device":
-{"platform": "gpu", "kind": ..., "count": ...}}.
+Prints the `train_loader`, `focal`, `parallel`, `grouped_mesh` and `port_complete`
+lines, a {"kernels": [...]} line, then the card line, then as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -494,13 +509,13 @@ class Recorder:
         self.real = getattr(module, name)
 
     def __enter__(self):
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             if self.keep is None or len(self.calls) < self.keep:
                 self.calls.append(args)
             self.shapes.append(tuple(args[0].shape))
-            return self.real(*args)
+            return self.real(*args, **kwargs)
 
-        wrapper.launches = wrapper.global_launches = 0
+        wrapper.launches = wrapper.global_launches = wrapper.bf16_launches = 0
         setattr(self.module, self.name, wrapper)
         return self
 
@@ -874,7 +889,7 @@ def route_sweep(device) -> list:
                 err = b_lib.lstm_rec_bwd(pre.data_ptr(), lens.data_ptr(), p_fw.wh.data_ptr(),
                                          p_bw.wh.data_ptr(), cell.data_ptr(), g_out.data_ptr(),
                                          g_fin.data_ptr(), dg.data_ptr(), n, t, H, c, rows,
-                                         split, 1.0, 1, 0, stream)
+                                         split, 1.0, 1, 0, 0, stream)
                 if err:
                     fail(f"forced lstm_rec_bwd (C={c}, rows={rows}): error {err}")
 
@@ -5548,6 +5563,431 @@ def grouped_bilstm_entries(phase: dict) -> list:
     ]
 
 
+# ---- phase 25: TF checkpoints, the bf16 variant, the native tokenizer -------------------
+
+# bf16 kernels vs the plain bf16 version on the card (tests/test_torch_kernels.py's
+# bounds): forward within BF16_ATOL (a flipped rounding of x_proj moves an output
+# by about one bf16 ulp and carries through the recurrence); gradients within
+# BF16_GRAD_REL x max |g| + 1e-6 (the kernels differentiate straight through the
+# roundings in float32, autograd through the plain version rounds the cotangents
+# of its bf16 values). Besides, every value the BF16 K1 stores must be a bf16
+# value, and the float32 instantiation on the same rounded inputs (a BF16
+# instantiation that skipped its roundings) is measured against the same bounds.
+BF16_ATOL = 2.0 ** -6
+BF16_GRAD_REL = 2.0 ** -5
+BF16_TRAIN_STEPS = 6
+# The video models in bf16 vs float32 with the same weights: untrained, within
+# tests/test_bf16.py's bound and VIDEO_BF16_UNTRAINED; trained by `cli video`
+# (CLI_STEPS steps on the video pack), max |d| within VIDEO_BF16_REL of the
+# largest float32 logit. Each measured bound is 4x the largest reading on the
+# H100 in PR 16's chip runs, rounded up to a power of two.
+VIDEO_BF16_BOUND = 0.5
+VIDEO_BF16_UNTRAINED = 2.0 ** -10   # read 1.27e-4
+VIDEO_BF16_REL = 2.0 ** -7          # read 1.23e-3 (dilated_conv)
+
+
+def bf16_counters() -> dict:
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    return {k: getattr(lstm_fused, k).bf16_launches for k in NEW_KERNELS + OLD_KERNELS}
+
+
+def zero_bf16_counters() -> None:
+    from fvta_memexqa_torch.ops import lstm_fused
+
+    for k in NEW_KERNELS + OLD_KERNELS:
+        getattr(lstm_fused, k).bf16_launches = 0
+
+
+def tf_round_trip(workdir: str) -> dict:
+    """Phase 7's run exported through the port's writer, re-imported with `cli
+    import-tf-checkpoint` and evaluated with `cli test` on the card: accuracy and
+    loss bitwise those of the run itself; K1 and K2 launched by the test."""
+    from fvta_memexqa_torch.ops import fvta_fused
+    from fvta_memexqa_torch.tf_import import read_tf_checkpoint
+
+    pack, run = os.path.join(workdir, "pack"), os.path.join(workdir, "train_plain")
+    prefix, imported = os.path.join(workdir, "tf_export", "ck"), os.path.join(workdir, "tf_run")
+    exp, export_s = cli_json(["export-tf-checkpoint", pack, run, prefix])
+    t0 = time.perf_counter()
+    tensors = read_tf_checkpoint(prefix)
+    read_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(prefix + s) for s in (".index", ".data-00000-of-00001"))
+    imp, import_s = cli_json(["import-tf-checkpoint", prefix, pack, imported])
+    ref, _ = cli_json(["test", pack, run])
+    zero_lstm_counters()
+    fvta_fused.fvta_fwd.launches = 0
+    got, test_s = cli_json(["test", pack, imported])
+    launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
+    log(f"TF round trip: export {json.dumps(exp)} ({export_s:.2f} s, {nbytes} bytes, "
+        f"{len(tensors)} tensors read back by the port's reader in {read_s:.2f} s: "
+        f"{nbytes / 1e6 / read_s:.2f} MB/s, every CRC32C checked); import {json.dumps(imp)} "
+        f"({import_s:.2f} s); cli test of the import {json.dumps(got)} vs the run "
+        f"{json.dumps(ref)}; launches {json.dumps(launches)}")
+    if (got["accuracy"], got["loss"], got["count"]) != (ref["accuracy"], ref["loss"],
+                                                       ref["count"]):
+        fail(f"the re-imported run tests {got}, not bitwise the run's {ref}")
+    if imp["kept_init"] or imp["imported"] != imp["tf_variables"] - 14:
+        fail(f"the import did not take every tensor: {imp}")
+    check_lstm_launches("cli test of the imported run", launches, backward=False)
+    if not launches["fvta_fwd"]:
+        fail(f"cli test of the imported run launched no K2: {launches}")
+    return {"export": exp, "import": imp, "test": got, "export_s": export_s,
+            "import_s": import_s, "test_s": test_s, "read_s": read_s, "bytes": nbytes,
+            "read_mb_per_s": nbytes / 1e6 / read_s, "launches": launches}
+
+
+def bf16_train_run(workdir: str) -> dict:
+    """`cli train --dtype bfloat16` at the flagship's widths on phase 4's pack:
+    the BF16 instantiations of K1 and K1b launch, the float32 ones do not."""
+    from fvta_memexqa_torch.ops import fvta_fused
+
+    pack, run = os.path.join(workdir, "pack"), os.path.join(workdir, "train_bf16")
+    zero_lstm_counters()
+    zero_bf16_counters()
+    fvta_fused.fvta_fwd.launches = 0
+    res, wall = cli_json(["train", pack, run, "--num-steps", str(BF16_TRAIN_STEPS),
+                          "--val-period", "3", "--log-period", "1", "--dtype", "bfloat16"])
+    total, bf16 = lstm_counters(), bf16_counters()
+    f32 = {k: total[k] - bf16[k] for k in total}
+    losses = [r["loss"] for r in read_metrics(os.path.join(run, "metrics.jsonl"))
+              if r["event"] == "train"]
+    log(f"cli train --dtype bfloat16: {json.dumps(res)} in {wall:.1f} s, losses {losses}; "
+        f"BF16 launches {json.dumps(bf16)}, float32 launches {json.dumps(f32)}, K2 "
+        f"{fvta_fused.fvta_fwd.launches}")
+    if (len(losses) != BF16_TRAIN_STEPS or not all(map(math.isfinite, losses))
+            or any(f32.values()) or any(bf16[k] for k in OLD_KERNELS)
+            or min(bf16[k] for k in NEW_KERNELS) == 0 or not fvta_fused.fvta_fwd.launches):
+        fail("cli train --dtype bfloat16 must run the BF16 lstm_proj, lstm_rec and "
+             f"lstm_rec_bwd and no float32 or L2-streaming bi-LSTM kernel: {bf16}, {f32}")
+    return {"result": res, "wall_s": wall, "losses": losses, "bf16_launches": bf16,
+            "f32_launches": f32, "k2_launches": fvta_fused.fvta_fwd.launches}
+
+
+def bf16_kernel_checks(device) -> dict:
+    """K1 (serving shapes, no grad) and K1b (the train step's shapes, under
+    grad) in bf16 vs the plain bf16 version on the card, with each shape's
+    times: the bf16 and the float32 instantiations on the same inputs (CUDA
+    events and graph replays), the plain bf16 version."""
+    import torch
+
+    from fvta_memexqa_torch.ops import lstm_fused, lstm_ref
+
+    bf, out = torch.bfloat16, {"k1": [], "k1b": []}
+    r = lambda p: lstm_ref.LSTMParams(*(a.to(bf).float() for a in p))
+    for i, (name, n, t, d, emit) in enumerate(K1_SHAPES):
+        x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 2500 + i, device)
+        l32 = mask.sum(1, dtype=torch.int32)
+        xb, pf, pb = x.to(bf).float(), r(p_fw), r(p_bw)
+        with torch.no_grad():
+            o_r, f_r = (v.float() for v in lstm_ref.bilstm_ref(p_fw, p_bw, x, mask, dtype=bf))
+            o, f = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask, dtype=bf)
+            pre, o16, f16, c16 = lstm_fused.lstm_k1(xb, l32, pf, pb, 1.0, True, emit_cell=True,
+                                                    bf16=True)
+            o32, f32 = lstm_fused.lstm_k1(xb, l32, pf, pb, 1.0, True)[1:3]
+            stored = {"out": o[mask], "fin": f, "x_proj": pre[mask], "k1_out": o16[mask],
+                      "k1_fin": f16, "k1_cell": c16[mask]}
+            not_bf16 = [k for k, v in stored.items() if not bf16_valued(v)]
+            if not_bf16:
+                fail(f"bf16 K1 at {name}: {not_bf16} hold values that are not bf16")
+            k1_16 = lambda: lstm_fused.lstm_k1(xb, l32, pf, pb, 1.0, emit, bf16=True)
+            k1_32 = lambda: lstm_fused.lstm_k1(xb, l32, pf, pb, 1.0, emit)
+            row = {"name": name, "rows": n, "T": t, "D": d,
+                   "max_abs_err": max(max_err(o[mask], o_r[mask]), max_err(f, f_r)),
+                   "f32_inst_max_abs_err": max(max_err(o32[mask], o_r[mask]),
+                                               max_err(f32, f_r)),
+                   "bf16_ms": cuda_ms(k1_16), "f32_ms": cuda_ms(k1_32),
+                   "bf16_graph_ms": graph_ms(k1_16), "f32_graph_ms": graph_ms(k1_32),
+                   "plain_ms": cuda_ms(lambda: lstm_ref.bilstm_ref(p_fw, p_bw, x, mask,
+                                                                   dtype=bf), iters=5, warmup=1)}
+        steps = int(l32.sum())
+        row.update(valid_steps=steps, bounds=k1_bounds(n, t, d, H, steps, emit)["fn"])
+        out["k1"].append(row)
+    for i, (name, n, t, d, fin_only) in enumerate(K1B_SHAPES):
+        x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, 2600 + i, fin_only, device,
+                                                     COTANGENT_SCALE)
+        l32 = mask.sum(1, dtype=torch.int32)
+        if fin_only:
+            fn = lambda pf, pb, xx: (None, lstm_fused.bilstm_fused_final(pf, pb, xx, mask,
+                                                                         dtype=bf))
+        else:
+            fn = lambda pf, pb, xx: lstm_fused.bilstm_fused(pf, pb, xx, mask, dtype=bf)
+        plain = lambda pf, pb, xx: tuple(v.float() for v in lstm_ref.bilstm_ref(
+            pf, pb, xx, mask, dtype=bf))
+        rounded = lambda f_: lambda pf, pb, xx: f_(*(lstm_ref.LSTMParams(*map(
+            lstm_fused._round_bf16, p)) for p in (pf, pb)), lstm_fused._round_bf16(xx))
+        f32_fn = rounded(fused_fn(mask, fin_only))   # the bf16 path, float32 kernels
+        got = lstm_grads(fn, x, p_fw, p_bw, g_out, g_fin)[2]
+        ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)[2]
+        got32 = lstm_grads(f32_fn, x, p_fw, p_bw, g_out, g_fin)[2]
+        rel_of = lambda gs: max(max_err(a, b) / (float(b.abs().max()) + 1e-6 / BF16_GRAD_REL)
+                                for a, b in zip(gs, ref))
+        rel = rel_of(got)
+        abs_err = max(max_err(a, b) for a, b in zip(got, ref))
+        xb, pf, pb = x.to(bf).float(), r(p_fw), r(p_bw)
+        with torch.no_grad():
+            pre16, _, _, cell16 = lstm_fused.lstm_k1(xb, l32, pf, pb, 1.0, True, emit_cell=True,
+                                                     write_preact=True, bf16=True)
+            pre32, _, _, cell32 = lstm_fused.lstm_k1(xb, l32, pf, pb, 1.0, True, emit_cell=True,
+                                                     write_preact=True)
+            b16 = lambda: lstm_fused.lstm_rec_bwd(pre16, l32, pf, pb, cell16, g_out, g_fin, 1.0,
+                                                  bf16=True)
+            b32 = lambda: lstm_fused.lstm_rec_bwd(pre32, l32, pf, pb, cell32, g_out, g_fin, 1.0)
+            row = {"name": name, "rows": n, "T": t, "D": d, "grad_err_rel": rel,
+                   "grad_err_abs": abs_err, "f32_inst_grad_err_rel": rel_of(got32),
+                   "bf16_ms": cuda_ms(b16), "f32_ms": cuda_ms(b32),
+                   "bf16_graph_ms": graph_ms(b16), "f32_graph_ms": graph_ms(b32)}
+        leaves = [a.detach().clone().requires_grad_() for a in (x, *p_fw, *p_bw)]
+        o_r, f_r = plain(lstm_ref.LSTMParams(*leaves[1:4]), lstm_ref.LSTMParams(*leaves[4:]),
+                         leaves[0])
+        loss_r = (f_r * g_fin).sum() + (0 if g_out is None else (o_r * g_out).sum())
+        row["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(loss_r, leaves, retain_graph=True),
+                                  iters=5, warmup=1)
+        steps = int(l32.sum())
+        g_bytes = 2 * steps * H if g_out is not None else 0
+        nbytes = 4 * (steps * 8 * H + n + 2 * H * 4 * H + 2 * steps * H + g_bytes + n * 2 * H
+                      + n * t * 8 * H)
+        flops = 2 * steps * (2 * 4 * H * H + 36 * H)
+        row.update(valid_steps=steps, bounds=(nbytes / HBM_BYTES_PER_S * 1e3,
+                                              flops / FP32_FLOPS * 1e3))
+        out["k1b"].append(row)
+    worst_fwd = max(r_["max_abs_err"] for r_ in out["k1"])
+    worst_grad = max(r_["grad_err_rel"] for r_ in out["k1b"])
+    f32_fwd = max(r_["f32_inst_max_abs_err"] for r_ in out["k1"])
+    f32_grad = max(r_["f32_inst_grad_err_rel"] for r_ in out["k1b"])
+    for key in ("k1", "k1b"):
+        tot = {k: sum(r_[k] for r_ in out[key]) for k in ("bf16_ms", "f32_ms", "bf16_graph_ms",
+                                                          "f32_graph_ms", "plain_ms")}
+        log(f"{key.upper()} bf16 vs float32 instantiation ({len(out[key])} calls, sum): events "
+            f"{tot['bf16_ms']:.4f} vs {tot['f32_ms']:.4f} ms, graph {tot['bf16_graph_ms']:.4f} "
+            f"vs {tot['f32_graph_ms']:.4f} ms; plain bf16 {tot['plain_ms']:.3f} ms")
+    log(f"bf16 K1 max |d| vs plain bf16 {worst_fwd:.3e} (bound {BF16_ATOL}); K1b + products "
+        f"max |d| / max |g| {worst_grad:.3e} (bound {BF16_GRAD_REL}); every value the BF16 "
+        f"K1 stored a bf16 value. The float32 instantiation on the same rounded inputs vs "
+        f"plain bf16: forward {f32_fwd:.3e}, gradients {f32_grad:.3e} of max |g|")
+    if worst_fwd > BF16_ATOL or worst_grad > BF16_GRAD_REL:
+        fail(f"bf16 kernels vs the plain bf16 version: forward {worst_fwd}, gradients "
+             f"{worst_grad}")
+    return out
+
+
+def bf16_valued(t) -> bool:
+    """Whether every element of the float32 tensor t is a bf16 value."""
+    import torch
+
+    return bool(torch.equal(t, t.to(torch.bfloat16).float()))
+
+
+def trained_video_run(workdir: str, encoder: str) -> tuple[str, float]:
+    """(run directory, seconds) of a video model `cli video` trained on the
+    video pack (CLI_STEPS steps at H = 100): the video phase's run for the
+    dilated_conv encoder, trained here the same way for the bilstm one."""
+    pack = os.path.join(workdir, "video_pack")
+    run = os.path.join(workdir, "video_run" if encoder == "dilated_conv"
+                       else f"video_run_{encoder}")
+    if os.path.exists(os.path.join(run, "video_run.json")):
+        return run, 0.0
+    _, wall = cli_json(["video", "--data", pack, "--out", run, "--encoder", encoder,
+                        "--hidden-dim", "100", "--steps", str(CLI_STEPS), "--val-period", "12",
+                        "--device", "cuda"])
+    return run, wall
+
+
+def bf16_video_logits(cfg, run, params, shared, batches) -> tuple:
+    """(float32 logits, bf16 logits, BF16 bi-LSTM launches) of the video model
+    with `params` on the card, float32 exact (no TF32), over `batches`' real
+    examples."""
+    import dataclasses as dc
+
+    import torch
+
+    from fvta_memexqa_torch.convert import video_model_from_run
+    from fvta_memexqa_torch.train_video import exact_float32
+
+    m32 = video_model_from_run(cfg, run)
+    m16 = video_model_from_run(cfg.replace(model=dc.replace(cfg.model, dtype="bfloat16")), run)
+    for m in (m32, m16):
+        m.load_state_dict(params)
+        m.to("cuda").eval()
+    l32, l16 = [], []
+    before16 = bf16_counters()
+    with torch.no_grad(), exact_float32():
+        for vi in batches:
+            v = vi.to("cuda")
+            l32.append(m32(shared, v).logits[v.ex_mask])
+            l16.append(m16(shared, v).logits[v.ex_mask])
+    launched = {k: n - before16[k] for k, n in bf16_counters().items()}
+    return torch.cat(l32), torch.cat(l16), launched
+
+
+def bf16_video_check(workdir: str) -> dict:
+    """The full-width video model (dilated_conv and bilstm encoders, T = 1024)
+    in bf16 against float32 with the same weights, twice: untrained (seeded
+    weights, 8 synthetic videos, tests/test_bf16.py's setting) within 0.5
+    (its bound) and VIDEO_BF16_UNTRAINED, above 0; trained (trained_video_run,
+    the pack's test split) with the same argmax on every example and max |d|
+    within VIDEO_BF16_REL of the largest float32 logit. An untrained model's
+    logits nearly tie, so its argmax is not compared."""
+    import torch
+
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+    from fvta_memexqa_torch.config import load_config
+    from fvta_memexqa_torch.convert import VIDEO_RUN, video_model_from_run
+    from fvta_memexqa_torch.data.video_pack import (VideoDataset, load_video_meta,
+                                                    video_shared_tables)
+
+    pack = os.path.join(workdir, "video_pack")
+    dcfg, _, shared_np = load_video_meta(pack)
+    pack_shared = video_shared_tables(dcfg, shared_np, "cuda")
+    out = {}
+    for encoder in ("dilated_conv", "bilstm"):
+        cfg, run, shared, vi = video_setup(CLI_FRAMES, encoder, keep_prob=1.0, batch=8, seed=25)
+        init = video_model_from_run(cfg, run, torch.Generator().manual_seed(25)).state_dict()
+        u32, u16, launched = bf16_video_logits(cfg, run, init, video_shared_to(shared), [vi])
+        d_init = max_err(u16, u32)
+        rundir, train_s = trained_video_run(workdir, encoder)
+        cfg = load_config(os.path.join(rundir, "config.json")).replace(data=dcfg)
+        with open(os.path.join(rundir, VIDEO_RUN)) as f:
+            run = json.load(f)
+        params = CheckpointManager(rundir).load(best=True)["params"]
+        l32, l16, launched_t = bf16_video_logits(
+            cfg, run, params, pack_shared,
+            VideoDataset(pack, "test").get_batches(cfg.train.eval_batch_size))
+        d, top = max_err(l16, l32), float(l32.abs().max())
+        top2 = l32.topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        same = bool((l16.argmax(-1) == l32.argmax(-1)).all())
+        out[encoder] = {"untrained_max_abs_d_logits": d_init, "max_abs_d_logits": d,
+                        "max_abs_logit_f32": top, "rel_d_logits": d / top,
+                        "argmax_equal": same, "examples": len(l32),
+                        "min_top2_margin_f32": margin, "train_s": train_s,
+                        "bf16_launches": {k: n + launched_t[k] for k, n in launched.items()}}
+        log(f"video ({encoder}, T={CLI_FRAMES}) bf16 vs float32 logits: untrained (8 videos) "
+            f"max |d| {d_init:.3e} (bounds {VIDEO_BF16_UNTRAINED}, {VIDEO_BF16_BOUND}); "
+            f"trained ({CLI_STEPS} steps, {len(l32)} test examples) max |d| {d:.3e} of max "
+            f"|logit| {top:.3e} ({d / top:.3e}, bound {VIDEO_BF16_REL}), argmax equal {same}, "
+            f"smallest float32 top-two margin {margin:.3e}; BF16 bi-LSTM launches untrained "
+            f"{json.dumps(launched)}, trained {json.dumps(launched_t)}")
+        if not (0 < d_init < min(VIDEO_BF16_BOUND, VIDEO_BF16_UNTRAINED)
+                and 0 < d / top < VIDEO_BF16_REL and same
+                and torch.isfinite(u16).all() and torch.isfinite(l16).all()):
+            fail(f"video {encoder}: bf16 logits {d_init} (untrained) / {d} of {top} (trained) "
+                 f"from float32, or the trained model's argmax changed")
+        if min(min(c[k] for k in NEW_KERNELS[:2]) for c in (launched, launched_t)) == 0:
+            fail(f"video {encoder}: a bf16 model ran no BF16 K1: {launched}, {launched_t}")
+    return out
+
+
+def native_prepro_check(workdir: str) -> dict:
+    """`cli prepro` on phase 16's raw files through the native tokenizer and under
+    FVTA_NO_NATIVE=1: every file of the two packs byte-identical; the encoder's
+    texts/s both ways on the corpus's texts."""
+    from fvta_memexqa_torch.data import make_synthetic
+    from fvta_memexqa_torch.data.pack import BatchEncoder
+    from fvta_memexqa_torch.data.tokenize import try_load_native, tokenize_many
+    from fvta_memexqa_torch.data.vocab import Vocab
+
+    if try_load_native() is None:
+        fail("the native tokenizer did not load on this machine (see the log above)")
+    raw = os.path.join(workdir, "raw")
+    files = [os.path.join(raw, f) for f in ("qas.json", "album_info.json", "test_question.ids",
+                                            "glove.txt", "photo_feats.npz")]
+    walls, packs = {}, {}
+    for route in ("native", "regex"):
+        packs[route] = os.path.join(workdir, f"pack_{route}")
+        if route == "regex":
+            os.environ["FVTA_NO_NATIVE"] = "1"
+        try:
+            _, walls[route] = cli_json(["prepro", *files, packs[route], "--seed", "0",
+                                        "--image-feat-dim", str(SLICE_CORPUS["feat_dim"])])
+        finally:
+            os.environ.pop("FVTA_NO_NATIVE", None)
+    names = sorted(os.listdir(packs["native"]))
+    differ = [f for f in names if open(os.path.join(packs["native"], f), "rb").read()
+              != open(os.path.join(packs["regex"], f), "rb").read()]
+    if names != sorted(os.listdir(packs["regex"])) or differ:
+        fail(f"cli prepro's packs differ between the native and the regex route: {differ}")
+    qas, albums, *_ = make_synthetic(**SLICE_CORPUS)
+    texts = [t for qa in qas for t in (qa.question, *qa.choices)]
+    texts += [t for a in albums.values() for t in (a.title, a.description, a.where, a.when,
+                                                   *a.photo_titles)]
+    texts = texts * 20
+    vocab = Vocab.build([w for toks in tokenize_many(texts[:5000]) for w in toks], None, dim=4,
+                        seed=0)
+    rates = {}
+    for route in ("native", "regex"):
+        if route == "regex":
+            os.environ["FVTA_NO_NATIVE"] = "1"
+        try:
+            enc = BatchEncoder(vocab)
+            t0 = time.perf_counter()
+            enc.encode(texts, 30, 16)
+            rates[route] = len(texts) / (time.perf_counter() - t0)
+        finally:
+            os.environ.pop("FVTA_NO_NATIVE", None)
+    log(f"cli prepro native {walls['native']:.2f} s vs regex {walls['regex']:.2f} s, the "
+        f"{len(names)} pack files byte-identical; BatchEncoder over {len(texts)} corpus texts: "
+        f"native {rates['native']:.0f} texts/s, regex {rates['regex']:.0f} texts/s")
+    return {"prepro_s": walls, "pack_files": len(names), "texts": len(texts),
+            "texts_per_s": rates}
+
+
+def port_complete_phase(workdir: str, device, smi: str) -> dict:
+    """Phase 25: TF checkpoint export / import / test, the bf16 variant (cli
+    train, kernels vs plain, video), the native tokenizer's prepro."""
+    t0 = time.perf_counter()
+    tf_rt = tf_round_trip(workdir)
+    t1 = time.perf_counter()
+    bf16_train = bf16_train_run(workdir)
+    kernels = bf16_kernel_checks(device)
+    video = bf16_video_check(workdir)
+    t2 = time.perf_counter()
+    native = native_prepro_check(workdir)
+    return {"card": smi, "tf_round_trip": tf_rt, "bf16_train": bf16_train,
+            "bf16_kernels": kernels, "bf16_video": video, "native_prepro": native,
+            "wall_s": {"tf": t1 - t0, "bf16": t2 - t1, "native": time.perf_counter() - t2}}
+
+
+def bf16_entries(phase: dict) -> list:
+    """The kernels-line entries of the BF16 instantiations (phase 25)."""
+    k = phase["bf16_kernels"]
+    launches = phase["bf16_train"]["bf16_launches"]
+    tot = lambda key, f: sum(r[f] for r in k[key])
+    bound = lambda key: (sum(r["bounds"][0] for r in k[key]), sum(r["bounds"][1] for r in k[key]))
+    (k1_b, k1_o), (k1b_b, k1b_o) = bound("k1"), bound("k1b")
+    return [
+        {"name": "lstm_proj+lstm_rec (bf16)", "route": "cuda",
+         "source": "fvta_memexqa_torch/csrc/lstm_rec.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:75",
+         "launches": launches["lstm_rec"], "launches_lstm_proj": launches["lstm_proj"],
+         "max_abs_err": max(r["max_abs_err"] for r in k["k1"]), "ms": tot("k1", "bf16_ms"),
+         "graph_ms": tot("k1", "bf16_graph_ms"), "f32_ms": tot("k1", "f32_ms"),
+         "f32_graph_ms": tot("k1", "f32_graph_ms"), "plain_ms": tot("k1", "plain_ms"),
+         "bound_ms": max(k1_b, k1_o), "bound_by": "bytes" if k1_b >= k1_o else "operations",
+         "library_ms": None,
+         "timed_work": "lstm_k1(bf16=True) at the 9 K1 calls of one 64-album ingest batch + one "
+                       "8-question answer batch (sum); f32_*: the float32 instantiation on the "
+                       "same inputs; plain_ms: bilstm_ref(dtype=bfloat16); launches: cli train "
+                       "--dtype bfloat16; library_ms: no PyTorch call rounds as the JAX bf16 "
+                       "scan does"},
+        {"name": "lstm_rec_bwd (bf16)", "route": "cuda",
+         "source": "fvta_memexqa_torch/csrc/lstm_rec_bwd.cu",
+         "replaces": "fvta_memexqa_tpu/ops/lstm_fused.py:121",
+         "launches": launches["lstm_rec_bwd"],
+         "max_abs_err": max(r["grad_err_abs"] for r in k["k1b"]),
+         "max_err_rel": max(r["grad_err_rel"] for r in k["k1b"]),
+         "ms": tot("k1b", "bf16_ms"), "graph_ms": tot("k1b", "bf16_graph_ms"),
+         "f32_ms": tot("k1b", "f32_ms"), "f32_graph_ms": tot("k1b", "f32_graph_ms"),
+         "plain_ms": tot("k1b", "plain_ms"), "bound_ms": max(k1b_b, k1b_o),
+         "bound_by": "bytes" if k1b_b >= k1b_o else "operations", "library_ms": None,
+         "timed_work": "lstm_rec_bwd(bf16=True) at the 9 K1b calls of one batch-64 train step "
+                       "(sum); max_abs_err: the whole backward's max |d| vs autograd through "
+                       "the plain bf16 version (max_err_rel: over max |g|, per tensor); "
+                       "plain_ms: that backward; f32_*: the float32 instantiation on the same "
+                       "inputs"},
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -5622,6 +6062,7 @@ def main() -> None:
             parallel = parallel_phase(workdir, evaluation, smi)   # phase 23
             log("parallel " + json.dumps(parallel))
             grouped_mesh = grouped_mesh_phase(workdir, device)   # phase 24
+            port_complete = port_complete_phase(workdir, device, smi)   # phase 25
             log(f"K7/K8 launches over every command run (serving, training, video, "
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
@@ -5675,6 +6116,7 @@ def main() -> None:
             for cp, r in parallel["cp"].items():
                 e[f"launches_cp{cp}_ranks"] = [c[e["name"]] for c in r["counts"]]
     entries += grouped_bilstm_entries(grouped_mesh)
+    entries += bf16_entries(port_complete)
     widths["staged_graph_ms_vs_perf_md"] = staged_vs_perf_md(entries)
     log("k1_shapes " + json.dumps(k1_rows))
     log("k1b_shapes " + json.dumps(k1b_rows))
@@ -5688,6 +6130,7 @@ def main() -> None:
     log("train_loader " + json.dumps(train_loader))
     log("focal " + json.dumps(focal))
     log("grouped_mesh " + json.dumps(grouped_mesh))
+    log("port_complete " + json.dumps(port_complete))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

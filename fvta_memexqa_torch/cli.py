@@ -1,5 +1,6 @@
 """Command line of the port: the paper's three stages `prepro → train → test`,
-plus ablate, predict, serve, synth, the two reports and the video commands.
+plus ablate, predict, serve, synth, the two reports, the TF checkpoint import
+and export, and the video commands.
 
     python -m fvta_memexqa_torch.cli synth <rawdir> [--num-albums 6 --photos-per-album 4 \
         --num-questions 24 --feat-dim 64 --seed 0 --focal]
@@ -23,6 +24,11 @@ plus ablate, predict, serve, synth, the two reports and the video commands.
         --max-pending N --auth-token T1[,T2...] --max-rps R --max-rps-per-client R \
         --tls-cert PEM --tls-key PEM --raw-albums album_info.json --raw-photo-npz F \
         --no-preingest --load-latest] [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli import-tf-checkpoint <ckpt> <packdir> <rundir> \
+        [--map F --dump-map F --list --tf-prefix model (ModelConfig/TrainConfig/MeshConfig \
+        fields as --flags)] [--device cuda|cpu]
+    python -m fvta_memexqa_torch.cli export-tf-checkpoint <packdir> <rundir> <out_prefix> \
+        [--load-latest --tf-prefix model --map F]
     python -m fvta_memexqa_torch.cli report <rundir> [--json]
     python -m fvta_memexqa_torch.cli attention-report <attention.npz> [--qid Q --top 3 \
         --limit 10 --json --wrong-only]
@@ -73,6 +79,13 @@ cpu; fewer cards than N is make_mesh's ValueError), and `--shard-cache` puts
 each album's cache entry on one device of that mesh. `report`
 summarizes a run directory's metrics.jsonl and `attention-report` renders a
 `--dump-attention` npz, as the JAX CLI's do (text, or JSON with --json).
+`import-tf-checkpoint` reads a TF V2 checkpoint without TensorFlow
+(tf_import.py), maps it onto the model built from the pack and writes a run
+directory at step 0 (prints {"rundir", "imported", "kept_init",
+"tf_variables"}; `--list` prints each variable and shape, `--dump-map` writes
+the default name mapping); `export-tf-checkpoint` writes a run's best (or
+latest) parameters as a TF1-layout Saver checkpoint (prints {"tf_checkpoint",
+"step", "from"}).
 
 The video commands are the JAX package's: `synth-video` writes a synthetic raw
 corpus, `video-prepro` packs one into streaming shards, `video` trains — the
@@ -378,6 +391,103 @@ def cmd_serve(argv):
     from fvta_memexqa_torch.serve import main as serve_main
 
     return serve_main(argv)
+
+
+def _tf_mapping(args) -> dict:
+    from fvta_memexqa_torch.tf_import import default_tf1_map
+
+    if args.map_file:
+        with open(args.map_file) as f:
+            return json.load(f)
+    return default_tf1_map(args.tf_prefix)
+
+
+def cmd_import_tf(argv):
+    """Import a TF1 (tf.train.Saver) or Keras-layout TF V2 checkpoint into a port
+    run directory at step 0, so `cli test <packdir> <rundir>` evaluates the
+    imported weights (the route from the reference's weights to its accuracy)."""
+    p = argparse.ArgumentParser(prog="fvta-torch import-tf-checkpoint")
+    p.add_argument("ckpt", help="TF checkpoint prefix (Saver V2 format) or its directory")
+    p.add_argument("packdir", help="pack providing shapes/vocab for the model")
+    p.add_argument("rundir", help="port run dir to write (step 0)")
+    p.add_argument("--map", dest="map_file", default=None,
+                   help="JSON name mapping (our leaf path -> tf var name); "
+                        "default: tf_import.default_tf1_map(--tf-prefix)")
+    p.add_argument("--dump-map", default=None, metavar="PATH",
+                   help="write the default mapping JSON for hand-editing, then exit")
+    p.add_argument("--list", action="store_true",
+                   help="list the checkpoint's variables + shapes, then exit")
+    p.add_argument("--tf-prefix", default="model",
+                   help="scope prefix for the default name mapping")
+    for dc in (ModelConfig, TrainConfig, MeshConfig):
+        _add_dataclass_flags(p, dc)
+    p.add_argument("--device", default="cuda",
+                   help="device of the run's dropout generator state (train resumes there)")
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.tf_import import (convert_params, default_tf1_map,
+                                              read_tf_checkpoint)
+
+    if args.dump_map:
+        with open(args.dump_map, "w") as f:
+            json.dump(default_tf1_map(args.tf_prefix), f, indent=2)
+        print(json.dumps({"dumped": args.dump_map}))
+        return
+    tfvars = read_tf_checkpoint(args.ckpt)
+    if args.list:
+        for name in sorted(tfvars):
+            print(f"{name}  {list(np.shape(tfvars[name]))}")
+        return
+
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+    from fvta_memexqa_torch.convert import flax_tree_from_state_dict, state_dict_from_flax
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.serve import resolve_device
+    from fvta_memexqa_torch.train import init_state
+
+    packed = load_pack(args.packdir, load_splits=False)
+    cfg = _model_config(args, Config(), packed)
+    state = init_state(cfg, resolve_device(args.device))
+    new, report = convert_params(flax_tree_from_state_dict(state.model.state_dict()), tfvars,
+                                 _tf_mapping(args), forget_bias=cfg.model.forget_bias)
+    state.model.load_state_dict(state_dict_from_flax(new))
+    CheckpointManager(args.rundir, cfg).save(0, state)
+    print(json.dumps({"rundir": args.rundir, **report, "tf_variables": len(tfvars)}))
+
+
+def cmd_export_tf(argv):
+    """Inverse of import-tf-checkpoint: write a port run's parameters (best on
+    val, or latest) as a TF1-layout tf.train.Saver checkpoint (fused LSTM
+    kernels, (i,j,f,o) gates, in-cell forget bias), so weights trained here can
+    be handed back to a TF consumer."""
+    p = argparse.ArgumentParser(prog="fvta-torch export-tf-checkpoint")
+    p.add_argument("packdir", help="pack providing shapes/vocab for the model")
+    p.add_argument("rundir", help="port run dir holding the checkpoint")
+    p.add_argument("out_prefix", help="TF checkpoint prefix to write")
+    p.add_argument("--load-latest", action="store_true",
+                   help="export latest instead of best-on-val checkpoint")
+    p.add_argument("--tf-prefix", default="model",
+                   help="scope prefix for the TF variable names")
+    p.add_argument("--map", dest="map_file", default=None,
+                   help="JSON name mapping (our leaf path -> tf var name); "
+                        "default: tf_import.default_tf1_map(--tf-prefix)")
+    args = p.parse_args(argv)
+    from fvta_memexqa_torch.checkpoint import CheckpointManager
+    from fvta_memexqa_torch.config import load_config
+    from fvta_memexqa_torch.convert import flax_tree_from_state_dict
+    from fvta_memexqa_torch.data.pack import load_pack
+    from fvta_memexqa_torch.models import FVTAModel
+    from fvta_memexqa_torch.tf_import import export_tf1_checkpoint
+
+    packed = load_pack(args.packdir, load_splits=False)
+    cfg = load_config(os.path.join(args.rundir, "config.json")).replace(data=packed.cfg)
+    ck = CheckpointManager(args.rundir).load(best=not args.load_latest)
+    model = FVTAModel(cfg)   # holds the weights for their shapes; computes nothing
+    model.load_state_dict(ck["params"])
+    prefix = export_tf1_checkpoint(flax_tree_from_state_dict(model.state_dict()),
+                                   args.out_prefix, prefix=args.tf_prefix,
+                                   mapping=_tf_mapping(args))
+    print(json.dumps({"tf_checkpoint": prefix, "step": int(ck["step"]),
+                      "from": "latest" if args.load_latest else "best"}))
 
 
 def cmd_synth_video(argv):
@@ -707,6 +817,7 @@ def cmd_report(argv):
 
 COMMANDS = {"synth": cmd_synth, "prepro": cmd_prepro, "train": cmd_train, "test": cmd_test,
             "ablate": cmd_ablate, "serve": cmd_serve, "predict": cmd_predict,
+            "import-tf-checkpoint": cmd_import_tf, "export-tf-checkpoint": cmd_export_tf,
             "synth-video": cmd_synth_video,
             "video-prepro": cmd_video_prepro, "video": cmd_video, "video-test": cmd_video_test,
             "attention-report": cmd_attention_report, "report": cmd_report}

@@ -3,7 +3,9 @@ save/load the port's run directory.
 
 `state_dict_from_flax` takes the tree as nested dicts / NamedTuples of numpy
 arrays (what `jax.tree.map(np.asarray, params)` yields; the outer {"params": ...}
-is optional) and returns the port's `state_dict`. Layout traps:
+is optional) and returns the port's `state_dict`; `flax_tree_from_state_dict`
+is its inverse (the tree the TF checkpoint mapping of tf_import.py walks).
+Layout traps:
 
 - flax `Dense.kernel` is [in, out]; `nn.Linear.weight` is [out, in] (transposed);
 - `LSTMParams(wx [D, 4H], wh [H, 4H], b [4H])` keeps the TF1 i, j, f, o gate order;
@@ -93,6 +95,35 @@ def state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
     for mod in MODALITIES:
         _bilstm(sd, f"enc_time.{mod}", p[f"enc_{mod}"])
     return sd
+
+
+def flax_tree_from_state_dict(sd: dict[str, torch.Tensor]) -> dict:
+    """FVTAModel.state_dict() → the flax params["params"] tree: nested dicts of
+    float32 numpy arrays with LSTMParams leaves, keys sorted as flax returns
+    them. The inverse of state_dict_from_flax, bit for bit."""
+    def a(key: str) -> np.ndarray:
+        return sd[key].detach().cpu().numpy().astype(np.float32, copy=True)
+
+    def dense(src: str) -> dict:
+        return {"bias": a(f"{src}.bias"), "kernel": np.ascontiguousarray(a(f"{src}.weight").T)}
+
+    def bilstm(src: str) -> dict:
+        return {d: LSTMParams(*(a(f"{src}.{d}_{f}") for f in ("wx", "wh", "b")))
+                for d in ("bw", "fw")}
+
+    tree = {"word_embed": {"oov_emb": a("word_embed.oov_emb")},
+            "char_cnn": {n: a(f"char_cnn.{n}") for n in ("char_emb", "conv_bias", "conv_kernel")},
+            "highway": {n: dense(f"highway.{n}")
+                        for n in sorted({k.split(".")[1] for k in sd if k.startswith("highway.")})},
+            "enc_word": bilstm("enc_word")}
+    for name in ("sim_w_x", "sim_w_y", "sim_w_xy", "sim_w_bilinear"):
+        if name in sd:
+            tree[name] = a(name)
+    for name in _DENSE:
+        tree[name] = dense(name)
+    for mod in MODALITIES:
+        tree[f"enc_{mod}"] = bilstm(f"enc_time.{mod}")
+    return dict(sorted(tree.items()))
 
 
 _VIDEO_DENSE = ("scorer", "count_head", "count_frame", "count_qproj", "frameqa_head",

@@ -42,6 +42,12 @@
 // fixed order and there are no atomics: the result is deterministic, which
 // bitwise resume of training needs.
 //
+// The bf16 activation variant (BF16 = true, bf16 != 0; one bi-LSTM): the
+// backward of lstm_fwd.cu's BF16 forward, straight through its roundings (as
+// lstm_rec_bwd.cu's): x_t.Wx + b is recomputed and rounded as the forward
+// rounded it, and tanh(c_t) is taken of the unrounded cell, recomputed from the
+// gates and the saved (rounded, hence exact) c_{t-1}.
+//
 // Bound on the H100. Like K1 the recurrence is serial in t, and each step
 // streams Wx, Wh (for the pre-activations) and Wh^T (for dh) from L2 — about
 // 3 (D+H)·4H + 4H·H floats per direction per step for ROWS rows — so it is
@@ -53,6 +59,7 @@
 // products over the batch run outside the kernel on cuBLAS. Weight residency in
 // shared memory and a split K loop are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -61,6 +68,10 @@ namespace {
 constexpr int ROWS = 8;  // batch rows per block (two float4 per k in z)
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 struct DirWeights {
   const float* wx[2];   // [D, 4H] per direction (0 = forward, 1 = backward)
@@ -71,7 +82,7 @@ struct DirWeights {
 
 // One block's work; GROUPED = false is the launch of one bi-LSTM, whose group
 // offsets fold away (the code and registers of the kernel before the group axis).
-template <bool GROUPED>
+template <bool GROUPED, bool BF16>
 __device__ __forceinline__ void bwd_block(const float* __restrict__ x,
                                           const int* __restrict__ lengths, const DirWeights w,
                                           const float* __restrict__ hseq,
@@ -147,7 +158,16 @@ __device__ __forceinline__ void bwd_block(const float* __restrict__ x,
       float acc[ROWS];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
+      float xp[ROWS];   // BF16: x_t.Wx + b rounded, as the forward formed it
       for (int k = 0; k < K; ++k) {
+        if (BF16 && k == D) {
+          const float bc = B[col];
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            xp[r] = round_bf16(acc[r] + bc);
+            acc[r] = 0.0f;
+          }
+        }
         // [Wx; Wh] column col, read coalesced across the warp's columns
         const float wv = k < D ? __ldg(Wx + (size_t)k * G + col)
                                : __ldg(Wh + (size_t)(k - D) * G + col);
@@ -158,9 +178,14 @@ __device__ __forceinline__ void bwd_block(const float* __restrict__ x,
         acc[4] = fmaf(z1.x, wv, acc[4]); acc[5] = fmaf(z1.y, wv, acc[5]);
         acc[6] = fmaf(z1.z, wv, acc[6]); acc[7] = fmaf(z1.w, wv, acc[7]);
       }
-      const float bc = B[col];
+      if constexpr (BF16) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) gates[r * G + col] = acc[r] + bc;
+        for (int r = 0; r < ROWS; ++r) gates[r * G + col] = xp[r] + acc[r];
+      } else {
+        const float bc = B[col];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) gates[r * G + col] = acc[r] + bc;
+      }
     }
     __syncthreads();
     // 3. TF1 cell derivatives under the length mask; dgates overwrite the gates
@@ -194,7 +219,8 @@ __device__ __forceinline__ void bwd_block(const float* __restrict__ x,
         const int prev = dir == 0 ? pos - 1 : pos + 1;
         c_prev = cseq[(rowbase + prev) * hstride + dir * H + k];
       }
-      const float tanh_c = tanhf(c_t);
+      // BF16: c_t was saved rounded; the forward took tanh of the cell before that
+      const float tanh_c = tanhf(BF16 ? c_prev * f_s + i_s * j_t : c_t);
       float dh_in = dh_c[i];
       if (g_out != nullptr) dh_in += g_out[hix];
       if (g_fin != nullptr && t == L - 1) {
@@ -247,8 +273,22 @@ __global__ void lstm_bwd_kernel(const float* __restrict__ x, const int* __restri
                                 const float* __restrict__ g_fin, float* __restrict__ dgates,
                                 int n, int T, int D, int H, float forget_bias, long long wx_ms,
                                 long long wh_ms, long long b_ms) {
-  bwd_block<false>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H, forget_bias,
-                   wx_ms, wh_ms, b_ms);
+  bwd_block<false, false>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H,
+                          forget_bias, wx_ms, wh_ms, b_ms);
+}
+
+// the bf16 activation variant, at most 64 registers a thread like the grouped
+// kernel below (1024-thread blocks)
+__global__ void __launch_bounds__(1024)
+lstm_bwd_bf16_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                     const DirWeights w, const float* __restrict__ hseq,
+                     const float* __restrict__ cseq,
+                     const float* __restrict__ g_out,
+                     const float* __restrict__ g_fin, float* __restrict__ dgates,
+                     int n, int T, int D, int H, float forget_bias, long long wx_ms,
+                     long long wh_ms, long long b_ms) {
+  bwd_block<false, true>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H,
+                         forget_bias, wx_ms, wh_ms, b_ms);
 }
 
 // at most 64 registers a thread: the block has up to 1024 threads (4H columns),
@@ -260,33 +300,25 @@ lstm_bwd_grouped_kernel(const float* __restrict__ x, const int* __restrict__ len
                         const float* __restrict__ g_fin, float* __restrict__ dgates, int n,
                         int T, int D, int H, float forget_bias, long long wx_ms,
                         long long wh_ms, long long b_ms) {
-  bwd_block<true>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H, forget_bias,
-                  wx_ms, wh_ms, b_ms);
+  bwd_block<true, false>(x, lengths, w, hseq, cseq, g_out, g_fin, dgates, n, T, D, H,
+                         forget_bias, wx_ms, wh_ms, b_ms);
 }
 
 size_t smem_bytes(int D, int H) {
   return sizeof(float) * ((size_t)(D + H) * ROWS + (size_t)ROWS * 4 * H + 2 * (size_t)ROWS * H);
 }
 
-}  // namespace
-
-extern "C" {
-
-long long lstm_bwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h); }
-
-const char* lstm_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// Returns the cudaError_t of the launch (0 = success). g_out and g_fin may be null.
-// k bi-LSTMs over one batch in one launch (the group axis above; wh^T with wh's
-// stride); k = 1 is one bi-LSTM and the strides are then unread.
-int lstm_bwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
-             const float* wh_fw, const float* wh_bw, const float* wht_fw, const float* wht_bw,
-             const float* b_fw, const float* b_bw,
-             const float* out, const float* cell, const float* g_out, const float* g_fin,
-             float* dgates, int n, int t, int d, int h, float forget_bias, int k,
-             long long wx_ms, long long wh_ms, long long b_ms, void* stream) {
+template <bool BF16>
+int bwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
+        const float* wh_fw, const float* wh_bw, const float* wht_fw, const float* wht_bw,
+        const float* b_fw, const float* b_bw, const float* out, const float* cell,
+        const float* g_out, const float* g_fin, float* dgates, int n, int t, int d, int h,
+        float forget_bias, int k, long long wx_ms, long long wh_ms, long long b_ms,
+        void* stream) {
   const DirWeights w{{wx_fw, wx_bw}, {wh_fw, wh_bw}, {wht_fw, wht_bw}, {b_fw, b_bw}};
-  const auto kernel = k > 1 ? lstm_bwd_grouped_kernel : lstm_bwd_kernel;
+  if (BF16 && k > 1) return (int)cudaErrorInvalidValue;
+  const auto kernel = k > 1 ? lstm_bwd_grouped_kernel
+                            : (BF16 ? lstm_bwd_bf16_kernel : lstm_bwd_kernel);
   const size_t smem = smem_bytes(d, h);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -301,6 +333,30 @@ int lstm_bwd(const float* x, const int* lengths, const float* wx_fw, const float
                                                        dgates, n, t, d, h, forget_bias, wx_ms,
                                                        wh_ms, b_ms);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+long long lstm_bwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h); }
+
+const char* lstm_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Returns the cudaError_t of the launch (0 = success). g_out and g_fin may be null.
+// k bi-LSTMs over one batch in one launch (the group axis above; wh^T with wh's
+// stride); k = 1 is one bi-LSTM and the strides are then unread. bf16 != 0:
+// the backward of lstm_fwd's BF16 instantiation, straight through its roundings
+// (k = 1 only; cudaErrorInvalidValue otherwise).
+int lstm_bwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
+             const float* wh_fw, const float* wh_bw, const float* wht_fw, const float* wht_bw,
+             const float* b_fw, const float* b_bw,
+             const float* out, const float* cell, const float* g_out, const float* g_fin,
+             float* dgates, int n, int t, int d, int h, float forget_bias, int k,
+             long long wx_ms, long long wh_ms, long long b_ms, int bf16, void* stream) {
+  return (bf16 ? bwd<true> : bwd<false>)(x, lengths, wx_fw, wx_bw, wh_fw, wh_bw, wht_fw, wht_bw,
+                                         b_fw, b_bw, out, cell, g_out, g_fin, dgates, n, t, d, h,
+                                         forget_bias, k, wx_ms, wh_ms, b_ms, stream);
 }
 
 }  // extern "C"

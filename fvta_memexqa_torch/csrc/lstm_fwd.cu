@@ -27,6 +27,11 @@
 // capped at 64 registers for 1024-thread blocks; K = 1 keeps the one-bi-LSTM
 // kernel's code, which the offsets would slow by ~20% under that cap.
 //
+// The bf16 activation variant (BF16 = true, bf16 != 0; one bi-LSTM): as
+// lstm_rec.cu's, x_t.Wx + b is rounded to bf16 before h.Wh (a separate float32
+// sum) is added, and c, then h, are rounded after each step's update; x and the
+// weights arrive as float32 holding bf16 values.
+//
 // Design. One block per (tile of ROWS rows, direction); the block loops over t.
 // The tile's [x_t; h] lives in shared memory as z[k][r] (k over D+H, r over the
 // ROWS rows, so one k is two float4 loads), c in shared memory, and one thread
@@ -44,6 +49,7 @@
 // rows share each weight load. Weight residency in shared memory (Wh fits,
 // Wx does not) and splitting the K loop across more threads are later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -53,6 +59,10 @@ constexpr int ROWS = 8;  // batch rows per block (two float4 per k in z)
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 struct DirWeights {
   const float* wx[2];  // [D, 4H] per direction (0 = forward, 1 = backward)
   const float* wh[2];  // [H, 4H]
@@ -61,7 +71,7 @@ struct DirWeights {
 
 // One block's work; GROUPED = false is the launch of one bi-LSTM, whose group
 // offsets fold away (the code and registers of the kernel before the group axis).
-template <bool GROUPED>
+template <bool GROUPED, bool BF16>
 __device__ __forceinline__ void fwd_block(const float* __restrict__ x,
                                           const int* __restrict__ lengths, const DirWeights w,
                                           float* __restrict__ out, float* __restrict__ cell,
@@ -138,6 +148,15 @@ __device__ __forceinline__ void fwd_block(const float* __restrict__ x,
         acc[4] = fmaf(z1.x, w, acc[4]); acc[5] = fmaf(z1.y, w, acc[5]);
         acc[6] = fmaf(z1.z, w, acc[6]); acc[7] = fmaf(z1.w, w, acc[7]);
       }
+      float xp[ROWS];   // BF16: x_t.Wx + b rounded; h.Wh then sums from 0
+      if constexpr (BF16) {
+        const float bc = B[col];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          xp[r] = round_bf16(acc[r] + bc);
+          acc[r] = 0.0f;
+        }
+      }
       for (int k = 0; k < H; ++k) {
         const float w = __ldg(Wh + (size_t)k * G + col);
         const float4 z0 = *reinterpret_cast<const float4*>(z + (D + k) * ROWS);
@@ -147,9 +166,14 @@ __device__ __forceinline__ void fwd_block(const float* __restrict__ x,
         acc[4] = fmaf(z1.x, w, acc[4]); acc[5] = fmaf(z1.y, w, acc[5]);
         acc[6] = fmaf(z1.z, w, acc[6]); acc[7] = fmaf(z1.w, w, acc[7]);
       }
-      const float bc = B[col];
+      if constexpr (BF16) {
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) gates[r * G + col] = acc[r] + bc;
+        for (int r = 0; r < ROWS; ++r) gates[r * G + col] = xp[r] + acc[r];
+      } else {
+        const float bc = B[col];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) gates[r * G + col] = acc[r] + bc;
+      }
     }
     __syncthreads();
     // 3. TF1 cell + length mask. Writes only the h part of z and c, which no
@@ -161,9 +185,13 @@ __device__ __forceinline__ void fwd_block(const float* __restrict__ x,
       const int L = len_s[r];
       if (t < L) {
         const float* g = gates + r * G;
-        const float c = cst[i] * sigmoid_(g[2 * H + k] + forget_bias) +
-                        sigmoid_(g[k]) * tanhf(g[H + k]);
-        const float hh = tanhf(c) * sigmoid_(g[3 * H + k]);
+        float c = cst[i] * sigmoid_(g[2 * H + k] + forget_bias) +
+                  sigmoid_(g[k]) * tanhf(g[H + k]);
+        float hh = tanhf(c) * sigmoid_(g[3 * H + k]);
+        if constexpr (BF16) {
+          c = round_bf16(c);
+          hh = round_bf16(hh);
+        }
         cst[i] = c;
         z[(D + k) * ROWS + r] = hh;
         const int pos = dir == 0 ? t : L - 1 - t;
@@ -191,7 +219,20 @@ __global__ void lstm_fwd_kernel(const float* __restrict__ x, const int* __restri
                                 float* __restrict__ cell, float* __restrict__ fin, int n,
                                 int T, int D, int H, float forget_bias, long long wx_ms,
                                 long long wh_ms, long long b_ms) {
-  fwd_block<false>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms, b_ms);
+  fwd_block<false, false>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms,
+                         b_ms);
+}
+
+// the bf16 activation variant, at most 64 registers a thread like the grouped
+// kernel below (1024-thread blocks)
+__global__ void __launch_bounds__(1024)
+lstm_fwd_bf16_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                     const DirWeights w, float* __restrict__ out,
+                     float* __restrict__ cell, float* __restrict__ fin, int n,
+                     int T, int D, int H, float forget_bias, long long wx_ms,
+                     long long wh_ms, long long b_ms) {
+  fwd_block<false, true>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms,
+                         b_ms);
 }
 
 // at most 64 registers a thread: the block has up to 1024 threads (4H columns),
@@ -201,31 +242,23 @@ lstm_fwd_grouped_kernel(const float* __restrict__ x, const int* __restrict__ len
                         const DirWeights w, float* __restrict__ out, float* __restrict__ cell,
                         float* __restrict__ fin, int n, int T, int D, int H, float forget_bias,
                         long long wx_ms, long long wh_ms, long long b_ms) {
-  fwd_block<true>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms, b_ms);
+  fwd_block<true, false>(x, lengths, w, out, cell, fin, n, T, D, H, forget_bias, wx_ms, wh_ms,
+                         b_ms);
 }
 
 size_t smem_bytes(int D, int H) {
   return sizeof(float) * ((size_t)(D + H) * ROWS + (size_t)ROWS * 4 * H + (size_t)ROWS * H);
 }
 
-}  // namespace
-
-extern "C" {
-
-long long lstm_fwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h); }
-
-const char* lstm_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
-
-// Returns the cudaError_t of the launch (0 = success). out and cell may be null.
-// k bi-LSTMs over one batch in one launch (the group axis above); k = 1 is one
-// bi-LSTM and the strides are then unread.
-int lstm_fwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
-             const float* wh_fw, const float* wh_bw, const float* b_fw, const float* b_bw,
-             float* out, float* cell, float* fin, int n, int t, int d, int h,
-             float forget_bias, int k, long long wx_ms, long long wh_ms, long long b_ms,
-             void* stream) {
+template <bool BF16>
+int fwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
+        const float* wh_fw, const float* wh_bw, const float* b_fw, const float* b_bw, float* out,
+        float* cell, float* fin, int n, int t, int d, int h, float forget_bias, int k,
+        long long wx_ms, long long wh_ms, long long b_ms, void* stream) {
   const DirWeights w{{wx_fw, wx_bw}, {wh_fw, wh_bw}, {b_fw, b_bw}};
-  const auto kernel = k > 1 ? lstm_fwd_grouped_kernel : lstm_fwd_kernel;
+  if (BF16 && k > 1) return (int)cudaErrorInvalidValue;
+  const auto kernel = k > 1 ? lstm_fwd_grouped_kernel
+                            : (BF16 ? lstm_fwd_bf16_kernel : lstm_fwd_kernel);
   const size_t smem = smem_bytes(d, h);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -239,6 +272,28 @@ int lstm_fwd(const float* x, const int* lengths, const float* wx_fw, const float
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(x, lengths, w, out, cell, fin, n, t, d,
                                                        h, forget_bias, wx_ms, wh_ms, b_ms);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+long long lstm_fwd_smem_bytes(int d, int h) { return (long long)smem_bytes(d, h); }
+
+const char* lstm_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Returns the cudaError_t of the launch (0 = success). out and cell may be null.
+// k bi-LSTMs over one batch in one launch (the group axis above); k = 1 is one
+// bi-LSTM and the strides are then unread. bf16 != 0: the BF16 instantiation
+// (k = 1 only; cudaErrorInvalidValue otherwise).
+int lstm_fwd(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
+             const float* wh_fw, const float* wh_bw, const float* b_fw, const float* b_bw,
+             float* out, float* cell, float* fin, int n, int t, int d, int h,
+             float forget_bias, int k, long long wx_ms, long long wh_ms, long long b_ms,
+             int bf16, void* stream) {
+  return (bf16 ? fwd<true> : fwd<false>)(x, lengths, wx_fw, wx_bw, wh_fw, wh_bw, b_fw, b_bw, out,
+                                         cell, fin, n, t, d, h, forget_bias, k, wx_ms, wh_ms,
+                                         b_ms, stream);
 }
 
 }  // extern "C"

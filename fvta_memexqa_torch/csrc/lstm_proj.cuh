@@ -32,6 +32,13 @@
 // launches the instantiation without the offsets (GROUPED = false: the code
 // and registers of the kernel before the group axis).
 //
+// BF16 = true is the bf16 activation variant (ModelConfig.dtype = "bfloat16";
+// the JAX package's lstm_ref.lstm_scan_ref(dtype=bfloat16)): x and the weights
+// arrive as float32 holding bf16 values, the product still accumulates in
+// float32, and x.Wx + b is rounded to bf16 (round to nearest even) before the
+// store, as the JAX scan casts x_proj. Storage stays float32. One bi-LSTM only
+// (no group axis).
+//
 // Bound on the H100: 2.D.8H FLOPs per valid position against 4.(D + 8H) bytes,
 // about 80 FLOP/B at D = 200, H = 100, so FP32 throughput (67 TFLOP/s) bounds it,
 // not HBM. What the design does about it: register tiles of up to 8 x 4 (three
@@ -39,13 +46,18 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace lproj {
 
 constexpr int THREADS = 256;
 
-template <int BM, int BN, int BK, int TM, int TN, bool GROUPED>
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int BM, int BN, int BK, int TM, int TN, bool GROUPED, bool BF16>
 __global__ void __launch_bounds__(THREADS, 2)
 lstm_proj_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                  const float* __restrict__ wx_fw, const float* __restrict__ wx_bw,
@@ -157,19 +169,24 @@ lstm_proj_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
       if (m >= M) continue;
       const float4 v = make_float4(acc[i][j] + bias[0], acc[i][j + 1] + bias[1],
                                    acc[i][j + 2] + bias[2], acc[i][j + 3] + bias[3]);
-      *reinterpret_cast<float4*>(xg + (size_t)m * G8 + c) = v;
+      if constexpr (BF16) {
+        *reinterpret_cast<float4*>(xg + (size_t)m * G8 + c) =
+            make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+      } else {
+        *reinterpret_cast<float4*>(xg + (size_t)m * G8 + c) = v;
+      }
     }
   }
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
+template <int BM, int BN, int BK, int TM, int TN, bool BF16>
 inline int launch_tiles(const float* x, const int* lengths, const float* wx_fw,
                         const float* wx_bw, const float* b_fw, const float* b_bw, float* xg,
                         int M, int T, int D, int H, int k, long long wx_ms, long long b_ms,
                         cudaStream_t stream) {
   const dim3 grid((8 * H + BN - 1) / BN, (M + BM - 1) / BM, k);
-  const auto kernel = k > 1 ? lstm_proj_kernel<BM, BN, BK, TM, TN, true>
-                            : lstm_proj_kernel<BM, BN, BK, TM, TN, false>;
+  const auto kernel = k > 1 ? lstm_proj_kernel<BM, BN, BK, TM, TN, true, false>
+                            : lstm_proj_kernel<BM, BN, BK, TM, TN, false, BF16>;
   kernel<<<grid, THREADS, 0, stream>>>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, T, D, H,
                                        wx_ms, b_ms);
   return (int)cudaGetLastError();
@@ -181,19 +198,21 @@ inline int launch_tiles(const float* x, const int* lengths, const float* wx_fw,
 // with slabs of 8 or 16 and 1 or 2 blocks per SM, 128 x 64, 64 x 128, 64 x 64
 // with slabs of 16 or 32), these two were the fastest on their sides of the
 // threshold (PERF.md), the tiles of all k groups counted. Returns the
-// cudaError_t of the launch.
+// cudaError_t of the launch (cudaErrorInvalidValue for BF16 with k > 1).
+template <bool BF16>
 inline int launch(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
                   const float* b_fw, const float* b_bw, float* xg, int n, int t, int d, int h,
                   int k, long long wx_ms, long long b_ms, void* stream) {
   const int M = n * t;
   const long long tall_tiles = (long long)k * ((M + 127) / 128) * ((8 * h + 63) / 64);
   cudaStream_t s = (cudaStream_t)stream;
+  if (BF16 && k > 1) return (int)cudaErrorInvalidValue;
   if (tall_tiles >= 66) {
-    return launch_tiles<128, 64, 16, 8, 4>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, t, d,
-                                           h, k, wx_ms, b_ms, s);
+    return launch_tiles<128, 64, 16, 8, 4, BF16>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M,
+                                                 t, d, h, k, wx_ms, b_ms, s);
   }
-  return launch_tiles<64, 64, 16, 4, 4>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, t, d, h,
-                                        k, wx_ms, b_ms, s);
+  return launch_tiles<64, 64, 16, 4, 4, BF16>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, M, t, d,
+                                              h, k, wx_ms, b_ms, s);
 }
 
 }  // namespace lproj

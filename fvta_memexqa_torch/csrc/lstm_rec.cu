@@ -40,6 +40,15 @@
 // and fin [N, 2H] follow m - 1's, and its Wh lies wh_ms elements past m - 1's
 // in each direction. Each group runs exactly the K = 1 kernel's sums; K = 1
 // launches the instantiation without the offsets (GROUPED = false).
+//
+// The bf16 activation variant (BF16 = true; lstm_k1 with bf16 != 0; one
+// bi-LSTM, K = 1): the JAX package's
+// lstm_ref.lstm_scan_ref(dtype=bfloat16), whose gates and cell arithmetic run
+// in float32 (x_proj_t + h.Wh with float32 accumulation) and which rounds to
+// bf16 only x_proj (lstm_proj.cuh) and, after each step's update, c and then h
+// (h from the unrounded c). Storage stays float32 holding the rounded values, so
+// the carried h and c, out, cell and fin are bf16 values; the pre-activations
+// written under grad are the float32 gates.
 
 #include "lstm_proj.cuh"
 #include "lstm_rec.cuh"
@@ -50,7 +59,7 @@ using lrec::Lanes;
 
 // GROUPED = false is the launch of one bi-LSTM (K = 1), whose group offsets
 // fold away: the code and registers of the kernel before the group axis.
-template <int ROWS, int S, bool GROUPED>
+template <int ROWS, int S, bool GROUPED, bool BF16>
 __global__ void __launch_bounds__(ROWS == 16 ? 416 : 512)
 lstm_rec_kernel(float* xg, const int* __restrict__ lengths, const float* __restrict__ wh_fw,
                 const float* __restrict__ wh_bw, float* __restrict__ out,
@@ -168,6 +177,10 @@ lstm_rec_kernel(float* xg, const int* __restrict__ lengths, const float* __restr
                           lrec::sigmoid_(gt[j][0]) * tanhf(gt[j][1]);
           h_reg[j] = tanhf(c) * lrec::sigmoid_(gt[j][3]);
           c_reg[j] = c;
+          if constexpr (BF16) {
+            c_reg[j] = lrec::round_bf16(c);
+            h_reg[j] = lrec::round_bf16(h_reg[j]);
+          }
         }
       }
       // 3. the new h to every CTA of the cluster; the outputs go to global memory
@@ -221,17 +234,49 @@ lstm_rec_kernel(float* xg, const int* __restrict__ lengths, const float* __restr
   }
 }
 
-template <int ROWS, int S>
+template <int ROWS, int S, bool BF16>
 int launch(float* xg, const int* lengths, const float* wh_fw, const float* wh_bw, float* out,
            float* cell, float* fin, int n, int t, int h, int c, float forget_bias,
            int write_preact, int k, long long wh_ms, void* stream) {
   const lrec::Geometry g = lrec::fwd_geometry(h, c, ROWS, S);
   const int tiles = (n + ROWS - 1) / ROWS;
-  return lrec::launch_groups(k > 1 ? lstm_rec_kernel<ROWS, S, true>
-                                   : lstm_rec_kernel<ROWS, S, false>,
+  return lrec::launch_groups(k > 1 ? lstm_rec_kernel<ROWS, S, true, false>
+                                   : lstm_rec_kernel<ROWS, S, false, BF16>,
                              tiles, 2 * k, c, g, stream, xg, lengths, wh_fw, wh_bw, out, cell,
                              fin, n, t, h, g.hc, g.units, g.stride, forget_bias, write_preact,
                              wh_ms);
+}
+
+template <bool BF16>
+int rec(float* xg, const int* lengths, const float* wh_fw, const float* wh_bw, float* out,
+        float* cell, float* fin, int n, int t, int h, int c, int rows, int split,
+        float forget_bias, int write_preact, int k, long long wh_ms, void* stream) {
+  if (BF16 && k > 1) return (int)cudaErrorInvalidValue;
+#define LSTM_REC_CASE(R, S_)                                                              \
+  if (rows == R && split == S_)                                                           \
+    return launch<R, S_, BF16>(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c,     \
+                               forget_bias, write_preact, k, wh_ms, stream);
+  LSTM_REC_CASE(8, 4)
+  LSTM_REC_CASE(8, 8)
+  LSTM_REC_CASE(8, 16)
+  LSTM_REC_CASE(16, 4)
+#undef LSTM_REC_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool BF16>
+int k1(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
+       const float* b_fw, const float* b_bw, const float* wh_fw, const float* wh_bw, float* xg,
+       float* out, float* cell, float* fin, int n, int t, int d, int h, int c, int rows,
+       int split, float forget_bias, int write_preact, int k, long long wx_ms, long long wh_ms,
+       long long b_ms, void* stream) {
+  if (n * t > 0) {
+    const int err = lproj::launch<BF16>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, k,
+                                        wx_ms, b_ms, stream);
+    if (err != 0) return err;
+  }
+  return rec<BF16>(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c, rows, split,
+                   forget_bias, write_preact, k, wh_ms, stream);
 }
 
 }  // namespace
@@ -256,16 +301,8 @@ const char* lstm_rec_error_string(int err) { return lrec::error_string(err); }
 int lstm_rec(float* xg, const int* lengths, const float* wh_fw, const float* wh_bw, float* out,
              float* cell, float* fin, int n, int t, int h, int c, int rows, int split,
              float forget_bias, int write_preact, int k, long long wh_ms, void* stream) {
-#define LSTM_REC_CASE(R, S_)                                                              \
-  if (rows == R && split == S_)                                                           \
-    return launch<R, S_>(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c,           \
-                         forget_bias, write_preact, k, wh_ms, stream);
-  LSTM_REC_CASE(8, 4)
-  LSTM_REC_CASE(8, 8)
-  LSTM_REC_CASE(8, 16)
-  LSTM_REC_CASE(16, 4)
-#undef LSTM_REC_CASE
-  return (int)cudaErrorInvalidValue;
+  return rec<false>(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c, rows, split,
+                    forget_bias, write_preact, k, wh_ms, stream);
 }
 
 // The projection alone (lstm_proj.cuh): xg [N, T, 8H] (16-byte aligned) from
@@ -276,8 +313,8 @@ int lstm_rec(float* xg, const int* lengths, const float* wh_fw, const float* wh_
 int lstm_proj(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
               const float* b_fw, const float* b_bw, float* xg, int n, int t, int d, int h,
               int k, long long wx_ms, long long b_ms, void* stream) {
-  return lproj::launch(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, k, wx_ms, b_ms,
-                       stream);
+  return lproj::launch<false>(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, k, wx_ms,
+                              b_ms, stream);
 }
 
 // K1 on the Hopper route from one host call: lstm_proj's kernel writes xg
@@ -285,19 +322,16 @@ int lstm_proj(const float* x, const int* lengths, const float* wx_fw, const floa
 // recurrence runs on it as `lstm_rec` does; k bi-LSTMs over one batch as
 // lstm_proj and lstm_rec take them, one launch of each for all. Returns the
 // first failing launch's error (the projection's as is, the recurrence's as
-// lstm_rec returns it).
+// lstm_rec returns it). bf16 != 0 launches both kernels' BF16 instantiations
+// (k = 1 only; cudaErrorInvalidValue otherwise).
 int lstm_k1(const float* x, const int* lengths, const float* wx_fw, const float* wx_bw,
             const float* b_fw, const float* b_bw, const float* wh_fw, const float* wh_bw,
             float* xg, float* out, float* cell, float* fin, int n, int t, int d, int h, int c,
             int rows, int split, float forget_bias, int write_preact, int k, long long wx_ms,
-            long long wh_ms, long long b_ms, void* stream) {
-  if (n * t > 0) {
-    const int err = lproj::launch(x, lengths, wx_fw, wx_bw, b_fw, b_bw, xg, n, t, d, h, k, wx_ms,
-                                  b_ms, stream);
-    if (err != 0) return err;
-  }
-  return lstm_rec(xg, lengths, wh_fw, wh_bw, out, cell, fin, n, t, h, c, rows, split,
-                  forget_bias, write_preact, k, wh_ms, stream);
+            long long wh_ms, long long b_ms, int bf16, void* stream) {
+  return (bf16 ? k1<true> : k1<false>)(x, lengths, wx_fw, wx_bw, b_fw, b_bw, wh_fw, wh_bw, xg,
+                                       out, cell, fin, n, t, d, h, c, rows, split, forget_bias,
+                                       write_preact, k, wx_ms, wh_ms, b_ms, stream);
 }
 
 }  // extern "C"

@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -34,6 +35,12 @@ namespace cg = cooperative_groups;
 constexpr int CLUSTER_UNSCHEDULABLE = -1;   // returned when no cluster fits on the card
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// A float32 rounded to the nearest bfloat16 (ties to even), kept as a float32:
+// the bf16 activation variant's roundings (lstm_rec.cu, lstm_rec_bwd.cu).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 template <int ROWS, int S>
 struct Lanes {

@@ -40,6 +40,14 @@
 // y axis holds 2K groups, group y running direction y % 2 of bi-LSTM y / 2;
 // bi-LSTM m's pre, dgates [N, T, 8H], lengths [N], cell, g_out [N, T, 2H] and
 // g_fin [N, 2H] follow m - 1's, its Wh wh_ms elements past m - 1's.
+//
+// The bf16 activation variant (BF16 = true; bf16 != 0, one bi-LSTM):
+// the backward of lstm_rec.cu's BF16 forward, straight through its roundings (a
+// rounding's derivative is taken as 1, as JAX's autodiff transposes a cast by a
+// cast back). The pre-activations are the float32 gates the forward used, and
+// the saved cells are the rounded c that it carried, so c_{t-1} is exact; c_t
+// there is rounded, while the forward took tanh of the unrounded cell, so
+// tanh(c_t) is taken of the cell recomputed from the gates and c_{t-1}.
 
 #include "lstm_rec.cuh"
 
@@ -49,7 +57,7 @@ using lrec::Lanes;
 
 // GROUPED = false: one bi-LSTM (K = 1), the code of the kernel before the
 // group axis (lstm_rec.cu's rule).
-template <int ROWS, int S, bool GROUPED>
+template <int ROWS, int S, bool GROUPED, bool BF16>
 __global__ void __launch_bounds__(ROWS == 16 ? 416 : 512)
 lstm_rec_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ lengths,
                     const float* __restrict__ wh_fw, const float* __restrict__ wh_bw,
@@ -165,7 +173,9 @@ lstm_rec_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ lengt
           const float j_t = tanhf(pv[j][1]);
           const float f_s = lrec::sigmoid_(pv[j][2] + forget_bias);
           const float o_s = lrec::sigmoid_(pv[j][3]);
-          const float tanh_c = tanhf(cv[j]);
+          float c_t = cv[j];
+          if constexpr (BF16) c_t = cpv[j] * f_s + i_s * j_t;   // the forward's cell
+          const float tanh_c = tanhf(c_t);
           float dh_in = dh_reg[j] + gov[j];
           if (t == L - 1) dh_in += gfin[j];
           // m = 1 here: dc_total = dc_in + dh_in * o * (1 - tanh(c)^2)
@@ -246,16 +256,34 @@ lstm_rec_bwd_kernel(const float* __restrict__ pre, const int* __restrict__ lengt
   }
 }
 
-template <int ROWS, int S>
+template <int ROWS, int S, bool BF16>
 int launch(const float* pre, const int* lengths, const float* wh_fw, const float* wh_bw,
            const float* cell, const float* g_out, const float* g_fin, float* dgates, int n,
            int t, int h, int c, float forget_bias, int k, long long wh_ms, void* stream) {
   const lrec::Geometry g = lrec::bwd_geometry(h, c, ROWS, S);
   const int tiles = (n + ROWS - 1) / ROWS;
-  return lrec::launch_groups(k > 1 ? lstm_rec_bwd_kernel<ROWS, S, true>
-                                   : lstm_rec_bwd_kernel<ROWS, S, false>,
+  return lrec::launch_groups(k > 1 ? lstm_rec_bwd_kernel<ROWS, S, true, false>
+                                   : lstm_rec_bwd_kernel<ROWS, S, false, BF16>,
                              tiles, 2 * k, c, g, stream, pre, lengths, wh_fw, wh_bw, cell, g_out,
                              g_fin, dgates, n, t, h, g.hc, g.units, g.stride, forget_bias, wh_ms);
+}
+
+template <bool BF16>
+int rec_bwd(const float* pre, const int* lengths, const float* wh_fw, const float* wh_bw,
+            const float* cell, const float* g_out, const float* g_fin, float* dgates, int n,
+            int t, int h, int c, int rows, int split, float forget_bias, int k, long long wh_ms,
+            void* stream) {
+  if (BF16 && k > 1) return (int)cudaErrorInvalidValue;
+#define LSTM_REC_BWD_CASE(R, S_)                                                          \
+  if (rows == R && split == S_)                                                           \
+    return launch<R, S_, BF16>(pre, lengths, wh_fw, wh_bw, cell, g_out, g_fin, dgates, n, \
+                               t, h, c, forget_bias, k, wh_ms, stream);
+  LSTM_REC_BWD_CASE(8, 4)
+  LSTM_REC_BWD_CASE(8, 8)
+  LSTM_REC_BWD_CASE(8, 16)
+  LSTM_REC_BWD_CASE(16, 4)
+#undef LSTM_REC_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -272,21 +300,15 @@ const char* lstm_rec_bwd_error_string(int err) { return lrec::error_string(err);
 // [N, T, 2H], g_out [N, T, 2H] and g_fin [N, 2H] (either may be null), lengths
 // [N] int32 and both directions' wh [H, 4H], with the forward's (c, rows,
 // split); k bi-LSTMs over one batch in one launch as lstm_rec takes them.
+// bf16 != 0: the backward of lstm_k1's BF16 instantiation (k = 1 only).
 // Returns as lstm_rec does.
 int lstm_rec_bwd(const float* pre, const int* lengths, const float* wh_fw, const float* wh_bw,
                  const float* cell, const float* g_out, const float* g_fin, float* dgates,
                  int n, int t, int h, int c, int rows, int split, float forget_bias, int k,
-                 long long wh_ms, void* stream) {
-#define LSTM_REC_BWD_CASE(R, S_)                                                        \
-  if (rows == R && split == S_)                                                         \
-    return launch<R, S_>(pre, lengths, wh_fw, wh_bw, cell, g_out, g_fin, dgates, n, t,  \
-                         h, c, forget_bias, k, wh_ms, stream);
-  LSTM_REC_BWD_CASE(8, 4)
-  LSTM_REC_BWD_CASE(8, 8)
-  LSTM_REC_BWD_CASE(8, 16)
-  LSTM_REC_BWD_CASE(16, 4)
-#undef LSTM_REC_BWD_CASE
-  return (int)cudaErrorInvalidValue;
+                 long long wh_ms, int bf16, void* stream) {
+  return (bf16 ? rec_bwd<true> : rec_bwd<false>)(pre, lengths, wh_fw, wh_bw, cell, g_out, g_fin,
+                                                 dgates, n, t, h, c, rows, split, forget_bias, k,
+                                                 wh_ms, stream);
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ import numpy as np
 from fvta_memexqa_torch.config import DataConfig
 from fvta_memexqa_torch.data.schema import Album, QAPair, album_where_text
 from fvta_memexqa_torch.data.tokenize import (UNK_ID, tokenize, tokenize_many,
-                                              word_to_char_ids)
+                                              try_load_native, word_to_char_ids)
 from fvta_memexqa_torch.data.vocab import Vocab
 
 # Album-level text modalities, in table order (axis 1 of album_text_*).
@@ -81,29 +81,38 @@ def _encode_text(
     return words, chars, mask
 
 
-def _encode_many(texts: list[str], vocab: Vocab, max_len: int, max_word_len: int):
-    """→ (words i32 [N, L], chars i32 [N, L, W], mask bool [N, L])."""
-    n = len(texts)
-    words = np.zeros((n, max_len), dtype=np.int32)
-    chars = np.zeros((n, max_len, max_word_len), dtype=np.int32)
-    mask = np.zeros((n, max_len), dtype=bool)
-    for i, t in enumerate(texts):
-        words[i], chars[i], mask[i] = _encode_text(tokenize(t), vocab, max_len,
-                                                   max_word_len)
-    return words, chars, mask
-
-
 class BatchEncoder:
-    """Encode many raw texts → fixed-shape id tensors (the JAX package's
-    BatchEncoder through its Python path; its native scanner is documented
-    bit-identical to it, so the outputs are the same)."""
+    """Encode many raw texts → fixed-shape id tensors in one pass: the ASCII
+    texts through the native tokenize + lookup (data/_native_tokenizer, one
+    call), the rest through the regex path, text by text, so one non-ASCII
+    string does not send the whole corpus to the slow path. The output is
+    bit-identical either way."""
 
     def __init__(self, vocab: Vocab):
         self.vocab = vocab
+        native = try_load_native()
+        self._enc = native.NativeEncoder(vocab.word2idx, vocab.char2idx) if native else None
 
     def encode(self, texts: list[str], max_len: int, max_word_len: int):
-        """→ (words i32 [N, L], chars i32 [N, L, W], mask bool [N, L])."""
-        return _encode_many(texts, self.vocab, max_len, max_word_len)
+        """→ (words i32 [N, L], chars i32 [N, L, W], mask bool [N, L]). UNK
+        tokens get PAD chars (see _encode_text), enforced after either path."""
+        n = len(texts)
+        words = np.zeros((n, max_len), dtype=np.int32)
+        chars = np.zeros((n, max_len, max_word_len), dtype=np.int32)
+        mask = np.zeros((n, max_len), dtype=bool)
+        ascii_idx = ([i for i, t in enumerate(texts) if t.isascii()]
+                     if self._enc is not None else [])
+        if ascii_idx:
+            ii = np.asarray(ascii_idx)
+            words[ii], chars[ii], mask[ii] = self._enc.encode_batch(
+                [texts[i] for i in ascii_idx], max_len, max_word_len)
+        done = set(ascii_idx)
+        for i, t in enumerate(texts):
+            if i not in done:
+                words[i], chars[i], mask[i] = _encode_text(tokenize(t), self.vocab, max_len,
+                                                           max_word_len)
+        chars[words == UNK_ID] = 0   # UNK tokens → PAD chars (canonical UNK semantics)
+        return words, chars, mask
 
 
 def _assert_prefix_masks(sh: PackedShared) -> None:
@@ -282,14 +291,14 @@ def pack(
             raise ValueError(f"photo {pid}: feat dim {f.shape[0]} != {feat_dim}")
         sh.photo_feats[row] = f
 
-    ext_vocab = dataclasses.replace(vocab, word2idx={**vocab.word2idx, **ext2idx})
+    enc = BatchEncoder(dataclasses.replace(vocab, word2idx={**vocab.word2idx, **ext2idx}))
     title_texts = ["" for _ in range(n_alb * cfg.max_photos)]
     for aid, row in album_row.items():
         for p, (pid, title) in enumerate(album_kept[aid]):
             sh.album_photo_idx[row, p] = photo_row[pid]
             sh.album_photo_mask[row, p] = True
             title_texts[row * cfg.max_photos + p] = title
-    w, ch, m = _encode_many(title_texts, ext_vocab, cfg.max_sent_len, cfg.max_word_len)
+    w, ch, m = enc.encode(title_texts, cfg.max_sent_len, cfg.max_word_len)
     sh.photo_title_words[:] = w.reshape(sh.photo_title_words.shape)
     sh.photo_title_chars[:] = ch.reshape(sh.photo_title_chars.shape)
     sh.photo_title_mask[:] = m.reshape(sh.photo_title_mask.shape)
@@ -307,8 +316,7 @@ def pack(
         field_texts = ["" for _ in range(n_alb)]
         for aid, row in album_row.items():
             field_texts[row] = _album_text(albums[aid], fname)
-        w, ch, m = _encode_many(field_texts, ext_vocab, cfg.max_album_text_len,
-                                cfg.max_word_len)
+        w, ch, m = enc.encode(field_texts, cfg.max_album_text_len, cfg.max_word_len)
         sh.album_text_words[:, fi] = w
         sh.album_text_chars[:, fi] = ch
         sh.album_text_mask[:, fi] = m
@@ -323,11 +331,10 @@ def pack(
             "label": np.zeros(n, dtype=np.int32),
             "qid": np.asarray([q.question_id for q in split_qas_list], dtype="U64"),
         }
-        arr["q_words"], arr["q_chars"], arr["q_mask"] = _encode_many(
-            [qa.question for qa in split_qas_list], ext_vocab,
-            cfg.max_question_len, cfg.max_word_len)
-        cw, cc, cm = _encode_many([c for qa in split_qas_list for c in qa.choices],
-                                  ext_vocab, cfg.max_answer_len, cfg.max_word_len)
+        arr["q_words"], arr["q_chars"], arr["q_mask"] = enc.encode(
+            [qa.question for qa in split_qas_list], cfg.max_question_len, cfg.max_word_len)
+        cw, cc, cm = enc.encode([c for qa in split_qas_list for c in qa.choices],
+                                cfg.max_answer_len, cfg.max_word_len)
         arr["choice_words"] = cw.reshape(n, 4, cfg.max_answer_len)
         arr["choice_chars"] = cc.reshape(n, 4, cfg.max_answer_len, cfg.max_word_len)
         arr["choice_mask"] = cm.reshape(n, 4, cfg.max_answer_len)

@@ -97,12 +97,19 @@ class BiLSTM(nn.Module):
     concatenated [D+H, 4H] kernel with zero bias, as TF1 initializes them.
 
     fin_only=True promises the caller consumes only the final state: the kernel
-    then writes no per-step outputs and forward returns (None, fin)."""
+    then writes no per-step outputs and forward returns (None, fin).
+
+    dtype="bfloat16" is the bf16 activation variant (ModelConfig.dtype): the
+    scan's x-projection and carried state in bf16 with float32 accumulation
+    (ops/lstm_fused, dtype=torch.bfloat16), the outputs back in float32 at this
+    module's boundary, so attention and the scorer stay float32; the parameters
+    stay float32. As in the JAX package, only the bi-LSTMs change."""
 
     def __init__(self, in_dim: int, hidden_dim: int, forget_bias: float = 1.0,
-                 generator=None):
+                 generator=None, dtype: str = "float32"):
         super().__init__()
         self.forget_bias = forget_bias
+        self.act_dtype = torch.bfloat16 if dtype == "bfloat16" else None
         lim = math.sqrt(6.0 / (in_dim + hidden_dim + 4 * hidden_dim))
         for d in ("fw", "bw"):
             k = torch.empty(in_dim + hidden_dim, 4 * hidden_dim).uniform_(
@@ -118,15 +125,14 @@ class BiLSTM(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor, fin_only: bool = False):
         p_fw, p_bw = self.pair()
         if fin_only:
-            return None, bilstm_fused_final(p_fw, p_bw, x, mask, self.forget_bias)
-        return bilstm_fused(p_fw, p_bw, x, mask, self.forget_bias)
+            return None, bilstm_fused_final(p_fw, p_bw, x, mask, self.forget_bias,
+                                            dtype=self.act_dtype)
+        return bilstm_fused(p_fw, p_bw, x, mask, self.forget_bias, dtype=self.act_dtype)
 
 
 class FVTAModel(nn.Module):
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.model.dtype == "bfloat16":
-            raise NotImplementedError("the bfloat16 activation variant is not ported yet")
         self.cfg = cfg
         d, m = cfg.data, cfg.model
         g = generator
@@ -138,11 +144,11 @@ class FVTAModel(nn.Module):
         self.highway = Highway(demb, num_layers=2, generator=g)
         self.keep_prob = m.keep_prob
         self.photo_proj = dense(d.image_feat_dim, demb, g)
-        self.enc_word = BiLSTM(demb, m.hidden_dim, m.forget_bias, g)
+        self.enc_word = BiLSTM(demb, m.hidden_dim, m.forget_bias, g, m.dtype)
         # photo_title consumes the word-level summary states, hence in_dim = 2H
         self.enc_time = nn.ModuleDict({
             mod: BiLSTM(h2 if mod == "photo_title" else demb, m.hidden_dim,
-                        m.forget_bias, g)
+                        m.forget_bias, g, m.dtype)
             for mod in MODALITIES})
         if m.similarity == "trilinear":
             for name in ("sim_w_x", "sim_w_y", "sim_w_xy"):

@@ -66,10 +66,19 @@ class VideoOutput(NamedTuple):
 class DilatedConvEncoder(nn.Module):
     """in_proj to 2H, then num_layers of x += gelu(conv_l(x)) (kernel 3,
     dilation 2^l, 'SAME' padding), masked at every layer; returns the states
-    [N, T, 2H] and their masked mean over time [N, 2H]."""
+    [N, T, 2H] and their masked mean over time [N, 2H].
 
-    def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 4, generator=None):
+    dtype="bfloat16" runs in_proj and the conv stack with bf16 activations (the
+    parameters stay float32 and are cast for the computation, as flax's
+    computation dtype does) and casts back to float32 at the module boundary;
+    the masked mean accumulates in float32 either way. The convs stay
+    nn.Conv1d modules, computed by F.conv1d on their cast parameters: the JAX
+    package computes them outside any Pallas kernel."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 4, generator=None,
+                 dtype: str = "float32"):
         super().__init__()
+        self.act_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         h2 = 2 * hidden_dim
         self.in_proj = dense(in_dim, h2, generator)
         for li in range(num_layers):
@@ -82,13 +91,17 @@ class DilatedConvEncoder(nn.Module):
         self.num_layers = num_layers
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor):
-        m = mask[..., None].to(x.dtype)
-        x = self.in_proj(x) * m
+        cdt = self.act_dtype
+        x = x.to(cdt)
+        m = mask[..., None].to(cdt)
+        x = F.linear(x, self.in_proj.weight.to(cdt), self.in_proj.bias.to(cdt)) * m
         for li in range(self.num_layers):
-            y = getattr(self, f"conv{li}")((x * m).transpose(1, 2)).transpose(1, 2)
+            conv = getattr(self, f"conv{li}")
+            y = F.conv1d((x * m).transpose(1, 2), conv.weight.to(cdt), conv.bias.to(cdt),
+                         padding=conv.padding, dilation=conv.dilation).transpose(1, 2)
             x = x + F.gelu(y, approximate="tanh") * m      # flax nn.gelu is the tanh form
-        xf = x * m
-        fin = xf.sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+        xf = (x * m).float()
+        fin = xf.sum(dim=1) / torch.clamp(m.float().sum(dim=1), min=1.0)
         return xf, fin
 
 
@@ -100,8 +113,6 @@ class VideoFVTAModel(nn.Module):
                  temporal_encoder: str = "dilated_conv", task: str = "mc",
                  num_answers: int = 0, generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.model.dtype == "bfloat16":
-            raise NotImplementedError("the bfloat16 activation variant is not ported yet")
         if task not in ("mc", "count", "frameqa"):
             raise ValueError(f"unknown task {task!r} (expected mc | count | frameqa)")
         if task == "frameqa" and num_answers < 2:
@@ -118,12 +129,13 @@ class VideoFVTAModel(nn.Module):
         self.char_cnn = CharCNN(max(d.char_vocab_size, 4), m.char_emb_dim,
                                 m.char_cnn_filters, m.char_cnn_width, g)
         self.highway = Highway(demb, num_layers=2, generator=g)
-        self.enc_word = BiLSTM(demb, m.hidden_dim, m.forget_bias, g)
+        self.enc_word = BiLSTM(demb, m.hidden_dim, m.forget_bias, g, m.dtype)
         if temporal_encoder == "bilstm":
             self.frame_proj = dense(d.image_feat_dim, demb, g)
-            self.enc_frames = BiLSTM(demb, m.hidden_dim, m.forget_bias, g)
+            self.enc_frames = BiLSTM(demb, m.hidden_dim, m.forget_bias, g, m.dtype)
         elif temporal_encoder == "dilated_conv":
-            self.enc_frames = DilatedConvEncoder(d.image_feat_dim, m.hidden_dim, generator=g)
+            self.enc_frames = DilatedConvEncoder(d.image_feat_dim, m.hidden_dim, generator=g,
+                                                 dtype=m.dtype)
         else:
             raise ValueError(f"unknown temporal encoder {temporal_encoder!r}")
         if m.similarity == "trilinear":

@@ -3,8 +3,8 @@
 Each source is compiled by its own `nvcc` process into a shared library with a
 plain C interface — all processes started together — and loaded with ctypes.
 Libraries land in `fvta_memexqa_torch/_build/` (not committed) under a name
-carrying the hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Nothing here runs at import: the first CUDA
+carrying the hash of the source, the headers and the flags, built atomically
+by utils/native_build. Nothing here runs at import: the first CUDA
 launch triggers the build, and the CPU path never needs `nvcc`. The checks
 and the launch counting shared by the kernel wrappers live here too.
 """
@@ -12,15 +12,14 @@ and the launch counting shared by the kernel wrappers live here too.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
 import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
+
+from fvta_memexqa_torch.utils.native_build import build_missing, hashed_target
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -47,39 +46,21 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes())
-    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+    headers = [hdr.read_bytes() for hdr in sorted(CSRC_DIR.glob("*.cuh"))]
+    return hashed_target(BUILD_DIR, src.stem, src.read_bytes(), *headers,
+                         " ".join(NVCC_FLAGS).encode())
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every csrc/*.cu whose library is missing; returns stem → path.
-    A file lock keeps concurrent processes from building the same target."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile every csrc/*.cu whose library is missing, one `nvcc` each, all
+    started together; returns stem → path."""
     targets = {src.stem: (src, _target(src)) for src in sorted(CSRC_DIR.glob("*.cu"))}
-    with open(BUILD_DIR / ".lock", "w") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        procs = {}
-        for stem, (src, out) in targets.items():
-            if out.exists():
-                continue
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True),
-                           tmp, out)
-        failed = []
-        for stem, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            build_log[stem] = log
-            if proc.returncode != 0:
-                failed.append(f"{stem}.cu (exit {proc.returncode}):\n{log}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    missing = {stem: out for stem, (_, out) in targets.items() if not out.exists()}
+    if missing:
+        nvcc = nvcc_path()
+        build_log.update(build_missing(
+            {stem: ([nvcc, *NVCC_FLAGS, str(targets[stem][0])], out)
+             for stem, out in missing.items()}, BUILD_DIR / ".lock"))
     return {stem: out for stem, (_, out) in targets.items()}
 
 
@@ -93,14 +74,17 @@ def library(stem: str) -> ctypes.CDLL:
         return _libs[stem]
 
 
-def count_launch(wrapper, global_route: bool = False) -> None:
+def count_launch(wrapper, global_route: bool = False, bf16: bool = False) -> None:
     """`wrapper.launches += 1`, and `wrapper.global_launches += 1` for a launch on
-    the kernel's global route, under a lock: kernels launch from several threads
+    the kernel's global route, `wrapper.bf16_launches += 1` for one of its bf16
+    activation instantiation, under a lock: kernels launch from several threads
     (the serving engine's worker and the ingesting caller)."""
     with _count_lock:
         wrapper.launches += 1
         if global_route:
             wrapper.global_launches += 1
+        if bf16:
+            wrapper.bf16_launches += 1
 
 
 def check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:

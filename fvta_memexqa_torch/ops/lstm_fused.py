@@ -37,6 +37,17 @@ lone `bilstm_fused` call on its bi-LSTM. `_GroupedBiLSTMFn` forms dX, dWx, dWh
 and db per bi-LSTM from the one K1b launch's dgates. The K7/K8 scan API is
 another module, ops/lstm_grouped.
 
+`dtype=torch.bfloat16` (ModelConfig.dtype = "bfloat16") is the bf16
+activation variant: the JAX package's bilstm_ref(dtype=bfloat16), which it
+runs even under use_pallas. On a CPU tensor the plain `bilstm_ref(dtype=)`; on
+the card each kernel's BF16 instantiation (the same sources' entry points with
+their `bf16` flag set, one bi-LSTM a launch): x and the weights are rounded to bf16 here,
+the kernels round x.Wx + b, and c and h after each step, and keep float32
+storage holding those values; the backward runs straight through the
+roundings. Either way the outputs come back as float32 tensors holding bf16
+values. The launches count on the same wrappers' `.launches`, and those of the
+BF16 instantiations also on `.bf16_launches`.
+
 K1 replaces the TPU kernel fvta_memexqa_tpu/ops/lstm_fused.py:_fwd_step_kernel,
 K1b its backward :_bwd_step_kernel. Masks must be contiguous prefixes
 (pack-time invariant, data/pack.py _assert_prefix_masks): the kernels see only
@@ -57,13 +68,12 @@ from fvta_memexqa_torch.ops.lstm_ref import LSTMParams, bilstm_ref
 @functools.cache
 def _lib(stem: str, n_ptr: int) -> ctypes.CDLL:
     """csrc/<stem>.cu's library: <stem>(n_ptr pointers, n, t, d, h, forget_bias,
-    k, wx_ms, wh_ms, b_ms, stream), <stem>_smem_bytes(d, h),
+    k, wx_ms, wh_ms, b_ms, bf16, stream), <stem>_smem_bytes(d, h),
     <stem>_error_string(err)."""
     lib = build.library(stem)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = getattr(lib, stem)
-    fn.argtypes = [p] * n_ptr + [i] * 4 + [ctypes.c_float, i, ll, ll, ll, p]
-    fn.restype = i
+    getattr(lib, stem).argtypes = [p] * n_ptr + [i] * 4 + [ctypes.c_float, i, ll, ll, ll, i, p]
+    getattr(lib, stem).restype = i
     getattr(lib, f"{stem}_smem_bytes").argtypes = [i, i]
     getattr(lib, f"{stem}_smem_bytes").restype = ctypes.c_longlong
     getattr(lib, f"{stem}_error_string").argtypes = [i]
@@ -132,40 +142,42 @@ def _pairs(params_fw: LSTMParams, params_bw: LSTMParams) -> tuple:
 
 def lstm_fwd(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
              params_bw: LSTMParams, forget_bias: float, emit_out: bool,
-             emit_cell: bool = False
+             emit_cell: bool = False, bf16: bool = False
              ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor | None]:
     """Launch K1. x [N, T, D] f32, lengths [N] int32, and per direction wx [D, 4H],
     wh [H, 4H], b [4H], all contiguous on one CUDA device; the kernel reads both
     directions' weights where they lie. Returns (out [N, T, 2H] or None,
     fin [N, 2H], cell [N, T, 2H] or None); cell holds the carried c of each step
-    at the original time positions, for the backward. Counts its launches in
-    `lstm_fwd.launches`."""
+    at the original time positions, for the backward. bf16: the BF16
+    instantiation (inputs holding bf16 values). Counts its
+    launches in `lstm_fwd.launches` (and `.bf16_launches`)."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_fwd")
     return _fwd_call(x, lengths, _pairs(params_fw, params_bw), (), 1, n, t, d, h, forget_bias,
-                     emit_out, emit_cell)
+                     emit_out, emit_cell, bf16)
 
 
-lstm_fwd.launches = 0
+lstm_fwd.launches = lstm_fwd.bf16_launches = 0
 
 
-def _old_call(stem: str, dev, d: int, h: int, *args) -> None:
+def _old_call(stem: str, dev, d: int, h: int, *args, bf16: bool = False) -> None:
     """Check csrc/<stem>.cu's shared memory at (d, h) (lstm_fwd or lstm_bwd),
-    call its launcher with args on the current stream of `dev`; count one
-    launch."""
+    call its launcher with args and the bf16 flag on the current stream of
+    `dev`; count one launch."""
     lib = _lib(stem, {"lstm_fwd": 11, "lstm_bwd": 15}[stem])
     smem = getattr(lib, f"{stem}_smem_bytes")(d, h)
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"{stem} needs {smem} B of shared memory at D={d}, H={h}; "
                          f"a block has {build.SMEM_LIMIT}")
     with torch.cuda.device(dev):
-        err = getattr(lib, stem)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(lib, stem)(*args, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = getattr(lib, f"{stem}_error_string")(err).decode()
         raise RuntimeError(f"{stem} launch failed: {msg}")
-    build.count_launch(globals()[stem])
+    build.count_launch(globals()[stem], bf16=bf16)
 
 
-def _fwd_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, emit_cell):
+def _fwd_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, emit_cell,
+              bf16=False):
     """lstm_fwd's launch for k bi-LSTMs (weights: (wx, wh, b) as _bases takes
     them); outputs shaped lead + [N, ...]."""
     dev = x.device
@@ -178,7 +190,7 @@ def _fwd_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, e
     (wxf, wxb, wxs), (whf, whb, whs), (bf, bb, bs) = map(_bases, weights)
     _old_call("lstm_fwd", dev, d, h, x.data_ptr(), lengths.data_ptr(), wxf, wxb, whf, whb, bf, bb,
               _ptr(out), _ptr(cell), fin.data_ptr(), n, t, d, h, float(forget_bias), k, wxs,
-              whs, bs)
+              whs, bs, bf16=bf16)
     return out, fin, cell
 
 
@@ -197,23 +209,24 @@ def lstm_fwd_grouped(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor, w
 def lstm_bwd(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
              params_bw: LSTMParams, out: torch.Tensor, cell: torch.Tensor,
              g_out: torch.Tensor | None, g_fin: torch.Tensor | None,
-             forget_bias: float) -> torch.Tensor:
+             forget_bias: float, bf16: bool = False) -> torch.Tensor:
     """Launch K1b: the gate cotangents dgates [N, T, 8H] (forward direction's
     (i, j, f, o) in [:4H], backward's in [4H:], at the original time positions)
     from K1's out and cell [N, T, 2H] and the cotangents g_out [N, T, 2H] and
-    g_fin [N, 2H] (None = zero). Inputs as for `lstm_fwd`. Counts its launches
-    in `lstm_bwd.launches`."""
+    g_fin [N, 2H] (None = zero). Inputs as for `lstm_fwd` (bf16: the backward
+    of lstm_fwd's BF16 instantiation). Counts its launches in
+    `lstm_bwd.launches` (and `.bf16_launches`)."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_bwd")
     wht = tuple(p.wh.t().contiguous() for p in (params_fw, params_bw))
     return _bwd_call(x, lengths, _pairs(params_fw, params_bw), wht, (), 1, n, t, d, h, out,
-                     cell, g_out, g_fin, forget_bias)
+                     cell, g_out, g_fin, forget_bias, bf16)
 
 
-lstm_bwd.launches = 0
+lstm_bwd.launches = lstm_bwd.bf16_launches = 0
 
 
 def _bwd_call(x, lengths, weights, wht, lead, k, n, t, d, h, out, cell, g_out, g_fin,
-              forget_bias):
+              forget_bias, bf16=False):
     """lstm_bwd's launch for k bi-LSTMs (weights as _fwd_call's, wht the
     transposed wh in wh's layout); dgates shaped lead + [N, T, 8H]."""
     dev = x.device
@@ -228,7 +241,7 @@ def _bwd_call(x, lengths, weights, wht, lead, k, n, t, d, h, out, cell, g_out, g
     (wtf, wtb, _) = _bases(wht)
     _old_call("lstm_bwd", dev, d, h, x.data_ptr(), lengths.data_ptr(), wxf, wxb, whf, whb,
               wtf, wtb, bf, bb, out.data_ptr(), cell.data_ptr(), _ptr(g_out), _ptr(g_fin),
-              dgates.data_ptr(), n, t, d, h, float(forget_bias), k, wxs, whs, bs)
+              dgates.data_ptr(), n, t, d, h, float(forget_bias), k, wxs, whs, bs, bf16=bf16)
     return dgates
 
 
@@ -334,18 +347,17 @@ def lstm_route(n: int, t: int, d: int, h: int) -> LSTMRoute:
 @functools.cache
 def _rec_lib(stem: str) -> ctypes.CDLL:
     """csrc/<stem>.cu's library (lstm_rec or lstm_rec_bwd) with its argument
-    types (see each source); lstm_rec's also exports lstm_proj and lstm_k1."""
+    types (see each source); lstm_rec's also exports lstm_proj and lstm_k1.
+    lstm_k1 and lstm_rec_bwd take a bf16 flag before the stream."""
     lib = build.library(stem)
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    fn = getattr(lib, stem)
-    fn.argtypes = {"lstm_rec": [p] * 7 + [i] * 6 + [f, i, i, ll, p],
-                   "lstm_rec_bwd": [p] * 8 + [i] * 6 + [f, i, ll, p]}[stem]
-    fn.restype = i
-    if stem == "lstm_rec":
-        lib.lstm_proj.argtypes = [p] * 7 + [i] * 5 + [ll, ll, p]
-        lib.lstm_proj.restype = i
-        lib.lstm_k1.argtypes = [p] * 12 + [i] * 7 + [f, i, i, ll, ll, ll, p]
-        lib.lstm_k1.restype = i
+    types = {"lstm_rec": {"lstm_rec": [p] * 7 + [i] * 6 + [f, i, i, ll, p],
+                          "lstm_proj": [p] * 7 + [i] * 5 + [ll, ll, p],
+                          "lstm_k1": [p] * 12 + [i] * 7 + [f, i, i, ll, ll, ll, i, p]},
+             "lstm_rec_bwd": {"lstm_rec_bwd": [p] * 8 + [i] * 6 + [f, i, ll, i, p]}}[stem]
+    for name, argtypes in types.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i
     getattr(lib, f"{stem}_smem_bytes").argtypes = [i] * 4
     getattr(lib, f"{stem}_smem_bytes").restype = ctypes.c_longlong
     getattr(lib, f"{stem}_error_string").argtypes = [i]
@@ -353,17 +365,20 @@ def _rec_lib(stem: str) -> ctypes.CDLL:
     return lib
 
 
-def _rec_call(stem: str, wrappers, dev, *args, fn: str | None = None) -> None:
+def _rec_call(stem: str, wrappers, dev, *args, fn: str | None = None,
+              bf16: bool = False) -> None:
     """Call csrc/<stem>.cu's `fn` (default: <stem>) on the current stream of
-    `dev`; count one launch on each of `wrappers`."""
+    `dev`; count one launch on each of `wrappers` (bf16: a launch of the BF16
+    instantiation, which args select)."""
     lib = _rec_lib(stem)
+    name = fn or stem
     with torch.cuda.device(dev):
-        err = getattr(lib, fn or stem)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = getattr(lib, f"{stem}_error_string")(err).decode()
-        raise RuntimeError(f"{fn or stem} launch failed: {msg}")
+        raise RuntimeError(f"{name} launch failed: {msg}")
     for wrapper in wrappers:
-        build.count_launch(wrapper)
+        build.count_launch(wrapper, bf16=bf16)
 
 
 @functools.cache
@@ -387,7 +402,8 @@ def lstm_proj(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     wx_bw] + [b_fw | b_bw] at the original positions; positions in 64- or
     128-position tiles that lie wholly past their rows' lengths are left
     unwritten (no recurrence reads them). Inputs as for `lstm_fwd`. Counts its
-    launches in `lstm_proj.launches`."""
+    launches in `lstm_proj.launches` (lstm_k1's launches of its BF16
+    instantiation also in `.bf16_launches`)."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_proj")
     xg = torch.empty((n, t, 8 * h), dtype=torch.float32, device=x.device)
     if n * t == 0:
@@ -398,7 +414,7 @@ def lstm_proj(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     return xg
 
 
-lstm_proj.launches = 0
+lstm_proj.launches = lstm_proj.bf16_launches = 0
 
 
 def lstm_rec(xg: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
@@ -410,7 +426,8 @@ def lstm_rec(xg: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     as `lstm_fwd` returns them. With write_preact each step's gate
     pre-activations xg[t] + h_{t-1} . Wh overwrite xg[t] in place (the input of
     `lstm_rec_bwd`). Cluster, tile and lane split from `lstm_route`. Counts its
-    launches in `lstm_rec.launches`."""
+    launches in `lstm_rec.launches` (lstm_k1's launches of its BF16
+    instantiation also in `.bf16_launches`)."""
     if xg.device.type != "cuda":
         raise ValueError(f"lstm_rec launches on a CUDA device, got {xg.device}")
     n, t = xg.shape[:2]
@@ -435,27 +452,28 @@ def lstm_rec(xg: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
     return out, fin, cell
 
 
-lstm_rec.launches = 0
+lstm_rec.launches = lstm_rec.bf16_launches = 0
 
 
 def lstm_k1(x: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
             params_bw: LSTMParams, forget_bias: float, emit_out: bool,
-            emit_cell: bool = False, write_preact: bool = False
+            emit_cell: bool = False, write_preact: bool = False, bf16: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor, torch.Tensor | None]:
     """K1 on the Hopper route from one host call (csrc/lstm_rec.cu's lstm_k1):
     lstm_proj's kernel, then lstm_rec's, as `lstm_proj` followed by `lstm_rec`
     computes them, with half the host work. Returns (pre [N, T, 8H], out or
     None, fin, cell or None); pre holds the projection, overwritten by the
-    pre-activations under write_preact. Counts one launch on each of
-    `lstm_proj.launches` (none at T = 0, where the C call skips the
-    projection) and `lstm_rec.launches`."""
+    pre-activations under write_preact; bf16: both kernels' BF16
+    instantiations. Counts one launch on each of `lstm_proj.launches` (none at
+    T = 0, where the C call skips the projection) and `lstm_rec.launches` (and
+    on their `.bf16_launches`)."""
     n, t, d, h = _check_common(x, lengths, params_fw, params_bw, "lstm_k1")
     return _k1_call(x, lengths, _pairs(params_fw, params_bw), (), 1, n, t, d, h, forget_bias,
-                    emit_out, emit_cell, write_preact)
+                    emit_out, emit_cell, write_preact, bf16)
 
 
 def _k1_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, emit_cell,
-             write_preact):
+             write_preact, bf16=False):
     """lstm_k1's launches for k bi-LSTMs (weights: (wx, wh, b) as _bases takes
     them), on the route of one bi-LSTM of the shape; outputs shaped lead +
     [N, ...]."""
@@ -473,7 +491,7 @@ def _k1_call(x, lengths, weights, lead, k, n, t, d, h, forget_bias, emit_out, em
     _rec_call("lstm_rec", launched, dev, x.data_ptr(), lengths.data_ptr(), wxf, wxb, bf, bb,
               whf, whb, pre.data_ptr(), _ptr(out), _ptr(cell), fin.data_ptr(), n, t, d, h,
               route.cluster, route.rows, route.split, float(forget_bias), int(write_preact),
-              k, wxs, whs, bs, fn="lstm_k1")
+              k, wxs, whs, bs, int(bf16), fn="lstm_k1", bf16=bf16)
     return pre, out, fin, cell
 
 
@@ -495,12 +513,14 @@ def lstm_k1_grouped(x: torch.Tensor, lengths: torch.Tensor, wx: torch.Tensor, wh
 
 def lstm_rec_bwd(pre: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams,
                  params_bw: LSTMParams, cell: torch.Tensor, g_out: torch.Tensor | None,
-                 g_fin: torch.Tensor | None, forget_bias: float) -> torch.Tensor:
+                 g_fin: torch.Tensor | None, forget_bias: float,
+                 bf16: bool = False) -> torch.Tensor:
     """Launch the redesigned K1b: dgates [N, T, 8H] (as `lstm_bwd` returns them)
     from the pre-activations `lstm_rec` wrote under grad, its cell [N, T, 2H]
     and the cotangents g_out [N, T, 2H], g_fin [N, 2H] (None = zero). Reads wh
-    of both directions; no x, no wx. Counts its launches in
-    `lstm_rec_bwd.launches`."""
+    of both directions; no x, no wx. bf16: the backward of lstm_rec's BF16
+    instantiation. Counts its launches in `lstm_rec_bwd.launches` (and
+    `.bf16_launches`)."""
     if pre.device.type != "cuda":
         raise ValueError(f"lstm_rec_bwd launches on a CUDA device, got {pre.device}")
     n, t = pre.shape[:2]
@@ -508,13 +528,14 @@ def lstm_rec_bwd(pre: torch.Tensor, lengths: torch.Tensor, params_fw: LSTMParams
     for tag, p in (("fw", params_fw), ("bw", params_bw)):
         build.check_f32(f"{tag}.wh", p.wh, (h, 4 * h), pre.device)
     return _rec_bwd_call(pre, lengths, (params_fw.wh, params_bw.wh), (), 1, n, t, d, h, cell,
-                         g_out, g_fin, forget_bias)
+                         g_out, g_fin, forget_bias, bf16)
 
 
-lstm_rec_bwd.launches = 0
+lstm_rec_bwd.launches = lstm_rec_bwd.bf16_launches = 0
 
 
-def _rec_bwd_call(pre, lengths, wh, lead, k, n, t, d, h, cell, g_out, g_fin, forget_bias):
+def _rec_bwd_call(pre, lengths, wh, lead, k, n, t, d, h, cell, g_out, g_fin, forget_bias,
+                  bf16=False):
     """lstm_rec_bwd's launch for k bi-LSTMs (wh as _bases takes it); dgates
     shaped lead + [N, T, 8H]."""
     dev = pre.device
@@ -533,7 +554,8 @@ def _rec_bwd_call(pre, lengths, wh, lead, k, n, t, d, h, cell, g_out, g_fin, for
     whf, whb, whs = _bases(wh)
     _rec_call("lstm_rec_bwd", (lstm_rec_bwd,), dev, pre.data_ptr(), lengths.data_ptr(), whf, whb,
               cell.data_ptr(), _ptr(g_out), _ptr(g_fin), dgates.data_ptr(), n, t, h,
-              route.cluster, route.rows, route.split, float(forget_bias), k, whs)
+              route.cluster, route.rows, route.split, float(forget_bias), k, whs, int(bf16),
+              bf16=bf16)
     return dgates
 
 
@@ -582,22 +604,24 @@ def _assemble_bwd(x, params_fw: LSTMParams, params_bw: LSTMParams, out, dgates,
 
 class _BiLSTMFn(torch.autograd.Function):
     """K1 with cells forward, K1b + products backward, on the kernels
-    `lstm_route` names. Inputs: x, lengths, then the six weight tensors (wx, wh,
-    b forward; wx, wh, b backward)."""
+    `lstm_route` names. Inputs: x, lengths, forget_bias, the six weight tensors
+    (wx, wh, b forward; wx, wh, b backward), then bf16 (optional: the BF16
+    instantiations, on inputs already holding bf16 values; the backward runs
+    straight through the kernels' roundings)."""
 
     @staticmethod
-    def forward(ctx, x, lengths, forget_bias, wx_f, wh_f, b_f, wx_b, wh_b, b_b):
+    def forward(ctx, x, lengths, forget_bias, wx_f, wh_f, b_f, wx_b, wh_b, b_b, bf16=False):
         p_fw, p_bw = LSTMParams(wx_f, wh_f, b_f), LSTMParams(wx_b, wh_b, b_b)
         n, t, d = x.shape
         pre = None
         if lstm_route(n, t, d, wh_f.shape[0]).kernels == REC_KERNELS:
             pre, out, fin, cell = lstm_k1(x, lengths, p_fw, p_bw, forget_bias, emit_out=True,
-                                          emit_cell=True, write_preact=True)
+                                          emit_cell=True, write_preact=True, bf16=bf16)
         else:
             out, fin, cell = lstm_fwd(x, lengths, p_fw, p_bw, forget_bias, emit_out=True,
-                                      emit_cell=True)
+                                      emit_cell=True, bf16=bf16)
         ctx.save_for_backward(x, lengths, wx_f, wh_f, b_f, wx_b, wh_b, b_b, out, cell, pre)
-        ctx.forget_bias = forget_bias
+        ctx.forget_bias, ctx.bf16 = forget_bias, bf16
         ctx.set_materialize_grads(False)
         return out, fin
 
@@ -605,53 +629,78 @@ class _BiLSTMFn(torch.autograd.Function):
     def backward(ctx, g_out, g_fin):
         x, lengths, wx_f, wh_f, b_f, wx_b, wh_b, b_b, out, cell, pre = ctx.saved_tensors
         if g_out is None and g_fin is None:
-            return (None,) * 9
+            return (None,) * 10
         p_fw, p_bw = LSTMParams(wx_f, wh_f, b_f), LSTMParams(wx_b, wh_b, b_b)
         g_out = None if g_out is None else g_out.contiguous()
         g_fin = None if g_fin is None else g_fin.contiguous()
         if pre is not None:
             dgates = lstm_rec_bwd(pre, lengths, p_fw, p_bw, cell, g_out, g_fin,
-                                  ctx.forget_bias)
+                                  ctx.forget_bias, bf16=ctx.bf16)
         else:
-            dgates = lstm_bwd(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, ctx.forget_bias)
+            dgates = lstm_bwd(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, ctx.forget_bias,
+                              bf16=ctx.bf16)
         dx, d_fw, d_bw = _assemble_bwd(x, p_fw, p_bw, out, dgates, ctx.needs_input_grad[0])
-        return (dx, None, None, *d_fw, *d_bw)
+        return (dx, None, None, *d_fw, *d_bw, None)
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """float32 → bf16 → float32 (round to nearest even), differentiable."""
+    return t.to(torch.bfloat16).to(torch.float32)
 
 
 def _launch(params_fw: LSTMParams, params_bw: LSTMParams, x, mask, forget_bias,
-            emit_out: bool):
-    """(out or None, fin) on the card: K1 alone without grad, _BiLSTMFn with it."""
+            emit_out: bool, bf16: bool = False):
+    """(out or None, fin) on the card: K1 alone without grad, _BiLSTMFn with it.
+    bf16: x and the weights rounded to bf16 first (as the JAX scan casts them;
+    their cotangents come back rounded, as JAX's do), then the BF16
+    instantiations."""
+    if bf16:
+        x = _round_bf16(x)
+        params_fw, params_bw = (LSTMParams(*map(_round_bf16, p)) for p in (params_fw, params_bw))
     x = x.contiguous()
     lengths = mask.sum(dim=1, dtype=torch.int32)
     if torch.is_grad_enabled() and (x.requires_grad or any(
             p.requires_grad for p in (*params_fw, *params_bw))):
-        out, fin = _BiLSTMFn.apply(x, lengths, float(forget_bias), *params_fw, *params_bw)
+        out, fin = _BiLSTMFn.apply(x, lengths, float(forget_bias), *params_fw, *params_bw, bf16)
         return (out if emit_out else None), fin
     n, t, d = x.shape
     if lstm_route(n, t, d, params_fw.wh.shape[0]).kernels == REC_KERNELS:
-        _, out, fin, _ = lstm_k1(x, lengths, params_fw, params_bw, forget_bias, emit_out)
+        _, out, fin, _ = lstm_k1(x, lengths, params_fw, params_bw, forget_bias, emit_out,
+                                 bf16=bf16)
     else:
-        out, fin, _ = lstm_fwd(x, lengths, params_fw, params_bw, forget_bias, emit_out)
+        out, fin, _ = lstm_fwd(x, lengths, params_fw, params_bw, forget_bias, emit_out,
+                               bf16=bf16)
     return out, fin
 
 
+def _is_bf16(dtype) -> bool:
+    if dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"the bi-LSTM's activation dtype is float32 or bfloat16, got {dtype}")
+    return dtype == torch.bfloat16
+
+
 def bilstm_fused(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor,
-                 mask: torch.Tensor, forget_bias: float = 1.0
+                 mask: torch.Tensor, forget_bias: float = 1.0, dtype=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused bi-LSTM encode: (outputs [N, T, 2H], final [N, 2H])."""
+    """Fused bi-LSTM encode: (outputs [N, T, 2H], final [N, 2H]), float32.
+    dtype=torch.bfloat16: the bf16 activation variant (module docstring)."""
+    bf16 = _is_bf16(dtype)
     if x.device.type == "cpu":
-        return bilstm_ref(params_fw, params_bw, x, mask, forget_bias)
-    return _launch(params_fw, params_bw, x, mask, forget_bias, emit_out=True)
+        out, fin = bilstm_ref(params_fw, params_bw, x, mask, forget_bias, dtype=dtype)
+        return out.float(), fin.float()
+    return _launch(params_fw, params_bw, x, mask, forget_bias, emit_out=True, bf16=bf16)
 
 
 def bilstm_fused_final(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor,
-                       mask: torch.Tensor, forget_bias: float = 1.0) -> torch.Tensor:
+                       mask: torch.Tensor, forget_bias: float = 1.0, dtype=None) -> torch.Tensor:
     """Final-state-only fused bi-LSTM: fin [N, 2H]. Without grad no per-step
     output is written on the card; under grad the forward keeps the per-step
-    outputs and cells that the backward needs (as the JAX package's vjp does)."""
+    outputs and cells that the backward needs (as the JAX package's vjp does).
+    dtype as for bilstm_fused."""
+    bf16 = _is_bf16(dtype)
     if x.device.type == "cpu":
-        return bilstm_ref(params_fw, params_bw, x, mask, forget_bias)[1]
-    return _launch(params_fw, params_bw, x, mask, forget_bias, emit_out=False)[1]
+        return bilstm_ref(params_fw, params_bw, x, mask, forget_bias, dtype=dtype)[1].float()
+    return _launch(params_fw, params_bw, x, mask, forget_bias, emit_out=False, bf16=bf16)[1]
 
 
 # ---- K bi-LSTMs over one batch in one launch of K1 and one of K1b ------------------

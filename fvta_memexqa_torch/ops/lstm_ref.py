@@ -14,6 +14,15 @@ Parity-critical semantics:
 
 `torch.nn.LSTM` is not this function: its gate order is (i, f, g, o) and it has
 no in-cell forget bias.
+
+dtype=torch.bfloat16 is the bf16 activation variant (ModelConfig.dtype), as
+the JAX package's scan computes it (fvta_memexqa_tpu/ops/lstm_ref.py:61-99):
+the parameters and x are cast to bf16; x_proj is the float32 product of those
+values plus the bf16 b, rounded to bf16; each step's gates are x_proj_t +
+h . Wh with float32 accumulation, so the gate and cell arithmetic is float32;
+h and c are rounded to bf16 after each step (h from the unrounded c); outputs
+and fin come back in bf16. The products run on float32 copies of the bf16
+values: torch's bf16 matmul rounds its result to bf16, the JAX code does not.
 """
 
 from __future__ import annotations
@@ -39,20 +48,30 @@ def lstm_cell(x_proj_t, h, c, wh, forget_bias: float):
 
 
 def lstm_scan_ref(params: LSTMParams, x: torch.Tensor, mask: torch.Tensor,
-                  forget_bias: float = 1.0, cells: list | None = None
+                  forget_bias: float = 1.0, cells: list | None = None, dtype=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unidirectional scan over x [N, T, D], mask bool [N, T].
     Returns (outputs [N, T, H], final_h [N, H]); appends each step's carried c
-    [N, H] to `cells` when one is given."""
+    [N, H] to `cells` when one is given. dtype: None (x's), or torch.bfloat16
+    for the bf16 activation variant (module docstring)."""
     n, t, _ = x.shape
     hdim = params.wh.shape[0]
-    x_proj = x @ params.wx + params.b                      # [N, T, 4H]
+    if dtype == torch.bfloat16:
+        params = LSTMParams(*(p.to(dtype) for p in params))
+        x = x.to(dtype)
+        x_proj = (x.float() @ params.wx.float() + params.b.float()).to(dtype)
+        wh = params.wh.float()
+        cell = lambda xp, hh, cc: (v.to(dtype) for v in lstm_cell(
+            xp.float(), hh.float(), cc.float(), wh, forget_bias))
+    else:
+        x_proj = x @ params.wx + params.b                  # [N, T, 4H]
+        cell = lambda xp, hh, cc: lstm_cell(xp, hh, cc, params.wh, forget_bias)
     m = mask.to(x_proj.dtype)[..., None]                   # [N, T, 1]
     h = x.new_zeros(n, hdim)
     c = x.new_zeros(n, hdim)
     outs = []
     for step in range(t):
-        nh, nc = lstm_cell(x_proj[:, step], h, c, params.wh, forget_bias)
+        nh, nc = cell(x_proj[:, step], h, c)
         m_t = m[:, step]
         h = m_t * nh + (1.0 - m_t) * h
         c = m_t * nc + (1.0 - m_t) * c
@@ -75,15 +94,16 @@ def _flip_to_front(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def bilstm_ref(params_fw: LSTMParams, params_bw: LSTMParams, x: torch.Tensor,
-               mask: torch.Tensor, forget_bias: float = 1.0
+               mask: torch.Tensor, forget_bias: float = 1.0, dtype=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bidirectional encode. Returns (outputs [N, T, 2H], final_state [N, 2H]):
     final_state = [fw final h; bw final h], TF1's (output_state_fw,
-    output_state_bw).h concatenated."""
+    output_state_bw).h concatenated. dtype as for lstm_scan_ref (outputs in
+    it)."""
     lengths = mask.sum(dim=1)
-    out_fw, h_fw = lstm_scan_ref(params_fw, x, mask, forget_bias)
+    out_fw, h_fw = lstm_scan_ref(params_fw, x, mask, forget_bias, dtype=dtype)
     x_rev = _flip_to_front(x, lengths)
-    out_bw_rev, h_bw = lstm_scan_ref(params_bw, x_rev, mask, forget_bias)
+    out_bw_rev, h_bw = lstm_scan_ref(params_bw, x_rev, mask, forget_bias, dtype=dtype)
     out_bw = _flip_to_front(out_bw_rev, lengths)
     return torch.cat([out_fw, out_bw], dim=-1), torch.cat([h_fw, h_bw], dim=-1)
 

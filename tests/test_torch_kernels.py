@@ -96,8 +96,15 @@ def fvta_case(n, s, t, j, d, seed, device="cpu", dead=False, bounded=True):
 # L-1-t, dgates [N, T, 8H]. Swapped in for the launches, they let the CPU run
 # `ops.lstm_fused._BiLSTMFn` (the layout, the four products of the backward,
 # None cotangents) against autograd through the plain version and the JAX package.
+# bf16=True emulates the kernels' BF16 instantiations: x.Wx + b rounded to bf16,
+# c and h rounded after each step, and the backward straight through the
+# roundings, taking tanh of the cell recomputed from the gates and c_{t-1}.
 
-def k1_emulated(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False):
+def round_bf16(v):
+    return v.to(torch.bfloat16).float()
+
+
+def k1_emulated(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False, bf16=False):
     n, t, _ = x.shape
     h = p_fw.wh.shape[0]
     rows = torch.arange(n)
@@ -112,7 +119,11 @@ def k1_emulated(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False):
             live = step < ln
             pos = torch.where(live, ln - 1 - step if k else torch.full_like(ln, step),
                               torch.full_like(ln, step))
-            nh, nc = lstm_ref.lstm_cell(x[rows, pos] @ p.wx + p.b, hh, c, p.wh, forget_bias)
+            xp = x[rows, pos] @ p.wx + p.b
+            nh, nc = lstm_ref.lstm_cell(round_bf16(xp) if bf16 else xp, hh, c, p.wh,
+                                        forget_bias)
+            if bf16:
+                nh, nc = round_bf16(nh), round_bf16(nc)
             hh = torch.where(live[:, None], nh, hh)
             c = torch.where(live[:, None], nc, c)
             o = out[rows, pos]
@@ -125,7 +136,7 @@ def k1_emulated(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False):
     return (out if emit_out else None), fin, (cell if emit_cell else None)
 
 
-def k1b_emulated(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
+def k1b_emulated(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias, bf16=False):
     n, t, _ = x.shape
     h = p_fw.wh.shape[0]
     rows = torch.arange(n)
@@ -141,11 +152,14 @@ def k1b_emulated(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
             nz = 1.0 if step > 0 else 0.0
             h_prev = nz * out[rows, prev][:, sl]
             c_prev = nz * cell[rows, prev][:, sl]
-            g = x[rows, pos] @ p.wx + h_prev @ p.wh + p.b
+            if bf16:
+                g = round_bf16(x[rows, pos] @ p.wx + p.b) + h_prev @ p.wh
+            else:
+                g = x[rows, pos] @ p.wx + h_prev @ p.wh + p.b
             i_s, j_t = torch.sigmoid(g[:, :h]), torch.tanh(g[:, h:2 * h])
             f_s = torch.sigmoid(g[:, 2 * h:3 * h] + forget_bias)
             o_s = torch.sigmoid(g[:, 3 * h:])
-            tanh_c = torch.tanh(cell[rows, pos][:, sl])
+            tanh_c = torch.tanh(c_prev * f_s + i_s * j_t if bf16 else cell[rows, pos][:, sl])
             dh_in = dh.clone()
             if g_out is not None:
                 dh_in = dh_in + g_out[rows, pos][:, sl]
@@ -171,14 +185,15 @@ def k1b_emulated(x, lengths, p_fw, p_bw, out, cell, g_out, g_fin, forget_bias):
 # direction: xg[L-1-t]) and, under grad, overwrites it with the full
 # pre-activations, which the backward reads instead of recomputing.
 
-def proj_emulated(x, lengths, p_fw, p_bw):
+def proj_emulated(x, lengths, p_fw, p_bw, bf16=False):
     xg = torch.cat([x @ p.wx + p.b for p in (p_fw, p_bw)], dim=-1)
+    xg = round_bf16(xg) if bf16 else xg
     dead = torch.arange(x.shape[1])[None, :] >= lengths.long()[:, None]
     return xg.masked_fill(dead[..., None], float("nan"))
 
 
 def rec_emulated(xg, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False,
-                 write_preact=False):
+                 write_preact=False, bf16=False):
     n, t, _ = xg.shape
     h = p_fw.wh.shape[0]
     rows = torch.arange(n)
@@ -197,6 +212,8 @@ def rec_emulated(xg, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False
             i, j, f, o = torch.chunk(torch.where(live[:, None], gates, 0.0), 4, dim=-1)
             nc = c * torch.sigmoid(f + forget_bias) + torch.sigmoid(i) * torch.tanh(j)
             nh = torch.tanh(nc) * torch.sigmoid(o)
+            if bf16:
+                nc, nh = round_bf16(nc), round_bf16(nh)
             if write_preact:
                 g = xg[rows[live], pos[live]]
                 g[:, gl] = gates[live]
@@ -213,7 +230,7 @@ def rec_emulated(xg, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False
     return (out if emit_out else None), fin, (cell if emit_cell else None)
 
 
-def rec_bwd_emulated(pre, lengths, p_fw, p_bw, cell, g_out, g_fin, forget_bias):
+def rec_bwd_emulated(pre, lengths, p_fw, p_bw, cell, g_out, g_fin, forget_bias, bf16=False):
     n, t, _ = pre.shape
     h = p_fw.wh.shape[0]
     rows = torch.arange(n)
@@ -231,7 +248,7 @@ def rec_bwd_emulated(pre, lengths, p_fw, p_bw, cell, g_out, g_fin, forget_bias):
             i_s, j_t = torch.sigmoid(g[:, :h]), torch.tanh(g[:, h:2 * h])
             f_s = torch.sigmoid(g[:, 2 * h:3 * h] + forget_bias)
             o_s = torch.sigmoid(g[:, 3 * h:])
-            tanh_c = torch.tanh(cell[rows, pos][:, sl])
+            tanh_c = torch.tanh(c_prev * f_s + i_s * j_t if bf16 else cell[rows, pos][:, sl])
             dh_in = dh.clone()
             if g_out is not None:
                 dh_in = dh_in + g_out[rows, pos][:, sl]
@@ -258,10 +275,11 @@ def hopper_emulated(monkeypatch):
     def trap(*a, **k):
         raise AssertionError("the old kernels must not launch on the Hopper route")
 
-    def k1(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False, write_preact=False):
-        pre = proj_emulated(x, lengths, p_fw, p_bw)
+    def k1(x, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell=False, write_preact=False,
+           bf16=False):
+        pre = proj_emulated(x, lengths, p_fw, p_bw, bf16)
         return (pre, *rec_emulated(pre, lengths, p_fw, p_bw, forget_bias, emit_out, emit_cell,
-                                   write_preact))
+                                   write_preact, bf16))
 
     for name, fn in (("lstm_proj", proj_emulated), ("lstm_rec", rec_emulated), ("lstm_k1", k1),
                      ("lstm_rec_bwd", rec_bwd_emulated), ("lstm_fwd", trap),
@@ -1387,6 +1405,103 @@ def test_lstm_kernels_repeat_bitwise_on_card(cuda, n, t, d, h):
             out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask)
         runs.append([out, fin, *lstm_grads(fused(mask, False), x, p_fw, p_bw, g_out, g_fin)])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---- the bf16 activation variant: K1 and K1b's BF16 instantiations ----------------
+# Against the plain bf16 version (lstm_ref.bilstm_ref(dtype=bfloat16)) on the
+# card. Forward: BF16_TOL, a few bf16 ulps of a value in [0.5, 1) (the kernel and
+# cuBLAS sum x . Wx in other orders, so a rounding of x_proj can flip, and the
+# flip carries through the recurrence). Gradients: max |d| <= BF16_GRAD_REL x
+# max |g| per tensor, plus 1e-6: the kernels differentiate straight through the
+# roundings in float32, while autograd through the plain version rounds the
+# cotangents of its bf16 values (as JAX's autodiff of the bf16 scan does).
+BF16_TOL = dict(rtol=0.0, atol=2.0 ** -6)
+BF16_GRAD_REL = 2.0 ** -5
+BF16_SHAPES = [(12, 7, 10, 5, False), (4, 11, 33, 7, True), (768, 10, 200, 100, True),
+               (64, 24, 200, 100, False), (3072, 10, 200, 100, True),
+               (256, 12, 200, 100, False), (8, 1024, 200, 100, False),
+               (16, 5, 24, 300, False), (24, 9, 40, 300, True)]
+
+
+def bf16_launches() -> dict:
+    return {k: getattr(lstm_fused, k).bf16_launches for k in LSTM_KERNELS}
+
+
+def is_bf16_valued(t: torch.Tensor) -> bool:
+    return torch.equal(t, t.to(torch.bfloat16).float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h,fin_only", BF16_SHAPES)
+def test_bf16_kernels_match_plain_bf16_on_card(cuda, n, t, d, h, fin_only):
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, fin_only, cuda, COTANGENT_SCALE)
+    bf = torch.bfloat16
+    plain = lambda pf, pb, xx: tuple(v.float() for v in lstm_ref.bilstm_ref(pf, pb, xx, mask,
+                                                                              dtype=bf))
+    with torch.no_grad():
+        out_r, fin_r = plain(p_fw, p_bw, x)
+        before, before16 = lstm_launches(), bf16_launches()
+        if fin_only:
+            out, fin = None, lstm_fused.bilstm_fused_final(p_fw, p_bw, x, mask, dtype=bf)
+        else:
+            out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask, dtype=bf)
+        torch.cuda.synchronize()
+    want = expected_launches(n, t, d, h, backward=False)
+    assert launched_since(before) == want
+    assert {k: v - before16[k] for k, v in bf16_launches().items()} == want
+    torch.testing.assert_close(fin, fin_r, **BF16_TOL)
+    assert fin.dtype == torch.float32 and is_bf16_valued(fin)
+    assert not fin[~mask.any(1)].any()
+    if not fin_only:
+        torch.testing.assert_close(out, out_r, **BF16_TOL)
+        assert is_bf16_valued(out) and not out[~mask].any()
+    if fin_only:
+        fn = lambda pf, pb, xx: (None, lstm_fused.bilstm_fused_final(pf, pb, xx, mask, dtype=bf))
+    else:
+        fn = lambda pf, pb, xx: lstm_fused.bilstm_fused(pf, pb, xx, mask, dtype=bf)
+    ref = lstm_grads(plain, x, p_fw, p_bw, g_out, g_fin)
+    before16 = bf16_launches()
+    got = lstm_grads(fn, x, p_fw, p_bw, g_out, g_fin)
+    torch.cuda.synchronize()
+    assert ({k: v - before16[k] for k, v in bf16_launches().items()}
+            == expected_launches(n, t, d, h, backward=True))
+    for name, a, b in zip(("x", "wx_fw", "wh_fw", "b_fw", "wx_bw", "wh_bw", "b_bw"), got, ref):
+        err, bound = float((a - b).abs().max()), BF16_GRAD_REL * float(b.abs().max()) + 1e-6
+        assert err <= bound, (name, err, bound)
+    assert not got[0][~mask].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,d,h", [(64, 24, 200, 100), (3072, 10, 200, 100),
+                                     (16, 5, 24, 300)])
+def test_bf16_flag_leaves_the_f32_instantiation_alone_on_card(cuda, n, t, d, h):
+    """f32 calls before and after a bf16 call give the same bits, launch no
+    BF16 instantiation, and do not round to bf16; the bf16 call's outputs,
+    cells and pre-activations are what its kernels round (x.Wx + b on
+    the Hopper route; c, h on both)."""
+    x, mask, p_fw, p_bw, g_out, g_fin = k1b_case(n, t, d, h, False, cuda, 1.0)
+    lengths = mask.sum(1, dtype=torch.int32)
+    runs = []
+    for dtype in (None, torch.bfloat16, None):
+        before16 = bf16_launches()
+        with torch.no_grad():
+            out, fin = lstm_fused.bilstm_fused(p_fw, p_bw, x, mask, dtype=dtype)
+        grads = lstm_grads(lambda pf, pb, xx: lstm_fused.bilstm_fused(pf, pb, xx, mask,
+                                                                       dtype=dtype),
+                           x, p_fw, p_bw, g_out, g_fin)
+        torch.cuda.synchronize()
+        assert any(bf16_launches()[k] > before16[k] for k in LSTM_KERNELS) == (dtype is not None)
+        runs.append([out, fin, *grads])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
+    assert not is_bf16_valued(runs[0][0]) and is_bf16_valued(runs[1][0])
+    if lstm_fused.lstm_route(n, t, d, h).kernels == lstm_fused.REC_KERNELS:
+        r = lambda p: lstm_ref.LSTMParams(*(a.to(torch.bfloat16).float() for a in p))
+        xb = x.to(torch.bfloat16).float()
+        with torch.no_grad():
+            pre, out, fin, cell = lstm_fused.lstm_k1(xb, lengths, r(p_fw), r(p_bw), 1.0, True,
+                                                     emit_cell=True, bf16=True)
+        assert is_bf16_valued(pre[mask]) and is_bf16_valued(cell)
+        torch.testing.assert_close(out, runs[1][0], rtol=0, atol=0)
 
 
 def grouped_launches(case: str, backward: bool) -> dict:

@@ -137,12 +137,6 @@ def test_rundir_roundtrip(pair, tmp_path):
     np.testing.assert_array_equal(a.logits.numpy(), b.logits.numpy())
 
 
-def test_bf16_not_ported(small_config):
-    cfg = port_config(small_config)
-    with pytest.raises(NotImplementedError):
-        FVTAModel(cfg.replace(model=dataclasses.replace(cfg.model, dtype="bfloat16")))
-
-
 def test_cuda_default_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

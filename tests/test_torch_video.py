@@ -7,8 +7,6 @@ STREAM_MIN_T lowered below it), at the JAX suite's model tolerance 1e-5 and
 gradient tolerance 1e-4 / 1e-5; and the synthetic generator, the video run
 directory and the model's input checks."""
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,6 +167,3 @@ def test_model_refuses_bad_options():
         VideoFVTAModel(cfg, task="frameqa", num_answers=1)
     with pytest.raises(ValueError, match="task"):
         VideoFVTAModel(cfg, task="caption")
-    bf16 = cfg.replace(model=dataclasses.replace(cfg.model, dtype="bfloat16"))
-    with pytest.raises(NotImplementedError):
-        VideoFVTAModel(bf16)
