@@ -1,0 +1,9 @@
+"""Host launch calls per checkpoint evaluation: runtime and driver calls that
+enqueue device work (kernels, async copies and sets), over the profiled
+evaluations."""
+
+from perfbench.lib import readers
+
+
+def read(ctx):
+    return readers.launches_per_unit(ctx)
