@@ -162,7 +162,7 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    write_raw_files writes for phase 4's corpus (the pack equals phase 4's
    array for array, word_emb_init to glove.txt's 5 decimals); `cli ablate
    --num-steps 6` over fvta,flat,none; predict_cached's probabilities on the
-   card vs the CPU's from the same weights at 1e-4; evaluate_cached's cache_s;
+   card vs the CPU's from the same weights at 1e-4;
     Then K2 on the arguments recorded on the serving, train and evaluation
     paths, against its plain version and the serial K2 at 1e-5 / 1e-5, the
     float64 witness on unbounded inputs at the same shapes, and the histogram
@@ -3399,32 +3399,24 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     if not all(math.isfinite(v["test_acc"]) and v["steps"] == 6 for v in ablate.values()):
         problems.append(f"ablate {ablate}")
 
-    # predict_cached on the card vs the CPU from the same weights; cache_s
+    # predict_cached on the card vs the CPU from the same weights
     packed = load_pack(pack)
     cfg = load_config(os.path.join(plain, "config.json")).replace(data=packed.cfg)
-    probs, cache_s = {}, {}
+    probs = {}
     for dev in ("cpu", device):
         model = tr.restore_model(cfg, plain, True, dev)
         shared = SharedTables.from_packed(packed.shared, dev)
-        ds = Dataset(packed, "test")
-        probs[dev] = eval_cache.predict_cached(cfg, model, shared, ds, 128)["probs"]
-        if dev == device:
-            for _ in range(2):   # the second is warm
-                m = eval_cache.evaluate_cached(cfg, model, shared, ds, 128)
-                cache_s.setdefault("cold", m["cache_s"])
-            cache_s["warm"] = m["cache_s"]
+        probs[dev] = eval_cache.predict_cached(cfg, model, shared, Dataset(packed, "test"),
+                                               128)["probs"]
     d_probs = float(np.abs(probs[device] - probs["cpu"]).max())
-    log(f"predict_cached card vs CPU over {n_test} questions: max|d probs| {d_probs:.3e}; "
-        f"evaluate_cached cache_s {cache_s['cold']:.4f} s (first), {cache_s['warm']:.4f} s "
-        f"(warm) on the card")
+    log(f"predict_cached card vs CPU over {n_test} questions: max|d probs| {d_probs:.3e}")
     if d_probs > ENGINE_TOL:
         problems.append(f"predict_cached on the card vs the CPU: {d_probs}")
     if problems:
         fail("evaluation path: " + "; ".join(problems))
     return {"launches": launches, "grouped_launches": grouped, "test": out, "wall_s": walls,
             "prepro": prepro,
-            "ablate": ablate, "predict_cached_max_abs_d_probs_vs_cpu": d_probs,
-            "cache_s": cache_s}
+            "ablate": ablate, "predict_cached_max_abs_d_probs_vs_cpu": d_probs}
 
 
 # ---- phase 18: every width the JAX package takes (the global routes) -------------

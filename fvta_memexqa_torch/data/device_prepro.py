@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from fvta_memexqa_torch.data.pack import PackedShared
+from fvta_memexqa_torch.utils.metrics import span
 
 _BATCH_KEYS = (
     "q_words", "q_chars", "q_mask",
@@ -73,8 +74,10 @@ class Batch:
         return cls(ex_mask=torch.ones(len(idx), dtype=torch.bool, device=device), **f)
 
     def to(self, device) -> "Batch":
-        """The same batch with every field on `device`."""
-        return Batch(**{k: v.to(device) for k, v in self.__dict__.items()})
+        """The same batch with every field on `device` (the span
+        fvta.loader.h2d)."""
+        with span("fvta.loader.h2d"):
+            return Batch(**{k: v.to(device) for k, v in self.__dict__.items()})
 
 
 @dataclass

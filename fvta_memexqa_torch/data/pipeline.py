@@ -18,6 +18,7 @@ import torch
 
 from fvta_memexqa_torch.data.device_prepro import _BATCH_KEYS, Batch
 from fvta_memexqa_torch.data.pack import PackedDataset
+from fvta_memexqa_torch.utils.metrics import span
 
 
 class Dataset:
@@ -37,16 +38,22 @@ class Dataset:
 
     def get_batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
                     epoch: int = 0) -> Iterator[Batch]:
-        """Yield Batches of CPU tensors. Deterministic given (seed, epoch)."""
-        order = np.arange(self.n)
-        if shuffle:
-            np.random.default_rng((seed, epoch)).shuffle(order)
+        """Yield Batches of CPU tensors. Deterministic given (seed, epoch).
+        Each batch's assembly is the span fvta.loader.batch (the epoch's order
+        is drawn inside the first one)."""
+        order = None
         for b in range(self.num_batches(batch_size)):
-            idx = order[b * batch_size:(b + 1) * batch_size]
-            ex_mask = np.ones(len(idx), dtype=bool)
-            if len(idx) < batch_size:  # pad-by-repeat; masked out of loss/metrics
-                pad = np.full(batch_size - len(idx), idx[0] if len(idx) else 0)
-                ex_mask = np.concatenate([ex_mask, np.zeros(len(pad), dtype=bool)])
-                idx = np.concatenate([idx, pad])
-            fields = {k: torch.from_numpy(self.arrays[k][idx]) for k in _BATCH_KEYS}
-            yield Batch(ex_mask=torch.from_numpy(ex_mask), **fields)
+            with span("fvta.loader.batch"):
+                if order is None:
+                    order = np.arange(self.n)
+                    if shuffle:
+                        np.random.default_rng((seed, epoch)).shuffle(order)
+                idx = order[b * batch_size:(b + 1) * batch_size]
+                ex_mask = np.ones(len(idx), dtype=bool)
+                if len(idx) < batch_size:  # pad-by-repeat; masked out of loss/metrics
+                    pad = np.full(batch_size - len(idx), idx[0] if len(idx) else 0)
+                    ex_mask = np.concatenate([ex_mask, np.zeros(len(pad), dtype=bool)])
+                    idx = np.concatenate([idx, pad])
+                fields = {k: torch.from_numpy(self.arrays[k][idx]) for k in _BATCH_KEYS}
+                batch = Batch(ex_mask=torch.from_numpy(ex_mask), **fields)
+            yield batch

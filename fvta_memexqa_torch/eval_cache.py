@@ -26,8 +26,6 @@ never the cache.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -35,6 +33,7 @@ from fvta_memexqa_torch.config import Config
 from fvta_memexqa_torch.data.device_prepro import SharedTables, assemble_albums
 from fvta_memexqa_torch.models.fvta import FVTAModel, a1_config
 from fvta_memexqa_torch.parallel import mesh
+from fvta_memexqa_torch.utils.metrics import span
 
 
 def gather_cached_context(cache_h: torch.Tensor, cache_m: torch.Tensor,
@@ -126,33 +125,34 @@ def _sharded_cache_setup(rank: mesh.Rank | None, cache, batch_size: int):
 
 
 @torch.no_grad()
-def _cached_answers(cfg: Config, model: FVTAModel, shared: SharedTables, dataset,
-                    batch_size: int, cache, tables, rank, sharded):
-    """(vt, cache_s, per-batch iterator of (this rank's batch rows, logits)):
-    the answer step over gathered cache rows (the sharded gather when
-    `sharded` holds this rank's rows)."""
+def _cached_answers(cfg: Config, model: FVTAModel, shared: SharedTables, cache, tables,
+                    rank, sharded):
+    """answer(host batch) → (this rank's batch rows on the device, logits): the
+    answer step over gathered cache rows (the sharded gather when `sharded`
+    holds this rank's rows). Builds the per-checkpoint tables (span
+    fvta.eval.tables) and the album cache (span fvta.eval.cache) where they
+    are not given."""
     from fvta_memexqa_torch.train import make_eval_tables, rank_batch
 
     dev = shared.word_emb.device
-    t0 = time.perf_counter()
-    vt, pt = tables if tables is not None else make_eval_tables(model, shared)
+    if tables is None:
+        with span("fvta.eval.tables"):
+            tables = make_eval_tables(model, shared)
+    vt, pt = tables
     if cache is None and sharded is None:
-        cache = precompute_album_cache(cfg, model, shared, vocab_table=vt, photo_table=pt)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    cache_s = time.perf_counter() - t0
+        with span("fvta.eval.cache"):
+            cache = precompute_album_cache(cfg, model, shared, vocab_table=vt, photo_table=pt)
 
     @torch.no_grad()
-    def answers():
-        for batch in dataset.get_batches(batch_size, shuffle=False):
-            b = rank_batch(batch, rank).to(dev)
-            if sharded is not None:
-                h_ctx, ctx_mask = sharded_gather(rank, *sharded, b.album_idx, b.album_mask)
-            else:
-                h_ctx, ctx_mask = gather_cached_context(*cache, b.album_idx, b.album_mask)
-            yield b, model.answer(shared, b, h_ctx, ctx_mask, vt).logits
+    def answer(batch):
+        b = rank_batch(batch, rank).to(dev)
+        if sharded is not None:
+            h_ctx, ctx_mask = sharded_gather(rank, *sharded, b.album_idx, b.album_mask)
+        else:
+            h_ctx, ctx_mask = gather_cached_context(*cache, b.album_idx, b.album_mask)
+        return b, model.answer(shared, b, h_ctx, ctx_mask, vt).logits
 
-    return cache_s, answers()
+    return answer
 
 
 def predict_cached(cfg: Config, model: FVTAModel, shared: SharedTables, dataset,
@@ -164,18 +164,22 @@ def predict_cached(cfg: Config, model: FVTAModel, shared: SharedTables, dataset,
     checkpoint ensembling (train.test_ensemble). cache=None builds the cache;
     tables=None builds train.make_eval_tables(model, shared). rank: each data
     rank answers its rows and every rank returns the whole split's arrays;
-    sharded: this rank's rows of a row-sharded cache (_sharded_cache_setup)."""
-    _, answers = _cached_answers(cfg, model, shared, dataset, batch_size, cache, tables,
-                                 rank, sharded)
+    sharded: this rank's rows of a row-sharded cache (_sharded_cache_setup).
+    Spans: fvta.eval around the whole, fvta.eval.answer around each batch."""
     probs, labels = [], []
-    for b, logits in answers:
-        p, keep, label = torch.softmax(logits, -1), b.ex_mask, b.label
-        if rank is not None:
-            group = rank.data_group()
-            p, keep, label = (torch.cat(mesh.all_gather(x, group)) for x in (p, keep, label))
-        keep = keep.cpu().numpy()
-        probs.append(p.cpu().numpy()[keep])
-        labels.append(label.cpu().numpy()[keep])
+    with span("fvta.eval"):
+        answer = _cached_answers(cfg, model, shared, cache, tables, rank, sharded)
+        for batch in dataset.get_batches(batch_size, shuffle=False):
+            with span("fvta.eval.answer"):
+                b, logits = answer(batch)
+                p, keep, label = torch.softmax(logits, -1), b.ex_mask, b.label
+                if rank is not None:
+                    group = rank.data_group()
+                    p, keep, label = (torch.cat(mesh.all_gather(x, group))
+                                      for x in (p, keep, label))
+                keep = keep.cpu().numpy()
+                probs.append(p.cpu().numpy()[keep])
+                labels.append(label.cpu().numpy()[keep])
     probs = np.concatenate(probs) if probs else np.zeros((0, 4), np.float32)
     labels = np.concatenate(labels) if labels else np.zeros(0, np.int32)
     return {"qid": np.asarray(dataset.qids), "probs": probs,
@@ -185,27 +189,30 @@ def predict_cached(cfg: Config, model: FVTAModel, shared: SharedTables, dataset,
 def evaluate_cached(cfg: Config, model: FVTAModel, shared: SharedTables, dataset,
                     batch_size: int, cache=None, tables=None, rank=None,
                     sharded=None) -> dict:
-    """Full-split evaluation through the album cache: {"acc", "loss", "count",
-    "cache_s"}, cache_s being the seconds to the cache on the device (the
-    per-checkpoint tables and the encode of every album, each where it is not
-    given). Sums stay on the device and are fetched once at the end. rank:
-    data-parallel, the sums added over the data ranks in rank order; sharded:
-    this rank's rows of a row-sharded cache, and "cache_bytes_per_device"
-    reports every rank's share."""
+    """Full-split evaluation through the album cache: {"acc", "loss", "count"},
+    building the per-checkpoint tables and the cache of every album where they
+    are not given. Sums stay on the device and are fetched once at the end.
+    rank: data-parallel, the sums added over the data ranks in rank order;
+    sharded: this rank's rows of a row-sharded cache, and
+    "cache_bytes_per_device" reports every rank's share. Spans: fvta.eval
+    around the whole, fvta.eval.answer around each batch (its move to the
+    device, the gather, the answer and its metric sums)."""
     from fvta_memexqa_torch.train import data_sum, masked_choice_metrics
 
-    cache_s, answers = _cached_answers(cfg, model, shared, dataset, batch_size, cache,
-                                       tables, rank, sharded)
     totals = None
-    for b, logits in answers:
-        m = masked_choice_metrics(logits, b.label, b.ex_mask)
-        m = torch.stack([m["correct"], m["count"], m["loss_sum"]])
-        totals = m if totals is None else totals + m
-    if totals is not None:
-        totals = [float(v) for v in data_sum(totals, rank)]
+    with span("fvta.eval"):
+        answer = _cached_answers(cfg, model, shared, cache, tables, rank, sharded)
+        for batch in dataset.get_batches(batch_size, shuffle=False):
+            with span("fvta.eval.answer"):
+                b, logits = answer(batch)
+                m = masked_choice_metrics(logits, b.label, b.ex_mask)
+                m = torch.stack([m["correct"], m["count"], m["loss_sum"]])
+                totals = m if totals is None else totals + m
+        if totals is not None:
+            totals = [float(v) for v in data_sum(totals, rank)]
     correct, count, loss_sum = totals if totals is not None else (0.0, 0.0, 0.0)
     out = {"acc": correct / max(count, 1.0), "loss": loss_sum / max(count, 1.0),
-           "count": int(count), "cache_s": cache_s}
+           "count": int(count)}
     if sharded is not None:
         out["cache_bytes_per_device"] = sharded_cache_bytes_per_device(rank, sharded)
     return out

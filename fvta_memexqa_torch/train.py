@@ -74,7 +74,7 @@ from fvta_memexqa_torch.models.fvta import (FVTAModel, a1_config, dropout_row_sh
 from fvta_memexqa_torch.optim import Optimizer
 from fvta_memexqa_torch.parallel import mesh
 from fvta_memexqa_torch.serve import resolve_device
-from fvta_memexqa_torch.utils.metrics import MetricsLogger, Timer
+from fvta_memexqa_torch.utils.metrics import MetricsLogger, Timer, span
 
 
 def debug_nans_enabled() -> bool:
@@ -221,16 +221,19 @@ def step_grads(model: FVTAModel, shared: SharedTables, batch: Batch, dd=None,
     grad}, [loss_sum, correct, count]). rank: the flat gradient and the sums
     are all-gathered over the data ranks and summed in rank order, so every
     rank holds the same bits."""
-    loss, m = loss_and_metrics(model, shared, batch, train, generator, dd=dd, rank=rank)
+    with span("fvta.forward"):
+        loss, m = loss_and_metrics(model, shared, batch, train, generator, dd=dd, rank=rank)
     params = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
-    sums = torch.stack([m["loss_sum"], m["correct"], m["count"]]).detach()
-    if rank is not None:
-        total = data_sum(torch.cat([*(g.reshape(-1) for g in grads), sums]), rank)
-        sizes = [p.numel() for p in params.values()]
-        *flat, sums = total.split([*sizes, 3])
-        grads = [f.view_as(p) for f, p in zip(flat, params.values())]
+    with span("fvta.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params.values(), grads)]
+        sums = torch.stack([m["loss_sum"], m["correct"], m["count"]]).detach()
+        if rank is not None:
+            total = data_sum(torch.cat([*(g.reshape(-1) for g in grads), sums]), rank)
+            sizes = [p.numel() for p in params.values()]
+            *flat, sums = total.split([*sizes, 3])
+            grads = [f.view_as(p) for f, p in zip(flat, params.values())]
     return dict(zip(params, grads)), sums
 
 
@@ -238,13 +241,16 @@ def train_step(state: TrainState, opt: Optimizer, shared: SharedTables, batch: B
                dd=None, rank: mesh.Rank | None = None) -> dict[str, torch.Tensor]:
     """One optimizer step on a device batch (dd, rank: as in loss_and_metrics;
     every data rank applies the same update); moves state in place. Returns
-    {"loss", "acc"} as device scalars (no host sync)."""
-    grads, (loss_sum, correct, count) = step_grads(state.model, shared, batch, dd, rank,
-                                                   True, state.generator)
-    opt.update(state.params, grads, state.opt_state)
-    state.step += 1
-    count = torch.clamp(count, min=1.0)
-    return {"loss": loss_sum / count, "acc": correct / count}
+    {"loss", "acc"} as device scalars (no host sync). Spans: fvta.step around
+    the whole, fvta.forward and fvta.backward (step_grads), fvta.optimizer."""
+    with span("fvta.step"):
+        grads, (loss_sum, correct, count) = step_grads(state.model, shared, batch, dd, rank,
+                                                       True, state.generator)
+        with span("fvta.optimizer"):
+            opt.update(state.params, grads, state.opt_state)
+        state.step += 1
+        count = torch.clamp(count, min=1.0)
+        return {"loss": loss_sum / count, "acc": correct / count}
 
 
 def make_eval_tables(model: FVTAModel, shared: SharedTables):

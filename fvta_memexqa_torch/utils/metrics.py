@@ -1,14 +1,36 @@
-"""Structured JSONL metrics + step timing (the JAX package's utils/metrics.py).
+"""Structured JSONL metrics + step timing (the JAX package's utils/metrics.py),
+and the program's spans.
 
 Every train/eval event is one JSON line with step, loss, accuracy, qa_pairs/sec
 and p50 latency, mirrored as a short human-readable line on stderr.
+
+`span(name)` marks a layer of the program (the loader, the train step's
+forward, backward and optimizer, an evaluation's tables, cache and answers) as
+a named range in a torch.profiler trace, beside the card's kernels and copies
+on the same clock. It records only while a profiler runs (`cli train
+--profile`, or any torch.profiler window around the program's calls);
+otherwise it is one shared no-op context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records the range `name` on the calling thread while a
+    torch profiler records, else the shared no-op context."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class Timer:

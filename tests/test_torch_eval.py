@@ -99,7 +99,7 @@ def test_evaluate_cached_matches_jax_and_the_plain_evaluation(run, packed_synth)
                                  JDataset(packed_synth, "test"), EVAL_BS, cache=run["j_cache"])
     assert got["count"] == ref["count"] and got["acc"] == ref["acc"]
     assert got["loss"] == pytest.approx(ref["loss"], rel=1e-5)
-    assert got["cache_s"] >= 0.0
+    assert set(got) == {"acc", "loss", "count"}
     tables = tr.make_eval_tables(run["model"], run["shared"])
     cache = eval_cache.precompute_album_cache(run["pcfg"], run["model"], run["shared"],
                                               vocab_table=tables[0], photo_table=tables[1])

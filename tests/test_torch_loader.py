@@ -289,6 +289,8 @@ def test_profile_window_writes_a_trace(packed_synth, small_config, tmp_path, num
     trace = read_json(os.path.join(prof, "trace.json"))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+    assert {"fvta.loader.batch", "fvta.loader.h2d", "fvta.step", "fvta.forward",
+            "fvta.backward", "fvta.optimizer"} <= names
 
 
 # ---- `cli train`'s flags ------------------------------------------------------------------

@@ -285,6 +285,8 @@ def test_sharded_cache_is_bitwise_the_replicated_cache(single_run, ppack):
     np.testing.assert_array_equal(got["probs_sharded"]["probs"], got["probs"]["probs"])
     np.testing.assert_array_equal(got["probs_sharded"]["label"], got["probs"]["label"])
     ev, ev_s = got["eval"], got["eval_sharded"]
+    assert set(ev) == {"acc", "loss", "count"}
+    assert set(ev_s) == {"acc", "loss", "count", "cache_bytes_per_device"}
     assert ev_s["count"] == ev["count"] and ev_s["acc"] == ev["acc"]
     assert ev_s["loss"] == pytest.approx(ev["loss"], rel=1e-6)
     per = ev_s["cache_bytes_per_device"]
