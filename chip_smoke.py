@@ -290,9 +290,15 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    1024); `cli prepro` through the native tokenizer and under FVTA_NO_NATIVE=1
    (every pack file byte-identical) with the encoder's texts/s both ways (the
    `port_complete` line; the two BF16 launches join the kernels line).
+26. the train step from its CUDA graph (train.StepGraph) vs eagerly
+   (train.eager_step) at realistic_config, batch 64 and 256: wall ms a step
+   of each over the same batches from the same state, their parameters and
+   moments bitwise equal, and train_step's eager_steps / graph_captures /
+   graph_replays counters (one eager step and one capture on the graphed
+   side; the `graph_step` line).
 
-Prints the `train_loader`, `focal`, `parallel`, `grouped_mesh` and `port_complete`
-lines, a {"kernels": [...]} line, then the card line, then as the last line
+Prints the `train_loader`, `focal`, `parallel`, `grouped_mesh`, `port_complete`
+and `graph_step` lines, a {"kernels": [...]} line, then the card line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -5980,6 +5986,64 @@ def bf16_entries(phase: dict) -> list:
     ]
 
 
+GRAPH_STEP_TIMED = 30   # phase 26: timed steps a path, after two warm-up steps
+
+
+def graph_step_phase(device, smi: str) -> dict:
+    """Phase 26: the train step eagerly (train.eager_step) and from its CUDA
+    graph (train.train_step) at realistic_config, batch 64 and 256, from one
+    seed's state over the same batches: two warm-up steps (the graphed side's
+    eager step and capture), then GRAPH_STEP_TIMED steps under the host clock,
+    ending in a synchronise; the parameters and moments after both runs must be
+    equal bit for bit. Reads train_step's eager_steps, graph_captures and
+    graph_replays over each run (the `graph_step` line)."""
+    import torch
+
+    from fvta_memexqa_torch import bench_lib as bl
+    from fvta_memexqa_torch import train as tr
+    from fvta_memexqa_torch.optim import Optimizer
+
+    cfg = bl.realistic_config()
+    shared = bl.synth_shared(cfg, seed=0, device=device)
+    paths = ("eager_steps", "graph_captures", "graph_replays")
+    out = {"card": smi, "timed_steps": GRAPH_STEP_TIMED}
+    with tr.deterministic_algorithms(device):
+        for bs in (64, 256):
+            batches = [bl.synth_batch(cfg, bs, seed=1 + i, device=device) for i in range(4)]
+            row, states = {}, {}
+            for name, step in (("eager", tr.eager_step), ("graphed", tr.train_step)):
+                state = tr.init_state(cfg, device, seed=0)
+                opt = Optimizer(cfg.train)
+                before = {k: getattr(tr.train_step, k) for k in paths}
+                feed = itertools.cycle(batches)
+                for _ in range(2):
+                    step(state, opt, shared, next(feed))
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                for _ in range(GRAPH_STEP_TIMED):
+                    step(state, opt, shared, next(feed))
+                torch.cuda.synchronize(device)
+                ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEP_TIMED
+                row[name] = {"ms_per_step": ms, "qa_per_s": bs * 1e3 / ms,
+                             **{k: getattr(tr.train_step, k) - before[k] for k in paths}}
+                states[name] = state
+            a, b = (dict(states[k].model.named_parameters()) for k in ("eager", "graphed"))
+            moments = [(states["eager"].opt_state[g][n], states["graphed"].opt_state[g][n])
+                       for g in ("mu", "nu") for n in a]
+            row["bitwise"] = (all(torch.equal(a[n], b[n]) for n in a)
+                              and all(torch.equal(x, y) for x, y in moments))
+            row["speedup"] = row["eager"]["ms_per_step"] / row["graphed"]["ms_per_step"]
+            if not row["bitwise"]:
+                fail(f"the graphed train step at batch {bs} left other bits than the eager "
+                     f"one: {json.dumps(row)}")
+            if (row["graphed"]["graph_captures"], row["graphed"]["eager_steps"]) != (1, 1):
+                fail(f"the graphed run at batch {bs} did not capture once after one eager "
+                     f"step: {json.dumps(row)}")
+            out[f"b{bs}"] = row
+            del states, batches
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -6093,6 +6157,7 @@ def main() -> None:
     t_widths = time.perf_counter() - t0
     bench = bench_phase(smi)
     capacity = capacity_phase()
+    graph_step = graph_step_phase(device, smi)   # phase 26
     entries = [*k1, *k2, *k1b, *stats_entries, *grouped_entries]
     add_global_routes(entries, widths)
     for e in entries:   # the front end's launches (phase 21's `cli serve` processes)
@@ -6123,6 +6188,7 @@ def main() -> None:
     log("focal " + json.dumps(focal))
     log("grouped_mesh " + json.dumps(grouped_mesh))
     log("port_complete " + json.dumps(port_complete))
+    log("graph_step " + json.dumps(graph_step))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,7 @@ and the launch counting shared by the kernel wrappers live here too.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -78,13 +79,49 @@ def count_launch(wrapper, global_route: bool = False, bf16: bool = False) -> Non
     """`wrapper.launches += 1`, and `wrapper.global_launches += 1` for a launch on
     the kernel's global route, `wrapper.bf16_launches += 1` for one of its bf16
     activation instantiation, under a lock: kernels launch from several threads
-    (the serving engine's worker and the ingesting caller)."""
+    (the serving engine's worker and the ingesting caller, autograd's device
+    thread). While a CUDA graph is captured (LaunchRecord.capturing) the launch
+    is not made, so it goes to the graph's record instead."""
     with _count_lock:
-        wrapper.launches += 1
-        if global_route:
-            wrapper.global_launches += 1
-        if bf16:
-            wrapper.bf16_launches += 1
+        counts = _recording[-1] if _recording else None
+        for attr, counted in (("launches", True), ("global_launches", global_route),
+                              ("bf16_launches", bf16)):
+            if not counted:
+                continue
+            if counts is None:
+                setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+            else:
+                counts[wrapper, attr] = counts.get((wrapper, attr), 0) + 1
+
+
+_recording: list[dict] = []   # the records of the graphs being captured, innermost last
+
+
+class LaunchRecord:
+    """The kernel launches of a CUDA graph, as the counters see them: the
+    capture launches nothing and adds nothing to a counter; each replay adds,
+    for every wrapper, the launches the capture recorded."""
+
+    def __init__(self):
+        self.counts: dict[tuple, int] = {}   # (wrapper, counter attribute) → launches
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Inside the block, count_launch records into this record (from any
+        thread: autograd's device thread launches the backward's kernels)."""
+        with _count_lock:
+            _recording.append(self.counts)
+        try:
+            yield self
+        finally:
+            with _count_lock:
+                _recording.pop()
+
+    def replayed(self) -> None:
+        """Add one replay's launches to the counters."""
+        with _count_lock:
+            for (wrapper, attr), n in self.counts.items():
+                setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 
 def check_f32(name: str, t: torch.Tensor, shape: tuple, device) -> None:

@@ -18,7 +18,12 @@ The state is a plain dict of tensors (moments on the parameters' device,
 integer counters as 0-d int64 tensors on the CPU, so reading them never waits
 for the device); the checkpoint saves it as is. `convert.opt_state_from_optax`
 carries an optax state across. Scalars (bias corrections, the schedule) are
-computed in float32, as optax does under jit.
+computed on the host in float32, as optax does under jit (`advance`).
+
+The moments are written into the tensors the state already holds, so a CUDA
+graph of the step (train.StepGraph) replays onto the same state. A captured
+step reads its scalars from `DeviceScalars`, which the caller fills from
+`advance` before each replay.
 """
 
 from __future__ import annotations
@@ -97,7 +102,10 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, params: Params, grads: Params, state: dict) -> None:
+    def update(self, params: Params, grads: Params, state: dict,
+               scalars: "DeviceScalars | None" = None) -> None:
+        """scalars: a captured step's device scalars, which the caller fills from
+        `advance` (the counters then move outside the graph); None: advance here."""
         k = self.tcfg.grad_accum
         if k > 1:
             mini = int(state["mini_step"])
@@ -111,41 +119,79 @@ class Optimizer:
             state["acc_grads"] = {n: torch.zeros_like(a) for n, a in acc.items()}
             state["mini_step"] = torch.zeros((), dtype=torch.int64)
             state["gradient_step"] = state["gradient_step"] + 1
-        updates = self._inner(grads, state)
+        updates = self._inner(grads, state, self.advance(state) if scalars is None
+                              else scalars)
         for name, u in updates.items():
             params[name].add_(u)
 
-    def _inner(self, grads: Params, state: dict) -> Params:
+    def advance(self, state: dict) -> dict[str, float]:
+        """Move the step counters on and return this step's host scalars, in
+        float32 as optax computes them under jit: Adam's bias corrections
+        (bc1, bc2) and the learning-rate schedule's `step_size`."""
         t = self.tcfg
-        if t.grad_clip_norm > 0:
-            grads = clip_by_global_norm(grads, t.grad_clip_norm)
+        out = {}
         if t.optimizer == "adam":
             c = int(state["count"]) + 1
             state["count"] = torch.tensor(c, dtype=torch.int64)
-            bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(c))
-            bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(c))
-            updates = {}
-            for n, g in grads.items():
-                mu = (1 - ADAM_B1) * g + ADAM_B1 * state["mu"][n]
-                nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][n]
-                state["mu"][n], state["nu"][n] = mu, nu
-                updates[n] = (mu / bc1) / (torch.sqrt(nu / bc2 + ADAM_EPS_ROOT) + ADAM_EPS)
-        else:
-            updates = {}
-            for n, g in grads.items():
-                e_g = (1 - ADADELTA_RHO) * (g * g) + ADADELTA_RHO * state["e_g"][n]
-                u = (torch.sqrt(state["e_x"][n] + ADADELTA_EPS)
-                     / torch.sqrt(e_g + ADADELTA_EPS)) * g
-                state["e_g"][n] = e_g
-                state["e_x"][n] = (1 - ADADELTA_RHO) * (u * u) + ADADELTA_RHO * state["e_x"][n]
-                updates[n] = u
+            out["bc1"] = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(c))
+            out["bc2"] = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(c))
         if self.scheduled:
             sc = int(state["schedule_count"])
-            step_size = _f32(-lr_at(t, sc))
+            out["step_size"] = _f32(-lr_at(t, sc))
             state["schedule_count"] = torch.tensor(sc + 1, dtype=torch.int64)
         else:
-            step_size = -t.learning_rate
+            out["step_size"] = -t.learning_rate
+        return out
+
+    def _inner(self, grads: Params, state: dict, s) -> Params:
+        """The updates; s: `advance`'s host scalars, or DeviceScalars."""
+        t = self.tcfg
+        if t.grad_clip_norm > 0:
+            grads = clip_by_global_norm(grads, t.grad_clip_norm)
+        on_card = isinstance(s, DeviceScalars)
+        updates = {}
+        if t.optimizer == "adam":
+            for n, g in grads.items():
+                mu, nu = state["mu"][n], state["nu"][n]
+                torch.add((1 - ADAM_B1) * g, ADAM_B1 * mu, out=mu)
+                torch.add((1 - ADAM_B2) * (g * g), ADAM_B2 * nu, out=nu)
+                mu_hat = mu * s.inv_bc1 if on_card else mu / s["bc1"]
+                nu_hat = nu * s.inv_bc2 if on_card else nu / s["bc2"]
+                updates[n] = mu_hat / (torch.sqrt(nu_hat + ADAM_EPS_ROOT) + ADAM_EPS)
+        else:
+            for n, g in grads.items():
+                e_g, e_x = state["e_g"][n], state["e_x"][n]
+                torch.add((1 - ADADELTA_RHO) * (g * g), ADADELTA_RHO * e_g, out=e_g)
+                u = (torch.sqrt(e_x + ADADELTA_EPS) / torch.sqrt(e_g + ADADELTA_EPS)) * g
+                torch.add((1 - ADADELTA_RHO) * (u * u), ADADELTA_RHO * e_x, out=e_x)
+                updates[n] = u
+        step_size = s.step_size if on_card else s["step_size"]
         return {n: step_size * u for n, u in updates.items()}
+
+
+class DeviceScalars:
+    """A step's scalars as 0-d float32 tensors on the card, for a step captured
+    in a CUDA graph: `fill` writes `Optimizer.advance`'s values before each
+    replay, each a kernel argument of its fill (skipped where the tensor holds
+    the value already: a constant learning rate, a converged bias
+    correction). A bias correction is held as its float32 reciprocal, because
+    CUDA's division of a tensor by a host scalar is the multiply by that
+    reciprocal: the captured step keeps the eager step's bits."""
+
+    def __init__(self, device):
+        zero = lambda: torch.zeros((), dtype=torch.float32, device=device)
+        self.inv_bc1, self.inv_bc2, self.step_size = zero(), zero(), zero()
+        self._held: dict[str, float] = {}
+
+    def fill(self, host: dict[str, float]) -> None:
+        values = {"step_size": float(np.float32(host["step_size"]))}
+        if "bc1" in host:
+            values.update(inv_bc1=float(np.float32(1) / np.float32(host["bc1"])),
+                          inv_bc2=float(np.float32(1) / np.float32(host["bc2"])))
+        for name, value in values.items():
+            if self._held.get(name) != value:
+                getattr(self, name).fill_(value)
+                self._held[name] = value
 
 
 def state_to(state: dict, device) -> dict:

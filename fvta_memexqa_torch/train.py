@@ -11,6 +11,15 @@ bit-identically: it turns on torch's deterministic algorithms for the run
 (index backward and the dedup gather otherwise accumulate with atomics, on the
 CPU as on the card).
 
+The step as a CUDA graph (StepGraph): on the card, a single-rank step without
+dedup, gradient accumulation or anomaly detection is captured once (forward,
+backward, the clip and Adam) and replayed from then on, so the host makes a few
+dozen calls a step in place of ~2300 launches. The first such call runs
+eagerly, the next captures; a step whose key (graph_key: the tensors the graph
+reads and writes, the batch's shapes, the numerics settings) differs from the
+held graph's runs eagerly again and the next recaptures. Every other step runs
+eagerly (eager_step), as PyTorch runs it. Both give the same bits.
+
 Train-time album dedup (TrainConfig.dedup_albums) encodes each distinct album
 of a batch once and gathers per-question context rows from the unique encodes
 (eval_cache.gather_cached_context); at keep_prob = 1 it is the same function
@@ -71,7 +80,8 @@ from fvta_memexqa_torch.eval_cache import (_sharded_cache_setup, evaluate_cached
                                            predict_cached)
 from fvta_memexqa_torch.models.fvta import (FVTAModel, a1_config, dropout_row_shard,
                                             make_photo_table, make_vocab_table)
-from fvta_memexqa_torch.optim import Optimizer
+from fvta_memexqa_torch.ops import build
+from fvta_memexqa_torch.optim import DeviceScalars, Optimizer
 from fvta_memexqa_torch.parallel import mesh
 from fvta_memexqa_torch.serve import resolve_device
 from fvta_memexqa_torch.utils.metrics import MetricsLogger, Timer, span
@@ -98,6 +108,7 @@ class TrainState:
     opt_state: dict
     step: int
     generator: torch.Generator   # dropout noise, on the model's device
+    graph: "StepGraph | None" = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -241,16 +252,134 @@ def train_step(state: TrainState, opt: Optimizer, shared: SharedTables, batch: B
                dd=None, rank: mesh.Rank | None = None) -> dict[str, torch.Tensor]:
     """One optimizer step on a device batch (dd, rank: as in loss_and_metrics;
     every data rank applies the same update); moves state in place. Returns
-    {"loss", "acc"} as device scalars (no host sync). Spans: fvta.step around
-    the whole, fvta.forward and fvta.backward (step_grads), fvta.optimizer."""
+    {"loss", "acc"} as new device scalars (no host sync). On the card a step
+    that graph_eligible admits runs from a CUDA graph (StepGraph), else
+    eagerly. Spans: fvta.step around the whole; fvta.replay around a replay's
+    staging and launch; an eager step's fvta.forward, fvta.backward and
+    fvta.optimizer. Counts its paths in `train_step.eager_steps`,
+    `.graph_captures` and `.graph_replays`."""
     with span("fvta.step"):
-        grads, (loss_sum, correct, count) = step_grads(state.model, shared, batch, dd, rank,
-                                                       True, state.generator)
-        with span("fvta.optimizer"):
-            opt.update(state.params, grads, state.opt_state)
+        eligible = graph_eligible(batch.label.is_cuda, rank, dd, opt.tcfg.grad_accum,
+                                  torch.is_anomaly_enabled())
+        key = graph_key(state, opt, shared, batch) if eligible else None
+        path = step_path(eligible, key, state.graph)
+        if path == "eager":
+            return eager_step(state, opt, shared, batch, dd, rank)
+        if path == "first":
+            state.graph = StepGraph(key)   # the next step with this key captures
+            return eager_step(state, opt, shared, batch)
+        if path == "capture":
+            state.graph.capture(state, opt, shared, batch)
+        with span("fvta.replay"):
+            return state.graph.replay(state, opt, batch)
+
+
+def eager_step(state: TrainState, opt: Optimizer, shared: SharedTables, batch: Batch,
+               dd=None, rank: mesh.Rank | None = None) -> dict[str, torch.Tensor]:
+    """train_step's work launched op by op: step_grads, then Optimizer.update."""
+    grads, sums = step_grads(state.model, shared, batch, dd, rank, True, state.generator)
+    with span("fvta.optimizer"):
+        opt.update(state.params, grads, state.opt_state)
+    state.step += 1
+    _count_step("eager_steps")
+    return step_metrics(*sums)
+
+
+def step_metrics(loss_sum: torch.Tensor, correct: torch.Tensor,
+                 count: torch.Tensor) -> dict[str, torch.Tensor]:
+    count = torch.clamp(count, min=1.0)
+    return {"loss": loss_sum / count, "acc": correct / count}
+
+
+def graph_eligible(cuda: bool, rank: mesh.Rank | None, dd, grad_accum: int,
+                   anomaly: bool) -> bool:
+    """Whether train_step may run a step from a CUDA graph, from what the call
+    observes: a batch on the card, one rank (a data rank's step holds a
+    collective), no dedup (its unique-album count sets shapes per batch), no
+    gradient accumulation (a host branch on the micro-step) and no anomaly
+    detection (it checks each backward op on the host)."""
+    return cuda and rank is None and dd is None and grad_accum == 1 and not anomaly
+
+
+def graph_key(state: TrainState, opt: Optimizer, shared: SharedTables, batch: Batch) -> tuple:
+    """What a captured step is bound to: the identity and address of every tensor
+    it reads or writes in place (parameters, the optimizer's moments, the shared
+    tables), the optimizer and the dropout generator, the batch's shapes and
+    dtypes, and the settings that choose kernels (deterministic algorithms,
+    TF32). A resume that rebinds the state changes it."""
+    tensors = [*state.model.parameters(), *vars(shared).values()]
+    for v in state.opt_state.values():
+        if isinstance(v, dict):
+            tensors += v.values()
+    return (id(opt), id(state.generator), [*map(id, tensors)], [t.data_ptr() for t in tensors],
+            [(t.shape, t.dtype, t.device) for t in vars(batch).values()],
+            torch.are_deterministic_algorithms_enabled(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def step_path(eligible: bool, key, graph: "StepGraph | None") -> str:
+    """How train_step runs a step: "eager" (not eligible), "first" (eligible,
+    but no graph holds this key: an eager step, and the next call with the key
+    captures), "capture" (the previous step ran eagerly with this key) or
+    "replay"."""
+    if not eligible:
+        return "eager"
+    if graph is None or graph.key != key:
+        return "first"
+    return "capture" if graph.graph is None else "replay"
+
+
+class StepGraph:
+    """One train step (step_grads, Optimizer.update, the step's metrics)
+    captured as a CUDA graph and replayed onto the same parameters, moments and
+    generator. The batch is copied into the graph's own input tensors and the
+    optimizer's per-step scalars into DeviceScalars before each replay; the
+    dropout generator is registered with the graph, so each replay draws what
+    an eager step would and advances it alike. The kernel wrappers' launch
+    counters move by the captured launches at each replay, not at the
+    capture."""
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.graph = None
+
+    def capture(self, state: TrainState, opt: Optimizer, shared: SharedTables,
+                batch: Batch) -> None:
+        self.inputs = Batch(**{k: v.clone() for k, v in vars(batch).items()})
+        self.scalars = DeviceScalars(batch.label.device)
+        self.launches = build.LaunchRecord()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.generator)
+        # thread_local: a prefetching loader thread may copy to the card meanwhile
+        with self.launches.capturing(), torch.cuda.graph(graph,
+                                                         capture_error_mode="thread_local"):
+            grads, sums = step_grads(state.model, shared, self.inputs, None, None, True,
+                                     state.generator)
+            opt.update(state.params, grads, state.opt_state, self.scalars)
+            m = step_metrics(*sums)
+            self.out = torch.stack([m["loss"], m["acc"]])   # one copy out a replay
+        self.graph = graph
+        _count_step("graph_captures")
+
+    def replay(self, state: TrainState, opt: Optimizer, batch: Batch) -> dict[str, torch.Tensor]:
+        for k, v in vars(batch).items():
+            getattr(self.inputs, k).copy_(v)
+        self.scalars.fill(opt.advance(state.opt_state))
+        self.graph.replay()
+        self.launches.replayed()
         state.step += 1
-        count = torch.clamp(count, min=1.0)
-        return {"loss": loss_sum / count, "acc": correct / count}
+        _count_step("graph_replays")
+        loss, acc = self.out.clone()
+        return {"loss": loss, "acc": acc}
+
+
+def _count_step(path: str) -> None:
+    setattr(_STEP, path, getattr(_STEP, path) + 1)
+
+
+_STEP = train_step   # the counters stay on the function a test may wrap
+train_step.eager_steps = train_step.graph_captures = train_step.graph_replays = 0
 
 
 def make_eval_tables(model: FVTAModel, shared: SharedTables):

@@ -18,7 +18,9 @@ from fvta_memexqa_tpu.train import make_optimizer as j_make_optimizer
 
 from fvta_memexqa_torch.config import TrainConfig
 from fvta_memexqa_torch.convert import opt_state_from_optax, state_dict_from_flax
-from fvta_memexqa_torch.optim import Optimizer, clip_by_global_norm, lr_at
+from fvta_memexqa_torch.optim import (ADADELTA_EPS, ADADELTA_RHO, ADAM_B1, ADAM_B2, ADAM_EPS,
+                                      ADAM_EPS_ROOT, DeviceScalars, Optimizer,
+                                      clip_by_global_norm, lr_at)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 MODS = ("photo", "photo_title", "album_title", "album_desc", "when", "where")
@@ -128,3 +130,76 @@ def test_unknown_settings_raise():
         Optimizer(TrainConfig(optimizer="sgd"))
     with pytest.raises(ValueError, match="decay_steps"):
         Optimizer(TrainConfig(lr_schedule="cosine"))
+
+
+def rebinding_update(opt: Optimizer, params, grads, state) -> None:
+    """Optimizer.update as it was written before the moments were updated in
+    place: each step binds new moment tensors into the state."""
+    t = opt.tcfg
+    if t.grad_clip_norm > 0:
+        grads = clip_by_global_norm(grads, t.grad_clip_norm)
+    s = opt.advance(state)
+    updates = {}
+    for n, g in grads.items():
+        if t.optimizer == "adam":
+            mu = (1 - ADAM_B1) * g + ADAM_B1 * state["mu"][n]
+            nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * state["nu"][n]
+            state["mu"][n], state["nu"][n] = mu, nu
+            updates[n] = (mu / s["bc1"]) / (torch.sqrt(nu / s["bc2"] + ADAM_EPS_ROOT) + ADAM_EPS)
+        else:
+            e_g = (1 - ADADELTA_RHO) * (g * g) + ADADELTA_RHO * state["e_g"][n]
+            u = (torch.sqrt(state["e_x"][n] + ADADELTA_EPS) / torch.sqrt(e_g + ADADELTA_EPS)) * g
+            state["e_g"][n] = e_g
+            state["e_x"][n] = (1 - ADADELTA_RHO) * (u * u) + ADADELTA_RHO * state["e_x"][n]
+            updates[n] = u
+    for n, u in updates.items():
+        params[n].add_(s["step_size"] * u)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c.get("grad_accum", 1) == 1],
+                         ids=lambda c: "-".join(f"{k}={v}" for k, v in c.items()))
+def test_update_writes_the_moments_in_place_with_the_rebinding_bits(case):
+    """Across steps every moment tensor keeps its identity (a CUDA graph of the
+    step replays onto them), and parameters, moments and counters are bit for
+    bit those of the form that bound new tensors each step."""
+    rng = np.random.default_rng(1)
+    opt = Optimizer(TrainConfig(**case))
+    params = state_dict_from_flax(param_tree(rng))
+    ref_params = {k: v.clone() for k, v in params.items()}
+    state, ref_state = opt.init(params), opt.init(ref_params)
+    groups = [k for k, v in state.items() if isinstance(v, dict)]
+    ids = {g: {n: id(t) for n, t in state[g].items()} for g in groups}
+    for step in range(4):
+        grads = state_dict_from_flax(param_tree(rng, scale=3.0 if step % 2 == 0 else 0.05))
+        opt.update(params, grads, state)
+        rebinding_update(opt, ref_params, grads, ref_state)
+        assert {g: {n: id(t) for n, t in state[g].items()} for g in groups} == ids
+        assert [k for k in params if not torch.equal(params[k], ref_params[k])] == []
+        for g in groups:
+            assert [n for n in state[g] if not torch.equal(state[g][n], ref_state[g][n])] == []
+        assert {k: int(v) for k, v in state.items() if not isinstance(v, dict)} == \
+            {k: int(v) for k, v in ref_state.items() if not isinstance(v, dict)}
+
+
+def test_device_scalars_hold_the_reciprocals_cuda_multiplies_by():
+    """A captured step multiplies by the float32 reciprocal of each bias
+    correction (what CUDA's division by a host scalar computes) and by the
+    step size as float32."""
+    opt = Optimizer(TrainConfig(learning_rate=1e-3, lr_schedule="cosine", decay_steps=9))
+    state = opt.init({"w": torch.zeros(3)})
+    for _ in range(3):
+        host = opt.advance(state)
+    s = DeviceScalars("cpu")
+    s.fill(host)
+    assert s.inv_bc1.dtype == s.inv_bc2.dtype == s.step_size.dtype == torch.float32
+    assert s.inv_bc1.item() == float(np.float32(1) / np.float32(host["bc1"]))
+    assert s.inv_bc2.item() == float(np.float32(1) / np.float32(host["bc2"]))
+    assert s.step_size.item() == float(np.float32(host["step_size"]))
+    assert host["bc1"] == float(np.float32(1) - np.float32(0.9) ** np.float32(3))
+    assert int(state["count"]) == int(state["schedule_count"]) == 3
+    # a value the tensor holds already is not written again (no launch)
+    s.step_size.zero_()
+    s.fill(host)
+    assert s.step_size.item() == 0.0
+    s.fill(opt.advance(state))
+    assert s.step_size.item() != 0.0

@@ -299,3 +299,102 @@ def test_debug_nans_switch_and_finite_loss_check(monkeypatch):
     tr.check_finite_loss(1.25, 3)
     with pytest.raises(FloatingPointError, match="step 7"):
         tr.check_finite_loss(float("nan"), 7)
+
+
+_RANK = object()   # stands for a mesh.Rank: graph_eligible reads only whether one is given
+
+
+@pytest.mark.parametrize("cuda,rank,dd,grad_accum,anomaly,want", [
+    (True, None, None, 1, False, True),
+    (False, None, None, 1, False, False),      # every CPU step
+    (True, _RANK, None, 1, False, False),      # a data rank: a collective in the step
+    (True, None, ("uniq", "inv"), 1, False, False),   # dedup
+    (True, None, None, 2, False, False),       # gradient accumulation
+    (True, None, None, 1, True, False),        # FVTA_DEBUG_NANS' anomaly detection
+])
+def test_graph_eligibility_is_decided_from_the_call(cuda, rank, dd, grad_accum, anomaly, want):
+    assert tr.graph_eligible(cuda, rank, dd, grad_accum, anomaly) is want
+    held = tr.StepGraph(("k",))
+    held.graph = object()
+    assert tr.step_path(tr.graph_eligible(cuda, rank, dd, grad_accum, anomaly), ("k",),
+                        held) == ("replay" if want else "eager")
+
+
+def test_step_path_runs_one_eager_step_then_captures_then_replays():
+    assert tr.step_path(True, ("k",), None) == "first"
+    held = tr.StepGraph(("k",))
+    assert tr.step_path(True, ("k",), held) == "capture"
+    held.graph = object()
+    assert tr.step_path(True, ("k",), held) == "replay"
+    assert tr.step_path(True, ("other",), held) == "first"    # e.g. a resume
+    assert tr.step_path(False, ("k",), held) == "eager"
+
+
+def test_graph_key_follows_what_a_captured_step_is_bound_to(packed_synth, small_config):
+    cfg = port_config(small_config)
+    state = tr.init_state(cfg, "cpu")
+    opt = tr.Optimizer(cfg.train)
+    shared = SharedTables.from_packed(packed_synth.shared, "cpu")
+    batch = first_batch(packed_synth, 8)
+    key = tr.graph_key(state, opt, shared, batch)
+    assert tr.graph_key(state, opt, shared, first_batch(packed_synth, 8)) == key
+    # values copied into the same tensors keep the key (checkpoint.restore's params)
+    state.model.load_state_dict(tr.init_state(cfg, "cpu", seed=5).model.state_dict())
+    assert tr.graph_key(state, opt, shared, batch) == key
+    changed = {
+        "batch shape": lambda: tr.graph_key(state, opt, shared, first_batch(packed_synth, 4)),
+        "optimizer": lambda: tr.graph_key(state, tr.Optimizer(cfg.train), shared, batch),
+        "shared tables": lambda: tr.graph_key(
+            state, opt, SharedTables.from_packed(packed_synth.shared, "cpu"), batch),
+    }
+    for what, fn in changed.items():
+        assert fn() != key, what
+    with tr.deterministic_algorithms(torch.device("cpu")):
+        assert tr.graph_key(state, opt, shared, batch) != key
+    moments = state.opt_state
+    state.opt_state = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+                       for k, v in moments.items()}   # a resume rebinds the moments
+    assert tr.graph_key(state, opt, shared, batch) != key
+    state.opt_state = moments
+    assert tr.graph_key(state, opt, shared, batch) == key
+
+
+def test_a_capture_counts_no_launch_and_each_replay_the_captured_ones():
+    from fvta_memexqa_torch.ops import build
+
+    def kernel():
+        pass
+
+    def other():
+        pass
+
+    kernel.launches = kernel.global_launches = kernel.bf16_launches = 0
+    other.launches = 0
+    record = build.LaunchRecord()
+    with record.capturing():
+        build.count_launch(kernel)
+        build.count_launch(kernel, global_route=True, bf16=True)
+        build.count_launch(other)
+    assert (kernel.launches, kernel.global_launches, kernel.bf16_launches, other.launches) \
+        == (0, 0, 0, 0)
+    build.count_launch(kernel)                 # outside a capture: counted as made
+    assert kernel.launches == 1
+    record.replayed()
+    record.replayed()
+    assert (kernel.launches, kernel.global_launches, kernel.bf16_launches, other.launches) \
+        == (1 + 2 * 2, 2, 2, 2)
+
+
+def test_cpu_steps_run_eagerly_and_count_as_eager(packed_synth, small_config):
+    cfg = port_config(small_config)
+    state = tr.init_state(cfg, "cpu")
+    opt = tr.Optimizer(cfg.train)
+    shared = SharedTables.from_packed(packed_synth.shared, "cpu")
+    before = {k: getattr(tr.train_step, k)
+              for k in ("eager_steps", "graph_captures", "graph_replays")}
+    for _ in range(3):
+        out = tr.train_step(state, opt, shared, first_batch(packed_synth, 8))
+    after = {k: getattr(tr.train_step, k) for k in before}
+    assert {k: after[k] - before[k] for k in before} == {
+        "eager_steps": 3, "graph_captures": 0, "graph_replays": 0}
+    assert state.graph is None and state.step == 3 and set(out) == {"loss", "acc"}
