@@ -37,6 +37,7 @@ from fvta_memexqa_torch.models.fvta import BiLSTM, flax_dropout
 from fvta_memexqa_torch.ops.fvta_fused import fvta_attention_fused
 from fvta_memexqa_torch.ops.fvta_ref import (ATTENTION_VARIANTS, AttentionOutput,
                                              similarity_tensor)
+from fvta_memexqa_torch.utils.metrics import span
 
 COUNT_MIN, COUNT_MAX = 1, 10  # TGIF-QA repetition-count answer range
 
@@ -55,7 +56,10 @@ class VideoInputs:
     ex_mask: torch.Tensor       # bool [N]
 
     def to(self, device) -> "VideoInputs":
-        return VideoInputs(**{k: v.to(device) for k, v in self.__dict__.items()})
+        """The same inputs with every field on `device` (the span
+        fvta.loader.h2d)."""
+        with span("fvta.loader.h2d"):
+            return VideoInputs(**{k: v.to(device) for k, v in self.__dict__.items()})
 
 
 class VideoOutput(NamedTuple):
@@ -168,13 +172,16 @@ class VideoFVTAModel(nn.Module):
         return flax_dropout(x, self.keep_prob, train, generator)
 
     def encode_frames(self, vi: VideoInputs, train: bool = False, generator=None):
-        """Frame sequence → context states [N, 1, T, 2H] and mask [N, 1, T]."""
-        if self.temporal_encoder == "bilstm":
-            x = flax_dropout(self.frame_proj(vi.frame_feats), self.keep_prob, train, generator)
-            out, _ = self.enc_frames(x, vi.frame_mask)
-        else:
-            out, _ = self.enc_frames(vi.frame_feats, vi.frame_mask)
-        return out[:, None], vi.frame_mask[:, None]
+        """Frame sequence → context states [N, 1, T, 2H] and mask [N, 1, T]
+        (the span fvta.video.frames)."""
+        with span("fvta.video.frames"):
+            if self.temporal_encoder == "bilstm":
+                x = flax_dropout(self.frame_proj(vi.frame_feats), self.keep_prob, train,
+                                 generator)
+                out, _ = self.enc_frames(x, vi.frame_mask)
+            else:
+                out, _ = self.enc_frames(vi.frame_feats, vi.frame_mask)
+            return out[:, None], vi.frame_mask[:, None]
 
     def answer(self, shared: SharedTables, vi: VideoInputs, h_ctx, ctx_mask,
                train: bool = False, generator=None, vocab_table=None,

@@ -54,7 +54,7 @@ from fvta_memexqa_torch.parallel.cp import make_cp_attention
 from fvta_memexqa_torch.serve import resolve_device
 from fvta_memexqa_torch.train import (TrainState, check_finite_loss, debug_nans_enabled,
                                       deterministic_algorithms, rank_checkpoints)
-from fvta_memexqa_torch.utils.metrics import MetricsLogger, Timer
+from fvta_memexqa_torch.utils.metrics import MetricsLogger, Timer, span
 
 
 def run_record(meta: dict, encoder: str, pack_dir: str | None = None) -> dict:
@@ -101,14 +101,22 @@ def init_video_state(cfg: Config, run: dict, device, seed: int | None = None) ->
 def video_train_step(state: TrainState, opt: Optimizer, shared, vi: VideoInputs,
                      cp_attention=None) -> dict:
     """One optimizer step on a device batch (dropout on); moves state in place.
-    Returns {"loss", "acc"} as device scalars."""
-    loss, m = video_loss(state.model, shared, vi, True, state.generator, cp_attention)
-    params = state.params
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    opt.update(params, {n: torch.zeros_like(p) if g is None else g
-                        for (n, p), g in zip(params.items(), grads)}, state.opt_state)
-    state.step += 1
-    return {"loss": loss.detach(), "acc": m["acc"].detach()}
+    Returns {"loss", "acc"} as device scalars. The span fvta.video.step covers
+    the whole step (the frame encode inside it is fvta.video.frames); counts
+    its steps in `video_train_step.steps`."""
+    with span("fvta.video.step"):
+        loss, m = video_loss(state.model, shared, vi, True, state.generator, cp_attention)
+        params = state.params
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        opt.update(params, {n: torch.zeros_like(p) if g is None else g
+                            for (n, p), g in zip(params.items(), grads)}, state.opt_state)
+        state.step += 1
+        _VIDEO_STEP.steps += 1
+        return {"loss": loss.detach(), "acc": m["acc"].detach()}
+
+
+_VIDEO_STEP = video_train_step   # the counter stays on the function a test may wrap
+video_train_step.steps = 0
 
 
 def make_video_eval_step(model: VideoFVTAModel, cp_attention=None):

@@ -1,6 +1,7 @@
 """The program's spans (`utils/metrics.span`) on the CPU: under torch.profiler a
-train step fed through `train.on_device`, `evaluate_cached(cache=None)` and
-`predict_cached` record every span of their layers, once each where the
+train step fed through `train.on_device`, `evaluate_cached(cache=None)`,
+`predict_cached` and a video train step fed through `VideoInputs.to` record
+every span of their layers, once each where the
 program runs the layer once, nested as the calls nest and in the calls' order;
 with no profiler running the helper is one shared no-op and records nothing;
 and the spans appear whether the profiler is a context manager or is started
@@ -14,9 +15,12 @@ import torch
 
 from fvta_memexqa_torch import eval_cache
 from fvta_memexqa_torch import train as tr
-from fvta_memexqa_torch.config import Config
+from fvta_memexqa_torch import train_video as tv
+from fvta_memexqa_torch.config import Config, DataConfig, ModelConfig
 from fvta_memexqa_torch.data import SharedTables
 from fvta_memexqa_torch.data.pipeline import Dataset
+from fvta_memexqa_torch.data.video_pack import video_shared_tables
+from fvta_memexqa_torch.models.video import make_synthetic_video
 from fvta_memexqa_torch.optim import Optimizer
 from fvta_memexqa_torch.utils import metrics
 
@@ -32,9 +36,31 @@ def env(packed_synth, small_config):
                 shared=SharedTables.from_packed(packed_synth.shared, "cpu"))
 
 
+def run_video(steps: int = STEPS) -> int:
+    """`steps` video train steps (bilstm, mc) on a small synthetic batch, each
+    moved by VideoInputs.to as the video trainer moves it."""
+    dcfg = DataConfig(max_question_len=8, max_answer_len=3, max_word_len=6, image_feat_dim=16,
+                      word_emb_dim=8, word_vocab_size=64, char_vocab_size=16, num_glove_words=0)
+    cfg = Config(data=dcfg, model=ModelConfig(hidden_dim=4, char_emb_dim=4, char_cnn_filters=8,
+                                              char_cnn_width=3))
+    vi, _ = make_synthetic_video(cfg, num_videos=BS, num_frames=12, seed=0)
+    shared = video_shared_tables(dcfg, {"word_emb_init": torch.zeros(64, 8).numpy(),
+                                        "vocab_chars": torch.zeros(64, 6, dtype=torch.int32
+                                                                   ).numpy()})
+    run = {"task": "mc", "encoder": "bilstm", "num_choices": 5, "num_answers": 0,
+           "max_frames": 12}
+    state = tv.init_video_state(cfg, run, "cpu", seed=0)
+    opt = Optimizer(cfg.train)
+    for _ in range(steps):
+        tv.video_train_step(state, opt, shared, vi.to("cpu"))
+    return steps
+
+
 def run(env, case):
     """One call of the case's entry (two train steps); returns the batches it
     read."""
+    if case == "video":
+        return run_video()
     cfg, packed, shared = env["cfg"], env["packed"], env["shared"]
     if case == "train":
         state = tr.init_state(cfg, "cpu", seed=0)
@@ -71,6 +97,8 @@ def span_tree(events) -> list:
 
 def expected(case, units) -> list:
     h2d, batch = ("fvta.loader.h2d", []), ("fvta.loader.batch", [])
+    if case == "video":
+        return [h2d, ("fvta.video.step", [("fvta.video.frames", [])])] * units
     if case == "train":
         step = ("fvta.step", [("fvta.forward", []), ("fvta.backward", []),
                               ("fvta.optimizer", [])])
@@ -79,13 +107,15 @@ def expected(case, units) -> list:
     return [("fvta.eval", [("fvta.eval.tables", []), ("fvta.eval.cache", []), *answers])]
 
 
-@pytest.mark.parametrize("case", ["train", "evaluate", "predict"])
+@pytest.mark.parametrize("case", ["train", "evaluate", "predict", "video"])
 def test_spans_nest_and_count_as_the_calls(env, case):
     """Train: per step fvta.loader.batch, then fvta.loader.h2d, each closed
     before fvta.step opens, which holds fvta.forward, fvta.backward and
     fvta.optimizer once each in that order. Evaluation: fvta.eval holds the
     tables, the cache, then per batch fvta.loader.batch closed before its
-    fvta.eval.answer, which holds the batch's fvta.loader.h2d."""
+    fvta.eval.answer, which holds the batch's fvta.loader.h2d. Video: per
+    step fvta.loader.h2d (VideoInputs.to), then fvta.video.step holding the
+    frame encode's fvta.video.frames once."""
     with torch.profiler.profile(activities=CPU) as prof:
         units = run(env, case)
     assert units >= 2
@@ -120,3 +150,9 @@ def test_spans_under_a_started_and_stopped_profiler(env, case):
     finally:
         prof.stop()
     assert span_tree(prof.events()) == expected(case, units)
+
+
+def test_video_train_step_counts_its_steps():
+    before = tv.video_train_step.steps
+    run_video(3)
+    assert tv.video_train_step.steps - before == 3
