@@ -3,6 +3,9 @@
 Frozen/trainable split: the full GloVe-initialized table lives in the
 device-resident SharedTables (never a parameter); only the small
 [1 + num_OOV, D] table is a parameter. Id layout is defined in data/vocab.py.
+WordEmbed.full_table joins the whole vocabulary table from contiguous slices
+of the two, so only the trainable rows have a gradient path to oov_emb;
+WordEmbed.forward looks single tokens up.
 
 Initializers follow the JAX package's distributions (drawn from a
 torch.Generator, so the numbers differ); parity runs carry weights across with
@@ -58,9 +61,29 @@ class WordEmbed(nn.Module):
         return torch.where(is_trainable[..., None], self.oov_emb[t_id], frozen_table[f_id])
 
     def full_table(self, frozen_table: torch.Tensor, num_rows: int | None = None) -> torch.Tensor:
-        """The complete [num_rows, D] table (rows >= vocab_size resolve to UNK)."""
-        n = num_rows if num_rows is not None else self.vocab_size
-        return self(torch.arange(n, device=frozen_table.device), frozen_table)
+        """The complete [num_rows, D] table: forward() of arange(num_rows), bit for
+        bit, joined from slices in data/vocab.py's id layout and cut to num_rows:
+
+            frozen_table[:UNK_ID]                   PAD
+            oov_emb[:1]                             UNK
+            frozen_table[UNK_ID + 1:boundary]       frozen GloVe rows
+            oov_emb[1:]                             OOV rows [boundary, vocab_size)
+            oov_emb[:1] expanded                    rows >= vocab_size resolve to UNK
+
+        The frozen rows are slices of frozen_table alone, so they have no
+        gradient path to oov_emb. The backward is slices of the table's gradient
+        and one sum over the extended rows, with no index kernel (forward()'s
+        gather maps every frozen row to oov_emb[0], and its backward adds their
+        zero gradients into that row one at a time under deterministic
+        algorithms)."""
+        n = self.vocab_size if num_rows is None else num_rows
+        unk, oov = self.oov_emb.split([1, self.num_trainable - 1])
+        pieces = [frozen_table[:UNK_ID], unk,
+                  frozen_table[UNK_ID + 1:min(self.boundary, self.vocab_size)], oov]
+        if n > self.vocab_size:
+            pieces.append(unk.expand(n - self.vocab_size, -1))
+        table = torch.cat(pieces)
+        return table[:n] if n < self.vocab_size else table
 
 
 class CharCNN(nn.Module):
