@@ -24,18 +24,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    train step, under grad) and 128 (an evaluation batch), plus a long T=512,
    the masked edge cases (a dead sequence, an all-masked question, an example
    with no valid context) and S=1 at T=1024 and 4096 (K2 called directly:
-   fvta_attention_fused streams there), one launch of K2 and none of the
-   serial K2 (fvta_fwd_serial) per call; and on unbounded inputs at N=1, 8, 64,
+   fvta_attention_fused streams there), one launch of K2 per call; and on
+   unbounded inputs at N=1, 8, 64,
    128 and both video lengths, K2 and the float32 plain version both against
    the float64 plain version (a rounding witness);
 4. the slice: synthetic MemexQA corpus at F=2537 (64 albums x 12 photos) packed
    at the default DataConfig, a full-width model from a seeded torch.Generator
    saved to a run directory, build_engine (batched pack ingestion) + one raw
    ingest, 32 questions through concurrent QAEngine.ask calls. Both kernels'
-   launch counters are zeroed just before and read just after (the serial K2 must
-   read 0), K2's first two calls (warm-up, first batch) and every call's N
-   recorded; the answers must match the same engine built on the CPU (plain
-   versions);
+   launch counters are zeroed just before and read just after, K2's first two
+   calls (warm-up, first batch) and every call's N recorded; the answers must
+   match the same engine built on the CPU (plain versions);
 5. times from CUDA events after warm-up: each kernel, its plain version, its
    bound (max of bytes / 3.35 TB/s and FLOPs / 67 TFLOP/s FP32, from this run's
    inputs) and, for K1, cuDNN's torch.nn.LSTM on the same function (a yardstick
@@ -45,11 +44,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    on the same inputs, each also replayed from a CUDA graph (device time
    without the host's launch work); and lstm_rec / lstm_rec_bwd under every
    cluster size and tile height at a few shapes (the route sweep), each held
-   against the routed run. K2's times (taken right after phase 3): K2 and
-   the serial K2 at N = 1, 8, 64, 128 (S = T = 24) in turns (old, new, new,
-   old), from a CUDA graph, and as the mean of each kernel's profiler events
-   (at most 1.10x the graph time); and the answer step's device time with K2
-   and with the serial K2 swapped in (phase 4's profile).
+   against the routed run. K2's times (taken right after phase 3): K2 at N =
+   1, 8, 64, 128 (S = T = 24) under CUDA events (two readings), from a CUDA
+   graph, and as the mean of its profiler events (at most 1.10x the graph
+   time); and the answer step's device time (phase 4's profile).
 
 The training slice (kernel K1b — csrc/lstm_rec_bwd.cu on the Hopper route,
 csrc/lstm_bwd.cu past the largest cluster — and autograd through K1/K2):
@@ -75,7 +73,7 @@ csrc/lstm_bwd.cu past the largest cluster — and autograd through K1/K2):
    lstm_fwd or lstm_bwd), losses must be finite
    and the last epoch's mean below the first's; the same with
    --dedup-albums true; K2's first call of the plain run and every call's N are
-   recorded, and the serial K2 must launch on neither;
+   recorded;
 8. the card vs the CPU from the same weights and batch at keep_prob 1: the
    step-1 gradients of every parameter tensor, the losses of 3 steps, and on
    the card the dedup step against the plain step;
@@ -101,12 +99,7 @@ form of the attention from STREAM_MIN_T frames on):
    with a dead half sequence, an empty example and an all-masked question);
    K4 at 1e-5 / 1e-5, K6 at 1e-4 / 1e-5, a field beyond it passing only on
    the float64 witness (at most 2x the float32 plain version's distance from
-   float64, plus 4 ulps); on every one of these cases also the chunked K4
-   and K5 (csrc/fvta_stats.cu fvta_stats_chunked, csrc/fvta_bwd.cu
-   fvta_qcnt_chunked: one block per chunk, which no path calls): the chunked
-   K4 vs plain as K4, K4's maxima (m, eq, e) and K5's counts bitwise equal to
-   theirs, and K6 fed their outputs bitwise equal to K6 fed K4's and K5's;
-   K6's float64 witness at unit-scale cotangents; K6 with de = gv = 0 and
+   float64, plus 4 ulps); K6's float64 witness at unit-scale cotangents; K6 with de = gv = 0 and
    unit geq on the step's own h and q (dC from eq's tie shares alone: dh and
    dq at 1e-4 / 1e-5 of plain, no witness); two launches each of K4, K5 and
    K6 on the step's arguments bitwise equal;
@@ -114,9 +107,8 @@ form of the attention from STREAM_MIN_T frames on):
 13. this slice's main path: `cli video --data --out` (24 steps, T=1024,
    H=100, val every 12) and `cli video-test` on the run directory, with
    every kernel counter zeroed just before and read just after (K5 and K6
-   must launch once per step; the chunked K4 and K5 and the two-pass K6
-   never; the loss must fall); K6's first call there recorded, and K4/K5/K6
-   held against plain and the chunked kernels on its arguments as in phase
+   must launch once per step; the loss must fall); K6's first call there
+   recorded, and K4/K5/K6 held against plain on its arguments as in phase
    11, with the bitwise repeats;
 14. the full-width T=4096 step: card vs CPU step-1 gradients at keep_prob 1;
    p50 over 10 steps, peak memory and a torch.profiler breakdown; the
@@ -124,13 +116,9 @@ form of the attention from STREAM_MIN_T frames on):
    the Hopper bi-LSTM kernels only); bitwise resume of train_video; and the
    crossover of K2 + recompute vs K4 + K5 + K6 at T = 256, 1024, 4096 (time,
    device time and peak memory of one forward + backward); then K4, K5 and
-   K6 beside the kept old kernels (the chunked K4 and K5; csrc/fvta_bwd.cu's
-   fvta_stats_bwd_twopass: dC through device memory, which no path calls) at
-   both main-path calls (the T=4096 step's and `cli video`'s), timed in turns
-   (old, new, new, old) and replayed from a CUDA graph (device time), each
-   split by kernel under torch.profiler, the two-pass K6 also held against
-   plain; the old kernels' counters must read 0 outside their checks and
-   timing.
+   K6 at both main-path calls (the T=4096 step's and `cli video`'s), timed
+   under CUDA events (two readings) and replayed from a CUDA graph (device
+   time), each split by kernel under torch.profiler.
 
 The grouped scans (kernels K7, csrc/lstm_grouped.cu, and K8, csrc/lstm_stream.cu,
 both K1's Hopper recurrence over G groups, csrc/lstm_gscan.cuh: the counterpart of
@@ -147,15 +135,12 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    autograd (backward by recompute through the plain reference) vs plain
    autograd at 1e-4 / 1e-5; then K7 and K8 directly at every shape, G=2 and
    G=1, vs the plain grouped scan, K7 == K8 and each == its repeat bit for bit,
-   the row-tile kernels (kept, on no path) vs plain and vs K7, and at G=2
-   K7 and K8 fed K1's own projection == K1's out and fin bit for bit. K7's and
-   K8's counters are also zeroed before phase 3 and read before phase 15, and
-   zeroed and read around phase 16: no command may launch them; the row-tile
-   kernels' counters, less their checks' and timings' launches, must read 0
-   at the end;
+   and at G=2 K7 and K8 fed K1's own projection == K1's out and fin bit for
+   bit. K7's and K8's counters are also zeroed before phase 3 and read before
+   phase 15, and zeroed and read around phase 16: no command may launch them;
 16. the evaluation path on phase 7's run directories and phase 4's pack, the
-   K1 and K2 counters zeroed before and read after (both must launch, the
-   serial K2 never; K2's first call and every call's N recorded): `cli
+   K1 and K2 counters zeroed before and read after (both must launch; K2's
+   first call and every call's N recorded): `cli
    test` cached and --no-album-cache (accuracy equal, loss to 1e-5), then
    --by-category (counts sum to the split), --dump-attention and --ensemble
    over the plain and dedup runs; `cli prepro` on the raw files
@@ -164,16 +149,15 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    --num-steps 6` over fvta,flat,none; predict_cached's probabilities on the
    card vs the CPU's from the same weights at 1e-4;
     Then K2 on the arguments recorded on the serving, train and evaluation
-    paths, against its plain version and the serial K2 at 1e-5 / 1e-5, the
+    paths, against its plain version at 1e-5 / 1e-5, the
     float64 witness on unbounded inputs at the same shapes, and the histogram
     of the N that K2 saw on each path;
 17. the grouped scans' times: the scan alone on the precomputed x_proj at each
-   phase-15 shape, K7, K8 and the row-tile kernels under CUDA events in turns
-   (row-tile, new, new, row-tile) and replayed from a CUDA graph, beside its
-   plain version and its own bound; the API's projection + scan as routed, by
-   events and graph, with this host path and the stacked one it replaced
-   (with the new kernels, and with the row-tile kernels), forced through K7
-   and K8, through the plain scan,
+   phase-15 shape, K7 and K8 under CUDA events (two readings each) and
+   replayed from a CUDA graph, beside its plain version and its own bound;
+   the API's projection + scan as routed, by events and graph, with this host
+   path and the stacked one it replaced, forced through K7 and K8, through the
+   plain scan,
    beside K1, cuDNN's nn.LSTM and the encode's bound; the API's host trace
    (host ms per op, both forms) at two shapes; and `cli test`'s wall times
    (phase 16);
@@ -203,8 +187,8 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    fvta_memexqa_torch.cli serve` in subprocesses on the card (SERVER_BOOT:
    the CLI's entry point plus signal handlers that write each process's
    kernel counters, which start at 0, and its answer steps' CUDA-event span);
-   K1 and K2 must launch in every process, the serial K2, the L2-streaming
-   bi-LSTM kernels and every global route never. An f32 server with
+   K1 and K2 must launch in every process, the L2-streaming bi-LSTM kernels
+   and every global route never. An f32 server with
    --auth-token, --max-pending, --max-rps-per-client, --cache-dir and the raw
    albums: 32 concurrent /ask calls within 1e-5 of the in-process card engine
    (answers equal), POST /albums of a new album and the wall time to its first
@@ -222,11 +206,11 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    `serving_http` line);
 22. the loader and the focality workflow (run inside the same block, on copies
    of phase 4's pack), K1, K1b and K2's counters zeroed before each part and
-   read after (all three must launch; the serial K2, the L2-streaming bi-LSTM
-   kernels, K4-K8, the kept old kernels and every global route never, read as
-   deltas): phase 7's `cli train` again with --prefetch 2, its final
-   parameters, optimizer state and dropout generator torch.equal to phase 7's
-   (qa/s of both from metrics.jsonl); `cli train --stream-shard-size 64
+   read after (all three must launch; the L2-streaming bi-LSTM kernels,
+   K4-K8 and every global route never, read as deltas): phase 7's `cli
+   train` again with --prefetch 2, its final parameters, optimizer state and
+   dropout generator torch.equal to phase 7's (qa/s of both from
+   metrics.jsonl); `cli train --stream-shard-size 64
    --prefetch 2 --profile` (the shard index exists and a second
    ensure_split_shards rewrites nothing, finite losses, the profile event at
    step 15, a chrome trace holding lstm_rec, lstm_rec_bwd and K2's cluster
@@ -248,7 +232,7 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    `test` at DP-2 with and without --shard-cache equal to phase 16's
    accuracy, predict_cached's probabilities vs one rank's (ENGINE_TOL) and
    sharded vs replicated bitwise; K1, K1b and K2 launched on each rank, the
-   serial K2 and the L2-streaming kernels never. CP-2 and CP-4 — the
+   L2-streaming kernels never. CP-2 and CP-4 — the
    full-width T=4096 video step (batch 8, D = 200, J = 30, keep_prob 1) vs
    cp = 1 on the card at the JAX package's flagship-CP tolerances (logits
    2e-5, loss 1e-5, gradients rtol 5e-4 / atol 1e-5); K4, K5 and K6 launched
@@ -505,9 +489,10 @@ def device_breakdown(fn, reps: int = 1, tries: int = 3) -> dict:
 
 class Recorder:
     """Replaces module.name by a wrapper that keeps the arguments of the first
-    `keep` calls (all with keep=None) and the shape of every call's first
-    argument, and calls the real function; the wrapper carries the launch
-    counters the real function increments (it counts the module's current name)."""
+    `keep` calls (all with keep=None; tensors detached) and the shape of every
+    call's first argument, and calls the real function; the wrapper carries the
+    launch counters the real function increments (it counts the module's current
+    name)."""
 
     def __init__(self, module, name, keep=None):
         self.module, self.name, self.calls, self.keep = module, name, [], keep
@@ -515,9 +500,15 @@ class Recorder:
         self.real = getattr(module, name)
 
     def __enter__(self):
+        import torch
+
         def wrapper(*args, **kwargs):
             if self.keep is None or len(self.calls) < self.keep:
-                self.calls.append(args)
+                # detached: an argument that kept its step's autograd graph alive would
+                # keep that graph's AccumulateGrad nodes, and their stream, into the next
+                # step, whose CUDA-graph capture then fails (train.StepGraph)
+                self.calls.append(tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                        for a in args))
             self.shapes.append(tuple(args[0].shape))
             return self.real(*args, **kwargs)
 
@@ -995,8 +986,8 @@ def k2_plain(h, cm, q, qm, kind, p):
 
 def k2_check(device) -> float:
     """K2 vs its plain version on K2_CASES, trilinear and dot, one launch of K2
-    and none of the serial K2 per call; then the float64 witness at the timed
-    shapes and the video lengths."""
+    per call; then the float64 witness at the timed shapes and the video
+    lengths."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_fused
@@ -1007,13 +998,12 @@ def k2_check(device) -> float:
             h, cm, q, qm, p = fvta_case(shape, 300 + i, device, masked=masked)
             p = p if kind == "trilinear" else {}
             ref = k2_plain(h, cm, q, qm, kind, p)
-            before = (fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches)
+            before = fvta_fused.fvta_fwd.launches
             out = k2_run(h, cm, q, qm, kind, p, grad=name == "train")
             torch.cuda.synchronize()
-            launched = (fvta_fused.fvta_fwd.launches - before[0],
-                        fvta_fused.fvta_fwd_serial.launches - before[1])
+            launched = fvta_fused.fvta_fwd.launches - before
             errs = [max_err(a, b) for a, b in zip(out, ref)]
-            ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(out, ref)) and launched == (1, 0)
+            ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(out, ref)) and launched == 1
                   and all(bool(torch.isfinite(a).all()) for a in out))
             log(f"K2 vs plain  {name:12s} {kind:9s} N={h.shape[0]} S={h.shape[1]} "
                 f"T={h.shape[2]}: max|err| ctx {errs[0]:.3e} q {errs[1]:.3e} "
@@ -1066,9 +1056,9 @@ def k2_rounding_witness(label, shape, device, seed=300) -> float:
 
 def k2_path_checks(device) -> dict:
     """K2 on the arguments its first calls got on the serving, train and
-    evaluation paths: against the plain version and the serial K2 at
-    FVTA_TOL, then unbounded N(0, 1) inputs at the same shapes against the
-    float64 witness; and the histogram of N over every call of each path."""
+    evaluation paths: against the plain version at FVTA_TOL, then unbounded
+    N(0, 1) inputs at the same shapes against the float64 witness; and the
+    histogram of N over every call of each path."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_fused, fvta_ref
@@ -1087,29 +1077,23 @@ def k2_path_checks(device) -> dict:
                     fvta_ref.similarity_tensor(h, q, "trilinear",
                                                {"w_x": wx, "w_y": wy, "w_xy": wxy}))
                 new = fvta_fused.fvta_fwd(*args)
-                old = fvta_fused.fvta_fwd_serial(*args)
             torch.cuda.synchronize()
             e_ref = [max_err(a, b) for a, b in zip(new, ref)]
-            e_old = [max_err(a, b) for a, b in zip(new, old)]
-            e_old_ref = [max_err(a, b) for a, b in zip(old, ref)]
-            ok = (all(close(a, b, **FVTA_TOL) for a, b in zip(new, ref))
-                  and all(close(a, b, **FVTA_TOL) for a, b in zip(new, old)))
+            ok = all(close(a, b, **FVTA_TOL) for a, b in zip(new, ref))
             n, s, t, d = h.shape
             label = f"{path} call {i} N={n} S={s} T={t} J={q.shape[1]} D={d}"
-            log(f"K2 at the {label}: max|err| vs plain {['%.2e' % e for e in e_ref]}, vs "
-                f"the serial K2 {['%.2e' % e for e in e_old]}; valid context "
-                f"{int((cm_f > 0.5).sum())} of {cm_f.numel()}  {'ok' if ok else 'MISMATCH'}")
+            log(f"K2 at the {label}: max|err| vs plain {['%.2e' % e for e in e_ref]}; valid "
+                f"context {int((cm_f > 0.5).sum())} of {cm_f.numel()}  "
+                f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 bad.append(label)
             w = k2_rounding_witness(label, (n, s, t, q.shape[1], d), device, seed=310 + i)
             out[f"{path}_{i}"] = {"shape": [n, s, t, q.shape[1], d],
                                   "max_abs_err_vs_plain": max(e_ref),
-                                  "max_abs_err_vs_serial": max(e_old),
-                                  "serial_max_abs_err_vs_plain": max(e_old_ref),
                                   "witness_k2_vs_f32_plain": w}
         out[f"{path}_n_histogram"] = dict(sorted(hist.items()))
     if bad:
-        fail(f"K2 disagrees with plain or the serial K2 on recorded path calls: {bad}")
+        fail(f"K2 disagrees with plain on recorded path calls: {bad}")
     return out
 
 
@@ -1141,11 +1125,11 @@ def kernel_event_ms(fn, name: str, calls: int = 10, tries: int = 3) -> tuple[flo
 
 
 def k2_timing(device) -> dict:
-    """K2 and the serial K2 at N = 1, 8, 64, 128 (S = T = 24, J = 30, D = 200):
-    times from CUDA events, old and new in turns (old, new, new, old),
-    replayed from a CUDA graph (device time, no host work), each kernel's mean
-    event time under torch.profiler (one kernel a call: held to at most 1.10x
-    the graph time, which also holds the gaps between launches), the plain
+    """K2 at N = 1, 8, 64, 128 (S = T = 24, J = 30, D = 200): times from CUDA
+    events (two readings), replayed from a CUDA graph (device time, no host
+    work), the kernel's mean event time under torch.profiler (one kernel a
+    call: held to at most 1.10x the graph time, which also holds the gaps
+    between launches), the plain
     version's time and the bound of each N. Run early in the process: late in
     it the profiler can miss every event of a call."""
     import torch
@@ -1157,33 +1141,28 @@ def k2_timing(device) -> dict:
         h, cm, q, qm, p = fvta_case((n, 24, 24, 30, 200), 400, device)
         args = k2_args(h, cm, q, qm, "trilinear", p)
         new = lambda: fvta_fused.fvta_fwd(*args)
-        old = lambda: fvta_fused.fvta_fwd_serial(*args)
         with torch.no_grad():
-            o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
-            g_new, g_old = graph_ms(new), graph_ms(old)
+            n1, n2 = cuda_ms(new), cuda_ms(new)
+            g_new = graph_ms(new)
             e_new, seen_new = kernel_event_ms(new, "k2_cluster_kernel")
-            e_old, seen_old = kernel_event_ms(old, "fvta_fwd_serial_kernel")
             plain = cuda_ms(lambda: k2_plain(h, cm, q, qm, "trilinear", p), iters=10)
         b_ms, o_ms = k2_bound_ms(h, cm, q, qm)
-        if e_new > SPLIT_SHARE[1] * g_new or e_old > SPLIT_SHARE[1] * g_old:
-            fail(f"K2 at N={n}: profiler event time {e_new:.4f} / {e_old:.4f} ms exceeds "
-                 f"{SPLIT_SHARE[1]}x the CUDA-graph time {g_new:.4f} / {g_old:.4f} ms")
+        if e_new > SPLIT_SHARE[1] * g_new:
+            fail(f"K2 at N={n}: profiler event time {e_new:.4f} ms exceeds "
+                 f"{SPLIT_SHARE[1]}x the CUDA-graph time {g_new:.4f} ms")
         rows[n] = {"new_ms": (n1 + n2) / 2, "new_ms_pair": (n1, n2), "new_graph_ms": g_new,
-                   "new_event_ms": e_new, "new_events_per_call": seen_new,
-                   "old_ms": (o1 + o2) / 2, "old_ms_pair": (o1, o2), "old_graph_ms": g_old,
-                   "old_event_ms": e_old, "old_events_per_call": seen_old, "plain_ms": plain,
+                   "new_event_ms": e_new, "new_events_per_call": seen_new, "plain_ms": plain,
                    "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else
                    "operations", "geometry": fvta_fused.geometry(n, 24, 24, 30, 200)}
-        log(f"K2 at N={n}: new {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}, event {e_new:.4f}), "
-            f"serial K2 {o1:.4f} / {o2:.4f} ms (graph {g_old:.4f}, event {e_old:.4f}), plain "
-            f"{plain:.3f} ms, bound {max(b_ms, o_ms):.5f} ms; geometry "
+        log(f"K2 at N={n}: {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}, event {e_new:.4f}), "
+            f"plain {plain:.3f} ms, bound {max(b_ms, o_ms):.5f} ms; geometry "
             f"{json.dumps(rows[n]['geometry'])}")
     return rows
 
 
 def k2_times(rows: dict, launches: dict, worst: float, paths: dict, answer: dict) -> list:
-    """The kernels-line entries of K2 and the serial K2, from k2_timing's rows
-    (N = 8, an answer batch, as the entry's own numbers; every N in per_n)."""
+    """The kernels-line entry of K2, from k2_timing's rows (N = 8, an answer
+    batch, as the entry's own numbers; every N in per_n)."""
     main = rows[8]
     common = {"route": "cuda", "source": "fvta_memexqa_torch/csrc/fvta_fwd.cu",
               "replaces": "fvta_memexqa_tpu/ops/fvta_pallas.py:57", "plain_ms": main["plain_ms"],
@@ -1195,16 +1174,7 @@ def k2_times(rows: dict, launches: dict, worst: float, paths: dict, answer: dict
          "launches_by_path": {k: v["fvta_fwd"] for k, v in launches.items()},
          "max_abs_err": worst, "ms": main["new_ms"], "kernel_ms": main["new_ms"],
          "graph_ms": main["new_graph_ms"], "recorded_calls": paths,
-         "answer_step_device_ms": answer,
-         "per_n": {n: {k: v for k, v in r.items() if not k.startswith("old")}
-                   for n, r in rows.items()}},
-        {"name": "fvta_fwd_serial", **common, "launches": launches["serving"]["fvta_fwd_serial"],
-         "launches_by_path": {k: v["fvta_fwd_serial"] for k, v in launches.items()},
-         "max_abs_err": max(v["serial_max_abs_err_vs_plain"] for k, v in paths.items()
-                            if not k.endswith("histogram")),
-         "ms": main["old_ms"], "kernel_ms": main["old_ms"], "graph_ms": main["old_graph_ms"],
-         "per_n": {n: {k: v for k, v in r.items() if k.startswith("old") or k == "bound_ms"}
-                   for n, r in rows.items()}},
+         "answer_step_device_ms": answer, "per_n": rows},
     ]
 
 
@@ -1229,10 +1199,8 @@ class Swapped:
 def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
     """Wall time (host clock, synchronized) and device busy time (torch.profiler,
     sum of kernel time) per call of the answer step (QAEngine.answer_batch) for
-    one request and for a full micro-batch of 8, also with the serial K2
-    (fvta_fwd_serial) swapped in for K2 (the step before this PR's kernel), and
-    of ingest_pack of the 64-album pack into a fresh store."""
-    from fvta_memexqa_torch.ops import fvta_fused
+    one request and for a full micro-batch of 8, and of ingest_pack of the
+    64-album pack into a fresh store."""
     from fvta_memexqa_torch.serve import AlbumStore
 
     def fresh_store():
@@ -1248,11 +1216,7 @@ def profile_serving(engine, store, packed, asks, reps: int = 5) -> dict:
         "answer_8_requests": lambda: engine.answer_batch(asks[:8]),
         "ingest_64_albums": lambda: next(stores).ingest_pack(batch_size=64),
     }
-    out = {name: device_breakdown(fn, reps) for name, fn in work.items()}
-    with Swapped(fvta_fused, "fvta_fwd", fvta_fused.fvta_fwd_serial):
-        for name in ("answer_1_request", "answer_8_requests"):
-            out[name + "_serial_k2"] = device_breakdown(work[name], reps)
-    return out
+    return {name: device_breakdown(fn, reps) for name, fn in work.items()}
 
 
 def record_k2_path(path: str, rec: Recorder) -> None:
@@ -1299,7 +1263,6 @@ def run_slice(workdir: str) -> dict:
         asks.append((qa.question, list(qa.choices), album_ids[:4]))
 
     zero_lstm_counters()
-    fvta_fused.fvta_fwd_serial.launches = 0
     t0 = time.perf_counter()
     # K2's first two calls (the warm-up's and the first served batch's) and
     # every call's N are kept
@@ -1327,8 +1290,7 @@ def run_slice(workdir: str) -> dict:
             for th in threads:
                 th.join()
             concurrent_s = time.perf_counter() - t0
-            launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
-                        "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+            launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
         except BaseException:
             engine.close()
             raise
@@ -1350,9 +1312,8 @@ def run_slice(workdir: str) -> dict:
         fail(f"ask failed on the card: {errors[0]}")
     log(f"slice: launches during the served run {json.dumps(launches)}; "
         f"{stats['questions']} questions in {stats['batches']} micro-batches")
-    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
-        fail(f"a kernel of the path never launched on the main path, or the serial K2 did: "
-             f"{launches}")
+    if launches["fvta_fwd"] == 0:
+        fail(f"a kernel of the path never launched on the main path: {launches}")
     check_lstm_launches("serving", launches, backward=False)
     if stats["batches"] >= stats["questions"]:
         fail("no micro-batch formed from the concurrent asks")
@@ -1779,15 +1740,13 @@ def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
     from fvta_memexqa_torch.ops import fvta_fused
 
     zero_lstm_counters()
-    fvta_fused.fvta_fwd_serial.launches = 0
     t0 = time.perf_counter()
     with Recorder(fvta_fused, "fvta_fwd", keep=0 if dedup else 1) as k2_calls:
         cli.main(["train", packdir, rundir, "--num-steps", str(TRAIN_STEPS), "--val-period",
                   "12", "--log-period", "1", "--save-period", "1000", "--device", "cuda",
                   "--dedup-albums", "true" if dedup else "false"])
         wall = time.perf_counter() - t0
-        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
-                    "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
     record_k2_path("train_dedup" if dedup else "train", k2_calls)
     recs = read_metrics(os.path.join(rundir, "metrics.jsonl"))
     train_recs = [r for r in recs if r["event"] == "train"]
@@ -1804,9 +1763,8 @@ def train_run(packdir: str, rundir: str, dedup: bool) -> dict:
         f"{last:.4f}; val {[(v['step'], round(v['acc'], 4)) for v in vals]}")
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         fail(f"train ({tag}): losses not finite or steps missing: {losses}")
-    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
-        fail(f"train ({tag}): a kernel of the path never launched, or the serial K2 did: "
-             f"{launches}")
+    if launches["fvta_fwd"] == 0:
+        fail(f"train ({tag}): a kernel of the path never launched: {launches}")
     check_lstm_launches(f"train ({tag})", launches, backward=True)
     if len(epochs) < 2 or not last < first:
         fail(f"train ({tag}): the last epoch's mean loss {last} is not below the "
@@ -1861,11 +1819,14 @@ def step_parity(packdir: str) -> dict:
     for dev in ("cpu", "cuda"):
         state = tr.init_state(cfg, dev)
         shared = SharedTables.from_packed(packed.shared, dev)
-        loss, _ = tr.loss_and_metrics(state.model, shared, batches[0].to(dev), True,
-                                      state.generator)
+        loss = tr.loss_and_metrics(state.model, shared, batches[0].to(dev), True,
+                                   state.generator)[0]
         names = list(state.params)
         grads = dict(zip(names, (g.cpu() for g in torch.autograd.grad(
             loss, list(state.params.values())))))
+        # loss's graph holds the parameters' AccumulateGrad nodes; alive, they would
+        # meet train_step's CUDA-graph capture below
+        del loss
         opt = Optimizer(cfg.train)
         losses = [float(tr.train_step(state, opt, shared, b.to(dev))["loss"])
                   for b in batches]
@@ -2150,47 +2111,22 @@ def field_ok(a, b, c, tol):
     return share <= 1.0, f"(f64: {note})"
 
 
-OLD_STATS = ("stats_fwd_chunked", "qcnt_chunked", "stats_bwd_twopass")
-OLD_STATS_MADE = dict.fromkeys(OLD_STATS, 0)   # their launches made on purpose
-
-
-@contextlib.contextmanager
-def old_stats_made():
-    """Counts the launches of the kept old stats kernels (the chunked K4 and K5,
-    the two-pass K6) made inside as made on purpose, by a check or a timing:
-    main() fails if any other launch of them was counted."""
-    from fvta_memexqa_torch.ops import fvta_stats as fs
-
-    before = {k: getattr(fs, k).launches for k in OLD_STATS}
-    try:
-        yield
-    finally:
-        for k in OLD_STATS:
-            OLD_STATS_MADE[k] += getattr(fs, k).launches - before[k]
-
-
-def stats_check_case(name, args, cot=None, k6=None):
+def stats_check_case(name, args, cot=None):
     """K4 vs stats_fwd_ref, K5 vs qcnt_ref (exactly, and >= 1 for every (n, j):
-    each max is reached somewhere), K6 (`k6`, default stats_bwd) vs
-    stats_bwd_ref, each field at its tolerance or on the float64 witness, on
-    one case: args = (h, cm, q, qm, wx, wy, wxy), cot = (de, geq, gv) (default
-    N(0, 1)). Also the chunked K4 and K5: the chunked K4 vs plain as K4, and
-    K4's maxima (eq, e, m) and K5's counts bitwise equal to theirs, and `k6`
-    fed the chunked kernels' outputs bitwise equal to `k6` fed K4's and K5's.
-    Fatal on a mismatch; returns the max |err| of K4, the chunked K4 and K6."""
+    each max is reached somewhere), K6 vs stats_bwd_ref, each field at its
+    tolerance or on the float64 witness, on one case: args = (h, cm, q, qm,
+    wx, wy, wxy), cot = (de, geq, gv) (default N(0, 1)). Fatal on a mismatch;
+    returns the max |err| of K4 and K6."""
     import torch
 
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
-    k6 = k6 or fs.stats_bwd
     h, cm, q, qm, wx, wy, wxy = args
     w = (wx, wy, wxy)
-    with torch.no_grad(), old_stats_made():
+    with torch.no_grad():
         got = fs.stats_fwd(*args)
-        old = fs.stats_fwd_chunked(*args)
         ref = fs.stats_fwd_ref(*args)
         cnt = fs.qcnt(h, cm, q, *w, got[3])
-        cnt_old = fs.qcnt_chunked(h, cm, q, *w, old[3])
         cnt_r = fs.qcnt_ref(h, cm, q, *w, ref[3])
         if cot is None:
             g = torch.Generator().manual_seed(7)
@@ -2198,8 +2134,7 @@ def stats_check_case(name, args, cot=None, k6=None):
             cot = [torch.randn(sh, generator=g).to(h.device)
                    for sh in ((n, s, t), tuple(qm.shape), (n, s, d))]
         de, geq, gv = cot
-        dk = k6(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
-        dk_old = k6(h, cm, q, qm, *w, de, geq, old[3], cnt_old, old[4], old[0], gv)
+        dk = fs.stats_bwd(h, cm, q, qm, *w, de, geq, got[3], cnt, got[4], got[0], gv)
         dr = fs.stats_bwd_ref(h, cm, q, qm, *w, de, geq, ref[3], cnt_r, ref[4], ref[0], gv)
         a64 = [a.double() for a in args]
         r64 = fs.stats_fwd_ref(*a64)
@@ -2208,36 +2143,23 @@ def stats_check_case(name, args, cot=None, k6=None):
                                gv.double())
     torch.cuda.synchronize()
     e4 = [max_err(a, b) for a, b in zip(got, ref)]
-    e4_old = [max_err(a, b) for a, b in zip(old, ref)]
     e6 = [max_err(a, b) for a, b in zip(dk, dr)]
     res4 = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(got, ref, r64)]
-    res4_old = [field_ok(a, b, c, STATS_TOL) for a, b, c in zip(old, ref, r64)]
     res6 = [field_ok(a, b, c, GRAD_TOL) for a, b, c in zip(dk, dr, d64)]
-    ok4, ok6 = all(r[0] for r in res4 + res4_old), all(r[0] for r in res6)
+    ok4, ok6 = all(r[0] for r in res4), all(r[0] for r in res6)
     ok5 = bool(torch.equal(cnt, cnt_r)) and bool((cnt >= 1).all())
-    same = ([k for i, k in enumerate(STATS_NAMES) if i in (0, 3, 4)
-             and not torch.equal(got[i], old[i])]
-            + ([] if torch.equal(cnt, cnt_old) else ["qcnt"])
-            + [k for k, a, b in zip(BWD_NAMES, dk, dk_old) if not torch.equal(a, b)])
     finite = all(bool(torch.isfinite(a).all()) for a in (*dk, got[1], got[2]))
-    log(f"K4/K5/{k6.__name__} vs plain {name:24s} N={h.shape[0]} S={h.shape[1]} "
+    log(f"K4/K5/K6 vs plain {name:24s} N={h.shape[0]} S={h.shape[1]} "
         f"T={h.shape[2]} J={q.shape[1]} D={h.shape[3]}: K4 "
         + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in zip(STATS_NAMES, e4, res4))
-        + " (chunked K4 " + " ".join(f"{e:.2e}{r[1]}" for e, r in zip(e4_old, res4_old))
-        + f"); K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
+        + f"; K5 {'equal' if torch.equal(cnt, cnt_r) else 'DIFFERENT'}, min "
         f"{float(cnt.min()):.0f}; K6 " + " ".join(f"{k} {e:.2e}{r[1]}" for k, e, r in
                                                    zip(BWD_NAMES, e6, res6))
-        + f"; vs the chunked K4/K5 and {k6.__name__} on theirs: "
-        + ("bitwise equal" if not same else f"DIFFERENT {same}")
-        + f"  {'ok' if ok4 and ok5 and ok6 and finite and not same else 'MISMATCH'}")
+        + f"  {'ok' if ok4 and ok5 and ok6 and finite else 'MISMATCH'}")
     if not (ok4 and ok5 and ok6 and finite):
-        fail(f"{name}: K4 or the chunked K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) "
-             f"or {k6.__name__} ({ok6}, {GRAD_TOL}) disagrees with its plain version "
-             f"(finite {finite})")
-    if same:
-        fail(f"{name}: K4's maxima, K5's counts or {k6.__name__} on them differ from the "
-             f"chunked kernels' in {same}")
-    return {"k4": max(e4), "k4_chunked": max(e4_old), "k6": max(e6)}
+        fail(f"{name}: K4 ({ok4}, {STATS_TOL}), K5 ({ok5}, exact and >= 1) or K6 ({ok6}, "
+             f"{GRAD_TOL}) disagrees with its plain version (finite {finite})")
+    return {"k4": max(e4), "k6": max(e6)}
 
 
 def k456_check(fwd_args, bwd_args) -> dict:
@@ -2256,8 +2178,7 @@ def k456_check(fwd_args, bwd_args) -> dict:
     witness = k6_rounding_witness(8, VIDEO_T, 30, 200)
     geq_only = k6_geq_only_check("the T=4096 step's call", fwd_args)
     stats_repeat_check("the T=4096 step's call", bwd_args)
-    return {"k4_max_abs_err": worst["k4"], "k4_chunked_max_abs_err": worst["k4_chunked"],
-            "k6_max_abs_err": worst["k6"], "k6_cotangent_max": scale,
+    return {"k4_max_abs_err": worst["k4"], "k6_max_abs_err": worst["k6"], "k6_cotangent_max": scale,
             "k6_witness_worst_share": witness, "k6_geq_only_max_abs_err": geq_only}
 
 
@@ -2445,14 +2366,10 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     pack, run = os.path.join(workdir, "video_pack"), os.path.join(workdir, "video_run")
     with Recorder(fvta_stats, "stats_bwd", keep=1) as k6_call:   # K6's first call
         counters = {**{k: getattr(lstm_fused, k) for k in NEW_KERNELS + OLD_KERNELS},
-                    "fvta_fwd": fvta_fused.fvta_fwd,
-                    "fvta_fwd_serial": fvta_fused.fvta_fwd_serial,
-                    "stats_fwd": fvta_stats.stats_fwd,
-                    "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd,
-                    **{k: getattr(fvta_stats, k) for k in OLD_STATS}}
+                    "fvta_fwd": fvta_fused.fvta_fwd, "stats_fwd": fvta_stats.stats_fwd,
+                    "qcnt": fvta_stats.qcnt, "stats_bwd": fvta_stats.stats_bwd}
         for fn in counters.values():
             fn.launches = 0
-        OLD_STATS_MADE.update(dict.fromkeys(OLD_STATS, 0))   # counted from here on
         t0 = time.perf_counter()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -2481,9 +2398,6 @@ def video_cli_run(workdir: str, prep: subprocess.Popen) -> dict:
     check_lstm_launches("video", launches, backward=True)
     if launches["qcnt"] != CLI_STEPS or launches["stats_bwd"] != CLI_STEPS:
         fail(f"video: K5 and K6 must launch once per train step ({CLI_STEPS}): {launches}")
-    if any(launches[k] for k in OLD_STATS) or launches["fvta_fwd_serial"]:
-        fail(f"video: a chunked K4/K5, the two-pass K6 or the serial K2 launched on a "
-             f"command's path: {launches}")
     if len(losses) != CLI_STEPS or not all(map(math.isfinite, losses)) or not last < first:
         fail(f"video: losses not finite, steps missing or not falling: {losses}")
     if test["count"] != res["test_count"] or not 0.0 <= test["acc"] <= 1.0:
@@ -2692,8 +2606,8 @@ def kernel_split_ms(fn, names, graph: float, calls: int = 10, tries: int = 3) ->
     the same call (which also holds the gaps between launches). A trace can
     come back without the device's events, or, on the H100, with every event
     seen and durations that sum to 0.47 or 1.13 of the same call's graph time
-    (two runs of this script, the chunked K4 and the two-pass K6, at calls
-    where every other trace read 0.98-1.01); such a trace is taken again. Fatal
+    (two runs of this script, at calls where every other trace read
+    0.98-1.01); such a trace is taken again. Fatal
     unless every kernel of the call is named, each was seen, and one trace
     agrees with the graph time. Returns the split, the events seen per call,
     the share of `graph` and the shares of the traces taken again."""
@@ -2716,23 +2630,20 @@ def kernel_split_ms(fn, names, graph: float, calls: int = 10, tries: int = 3) ->
             "traces_retaken": retaken}
 
 
-# (kernel, the kept old kernel, each one's kernel names in a profile, the
-# TPU kernel's line in fvta_pallas.py, source): K5's call also zeroes its int32
-# counts and converts them to float32 (torch's elementwise kernels)
-STATS_PAIRS = [
-    ("stats_fwd", "stats_fwd_chunked", ("stats_run_kernel", "stats_merge_kernel"),
-     ("stats_chunk_kernel", "stats_combine_kernel"), 141, "fvta_stats.cu"),
-    ("qcnt", "qcnt_chunked", ("qcnt_run_kernel", "elementwise_kernel"),
-     ("qcnt_chunk_kernel", "elementwise_kernel"), 197, "fvta_bwd.cu"),
-    ("stats_bwd", "stats_bwd_twopass", ("bwd_fused_kernel", "bwd_combine_kernel"),
-     ("bwd_chunk_kernel", "bwd_reduce_kernel"), 231, "fvta_bwd.cu"),
+# (kernel, its kernel names in a profile, the TPU kernel's line in
+# fvta_pallas.py, source): K5's call also zeroes its int32 counts and converts
+# them to float32 (torch's elementwise kernels)
+STATS_KERNELS = [
+    ("stats_fwd", ("stats_run_kernel", "stats_merge_kernel"), 141, "fvta_stats.cu"),
+    ("qcnt", ("qcnt_run_kernel", "elementwise_kernel"), 197, "fvta_bwd.cu"),
+    ("stats_bwd", ("bwd_fused_kernel", "bwd_combine_kernel"), 231, "fvta_bwd.cu"),
 ]
 
 
 def stats_call(name: str, args):
-    """A call of K4, K5 or K6 (or of a kept old kernel or a plain version of
-    theirs) on the arguments a K6 call was given: (h, cm, q, qm, wx, wy, wxy,
-    de, geq, eq, qcnt, e, m, gv)."""
+    """A call of K4, K5 or K6 (or of a plain version of theirs) on the
+    arguments a K6 call was given: (h, cm, q, qm, wx, wy, wxy, de, geq, eq,
+    qcnt, e, m, gv)."""
     from fvta_memexqa_torch.ops import fvta_stats as fs
 
     fn = getattr(fs, name)
@@ -2744,59 +2655,47 @@ def stats_call(name: str, args):
 
 
 def stats_kernel_times(calls: dict, launches: dict, errs: dict) -> tuple[list, dict]:
-    """The kernels-line entries of K4, K5 and K6 and of the kept old kernels
-    (the chunked K4 and K5, the two-pass K6) at both main-path calls (`calls`:
-    label -> a K6 call's arguments; the T=4096 step's and `cli video`'s):
-    times from CUDA events, new and old interleaved (old, new, new, old), the
-    CUDA-graph time of each, each one's time split by kernel (mean profiler
-    events, fatal unless 0.85-1.10 of the graph time), the plain versions'
-    times, bounds from these inputs (valid positions only); the two-pass K6
-    also held against plain on both calls. Returns (entries, splits)."""
+    """The kernels-line entries of K4, K5 and K6 at both main-path calls
+    (`calls`: label -> a K6 call's arguments; the T=4096 step's and `cli
+    video`'s): times from CUDA events (two readings), the CUDA-graph time of
+    each, each one's time split by kernel (mean profiler events, fatal unless
+    0.85-1.10 of the graph time), the plain versions' times, bounds from these
+    inputs (valid positions only). Returns (entries, splits)."""
     import torch
 
-    from fvta_memexqa_torch.ops import fvta_stats as fs
-
-    rows, splits, old_errs = {}, {}, {}
-    with torch.no_grad(), old_stats_made():
+    rows, splits = {}, {}
+    with torch.no_grad():
         for label, a in calls.items():
             splits[label] = {}
-            for name, old_name, names, old_names, _, _ in STATS_PAIRS:
-                new, old = stats_call(name, a), stats_call(old_name, a)
-                o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
-                g_old, g_new = graph_ms(old), graph_ms(new)   # device time, no host work
+            for name, names, _, _ in STATS_KERNELS:
+                new = stats_call(name, a)
+                n1, n2 = cuda_ms(new), cuda_ms(new)
+                g_new = graph_ms(new)   # device time, no host work
                 plain = cuda_ms(stats_call(name + "_ref", a), iters=10)
                 splits[label][name] = kernel_split_ms(new, names, g_new)
-                splits[label][old_name] = kernel_split_ms(old, old_names, g_old)
                 rows[(name, label)] = ((n1 + n2) / 2, plain, (n1, n2), g_new)
-                rows[(old_name, label)] = ((o1 + o2) / 2, plain, (o1, o2), g_old)
-                log(f"{name} at {label}: {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}), {old_name} "
-                    f"{o1:.4f} / {o2:.4f} ms (graph {g_old:.4f}), plain {plain:.3f} ms; split "
-                    f"{json.dumps(splits[label][name])} vs {json.dumps(splits[label][old_name])}")
-    for label, a in calls.items():
-        old_errs[label] = stats_check_case(f"two-pass K6, {label[:20]}", list(a[:7]),
-                                           [a[7], a[8], a[13]], k6=fs.stats_bwd_twopass)
+                log(f"{name} at {label}: {n1:.4f} / {n2:.4f} ms (graph {g_new:.4f}), plain "
+                    f"{plain:.3f} ms; split {json.dumps(splits[label][name])}")
     out = []
     main = "the T=4096 train step's call"
     for label, a in calls.items():
         at = "main" if label == main else "cli"
         suffix = "" if label == main else " (cli video call)"
-        for name, old_name, _, _, line, src in STATS_PAIRS:
-            for kname in (name, old_name):
-                k_ms, p_ms, pair, g_ms = rows[(kname, label)]
-                b_ms, o_ms = stats_bound_ms(name, *a[:3])
-                err = {"stats_fwd": errs[f"k4_{at}"], "stats_fwd_chunked": errs[f"k4_chunked_{at}"],
-                       "stats_bwd": errs[f"k6_{at}"], "stats_bwd_twopass": old_errs[label]["k6"]
-                       }.get(kname, 0.0)   # K5's counts: exactly equal (checked)
-                n, s, t, d = a[0].shape
-                out.append({
-                    "name": kname + suffix, "route": "cuda",
-                    "source": f"fvta_memexqa_torch/csrc/{src}",
-                    "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{line}",
-                    "launches": launches[kname], "max_abs_err": err, "ms": k_ms,
-                    "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
-                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
-                    "timed_work": f"{label}: N={n} S={s} T={t} J={a[2].shape[1]} D={d}",
-                    "ms_pair": pair, "graph_ms": g_ms, "split_ms": splits[label][kname]})
+        for name, _, line, src in STATS_KERNELS:
+            k_ms, p_ms, pair, g_ms = rows[(name, label)]
+            b_ms, o_ms = stats_bound_ms(name, *a[:3])
+            err = {"stats_fwd": errs[f"k4_{at}"],
+                   "stats_bwd": errs[f"k6_{at}"]}.get(name, 0.0)   # K5's counts: exactly equal
+            n, s, t, d = a[0].shape
+            out.append({
+                "name": name + suffix, "route": "cuda",
+                "source": f"fvta_memexqa_torch/csrc/{src}",
+                "replaces": f"fvta_memexqa_tpu/ops/fvta_pallas.py:{line}",
+                "launches": launches[name], "max_abs_err": err, "ms": k_ms,
+                "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations", "library_ms": None,
+                "timed_work": f"{label}: N={n} S={s} T={t} J={a[2].shape[1]} D={d}",
+                "ms_pair": pair, "graph_ms": g_ms, "split_ms": splits[label][name]})
     return out, splits
 
 
@@ -2825,10 +2724,8 @@ def run_video_slice(workdir: str, prep: subprocess.Popen) -> tuple[dict, list]:
     bilstm = video_bilstm_step()
     resume = video_resume_check(cli_run.pop("pack"), workdir)
     cross = crossover()
-    errs = {"k4_main": checks["k4_max_abs_err"],
-            "k4_chunked_main": checks["k4_chunked_max_abs_err"],
-            "k6_main": checks["k6_max_abs_err"], "k4_cli": cli_errs["k4"],
-            "k4_chunked_cli": cli_errs["k4_chunked"], "k6_cli": cli_errs["k6"]}
+    errs = {"k4_main": checks["k4_max_abs_err"], "k6_main": checks["k6_max_abs_err"],
+            "k4_cli": cli_errs["k4"], "k6_cli": cli_errs["k6"]}
     entries, splits = stats_kernel_times(
         {"the T=4096 train step's call": bwd_args, "cli video's call": cli_args},
         cli_run["launches"], errs)
@@ -2893,30 +2790,6 @@ def zero_grouped_counters() -> None:
     lstm_grouped.scan_grouped.launches = lstm_grouped.scan_stream.launches = 0
 
 
-# The row-tile K7 and K8, kept beside the Hopper kernels: only their checks
-# and timings may launch them (counted here), no path
-ROWTILE = ("scan_grouped_rowtile", "scan_stream_rowtile")
-ROWTILE_MADE = dict.fromkeys(ROWTILE, 0)
-
-
-def rowtile(name: str):
-    """The row-tile wrapper `name`, counting each call in ROWTILE_MADE."""
-    from fvta_memexqa_torch.ops import lstm_grouped
-
-    def call(*args):
-        ROWTILE_MADE[name] += 1
-        return getattr(lstm_grouped, name)(*args)
-
-    return call
-
-
-def rowtile_stray() -> dict:
-    """Row-tile launches made outside their own checks and timings."""
-    from fvta_memexqa_torch.ops import lstm_grouped
-
-    return {k: getattr(lstm_grouped, k).launches - ROWTILE_MADE[k] for k in ROWTILE}
-
-
 def grouped_x_proj(x, mask, p_fw, p_bw):
     """The G = 2 scan inputs bilstm_grouped builds: (x_proj [2, N, T, 4H], int32
     lengths [2, N], wh [2, H, 4H])."""
@@ -2960,8 +2833,7 @@ def grouped_check(device) -> dict:
     LSTM_TOL; gradients under autograd vs plain autograd at GRAD_TOL. Then both
     kernels directly at every shape, G = 2 and G = 1: against the plain grouped
     scan at LSTM_TOL, K7 and K8 bit for bit equal and each equal to its own
-    repeat; the row-tile kernels against plain and against K7 at LSTM_TOL;
-    and, at G = 2, K7 and K8 fed K1's own projection equal to K1's out and fin
+    repeat; and, at G = 2, K7 and K8 fed K1's own projection equal to K1's out and fin
     bit for bit (the routes share K1's lane split at these shapes)."""
     import torch
 
@@ -3016,11 +2888,8 @@ def grouped_check(device) -> dict:
              f"{LSTM_TOL} / {GRAD_TOL}, or launched other kernels than the routing names, "
              f"at {bad}: launches {launches}, expected {expected}")
     # both kernels directly at every shape, G = 2 and G = 1 (comparison launches)
-    kernels = {"lstm_grouped": k7, "lstm_stream": k8,
-               "lstm_grouped_rowtile": rowtile("scan_grouped_rowtile"),
-               "lstm_stream_rowtile": rowtile("scan_stream_rowtile")}
+    kernels = {"lstm_grouped": k7, "lstm_stream": k8}
     direct = dict.fromkeys(kernels, 0.0)
-    rowtile_vs_new = dict.fromkeys(kernels, 0.0)
     for i, (name, n, t) in enumerate(GROUPED_SHAPES):
         x, mask, p_fw, p_bw = lstm_case(n, t, GROUPED_D, H, 950 + i, device)
         xp, lens, wh = grouped_x_proj(x, mask, p_fw, p_bw)
@@ -3037,13 +2906,6 @@ def grouped_check(device) -> dict:
                     direct[stem] = max(direct[stem], e)
                     if not all(close(a, b, **LSTM_TOL) for a, b in zip(got, ref)):
                         bad.append(f"{stem}/{name}/G={g} ({e:.2e})")
-                for stem in ("lstm_grouped_rowtile", "lstm_stream_rowtile"):
-                    pair = zip(res[stem], res["lstm_grouped"])
-                    e = max(max_err(a, b) for a, b in pair)
-                    rowtile_vs_new[stem] = max(rowtile_vs_new[stem], e)
-                    if not all(close(a, b, **LSTM_TOL)
-                               for a, b in zip(res[stem], res["lstm_grouped"])):
-                        bad.append(f"{stem} vs K7 at {name}/G={g} ({e:.2e})")
                 same = (all(torch.equal(a, b) for a, b in zip(res["lstm_grouped"],
                                                                res["lstm_stream"]))
                         and all(torch.equal(a, b) for a, b in zip(res["lstm_grouped"],
@@ -3061,15 +2923,12 @@ def grouped_check(device) -> dict:
                 bad.append(f"K7/K8 fed K1's projection differ from K1 at {name} ({e:.2e})")
     log(f"K7, K8 directly vs the plain grouped scan at {len(GROUPED_SHAPES)} shapes, G=2 and "
         f"G=1: max|err| " + ", ".join(f"{k} {v:.2e}" for k, v in direct.items())
-        + "; row-tile vs K7 " + ", ".join(f"{k} {rowtile_vs_new[k]:.2e}" for k in
-                                          ("lstm_grouped_rowtile", "lstm_stream_rowtile"))
         + "; K7 == K8 == repeats bitwise; K7, K8 fed K1's projection == K1 bitwise  "
         + ("ok" if not bad else "MISMATCH " + str(bad)))
     if bad:
-        fail(f"K7 or K8 disagrees with the plain grouped scan, each other, K1 or the "
-             f"row-tile kernels at {bad}")
+        fail(f"K7 or K8 disagrees with the plain grouped scan, each other or K1 at {bad}")
     return {"launches": launches, "max_abs_err": direct, "api_max_abs_err": api,
-            "max_abs_err_vs_k1": vs_k1, "rowtile_vs_k7": rowtile_vs_new}
+            "max_abs_err_vs_k1": vs_k1}
 
 
 @contextlib.contextmanager
@@ -3147,13 +3006,11 @@ GROUPED_TRACED = ("photo_title_words", "enc_album_title")   # host traces of the
 
 def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list, dict]:
     """Phase 17. Per phase-15 shape (G = 2): the scan alone on the precomputed
-    x_proj — K7, K8 and the row-tile kernels under CUDA events in turns
-    (row-tile, new, new, row-tile) and replayed from a CUDA graph — and its
-    plain version; the API's projection + scan (the bi-LSTM encode from x) as
-    routed, by events and graph, with its host path and with the stacked one
-    it replaced (stacked_api_form: with the new kernel, and with the row-tile
-    kernel, the former API as a whole),
-    forced through K7 and K8, through the plain scan, beside K1 (bilstm_fused:
+    x_proj — K7 and K8 under CUDA events (two readings each) and replayed
+    from a CUDA graph — and its plain version; the API's projection + scan (the
+    bi-LSTM encode from x) as routed, by events and graph, with its host path
+    and with the stacked one it replaced (stacked_api_form), forced through K7
+    and K8, through the plain scan, beside K1 (bilstm_fused:
     the same function) and cuDNN's nn.LSTM. Bounds over the valid positions:
     the scan's own (x_proj, Wh → out, fin: k1_bounds' "rec") and the encode's
     (x and the weights → out, fin: k1_bounds' "fn"). At GROUPED_TRACED, the
@@ -3166,26 +3023,21 @@ def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list, di
     from fvta_memexqa_torch.ops import lstm_fused, lstm_grouped
 
     k7, k8 = lstm_grouped.scan_grouped, lstm_grouped.scan_stream
-    r7, r8 = rowtile("scan_grouped_rowtile"), rowtile("scan_stream_rowtile")
     rows, tot, traces = [], {}, {}
     for i, (name, n, t) in enumerate(GROUPED_SHAPES):
         d = GROUPED_D
         x, mask, p_fw, p_bw = lstm_case(n, t, d, H, 1000 + i, device)
         lens = mask.sum(1)
         args = grouped_x_proj(x, mask, p_fw, p_bw) + (1.0,)
-        scans = {"k7": lambda: k7(*args), "k8": lambda: k8(*args),
-                 "k7_rowtile": lambda: r7(*args), "k8_rowtile": lambda: r8(*args)}
-        routed = r8 if lstm_grouped.uses_stream(n, t) else r7
+        scans = {"k7": lambda: k7(*args), "k8": lambda: k8(*args)}
         api = lambda: lstm_grouped.bilstm_grouped(p_fw, p_bw, x, mask)
         with torch.no_grad():
             row = {"name": name, "rows": n, "T": t, "D": d,
                    "kernel": "lstm_stream" if lstm_grouped.uses_stream(n, t) else "lstm_grouped",
                    "route": lstm_grouped.grouped_route(2, n, t, H)._asdict()}
-            for new, old in (("k7", "k7_rowtile"), ("k8", "k8_rowtile")):
-                o1, n1, n2, o2 = (cuda_ms(scans[k]) for k in (old, new, new, old))
-                row[f"{new}_ms"], row[f"{old}_ms"] = (n1 + n2) / 2, (o1 + o2) / 2
-                row[f"{new}_events_ms"], row[f"{old}_events_ms"] = [n1, n2], [o1, o2]
             for k, fn in scans.items():
+                n1, n2 = cuda_ms(fn), cuda_ms(fn)
+                row[f"{k}_ms"], row[f"{k}_events_ms"] = (n1 + n2) / 2, [n1, n2]
                 row[f"{k}_graph_ms"] = graph_ms(fn)
             row["plain_ms"] = cuda_ms(lambda: lstm_grouped.grouped_scan_ref(*args), iters=5,
                                       warmup=1)
@@ -3193,9 +3045,6 @@ def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list, di
             with stacked_api_form():
                 row["api_stacked_ms"] = cuda_ms(api)
                 row["api_stacked_graph_ms"] = graph_ms(api)
-                with forced_scan(routed):
-                    row["api_stacked_rowtile_ms"] = cuda_ms(api)
-                    row["api_stacked_rowtile_graph_ms"] = graph_ms(api)
             for key, kernel in (("api_k7", k7), ("api_k8", k8)):
                 with forced_scan(kernel):
                     row[f"{key}_ms"] = cuda_ms(api)
@@ -3226,32 +3075,25 @@ def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list, di
             tot[f"{k}_ops"] = tot.get(f"{k}_ops", 0.0) + o_ms
         log(f"K7/K8 times  {name:18s} N={n:4d} T={t:2d} {json.dumps(row['route'])}: scan K7 "
             f"{row['k7_ms']:.4f} (graph {row['k7_graph_ms']:.4f}), K8 {row['k8_ms']:.4f} "
-            f"({row['k8_graph_ms']:.4f}); row-tile K7 {row['k7_rowtile_ms']:.4f} "
-            f"({row['k7_rowtile_graph_ms']:.4f}), K8 {row['k8_rowtile_ms']:.4f} "
-            f"({row['k8_rowtile_graph_ms']:.4f}); scan bound {row['bound_ms']:.4f}; API "
+            f"({row['k8_graph_ms']:.4f}); scan bound {row['bound_ms']:.4f}; API "
             f"{row['api_ms']:.3f} (graph {row['api_graph_ms']:.3f}), stacked form "
-            f"{row['api_stacked_ms']:.3f} ({row['api_stacked_graph_ms']:.3f}), with the "
-            f"row-tile kernel {row['api_stacked_rowtile_ms']:.3f} "
-            f"({row['api_stacked_rowtile_graph_ms']:.3f}); K1 {row['k1_ms']:.3f} "
-            f"({row['k1_graph_ms']:.3f}), cuDNN {row['library_ms']:.3f}, encode bound "
-            f"{row['encode_bound_ms']:.4f} ms")
+            f"{row['api_stacked_ms']:.3f} ({row['api_stacked_graph_ms']:.3f}); K1 "
+            f"{row['k1_ms']:.3f} ({row['k1_graph_ms']:.3f}), cuDNN {row['library_ms']:.3f}, "
+            f"encode bound {row['encode_bound_ms']:.4f} ms")
     by = "bytes" if tot["scan_bytes"] >= tot["scan_ops"] else "operations"
     work = (f"the scan alone on the precomputed x_proj (G = 2) at the {len(rows)} shapes of "
             "phase 15 (the 9 bi-LSTM calls of a batch-64 train step and the two routing "
-            "edges), sum; ms: CUDA events, the mean of two runs in turns with the row-tile "
-            "kernel; graph_ms: replayed from a CUDA graph; api_*: the API's projection + "
-            "scan (the bi-LSTM encode from x) forced through this kernel (api_ms, events) and "
-            "as routed (api_routed_*); encode_*: the encode's bound, cuDNN's nn.LSTM and K1 "
-            "on the same function")
+            "edges), sum; ms: CUDA events, the mean of two runs; graph_ms: replayed from a "
+            "CUDA graph; api_*: the API's projection + scan (the bi-LSTM encode from x) "
+            "forced through this kernel (api_ms, events) and as routed (api_routed_*); "
+            "encode_*: the encode's bound, cuDNN's nn.LSTM and K1 on the same function")
     entries = []
     for stem, key, line, launches in (
             ("lstm_grouped", "k7", 35, grouped["launches"]["lstm_grouped"]),
-            ("lstm_stream", "k8", 123, grouped["launches"]["lstm_stream"]),
-            ("lstm_grouped_rowtile", "k7_rowtile", 35, 0),
-            ("lstm_stream_rowtile", "k8_rowtile", 123, 0)):
-        entry = {
+            ("lstm_stream", "k8", 123, grouped["launches"]["lstm_stream"])):
+        entries.append({
             "name": stem, "route": "cuda",
-            "source": f"fvta_memexqa_torch/csrc/{stem.removesuffix('_rowtile')}.cu",
+            "source": f"fvta_memexqa_torch/csrc/{stem}.cu",
             "replaces": f"fvta_memexqa_tpu/ops/lstm_pallas.py:{line}",
             "launches": launches, "launches_from_cli": from_cli.get(stem),
             "max_abs_err": grouped["max_abs_err"][stem],
@@ -3262,20 +3104,12 @@ def grouped_times(device, grouped: dict, from_cli: dict) -> tuple[list, list, di
             "encode_bound_ms": max(tot["encode_bytes"], tot["encode_ops"]),
             "encode_library_ms": tot["library_ms"], "encode_k1_ms": tot["k1_ms"],
             "encode_k1_graph_ms": tot["k1_graph_ms"], "encode_plain_ms": tot["api_plain_ms"],
-            "timed_work": work}
-        if stem.endswith("rowtile"):
-            entry["launches_note"] = "no path calls it; only its checks and timings launch it"
-            entry["max_abs_err_vs_k7"] = grouped["rowtile_vs_k7"][stem]
-        else:
-            entry.update(api_max_abs_err=grouped["api_max_abs_err"][stem],
-                         max_abs_err_vs_k1=grouped["max_abs_err_vs_k1"][stem],
-                         api_ms=tot[f"api_{key}_ms"], api_routed_ms=tot["api_ms"],
-                         api_routed_graph_ms=tot["api_graph_ms"],
-                         api_routed_stacked_ms=tot["api_stacked_ms"],
-                         api_routed_stacked_graph_ms=tot["api_stacked_graph_ms"],
-                         api_routed_stacked_rowtile_ms=tot["api_stacked_rowtile_ms"],
-                         api_routed_stacked_rowtile_graph_ms=tot["api_stacked_rowtile_graph_ms"])
-        entries.append(entry)
+            "timed_work": work, "api_max_abs_err": grouped["api_max_abs_err"][stem],
+            "max_abs_err_vs_k1": grouped["max_abs_err_vs_k1"][stem],
+            "api_ms": tot[f"api_{key}_ms"], "api_routed_ms": tot["api_ms"],
+            "api_routed_graph_ms": tot["api_graph_ms"],
+            "api_routed_stacked_ms": tot["api_stacked_ms"],
+            "api_routed_stacked_graph_ms": tot["api_stacked_graph_ms"]})
     return entries, rows, traces
 
 
@@ -3367,7 +3201,6 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     plain, dedup = (os.path.join(workdir, d) for d in ("train_plain", "train_dedup"))
     attn = os.path.join(workdir, "eval_attention.npz")
     zero_lstm_counters()
-    fvta_fused.fvta_fwd_serial.launches = 0
     out, walls = {}, {}
     with Recorder(fvta_fused, "fvta_fwd", keep=1) as k2_calls:
         for key, extra in (("cached", []), ("uncached", ["--no-album-cache"]),
@@ -3380,8 +3213,7 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
         prepro = prepro_check(workdir)
         ablate, walls["ablate"] = cli_json(["ablate", pack, os.path.join(workdir, "ablate"),
                                             "--num-steps", "6", "--device", device])
-        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
-                    "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+        launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
     record_k2_path("evaluation", k2_calls)
     grouped = grouped_counters()
     log(f"cli ablate --num-steps 6 ({walls['ablate']:.1f} s): {json.dumps(ablate)}; "
@@ -3391,8 +3223,8 @@ def eval_check(workdir: str, device: str = "cuda") -> dict:
     bc = out["by_category"]["by_category"]
     z = np.load(attn)
     problems = []
-    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
-        problems.append(f"a kernel never launched, or the serial K2 did: {launches}")
+    if launches["fvta_fwd"] == 0:
+        problems.append(f"a kernel never launched: {launches}")
     check_lstm_launches("evaluation", launches, backward=True)
     if c["accuracy"] != u["accuracy"] or abs(c["loss"] - u["loss"]) > EVAL_TOL * abs(u["loss"]):
         problems.append(f"cached {c} vs uncached {u}")
@@ -4055,7 +3887,7 @@ def dump(*_):
     out = {k: getattr(lstm_fused, k).launches
            for k in ("lstm_proj", "lstm_rec", "lstm_rec_bwd", "lstm_fwd", "lstm_bwd")}
     out.update({k: getattr(fvta_fused, k).launches
-                for k in ("fvta_fwd", "fvta_fwd_serial", "fvta_fwd_global")})
+                for k in ("fvta_fwd", "fvta_fwd_global")})
     out["global_launches"] = {k: f.global_launches for k, f in GLOBAL.items()}
     with lock:
         out.update(span)
@@ -4088,7 +3920,7 @@ STATS_KEYS = {"albums", "cache_bytes", "cache_bytes_per_device", "evictions",
               "evictions_unrecoverable", "reencodes", "shed", "questions", "batches",
               "p50_ms", "p95_ms"}
 FRONT_END_KERNELS = ("lstm_proj", "lstm_rec", "fvta_fwd")
-FRONT_END_NEVER = ("lstm_rec_bwd", "lstm_fwd", "lstm_bwd", "fvta_fwd_serial", "fvta_fwd_global")
+FRONT_END_NEVER = ("lstm_rec_bwd", "lstm_fwd", "lstm_bwd", "fvta_fwd_global")
 
 
 class ServeProc:
@@ -4337,8 +4169,8 @@ def open_loop(base: str, asks: list, srv: ServeProc, seed: int = 21) -> list:
 def launch_checks(name: str, counts: dict) -> None:
     if (min(counts[k] for k in FRONT_END_KERNELS) == 0 or any(counts[k] for k in FRONT_END_NEVER)
             or any(counts["global_launches"].values())):
-        fail(f"serving_http: {name}: K1 and K2 must launch, never the serial K2, the "
-             f"L2-streaming bi-LSTM kernels or a global route: {counts}")
+        fail(f"serving_http: {name}: K1 and K2 must launch, never the L2-streaming "
+             f"bi-LSTM kernels or a global route: {counts}")
 
 
 def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str) -> dict:
@@ -4577,8 +4409,8 @@ def serving_http_phase(pack: str, rundir: str, raw: str, workdir: str, smi: str)
 
 # every kernel counter phase 22 reads: K1, K1b and K2 must launch, the rest never
 LOADER_KERNELS = ("lstm_proj", "lstm_rec", "lstm_rec_bwd", "fvta_fwd")
-LOADER_NEVER = ("lstm_fwd", "lstm_bwd", "fvta_fwd_serial", "stats_fwd", "qcnt", "stats_bwd",
-                *OLD_STATS, "lstm_grouped", "lstm_stream", *ROWTILE)
+LOADER_NEVER = ("lstm_fwd", "lstm_bwd", "stats_fwd", "qcnt", "stats_bwd", "lstm_grouped",
+                "lstm_stream")
 # the kernels phase 22's trace must hold (csrc/lstm_rec.cu, lstm_rec_bwd.cu, fvta_fwd.cu)
 TRACE_KERNELS = ("lstm_rec_kernel", "lstm_rec_bwd_kernel", "k2_cluster_kernel")
 FOCAL_CORPUS = ["--num-albums", "32", "--photos-per-album", "8", "--num-questions", "320",
@@ -4590,14 +4422,11 @@ FOCAL_KINDS = {0: "focal_what", 1: "focal_what", 2: "album_say", 3: "where", 4: 
 def loader_counts() -> dict:
     """Every counter of LOADER_KERNELS and LOADER_NEVER, and each routed
     kernel's global-route launches (summed)."""
-    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats, lstm_grouped
+    from fvta_memexqa_torch.ops import fvta_fused, fvta_stats
 
     out = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
-           "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches,
-           **{k: getattr(fvta_stats, k).launches for k in ("stats_fwd", "qcnt", "stats_bwd",
-                                                            *OLD_STATS)},
-           **grouped_counters(),
-           **{k: getattr(lstm_grouped, k).launches for k in ROWTILE}}
+           **{k: getattr(fvta_stats, k).launches for k in ("stats_fwd", "qcnt", "stats_bwd")},
+           **grouped_counters()}
     out["global_routes"] = sum(global_counters().values())
     return out
 
@@ -4617,8 +4446,8 @@ def loader_launches(part: str, before: dict) -> dict:
     got = {k: v - before[k] for k, v in loader_counts().items()}
     if min(got[k] for k in LOADER_KERNELS) == 0 or any(
             got[k] for k in (*LOADER_NEVER, "global_routes")):
-        fail(f"{part}: K1, K1b and K2 must launch, and never the serial K2, the "
-             f"L2-streaming bi-LSTM kernels, K4-K8, a kept old kernel or a global route: {got}")
+        fail(f"{part}: K1, K1b and K2 must launch, and never the L2-streaming bi-LSTM "
+             f"kernels, K4-K8 or a global route: {got}")
     return got
 
 
@@ -4864,7 +4693,6 @@ def parallel_counts() -> dict:
 
     return {**{k: getattr(lstm_fused, k).launches for k in NEW_KERNELS + OLD_KERNELS},
             "fvta_fwd": fvta_fused.fvta_fwd.launches,
-            "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches,
             **{k: getattr(fvta_stats, k).launches for k in CP_KERNELS}}
 
 
@@ -4873,7 +4701,7 @@ def zero_parallel_counts() -> None:
 
     for k in NEW_KERNELS + OLD_KERNELS:
         getattr(lstm_fused, k).launches = 0
-    fvta_fused.fvta_fwd.launches = fvta_fused.fvta_fwd_serial.launches = 0
+    fvta_fused.fvta_fwd.launches = 0
     for k in CP_KERNELS:
         getattr(fvta_stats, k).launches = 0
 
@@ -5123,10 +4951,9 @@ def parallel_phase(workdir: str, evaluation: dict, smi: str) -> dict:
     if rel_cpu[worst_cpu] > STEP_TOL:
         problems.append(f"DP-2 gradient vs the CPU beyond {STEP_TOL} ({worst_cpu})")
     for r, c in enumerate(dp["counts"]):
-        if min(c[k] for k in DP_KERNELS) == 0 or c["fvta_fwd_serial"] or any(
-                c[k] for k in OLD_KERNELS):
-            problems.append(f"DP rank {r}: K1, K1b and K2 must launch, the serial K2 and "
-                            f"the L2-streaming kernels never: {c}")
+        if min(c[k] for k in DP_KERNELS) == 0 or any(c[k] for k in OLD_KERNELS):
+            problems.append(f"DP rank {r}: K1, K1b and K2 must launch, the L2-streaming "
+                            f"kernels never: {c}")
     p0, g0, p1, g1 = dp["runs"]
     unequal = [k for k in p0 if not torch.equal(p0[k], p1[k])]
     if unequal or not torch.equal(g0, g1):
@@ -5195,7 +5022,7 @@ def parallel_phase(workdir: str, evaluation: dict, smi: str) -> dict:
                 d_loss > CP_LOSS_RTOL:
             problems.append(f"CP-{cp} vs cp=1: logits {d_logits}, loss {d_loss}, {bad}")
         for rk, c in enumerate(r["counts"]):
-            if min(c[k] for k in CP_KERNELS) == 0 or c["fvta_fwd"] or c["fvta_fwd_serial"]:
+            if min(c[k] for k in CP_KERNELS) == 0 or c["fvta_fwd"]:
                 problems.append(f"CP-{cp} rank {rk}: K4, K5 and K6 must launch and K2 "
                                 f"never: {c}")
         cp_out[cp] = {"max_abs_d_logits": d_logits, "loss_rel_err": d_loss,
@@ -5409,7 +5236,7 @@ def mesh_serving(workdir: str) -> dict:
     at dp = 2 with shard_cache, on phase 4's pack and phase 7's run: the 32
     serving questions 8 per answer step, answers equal to dp = 1's (probs and
     seq_attention within SERVE_TOL), K1 and K2 launched in the mesh's runs and
-    the serial K2 and L2-streaming kernels never; the sharded cache's slot
+    the L2-streaming kernels never; the sharded cache's slot
     bytes summing to cache_bytes and a save / load round trip back on the same
     homes (crc32 % 2); asks/s of the answer steps at dp = 1 and dp = 2 in
     turns (one card: no multi-card figure)."""
@@ -5426,7 +5253,7 @@ def mesh_serving(workdir: str) -> dict:
     try:
         ref = mesh_answers(e1, asks)
         zero_lstm_counters()
-        fvta_fused.fvta_fwd.launches = fvta_fused.fvta_fwd_serial.launches = 0
+        fvta_fused.fvta_fwd.launches = 0
         e2, s2, _ = build_engine(pack, run, batch_size=8, dp=2, devices=shared_card)
         try:
             out["replicated"] = same_mesh_answers("dp=2", mesh_answers(e2, asks), ref)
@@ -5436,8 +5263,7 @@ def mesh_serving(workdir: str) -> dict:
                 out["sharded"] = same_mesh_answers("dp=2 shard_cache",
                                                    mesh_answers(e3, asks), ref)
                 torch.cuda.synchronize()
-                launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches,
-                            "fvta_fwd_serial": fvta_fused.fvta_fwd_serial.launches}
+                launches = {**lstm_counters(), "fvta_fwd": fvta_fused.fvta_fwd.launches}
                 per = s3.cache_bytes_per_device
                 with tempfile.TemporaryDirectory() as cache:
                     s3.save(cache)
@@ -5467,8 +5293,8 @@ def mesh_serving(workdir: str) -> dict:
     finally:
         e1.close()
     check_lstm_launches("mesh serving", launches, backward=False)
-    if launches["fvta_fwd"] == 0 or launches["fvta_fwd_serial"]:
-        fail(f"mesh serving: K2 must launch and the serial K2 never: {launches}")
+    if launches["fvta_fwd"] == 0:
+        fail(f"mesh serving: K2 must launch: {launches}")
     out.update(launches=launches, answer_step_asks_per_s=rates,
                label="dp = 2 on one card (both shards on cuda:0): not a multi-card figure")
     log(f"mesh serving: {json.dumps(out)}")
@@ -6050,7 +5876,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs only on a CUDA card")
     try:
-        from fvta_memexqa_torch.ops import build, fvta_stats
+        from fvta_memexqa_torch.ops import build
     except ImportError as e:
         fail(f"cannot import the port ({e}): run from the root of a checkout")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6073,13 +5899,7 @@ def main() -> None:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {stem}: {line.strip()}")
 
-    for k in OLD_STATS:
-        getattr(fvta_stats, k).launches = 0
     zero_global_counters()   # read again at phase 18: no earlier phase takes a global route
-    from fvta_memexqa_torch.ops import lstm_grouped
-
-    for k in ROWTILE:
-        getattr(lstm_grouped, k).launches = 0
     with tempfile.TemporaryDirectory() as workdir:
         prep = prepare_video_pack(workdir)   # CPU work, overlapped with the card's phases
         try:
@@ -6123,11 +5943,6 @@ def main() -> None:
                 f"evaluation): {json.dumps(from_cli)}")
             if any(from_cli.values()):
                 fail(f"a command launched K7 or K8 ({from_cli}): no command should reach them")
-            stray = {k: getattr(fvta_stats, k).launches - OLD_STATS_MADE[k] for k in OLD_STATS}
-            log(f"launches of the chunked K4/K5 and the two-pass K6 outside their own checks "
-                f"and timing: {json.dumps(stray)} (made there: {json.dumps(OLD_STATS_MADE)})")
-            if any(stray.values()):
-                fail(f"a path launched a kept old stats kernel: {stray}; none should")
         finally:
             if prep.poll() is None:
                 prep.kill()
@@ -6139,19 +5954,12 @@ def main() -> None:
                "video": video["cli_run"]["launches"], "evaluation": evaluation["launches"],
                "serving_http": serving_http["launches"]["total"]}
     bd = served["breakdown"]
-    answer = {f"{k}_request{'s' if k > 1 else ''}": {
-        "k2": bd[f"answer_{k}_request{'s' if k > 1 else ''}"]["device_busy_ms"],
-        "serial_k2": bd[f"answer_{k}_request{'s' if k > 1 else ''}_serial_k2"]["device_busy_ms"]}
-        for k in (1, 8)}
-    log(f"answer step device ms, K2 vs the serial K2 swapped in: {json.dumps(answer)}")
+    answer = {f"{k}_request{'s' if k > 1 else ''}":
+              bd[f"answer_{k}_request{'s' if k > 1 else ''}"]["device_busy_ms"] for k in (1, 8)}
+    log(f"answer step device ms: {json.dumps(answer)}")
     k2 = k2_times(k2_rows, by_path, k2_err, k2_paths, answer)
     k1b, k1b_rows = k1b_times(device, trained["plain_run"]["launches"], k1b_err, past_limit)
     grouped_entries, grouped_rows, grouped_traces = grouped_times(device, grouped, from_cli)
-    stray = rowtile_stray()
-    log(f"launches of the row-tile K7/K8 outside their own checks and timing: "
-        f"{json.dumps(stray)} (made there: {json.dumps(ROWTILE_MADE)})")
-    if any(stray.values()):
-        fail(f"a path launched a row-tile grouped scan: {stray}; none should")
     t0 = time.perf_counter()
     widths = widths_phase()
     t_widths = time.perf_counter() - t0

@@ -8,14 +8,11 @@
 // and sum here is an explicit round-to-nearest intrinsic in a fixed serial
 // order, which nvcc may neither contract nor reorder.
 //
-// Layout of the chunked kernels (the old K4 and K5, the two-pass K6): a time
-// chunk of TCH rows of h is staged in shared memory twice (raw, and times wxy),
-// and question rows in tiles of QT = 32 (one per lane), all with an odd row
-// stride so that 32 lanes reading 32 rows at one column hit 32 banks.
-//
-// The run of chunks (K4 and K5; K6 walks its own, the same way): one CTA per
-// (run of cpc consecutive chunks, sequence, example), the runs sized so that
-// the grid is about one CTA per SM (`run_geometry`). The CTA walks its run in
+// Time runs in chunks of TCH = 32 steps and question words in tiles of QT = 32
+// (one per lane). The run of chunks (K4 and K5; K6 walks its own, the same
+// way): one CTA per (run of cpc consecutive chunks, sequence, example), the
+// runs sized so that the grid is about one CTA per SM (`run_geometry`). The
+// CTA walks its run in
 // passes of `rows` = 64 rows (two chunks; 32 where that does not fit), stages
 // the question tile, sy and the masks once (J <= QT; a larger J is restaged
 // per tile of 32 at every pass), copies the next pass's rows of h and of the
@@ -52,13 +49,11 @@
 namespace fvta {
 
 constexpr float NEG = -1e30f;
-constexpr int TCH = 32;   // time steps per chunk (one block's rows)
+constexpr int TCH = 32;   // time steps per chunk
 constexpr int QT = 32;    // question words per tile (one per lane)
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int RUN_ROWS = 64;   // rows of a run's pass, at most (4 x 2 tiles, 256 threads)
-
-FVTA_HD inline int odd_stride(int d) { return d | 1; }
 
 // Row stride of rows staged for float4 loads and cp.async: D rounded up to 4
 // floats, then to an odd number of 16-byte units, so that eight threads
@@ -300,12 +295,6 @@ __device__ __forceinline__ void serial_dot_2x2_global(const float* a0, const flo
   if constexpr (SX) *sx = cx;
 }
 
-// C from the staged row hw = h*wxy, the question row q_j, sx = <wx,h>, sy = <wy,q_j>.
-__device__ __forceinline__ float corr(const float* hw, const float* qj, float sx, float sy,
-                                      int d) {
-  return __fadd_rn(__fadd_rn(serial_dot(hw, qj, d), sx), sy);
-}
-
 // x + (1 - mask) * NEG, the exp_mask of the plain version.
 __device__ __forceinline__ float masked(float x, float mask) {
   return __fadd_rn(x, __fmul_rn(__fsub_rn(1.0f, mask), NEG));
@@ -321,39 +310,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Stage rows [t0, t0 + rows) of one sequence h_seq [T, D]: hs = h, hw = h*wxy
-// (stride odd_stride(D)), and sx[r] = <wx, h_r>. Ends with __syncthreads().
-__device__ __forceinline__ void stage_rows(const float* __restrict__ h_seq,
-                                           const float* __restrict__ wx,
-                                           const float* __restrict__ wxy, int t0, int rows,
-                                           int D, float* hs, float* hw, float* sx) {
-  const int d1 = odd_stride(D);
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    const float v = h_seq[(size_t)(t0 + r) * D + c];
-    hs[r * d1 + c] = v;
-    hw[r * d1 + c] = __fmul_rn(v, wxy[c]);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) sx[r] = serial_dot(hs + r * d1, wx, D);
-  __syncthreads();
-}
-
-// Stage question rows [j0, j0 + QT) of q_n [J, D] (rows past J are zero) and
-// sy[l] = <wy, q_{j0+l}>. Ends with __syncthreads().
-__device__ __forceinline__ void stage_qtile(const float* __restrict__ q_n,
-                                            const float* __restrict__ wy, int j0, int J,
-                                            int D, float* qs, float* sy) {
-  const int d1 = odd_stride(D);
-  for (int i = threadIdx.x; i < QT * D; i += blockDim.x) {
-    const int l = i / D, c = i % D;
-    qs[l * d1 + c] = (j0 + l < J) ? q_n[(size_t)(j0 + l) * D + c] : 0.0f;
-  }
-  __syncthreads();
-  for (int l = threadIdx.x; l < QT; l += blockDim.x) sy[l] = serial_dot(qs + l * d1, wy, D);
-  __syncthreads();
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -509,7 +465,7 @@ __device__ __forceinline__ void walk_run(const RunArgs& a, float* smem, Tile&& t
     const float* hs = hbuf + buf * R * ds;
     const float* cmv = cmbuf + buf * R;
 
-    // hw = h*wxy, as the chunked kernels stage it
+    // hw = h*wxy
     for (int i = tid; i < R * dv; i += THREADS) {
       const float4 x = reinterpret_cast<const float4*>(hs)[i];
       const float4 w = reinterpret_cast<const float4*>(wxys)[i % dv];

@@ -19,8 +19,8 @@
 // keeps a launch from it at N=1..8 is how few SMs work on it and how long each
 // waits on a dependent chain.
 //
-// Design (k2_cluster_kernel), against each limit of the earlier one-block-per-example
-// kernel (kept below as fvta_fwd_serial_kernel, which no path calls):
+// Design (k2_cluster_kernel), against each limit of the first port's
+// one-block-per-example kernel:
 // - One block per example filled 1 of 132 SMs at N=1. Now one thread-block
 //   cluster per example: its CTAs split the example's S x T rows, whole
 //   sequences per CTA where S is at least the cluster, chunks of one
@@ -67,206 +67,6 @@
 #include "fvta_fwd.cuh"
 
 namespace cg = cooperative_groups;
-
-// ---- the serial K2, kept to be timed and checked beside K2 --------------------
-//
-// One block per example. q[n] is staged in shared memory (stride D|1). Each warp
-// owns whole sequences and streams them over t: it loads h[s,t,:] once (raw and
-// times wxy) into its shared row, lane j computes C[s,t,j], a warp max gives E,
-// and the warp keeps the online softmax state of its sequence (its V row in
-// shared memory). The raw scores E go straight into the time_attn output and a
-// final sweep of the same block normalises them in place.
-
-namespace serial {
-
-constexpr float NEG = -1e30f;
-constexpr int WARPS = 16;
-constexpr int THREADS = WARPS * 32;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Layout {
-  int d1;                                   // padded q row stride (odd)
-  size_t qs, hw, hr, run_v, sy, qms, qmx, run_max, run_den, cmx, bs, wq, total;
-};
-
-__host__ __device__ inline Layout layout(int S, int J, int D) {
-  Layout l;
-  l.d1 = D | 1;
-  size_t o = 0;
-  l.qs = o;       o += (size_t)J * l.d1;
-  l.hw = o;       o += (size_t)WARPS * D;
-  l.hr = o;       o += (size_t)WARPS * D;
-  l.run_v = o;    o += (size_t)S * D;
-  l.sy = o;       o += J;
-  l.qms = o;      o += J;
-  l.qmx = o;      o += (size_t)WARPS * J;
-  l.run_max = o;  o += S;
-  l.run_den = o;  o += S;
-  l.cmx = o;      o += S;
-  l.bs = o;       o += S;
-  l.wq = o;       o += J;
-  l.total = o * sizeof(float);
-  return l;
-}
-
-__global__ void __launch_bounds__(THREADS)
-fvta_fwd_serial_kernel(const float* __restrict__ h, const float* __restrict__ cm,
-                const float* __restrict__ q, const float* __restrict__ qm,
-                const float* __restrict__ wx, const float* __restrict__ wy,
-                const float* __restrict__ wxy, float* __restrict__ ctx,
-                float* __restrict__ qatt, float* __restrict__ ta, float* __restrict__ sa,
-                int S, int T, int J, int D) {
-  extern __shared__ float smem[];
-  const Layout l = layout(S, J, D);
-  float* qs = smem + l.qs;
-  float* sy = smem + l.sy;
-  float* qms = smem + l.qms;
-  float* run_v = smem + l.run_v;
-  float* run_max = smem + l.run_max;
-  float* run_den = smem + l.run_den;
-  float* cmx = smem + l.cmx;
-  float* bs = smem + l.bs;
-  float* wq = smem + l.wq;
-
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  float* hw = smem + l.hw + (size_t)warp * D;     // this warp's h*wxy row
-  float* hr = smem + l.hr + (size_t)warp * D;     // this warp's raw h row
-  float* qmx = smem + l.qmx + (size_t)warp * J;   // this warp's question-side max
-
-  const float* qn = q + (size_t)n * J * D;
-  for (int i = tid; i < J * D; i += THREADS) qs[(i / D) * l.d1 + i % D] = qn[i];
-  for (int j = tid; j < J; j += THREADS) qms[j] = qm[(size_t)n * J + j];
-  for (int j = lane; j < J; j += 32) qmx[j] = NEG;
-  // sy[j] = <wy, q_j>: one warp per question word, fixed-order reduction
-  for (int j = warp; j < J; j += WARPS) {
-    float p = 0.0f;
-    for (int d = lane; d < D; d += 32) p = fmaf(qn[(size_t)j * D + d], wy[d], p);
-    p = warp_sum(p);
-    if (lane == 0) sy[j] = p;
-  }
-  __syncthreads();
-
-  for (int s = warp; s < S; s += WARPS) {
-    const size_t seq = (size_t)n * S + s;
-    float m = NEG, den = 0.0f, cmax = 0.0f;
-    for (int d = lane; d < D; d += 32) run_v[(size_t)s * D + d] = 0.0f;
-    for (int t = 0; t < T; ++t) {
-      const float* hp = h + (seq * T + t) * D;
-      const float cmv = cm[seq * T + t];
-      float sxp = 0.0f;
-      for (int d = lane; d < D; d += 32) {
-        const float hv = hp[d];
-        hr[d] = hv;
-        hw[d] = hv * wxy[d];
-        sxp = fmaf(hv, wx[d], sxp);
-      }
-      const float sx = warp_sum(sxp);
-      __syncwarp();
-      float emax = -INFINITY;
-      for (int j = lane; j < J; j += 32) {
-        const float* qj = qs + (size_t)j * l.d1;
-        float acc = 0.0f;
-        for (int d = 0; d < D; ++d) acc = fmaf(hw[d], qj[d], acc);
-        const float c = acc + sx + sy[j];
-        emax = fmaxf(emax, c + (1.0f - qms[j]) * NEG);
-        qmx[j] = fmaxf(qmx[j], c + (1.0f - cmv) * NEG);
-      }
-      const float e = warp_max(emax) + (1.0f - cmv) * NEG;
-      if (lane == 0) ta[seq * T + t] = e;   // raw score; normalised below
-      const float m_new = fmaxf(m, e);
-      const float scale = expf(m - m_new);
-      const float p = expf(e - m_new);
-      den = den * scale + p;
-      for (int d = lane; d < D; d += 32) {
-        float* v = run_v + (size_t)s * D + d;
-        *v = *v * scale + p * hr[d];
-      }
-      m = m_new;
-      cmax = fmaxf(cmax, cmv);
-      __syncwarp();
-    }
-    if (lane == 0) {
-      run_max[s] = m;
-      run_den[s] = den;
-      cmx[s] = cmax;
-    }
-  }
-  __syncthreads();
-
-  if (warp == 0) {
-    // softmax over sequences of g = max_t E + (1-valid)*NEG
-    float gmax = -INFINITY;
-    for (int s = lane; s < S; s += 32) {
-      const float valid = cmx[s] > 0.5f ? 1.0f : 0.0f;
-      const float g = run_max[s] + (1.0f - valid) * NEG;
-      bs[s] = g;
-      gmax = fmaxf(gmax, g);
-    }
-    gmax = warp_max(gmax);
-    float sum = 0.0f;
-    for (int s = lane; s < S; s += 32) {
-      const float e = expf(bs[s] - gmax);
-      bs[s] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int s = lane; s < S; s += 32) {
-      bs[s] = bs[s] / sum;
-      sa[(size_t)n * S + s] = cmx[s] > 0.5f ? bs[s] : 0.0f;
-    }
-  } else if (warp == 1) {
-    // question side: softmax over j of the (s,t)-max, masked by the question mask
-    float qmax = -INFINITY;
-    for (int j = lane; j < J; j += 32) {
-      float v = NEG;
-      for (int w = 0; w < WARPS; ++w) v = fmaxf(v, smem[l.qmx + (size_t)w * J + j]);
-      v = v + (1.0f - qms[j]) * NEG;
-      wq[j] = v;
-      qmax = fmaxf(qmax, v);
-    }
-    qmax = warp_max(qmax);
-    float sum = 0.0f;
-    for (int j = lane; j < J; j += 32) {
-      const float e = expf(wq[j] - qmax);
-      wq[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < J; j += 32) wq[j] = wq[j] / sum;
-  }
-  __syncthreads();
-
-  for (int d = tid; d < D; d += THREADS) {
-    float c = 0.0f;
-    for (int s = 0; s < S; ++s)
-      c = fmaf(bs[s], run_v[(size_t)s * D + d] / fmaxf(run_den[s], 1e-30f), c);
-    ctx[(size_t)n * D + d] = c;
-    float qa = 0.0f;
-    for (int j = 0; j < J; ++j) qa = fmaf(wq[j], qs[(size_t)j * l.d1 + d], qa);
-    qatt[(size_t)n * D + d] = qa;
-  }
-  for (int i = tid; i < S * T; i += THREADS) {
-    const int s = i / T;
-    const size_t idx = (size_t)n * S * T + i;
-    const float inv_den = 1.0f / fmaxf(run_den[s], 1e-30f);
-    ta[idx] = cmx[s] > 0.5f ? expf(ta[idx] - run_max[s]) * inv_den : 0.0f;
-  }
-}
-
-}  // namespace serial
 
 // ---- K2 -----------------------------------------------------------------------
 
@@ -930,31 +730,10 @@ constexpr int CLUSTER_UNSCHEDULABLE = -1;
 
 extern "C" {
 
-long long fvta_fwd_serial_smem_bytes(int s, int j, int d) {
-  return (long long)serial::layout(s, j, d).total;
-}
-
 const char* fvta_fwd_error_string(int err) {
   if (err == CLUSTER_UNSCHEDULABLE)
     return "no cluster of K2 can be scheduled (cudaOccupancyMaxActiveClusters = 0)";
   return cudaGetErrorString((cudaError_t)err);
-}
-
-// The serial K2. Returns the cudaError_t of the launch (0 = success).
-int fvta_fwd_serial(const float* h, const float* cm, const float* q, const float* qm,
-                    const float* wx, const float* wy, const float* wxy, float* ctx,
-                    float* qatt, float* ta, float* sa, int n, int s, int t, int j, int d,
-                    void* stream) {
-  const size_t smem = serial::layout(s, j, d).total;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(serial::fvta_fwd_serial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  serial::fvta_fwd_serial_kernel<<<n, serial::THREADS, smem, (cudaStream_t)stream>>>(
-      h, cm, q, qm, wx, wy, wxy, ctx, qatt, ta, sa, s, t, j, d);
-  return (int)cudaGetLastError();
 }
 
 static int geometry(int n, int s, int t, int j, int d, bool force_global, long long* out) {

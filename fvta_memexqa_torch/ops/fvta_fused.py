@@ -14,8 +14,7 @@ memory in a fixed order; its geometry comes from the library
 passed back at each launch. Past the last staging that fits a CTA's shared
 memory the geometry takes the "global" route (h, q and each segment's V in
 device memory; launches also counted in `fvta_fwd.global_launches`);
-`fvta_fwd_global` forces it at any width and no path calls it. The earlier
-one-block-per-example kernel stays as `fvta_fwd_serial`, which no path calls.
+`fvta_fwd_global` forces it at any width and no path calls it.
 Under grad on the card, `_FVTAFn` runs K2 forward and takes the gradient by
 recomputing the plain version under autograd (the JAX package's `_core_bwd`, fvta_pallas.py:581-591: at T = 24
 there is no backward kernel there either).
@@ -52,10 +51,6 @@ def _lib():
     for name in ("fvta_fwd_geometry", "fvta_fwd_geometry_global"):
         getattr(lib, name).argtypes = [i] * 5 + [p]
         getattr(lib, name).restype = i
-    lib.fvta_fwd_serial.argtypes = [p] * 11 + [i] * 5 + [p]
-    lib.fvta_fwd_serial.restype = i
-    lib.fvta_fwd_serial_smem_bytes.argtypes = [i, i, i]
-    lib.fvta_fwd_serial_smem_bytes.restype = ll
     lib.fvta_fwd_error_string.argtypes = [i]
     lib.fvta_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -158,33 +153,6 @@ def fvta_fwd_global(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torc
 
 fvta_fwd.launches = fvta_fwd.global_launches = 0
 fvta_fwd_global.launches = fvta_fwd_global.global_launches = 0
-
-
-def fvta_fwd_serial(h: torch.Tensor, cm: torch.Tensor, q: torch.Tensor, qm: torch.Tensor,
-                    wx: torch.Tensor, wy: torch.Tensor, wxy: torch.Tensor) -> AttentionOutput:
-    """The serial K2 (one block per example, a serial walk over t), computing what
-    `fvta_fwd` computes. No path calls it; it is kept to be timed and checked
-    beside K2. Counts its launches in `fvta_fwd_serial.launches`."""
-    shape, out = _checked("fvta_fwd_serial", h, cm, q, qm, wx, wy, wxy)
-    if shape[0] == 0:
-        return out
-    n, s, t, j, d = shape
-    lib = _lib()
-    smem = lib.fvta_fwd_serial_smem_bytes(s, j, d)
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"fvta_fwd_serial needs {smem} B of shared memory at S={s}, J={j}, "
-                         f"D={d}; a block has {build.SMEM_LIMIT}")
-    dev = h.device
-    with torch.cuda.device(dev):
-        err = lib.fvta_fwd_serial(*_ptrs((h, cm, q, qm, wx, wy, wxy), out), *shape,
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise _error("fvta_fwd_serial launch", err)
-    build.count_launch(fvta_fwd_serial)
-    return out
-
-
-fvta_fwd_serial.launches = 0
 
 
 def fvta_attention_fused(h: torch.Tensor, ctx_mask: torch.Tensor, q: torch.Tensor,

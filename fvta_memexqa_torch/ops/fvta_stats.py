@@ -32,9 +32,6 @@ runs; the kernels count the global route's launches in `.global_launches`
 beside `.launches`. `stats_fwd_global`, `qcnt_global` and `stats_bwd_global`
 force the global route at any width: no path calls them; they hold the two
 routes against each other, bit for bit, on the card.
-Earlier kernels that no path calls are kept to be timed and checked beside
-the ones the paths launch: `stats_fwd_chunked` and `qcnt_chunked` (one block
-per chunk of 32 steps) and `stats_bwd_twopass` (dC through device memory).
 The TPU-only parts of the JAX dispatch (S >= 8 padding, _pick_tblock, the
 short-T XLA-remat branch of _stats_bwd) have no counterpart: on the card the
 backward is always K5 + K6.
@@ -109,10 +106,6 @@ def _stats_lib():
     for name in ("fvta_stats_geometry", "fvta_stats_geometry_global"):
         getattr(lib, name).argtypes = [i] * 5 + [p]
         getattr(lib, name).restype = i
-    lib.fvta_stats_chunked.argtypes = [p] * 16 + [i] * 5 + [p]
-    lib.fvta_stats_chunked.restype = i
-    lib.fvta_stats_chunked_smem_bytes.argtypes = [i]
-    lib.fvta_stats_chunked_smem_bytes.restype = ll
     lib.fvta_stats_error_string.argtypes = [i]
     lib.fvta_stats_error_string.restype = ctypes.c_char_p
     return lib
@@ -124,19 +117,11 @@ def _bwd_lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fvta_qcnt.argtypes = [p] * 8 + [i] * 9 + [ll, i, p]
     lib.fvta_qcnt.restype = i
-    lib.fvta_qcnt_chunked.argtypes = [p] * 8 + [i] * 5 + [p]
-    lib.fvta_qcnt_chunked.restype = i
     lib.fvta_stats_bwd.argtypes = [p] * 20 + [i] * 9 + [ll, i, p]
     lib.fvta_stats_bwd.restype = i
     for name in ("fvta_stats_bwd_geometry", "fvta_stats_bwd_geometry_global"):
         getattr(lib, name).argtypes = [i] * 5 + [p]
         getattr(lib, name).restype = i
-    lib.fvta_stats_bwd_twopass.argtypes = [p] * 22 + [i] * 5 + [p]
-    lib.fvta_stats_bwd_twopass.restype = i
-    lib.fvta_qcnt_chunked_smem_bytes.argtypes = [i]
-    lib.fvta_qcnt_chunked_smem_bytes.restype = ll
-    lib.fvta_stats_bwd_twopass_smem_bytes.argtypes = [i, i]
-    lib.fvta_stats_bwd_twopass_smem_bytes.restype = ll
     lib.fvta_bwd_error_string.argtypes = [i]
     lib.fvta_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -157,13 +142,6 @@ def _check(kernel: str, h, cm_f, q, wx, wy, wxy, qm_f=None):
     if min(n, s, t, j, d) < 1:
         raise ValueError(f"{kernel} needs N, S, T, J, D >= 1, got {(n, s, t, j, d)}")
     return n, s, t, j, d
-
-
-def _smem_ok(kernel: str, smem: int, shape) -> None:
-    """The kept old kernels' guard: they stage h in shared memory at every width."""
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"{kernel} needs {smem} B of shared memory at {shape}; a block "
-                         f"has {build.SMEM_LIMIT}")
 
 
 def _stream(dev) -> int:
@@ -249,34 +227,6 @@ stats_fwd.launches = stats_fwd.global_launches = 0
 stats_fwd_global.launches = stats_fwd_global.global_launches = 0
 
 
-def stats_fwd_chunked(h, cm_f, q, qm_f, wx, wy, wxy):
-    """The chunked K4 (one block per chunk of 32 steps, then a combine of N
-    blocks), computing what `stats_fwd` computes. No path calls it; it is kept
-    to be timed and checked beside `stats_fwd`. Counts its launches in
-    `stats_fwd_chunked.launches`."""
-    n, s, t, j, d = _check("stats_fwd_chunked", h, cm_f, q, wx, wy, wxy, qm_f)
-    lib = _stats_lib()
-    _smem_ok("stats_fwd_chunked", lib.fvta_stats_chunked_smem_bytes(d), f"D={d}")
-    dev = h.device
-    chunks = -(-t // TCH)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    m, den, v, eq, e = empty(n, s), empty(n, s), empty(n, s, d), empty(n, j), empty(n, s, t)
-    m_p, den_p = empty(n, s, chunks), empty(n, s, chunks)
-    v_p, eq_p = empty(n, s, chunks, d), empty(n, s, chunks, j)
-    ptrs = [a.data_ptr() for a in (h, cm_f, q, qm_f, wx, wy, wxy, m, den, v, eq, e,
-                                   m_p, den_p, v_p, eq_p)]
-    with torch.cuda.device(dev):
-        err = lib.fvta_stats_chunked(*ptrs, n, s, t, j, d, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"stats_fwd_chunked launch failed: "
-                           f"{lib.fvta_stats_error_string(err).decode()}")
-    build.count_launch(stats_fwd_chunked)
-    return m, den, v, eq, e
-
-
-stats_fwd_chunked.launches = 0
-
-
 def _qcnt(wrapper, force_global, h, cm_f, q, wx, wy, wxy, eq):
     shape = _check(wrapper.__name__, h, cm_f, q, wx, wy, wxy)
     n, j = shape[0], shape[3]
@@ -289,7 +239,7 @@ def _qcnt(wrapper, force_global, h, cm_f, q, wx, wy, wxy, eq):
             *(a.data_ptr() for a in (h, cm_f, q, wx, wy, wxy, eq, cnt)), *shape,
             geo["per_seq"], geo["chunks_per_cta"], geo["rows"], geo["h_buffers"], geo["smem"],
             ROUTES.index(geo["route"]), _stream(dev))
-    _launched(wrapper.__name__, wrapper, err, geo)
+    _launched(wrapper, err, geo)
     return cnt.to(torch.float32)
 
 
@@ -310,26 +260,6 @@ qcnt.launches = qcnt.global_launches = 0
 qcnt_global.launches = qcnt_global.global_launches = 0
 
 
-def qcnt_chunked(h, cm_f, q, wx, wy, wxy, eq):
-    """The chunked K5 (one block per chunk of 32 steps), computing what `qcnt`
-    computes. No path calls it; it is kept to be timed and checked beside
-    `qcnt`. Counts its launches in `qcnt_chunked.launches`."""
-    n, s, t, j, d = _check("qcnt_chunked", h, cm_f, q, wx, wy, wxy)
-    build.check_f32("eq", eq, (n, j), h.device)
-    lib = _bwd_lib()
-    _smem_ok("qcnt_chunked", lib.fvta_qcnt_chunked_smem_bytes(d), f"D={d}")
-    dev = h.device
-    cnt = torch.zeros((n, j), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.fvta_qcnt_chunked(*(a.data_ptr() for a in (h, cm_f, q, wx, wy, wxy, eq, cnt)),
-                                    n, s, t, j, d, _stream(dev))
-    _launched("qcnt_chunked", qcnt_chunked, err)
-    return cnt.to(torch.float32)
-
-
-qcnt_chunked.launches = 0
-
-
 def _bwd_args(kernel, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
     n, s, t, j, d = _check(kernel, h, cm_f, q, wx, wy, wxy, qm_f)
     for name, a, shape in (("de", de, (n, s, t)), ("geq", geq, (n, j)), ("eq", eq, (n, j)),
@@ -342,11 +272,11 @@ def _bwd_args(kernel, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, g
     return (n, s, t, j, d), [a.data_ptr() for a in ins + outs], outs, empty
 
 
-def _launched(kernel: str, wrapper, err: int, geo: dict | None = None) -> None:
+def _launched(wrapper, err: int, geo: dict) -> None:
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
+        raise RuntimeError(f"{wrapper.__name__} launch failed: "
                            f"{_bwd_lib().fvta_bwd_error_string(err).decode()}")
-    build.count_launch(wrapper, geo is not None and geo["route"] == "global")
+    build.count_launch(wrapper, geo["route"] == "global")
 
 
 BWD_KEYS = ("per_seq", "chunks_per_cta", "smem", "scratch", "h_buffers", "acc_smem", "route")
@@ -380,7 +310,7 @@ def _stats_bwd(wrapper, force_global, h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq
             *ptrs, scratch.data_ptr(), *shape, geo["per_seq"], geo["chunks_per_cta"],
             geo["h_buffers"], geo["acc_smem"], geo["smem"], ROUTES.index(geo["route"]),
             _stream(dev))
-    _launched(wrapper.__name__, wrapper, err, geo)
+    _launched(wrapper, err, geo)
     return outs
 
 
@@ -402,30 +332,6 @@ def stats_bwd_global(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv
 
 stats_bwd.launches = stats_bwd.global_launches = 0
 stats_bwd_global.launches = stats_bwd_global.global_launches = 0
-
-
-def stats_bwd_twopass(h, cm_f, q, qm_f, wx, wy, wxy, de, geq, eq, qcnt_, e, m, gv):
-    """The two-pass K6 (dC through device memory, then a reduction over 32
-    columns of D a block), computing what `stats_bwd` computes. No path calls it;
-    it is kept to be timed and checked beside `stats_bwd`. Counts its launches
-    in `stats_bwd_twopass.launches`."""
-    shape, ptrs, outs, empty = _bwd_args("stats_bwd_twopass", h, cm_f, q, qm_f, wx, wy, wxy,
-                                         de, geq, eq, qcnt_, e, m, gv)
-    n, s, t, j, d = shape
-    lib = _bwd_lib()
-    _smem_ok("stats_bwd_twopass", lib.fvta_stats_bwd_twopass_smem_bytes(j, d),
-             f"J={j}, D={d}")
-    chunks = -(-t // TCH)
-    scratch = (empty(n, s, t, j), empty(n, s, chunks, d), empty(n, s, chunks, j))
-    dev = h.device
-    with torch.cuda.device(dev):
-        err = lib.fvta_stats_bwd_twopass(*ptrs, *(a.data_ptr() for a in scratch), *shape,
-                                         _stream(dev))
-    _launched("stats_bwd_twopass", stats_bwd_twopass, err)
-    return outs
-
-
-stats_bwd_twopass.launches = 0
 
 
 def _kernels(device: torch.device):

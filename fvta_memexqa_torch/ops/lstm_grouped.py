@@ -44,9 +44,7 @@ prefixes: the kernels see only lengths = mask.sum(1).
 
 K7 replaces fvta_memexqa_tpu/ops/lstm_pallas.py:_grouped_kernel, K8
 :_stream_kernel. Nothing on the model's paths calls them (the model runs
-lstm_fused's K1/K1b); the public functions here are their only route. The
-first port's kernels stay as `scan_grouped_rowtile` / `scan_stream_rowtile`, which no path
-calls.
+lstm_fused's K1/K1b); the public functions here are their only route.
 """
 
 from __future__ import annotations
@@ -175,9 +173,8 @@ def grouped_route(g: int, n: int, t: int, h: int) -> GroupedRoute | None:
 @functools.cache
 def _lib(stem: str) -> ctypes.CDLL:
     """csrc/<stem>.cu's library: <stem> (the Hopper kernel), <stem>_wh_global
-    (forced to read Wh from device memory), <stem>_route,
-    <stem>_smem_bytes, <stem>_rowtile (the row-tile kernel), <stem>_rowtile_smem_bytes
-    and <stem>_error_string."""
+    (forced to read Wh from device memory), <stem>_route, <stem>_smem_bytes and
+    <stem>_error_string."""
     lib = build.library(stem)
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     pi = ctypes.POINTER(ctypes.c_int)
@@ -186,8 +183,6 @@ def _lib(stem: str) -> ctypes.CDLL:
             (f"{stem}_wh_global", [p, p, ll, p, ll, p, p] + [i] * 7 + [f, p], i),
             (f"{stem}_route", [i] * 4 + [pi] * 4, i),
             (f"{stem}_smem_bytes", [i] * 4, ll),
-            (f"{stem}_rowtile", [p] * 5 + [i] * 4 + [f, p], i),
-            (f"{stem}_rowtile_smem_bytes", [i], ll),
             (f"{stem}_error_string", [i], ctypes.c_char_p)):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = res
@@ -328,61 +323,6 @@ def scan_stream_wh_global(x_proj: torch.Tensor, lengths: torch.Tensor,
 
 for _w in (scan_grouped, scan_stream, scan_grouped_wh_global, scan_stream_wh_global):
     _w.launches = _w.global_launches = 0
-
-
-def _launch_rowtile(wrapper, stem: str, x_proj: torch.Tensor, lengths: torch.Tensor, wh,
-                    forget_bias: float) -> tuple[torch.Tensor, torch.Tensor]:
-    g, n, t, h = _check(f"{stem}_rowtile", x_proj, lengths)
-    dev = x_proj.device
-    if not torch.is_tensor(wh):
-        wh = torch.stack(list(wh))
-    build.check_f32("wh", wh, (g, h, 4 * h), dev)
-    lengths = lengths.contiguous()
-    out, fin = _outputs(g, n, t, h, dev)
-    if g * n * t == 0:
-        return out, fin
-    lib = _lib(stem)
-    smem = getattr(lib, f"{stem}_rowtile_smem_bytes")(h)
-    if smem > build.SMEM_LIMIT:
-        raise ValueError(f"{stem}_rowtile keeps Wh resident and needs {smem} B of shared "
-                         f"memory at H={h}; a block has {build.SMEM_LIMIT}")
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"{stem}_rowtile")(x_proj.data_ptr(), lengths.data_ptr(),
-                                              wh.data_ptr(), out.data_ptr(), fin.data_ptr(),
-                                              g, n, t, h, float(forget_bias),
-                                              torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        msg = getattr(lib, f"{stem}_error_string")(err).decode()
-        raise RuntimeError(f"{stem}_rowtile launch failed: {msg}")
-    build.count_launch(wrapper)
-    return out, fin
-
-
-def scan_grouped_rowtile(x_proj: torch.Tensor, lengths: torch.Tensor,
-                         wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
-                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the row-tile K7 (one block per 8-row tile and group; H up to ~110).
-    No path calls it; counts its launches in `scan_grouped_rowtile.launches`."""
-    return _launch_rowtile(scan_grouped_rowtile, "lstm_grouped", x_proj, lengths, wh,
-                           forget_bias)
-
-
-scan_grouped_rowtile.launches = 0
-
-
-def scan_stream_rowtile(x_proj: torch.Tensor, lengths: torch.Tensor,
-                        wh: torch.Tensor | Sequence[torch.Tensor], forget_bias: float
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the row-tile K8 (x_proj 16-byte aligned: it copies 16-byte pieces). No
-    path calls it; counts its launches in `scan_stream_rowtile.launches`."""
-    if x_proj.data_ptr() % 16:
-        raise ValueError("lstm_stream_rowtile copies x_proj in 16-byte pieces: its data "
-                         "must be 16-byte aligned")
-    return _launch_rowtile(scan_stream_rowtile, "lstm_stream", x_proj, lengths, wh,
-                           forget_bias)
-
-
-scan_stream_rowtile.launches = 0
 
 
 def _kernels(device: torch.device):

@@ -1,19 +1,18 @@
 #!/usr/bin/env python3
-"""K4 (csrc/fvta_stats.cu) and K5 (csrc/fvta_bwd.cu) against their plain
-versions and the kept chunked kernels, then timed beside them, on one NVIDIA
-card, without chip_smoke.py's other phases:
+"""K4 (csrc/fvta_stats.cu), K5 and K6 (csrc/fvta_bwd.cu) against their plain
+versions, then timed, on one NVIDIA card, without chip_smoke.py's other
+phases:
 
     python3 scripts/k45_times.py      # from the root of a checkout, on a CUDA machine
 
 Checks (chip_smoke.k456_check): K4, K5 and K6 on the arguments of the
 full-width T=4096 video train step (read by wrapping the kernels) and on
-chip_smoke's K4_SYNTH cases, against plain, with K4's maxima and K5's counts
-bitwise equal to the chunked kernels' and K6 fed either bitwise equal; K6's
-float64 witness, the geq-only case and bitwise repeats. Times
+chip_smoke's K4_SYNTH cases, against plain; K6's float64 witness, the
+geq-only case and bitwise repeats. Times
 (chip_smoke.stats_kernel_times) at the T=4096 step's call and at a synthetic
 twin of `cli video`'s call (N=16, S=1, T=1024, J=30, D=200; chip_smoke.py
-times the recorded call itself): new and old in turns under CUDA events, from
-a CUDA graph, and split by kernel. Prints one JSON line.
+times the recorded call itself): under CUDA events, from a CUDA graph, and
+split by kernel. Prints one JSON line.
 """
 
 import json
@@ -65,11 +64,9 @@ def main() -> None:
     checks = cs.k456_check(fwd_args, bwd_args)
     twin = twin_args(16, 1024, 990)
     twin_errs = cs.stats_check_case("cli_video_twin", list(twin[:7]), [twin[7], twin[8], twin[13]])
-    errs = {"k4_main": checks["k4_max_abs_err"],
-            "k4_chunked_main": checks["k4_chunked_max_abs_err"],
-            "k6_main": checks["k6_max_abs_err"],
+    errs = {"k4_main": checks["k4_max_abs_err"], "k6_main": checks["k6_max_abs_err"],
             **{f"{k}_cli": v for k, v in twin_errs.items()}}
-    launches = {k: 0 for pair in cs.STATS_PAIRS for k in pair[:2]}
+    launches = {name: 0 for name, *_ in cs.STATS_KERNELS}
     entries, _ = cs.stats_kernel_times(
         {"the T=4096 train step's call": bwd_args, "cli video's call (synthetic twin)": twin},
         launches, errs)

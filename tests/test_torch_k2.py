@@ -171,16 +171,15 @@ def test_k2_wrappers_refuse_cpu_tensors(monkeypatch):
                        {k: torch.from_numpy(v) for k, v in a.items()}
                        for a in k2_case((2, 6, 33, 5, 18), "dead_sequence"))
     args = (h, cm.float(), q, qm.float(), w["w_x"], w["w_y"], w["w_xy"])
-    before = (fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches)
-    for wrapper in (fvta_fused.fvta_fwd, fvta_fused.fvta_fwd_serial):
-        with pytest.raises(ValueError, match="CUDA"):
-            wrapper(*args)
-    assert (fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches) == before
+    before = fvta_fused.fvta_fwd.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_fused.fvta_fwd(*args)
+    assert fvta_fused.fvta_fwd.launches == before
 
 
 def test_k2_cpu_path_launches_neither_kernel(monkeypatch):
     """fvta_attention_fused on CPU tensors, with and without grad, runs the
-    plain version: no build, no launch of either K2."""
+    plain version: no build, no launch of K2."""
     def no_build(*a, **k):
         raise AssertionError("the CPU path must not build kernels")
 
@@ -189,7 +188,7 @@ def test_k2_cpu_path_launches_neither_kernel(monkeypatch):
     h, cm, q, qm, w = (torch.from_numpy(a) if isinstance(a, np.ndarray) else
                        {k: torch.from_numpy(v) for k, v in a.items()}
                        for a in k2_case(shape, "dead_sequence"))
-    before = (fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches)
+    before = fvta_fused.fvta_fwd.launches
     with torch.no_grad():
         out = fvta_fused.fvta_attention_fused(h, cm, q, qm, "trilinear", w)
     hg = h.clone().requires_grad_()
@@ -197,4 +196,4 @@ def test_k2_cpu_path_launches_neither_kernel(monkeypatch):
     assert hg.grad is not None and torch.isfinite(hg.grad).all()
     for field, a, c in zip(FIELDS, out, jax_out(shape, "dead_sequence")):
         np.testing.assert_allclose(a.numpy(), c, **TOL, err_msg=field)
-    assert (fvta_fused.fvta_fwd.launches, fvta_fused.fvta_fwd_serial.launches) == before
+    assert fvta_fused.fvta_fwd.launches == before

@@ -13,8 +13,8 @@ all-masked question, T past a chunk edge and J > 32. Also: every geometry
 covers each chunk exactly once, the geometry's Python mirror against
 csrc/fvta_corr.cuh compiled for the host, the autograd Function with the
 emulated runs swapped in for the kernels, and the wrappers' refusal of CPU
-tensors. The kernels themselves are held against plain and the chunked
-kernels on the card in tests/test_torch_kernels.py."""
+tensors. The kernels themselves are held against plain on the card in
+tests/test_torch_kernels.py."""
 
 import functools
 import shutil
@@ -246,36 +246,31 @@ def test_stats_fn_with_emulated_runs_matches_plain_autograd(monkeypatch, name):
 
 
 def test_k45_wrappers_refuse_cpu_tensors(monkeypatch):
-    """K4, K5 and the chunked K4 and K5 raise on CPU tensors, build nothing and
-    count no launch."""
+    """K4 and K5 raise on CPU tensors, build nothing and count no launch."""
     def no_build(*a, **k):
         raise AssertionError("a refused CPU tensor must not build kernels")
 
     monkeypatch.setattr(build, "build_all", no_build)
     h, cm, q, qm, wx, wy, wxy = torch_case(JAX_SHAPES[1], "ragged")
     eq = fvta_stats.stats_fwd_ref(h, cm, q, qm, wx, wy, wxy)[3]
-    wrappers = (fvta_stats.stats_fwd, fvta_stats.stats_fwd_chunked, fvta_stats.qcnt,
-                fvta_stats.qcnt_chunked)
+    wrappers = (fvta_stats.stats_fwd, fvta_stats.qcnt)
     before = [w.launches for w in wrappers]
-    for wrapper in wrappers[:2]:
-        with pytest.raises(ValueError, match="CUDA"):
-            wrapper(h, cm, q, qm, wx, wy, wxy)
-    for wrapper in wrappers[2:]:
-        with pytest.raises(ValueError, match="CUDA"):
-            wrapper(h, cm, q, wx, wy, wxy, eq)
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_stats.stats_fwd(h, cm, q, qm, wx, wy, wxy)
+    with pytest.raises(ValueError, match="CUDA"):
+        fvta_stats.qcnt(h, cm, q, wx, wy, wxy, eq)
     assert [w.launches for w in wrappers] == before
 
 
 def test_cpu_stats_path_launches_no_k4_or_k5(monkeypatch):
     """fvta_stats_fused on CPU tensors, forward and backward, runs the plain
-    versions: no build, no launch of K4, K5 or the chunked kernels."""
+    versions: no build, no launch of K4 or K5."""
     def no_build(*a, **k):
         raise AssertionError("the CPU path must not build kernels")
 
     monkeypatch.setattr(build, "build_all", no_build)
     h, cm, q, qm, wx, wy, wxy = torch_case(JAX_SHAPES[0], "masked_chunk")
-    wrappers = (fvta_stats.stats_fwd, fvta_stats.stats_fwd_chunked, fvta_stats.qcnt,
-                fvta_stats.qcnt_chunked)
+    wrappers = (fvta_stats.stats_fwd, fvta_stats.qcnt)
     before = [w.launches for w in wrappers]
     hg = h.clone().requires_grad_()
     p = {"w_x": wx, "w_y": wy, "w_xy": wxy}

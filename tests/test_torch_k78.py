@@ -16,8 +16,8 @@ csrc/lstm_grouped.cu and csrc/lstm_stream.cu).
   from a seed with numpy; the cases cover rows of length 0 and T, N not a
   multiple of the tile, G = 1, 2 and 3, T = 1 and 2, and H = 5, 64 and 100.
 
-The kernels themselves are held against the plain scan, each other, K1 and
-the row-tile kernels on the card in tests/test_torch_kernels.py.
+The kernels themselves are held against the plain scan, each other and K1 on
+the card in tests/test_torch_kernels.py.
 """
 
 import re
@@ -131,8 +131,7 @@ def test_route_at_two_groups_is_k1s_at_every_width_up_to_100_and_reaches_past_it
     rules size different kernels, and they part only where one's choice does
     not fit the other's: K1's leaves no room for K8's ring, or the grouped
     route's does not hold K1b (lstm_route sizes K1's backward too). Every
-    width K1's Hopper route takes, K7 and K8 take too (the row-tile kernels
-    stop near 110)."""
+    width K1's Hopper route takes, K7 and K8 take too."""
     ns = (1, 8, 9, 64, 65, 256, 264, 265, 1023, 1024, 1056, 1057, 3072)
     for h in [*range(1, 101), 128, 200]:
         for n in ns:
