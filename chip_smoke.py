@@ -280,10 +280,18 @@ evaluation path (`cli prepro | test | ablate`, on K1 and K2):
    moments bitwise equal, and train_step's eager_steps / graph_captures /
    graph_replays counters (one eager step and one capture on the graphed
    side; the `graph_step` line).
+27. a batch's move to the card alone, at tvqa-frames-train-b128's VideoInputs
+   and memexqa-train-b256's Batch: the plain per-field .to (blocking copies
+   from pageable memory) against VideoInputs.to / Batch.to (data.device_prepro
+   .stage_to: a pinned staging ring and copies that do not block), in turns
+   over three seeded host batches; host ms of the call, ms until the copies
+   have landed, CUDA-event ms around the call, and ms a batch back to back
+   without a synchronise; every moved batch equal to the plain one bit for bit
+   (the `staging` line).
 
-Prints the `train_loader`, `focal`, `parallel`, `grouped_mesh`, `port_complete`
-and `graph_step` lines, a {"kernels": [...]} line, then the card line, then as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Prints the `train_loader`, `focal`, `parallel`, `grouped_mesh`, `port_complete`,
+`graph_step` and `staging` lines, a {"kernels": [...]} line, then the card line,
+then as the last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
@@ -5870,6 +5878,97 @@ def graph_step_phase(device, smi: str) -> dict:
     return out
 
 
+STAGING_REPS = 12   # phase 27: timed moves a path and shape, after two warm-up moves
+
+
+def staging_inputs(kind: str, seed: int):
+    """A host batch of fresh seeded tensors at a cell's shapes: "video"
+    tvqa-frames-train-b128's VideoInputs (128 x 270 frames of 2048 float32,
+    ~283 MB), "memexqa" memexqa-train-b256's Batch."""
+    import torch
+
+    from fvta_memexqa_torch.data.device_prepro import Batch
+    from fvta_memexqa_torch.models.video import VideoInputs
+
+    g = torch.Generator().manual_seed(seed)
+    ints = lambda *s: torch.randint(0, 12000, s, generator=g, dtype=torch.int32)
+    bools = lambda *s: torch.rand(s, generator=g) < 0.5
+    if kind == "video":
+        n, t, f, jq, w, c, ja = 128, 270, 2048, 25, 16, 5, 15
+        return VideoInputs(frame_feats=torch.rand((n, t, f), generator=g),
+                           frame_mask=bools(n, t), q_words=ints(n, jq), q_chars=ints(n, jq, w),
+                           q_mask=bools(n, jq), choice_words=ints(n, c, ja),
+                           choice_chars=ints(n, c, ja, w), choice_mask=bools(n, c, ja),
+                           label=ints(n), ex_mask=bools(n))
+    n, jq, w, ja, a = 256, 30, 16, 8, 4
+    return Batch(q_words=ints(n, jq), q_chars=ints(n, jq, w), q_mask=bools(n, jq),
+                 choice_words=ints(n, 4, ja), choice_chars=ints(n, 4, ja, w),
+                 choice_mask=bools(n, 4, ja), album_idx=ints(n, a), album_mask=bools(n, a),
+                 label=ints(n), ex_mask=bools(n))
+
+
+def staging_phase(device, smi: str) -> dict:
+    """Phase 27 (see the module docstring): per shape, the plain move and the
+    staged one in turns, STAGING_REPS timed moves each; medians (the
+    `staging` line)."""
+    import statistics
+
+    import torch
+
+    from fvta_memexqa_torch.data.device_prepro import stage_to
+
+    def plain(x):
+        return type(x)(**{k: t.to(device) for k, t in x.__dict__.items()})
+
+    def staged(x):
+        return x.to(device)
+
+    def one_by_one(move, xs) -> dict:
+        host, landed, events = [], [], []
+        for i in range(STAGING_REPS):
+            torch.cuda.synchronize(device)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            move(xs[i % len(xs)])
+            end.record()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize(device)
+            t2 = time.perf_counter()
+            host.append((t1 - t0) * 1e3)
+            landed.append((t2 - t0) * 1e3)
+            events.append(start.elapsed_time(end))
+        return {"host_ms": statistics.median(host), "landed_ms": statistics.median(landed),
+                "event_ms": statistics.median(events)}
+
+    def back_to_back(move, xs) -> float:
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for i in range(STAGING_REPS):
+            move(xs[i % len(xs)])
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) * 1e3 / STAGING_REPS
+
+    out = {"card": smi, "reps": STAGING_REPS, "intra_op_threads": torch.get_num_threads()}
+    for kind in ("video", "memexqa"):
+        xs = [staging_inputs(kind, seed) for seed in (1, 2, 3)]
+        row = {"bytes": sum(t.nbytes for t in xs[0].__dict__.values())}
+        for x in xs:
+            a, b = plain(x), staged(x)
+            if not all(torch.equal(getattr(a, k), getattr(b, k))
+                       and getattr(a, k).dtype == getattr(b, k).dtype for k in x.__dict__):
+                fail(f"the staged {kind} batch differs from the plain .to")
+        waits = stage_to.waits
+        for name, move in (("plain", plain), ("staged", staged), ("plain_again", plain),
+                           ("staged_again", staged)):
+            row[name] = one_by_one(move, xs)
+            row[name]["back_to_back_ms"] = back_to_back(move, xs)
+        row["staged_waits"] = stage_to.waits - waits
+        out[kind] = row
+        del xs
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5966,6 +6065,7 @@ def main() -> None:
     bench = bench_phase(smi)
     capacity = capacity_phase()
     graph_step = graph_step_phase(device, smi)   # phase 26
+    staging = staging_phase(device, smi)   # phase 27
     entries = [*k1, *k2, *k1b, *stats_entries, *grouped_entries]
     add_global_routes(entries, widths)
     for e in entries:   # the front end's launches (phase 21's `cli serve` processes)
@@ -5997,6 +6097,7 @@ def main() -> None:
     log("grouped_mesh " + json.dumps(grouped_mesh))
     log("port_complete " + json.dumps(port_complete))
     log("graph_step " + json.dumps(graph_step))
+    log("staging " + json.dumps(staging))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

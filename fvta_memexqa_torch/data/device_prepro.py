@@ -4,11 +4,17 @@ The shared tables (photo-feature matrix, per-album modality tensors, GloVe
 matrix) are uploaded once; per step only a few KB of int32 ids cross to the
 device, and the full [N, A, P, F] photo-feature batch plus all text tensors
 materialize there by gathers.
+
+A batch crosses to a card through stage_to: its host fields are copied into
+one slot of a per-device ring of two pinned host buffers, and from there to
+fresh device tensors by copies that do not block the host.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -21,6 +27,129 @@ _BATCH_KEYS = (
     "choice_words", "choice_chars", "choice_mask",
     "album_idx", "album_mask", "label",
 )
+
+
+STAGE_ALIGN = 512   # bytes: each field's offset in a staging slot is a multiple, so every
+                    # dtype view is aligned and each copy starts on a 512-byte boundary
+STAGE_SLOTS = 2     # batches a device's ring holds: how far the host runs ahead
+
+
+def slot_layout(fields: dict[str, torch.Tensor]) -> tuple[list[int], int]:
+    """Each field's byte offset in a staging slot, in the dict's order, each a
+    multiple of STAGE_ALIGN (so every dtype view of the slot is aligned), and
+    the bytes the slot needs."""
+    offsets, end = [], 0
+    for t in fields.values():
+        offsets.append(end)
+        end += -(-t.nbytes // STAGE_ALIGN) * STAGE_ALIGN
+    return offsets, end
+
+
+class StagingRing:
+    """STAGE_SLOTS reusable host buffers ("slots") that batches pass through on
+    their way to a device, used in turn. A slot is overwritten only after the
+    event recorded behind its last batch's copies has completed, so the device
+    reads a slot that no later batch has touched; a slot grows to the largest
+    batch it has held and is never allocated again at that size, and keeps its
+    views for the fields' dtypes and shapes until a batch brings others.
+    alloc(nbytes) makes a uint8 slot (pinned memory for a card); new_event()
+    makes an object with record(), query() and synchronize() (torch.cuda.Event
+    on a card). Thread-safe: a prefetch worker and the main thread may share a
+    ring."""
+
+    def __init__(self, alloc: Callable[[int], torch.Tensor], new_event: Callable):
+        self._alloc, self._new_event = alloc, new_event
+        self.slots: list[torch.Tensor | None] = [None] * STAGE_SLOTS
+        self.events: list = [None] * STAGE_SLOTS
+        self._views: list[tuple] = [((), [])] * STAGE_SLOTS   # (signature, views)
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def _slot_views(self, i: int, fields: dict[str, torch.Tensor]) -> list[torch.Tensor]:
+        """Slot i's views for `fields` (the slot grown if they do not fit)."""
+        sig = tuple((t.dtype, t.shape) for t in fields.values())
+        if self._views[i][0] != sig:
+            offsets, size = slot_layout(fields)
+            if self.slots[i] is None or self.slots[i].numel() < size:
+                self.slots[i] = self._alloc(size)
+            slot = self.slots[i]
+            self._views[i] = (sig, [slot[o:o + t.nbytes].view(t.dtype).view(t.shape)
+                                    for o, t in zip(offsets, fields.values())])
+        return self._views[i][1]
+
+    def stage(self, fields: dict[str, torch.Tensor],
+              move: Callable[[torch.Tensor], torch.Tensor]) -> dict[str, torch.Tensor]:
+        """{name: move(view)}: each field copied into a view of the next slot
+        with its dtype and shape, then handed to `move` (an enqueued copy to the
+        device); then the slot's event is recorded behind those copies. Counts
+        on stage_to."""
+        with self._lock:
+            i = self._next
+            self._next = (i + 1) % STAGE_SLOTS
+            event = self.events[i]
+            if event is not None and not event.query():
+                _STAGE.waits += 1
+                event.synchronize()
+            out = {}
+            for (name, t), view in zip(fields.items(), self._slot_views(i, fields)):
+                view.copy_(t)
+                out[name] = move(view)
+            if event is None:
+                event = self.events[i] = self._new_event()
+            event.record()
+            _STAGE.batches += 1
+            _STAGE.bytes += sum(t.nbytes for t in fields.values())
+        return out
+
+
+_RINGS: dict[torch.device, StagingRing] = {}
+_RINGS_LOCK = threading.Lock()
+
+
+def _pinned(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+def device_ring(device: torch.device) -> StagingRing:
+    """The staging ring of one card (made at its first batch)."""
+    with _RINGS_LOCK:
+        if device not in _RINGS:
+            _RINGS[device] = StagingRing(_pinned, torch.cuda.Event)
+        return _RINGS[device]
+
+
+def staged_keys(fields: dict[str, torch.Tensor], device: torch.device) -> list[str]:
+    """The fields stage_to stages: host tensors bound for a card. A field
+    already on a device, or any field bound for the CPU, takes a plain .to."""
+    if device.type != "cuda":
+        return []
+    return [k for k, t in fields.items() if t.device.type == "cpu"]
+
+
+def stage_to(fields: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
+    """`fields` on `device`: the values, dtypes and shapes of {k: t.to(device)},
+    bit for bit, each a tensor of its own. Host tensors bound for a card go
+    through the card's StagingRing: a copy into a pinned slot, then a copy to
+    a fresh device tensor enqueued on the current stream without a stream
+    synchronisation. The caller may overwrite or free its host tensors once
+    this returns. Counters: stage_to.batches (calls through a ring),
+    stage_to.bytes (the bytes of the fields they staged) and stage_to.waits
+    (calls that found their slot's last copies still in flight, i.e. the host
+    STAGE_SLOTS batches ahead of the card)."""
+    device = torch.device(device)
+    staged = staged_keys(fields, device)
+    if not staged:
+        return {k: t.to(device) for k, t in fields.items()}
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    with torch.cuda.device(device):
+        moved = device_ring(device).stage({k: fields[k] for k in staged},
+                                          lambda v: v.to(device, non_blocking=True))
+    return {k: moved[k] if k in moved else t.to(device) for k, t in fields.items()}
+
+
+_STAGE = stage_to   # the counters stay on the function a test may wrap
+stage_to.batches = stage_to.bytes = stage_to.waits = 0
 
 
 def as_tensor(x: np.ndarray, device) -> torch.Tensor:
@@ -74,10 +203,10 @@ class Batch:
         return cls(ex_mask=torch.ones(len(idx), dtype=torch.bool, device=device), **f)
 
     def to(self, device) -> "Batch":
-        """The same batch with every field on `device` (the span
-        fvta.loader.h2d)."""
+        """The same batch with every field on `device`, through stage_to (the
+        span fvta.loader.h2d)."""
         with span("fvta.loader.h2d"):
-            return Batch(**{k: v.to(device) for k, v in self.__dict__.items()})
+            return Batch(**stage_to(self.__dict__, device))
 
 
 @dataclass

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fvta_memexqa_torch.config import Config
-from fvta_memexqa_torch.data.device_prepro import SharedTables
+from fvta_memexqa_torch.data.device_prepro import SharedTables, stage_to
 from fvta_memexqa_torch.models.embed import CharCNN, Highway, WordEmbed, dense, lecun_normal_
 from fvta_memexqa_torch.models.fvta import BiLSTM, flax_dropout
 from fvta_memexqa_torch.ops.fvta_fused import fvta_attention_fused
@@ -56,10 +56,10 @@ class VideoInputs:
     ex_mask: torch.Tensor       # bool [N]
 
     def to(self, device) -> "VideoInputs":
-        """The same inputs with every field on `device` (the span
-        fvta.loader.h2d)."""
+        """The same inputs with every field on `device`, through
+        data.device_prepro.stage_to (the span fvta.loader.h2d)."""
         with span("fvta.loader.h2d"):
-            return VideoInputs(**{k: v.to(device) for k, v in self.__dict__.items()})
+            return VideoInputs(**stage_to(self.__dict__, device))
 
 
 class VideoOutput(NamedTuple):
